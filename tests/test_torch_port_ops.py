@@ -1,0 +1,268 @@
+"""The port's ops against the JAX package's: attention (plain version vs
+`xla_attention` and the Pallas kernel in interpret mode), the dispatcher's
+routing, GroupNorm(+SiLU), the nearest resize convention, the weight
+carrier, and the port's guards (no JAX import, no silent CPU move).
+
+Tolerance: max |port - JAX| <= 1e-4 * max |JAX| in f32 unless stated;
+both sides run the same f32 arithmetic up to summation order."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from neurons_tpu.ops import attention as jattn
+from neurons_tpu.ops import fused_norm as jnorm
+from neurons_tpu_torch.ops import attention as tattn
+from neurons_tpu_torch.ops.fused_norm import (group_norm_reference,
+                                              group_norm_silu_reference)
+from torch_port_utils import rel_err, t
+
+REPO = Path(__file__).resolve().parent.parent
+TOL = 1e-4
+
+
+def _qkv(seed, b, h, tq, tk, d, hkv=None):
+    rng = np.random.default_rng(seed)
+    hkv = h if hkv is None else hkv
+    q = rng.standard_normal((b, h, tq, d), dtype=np.float32)
+    k = rng.standard_normal((b, hkv, tk, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, tk, d), dtype=np.float32)
+    return q, k, v
+
+
+# d in {32, 64, 512} (the stage-3 head dims), ragged Tk, multi-query,
+# bias, mask
+ATTN_CASES = {
+    "d32": dict(b=2, h=1, tq=48, tk=48, d=32),
+    "d64_ragged": dict(b=1, h=3, tq=40, tk=37, d=64),
+    "d512": dict(b=1, h=1, tq=24, tk=29, d=512),
+    "multi_query": dict(b=2, h=4, tq=17, tk=18, d=16, hkv=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_reference_matches_xla(case):
+    c = ATTN_CASES[case]
+    q, k, v = _qkv(0, **c)
+    ref = jattn.xla_attention(q, k, v)
+    assert rel_err(tattn.attention_reference(t(q), t(k), t(v)), ref) <= TOL
+
+
+def test_attention_reference_bias_mask_scale_match_xla():
+    q, k, v = _qkv(1, b=2, h=4, tq=21, tk=22, d=8, hkv=1)
+    rng = np.random.default_rng(2)
+    bias = rng.standard_normal((4, 21, 22), dtype=np.float32)
+    mask = rng.random((1, 1, 21, 22)) > 0.3
+    ref = jattn.xla_attention(q, k, v, bias=bias, mask=mask, scale=0.3)
+    got = tattn.attention_reference(t(q), t(k), t(v), bias=t(bias),
+                                    mask=torch.from_numpy(mask), scale=0.3)
+    assert rel_err(got, ref) <= TOL
+
+
+# the Pallas kernels #1/#2 the CUDA kernel replaces, run in interpret mode:
+# whole-KV (Tk 200) and streaming (Tk 2600 f32 > 4608 B a row) regimes
+PALLAS_CASES = {
+    "smallkv_d32": dict(b=1, h=2, tq=130, tk=200, d=32),
+    "smallkv_d64_mq": dict(b=1, h=2, tq=128, tk=150, d=64, hkv=1),
+    "smallkv_d512": dict(b=1, h=1, tq=128, tk=140, d=512),
+    "streaming_d64": dict(b=1, h=1, tq=128, tk=2600, d=64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PALLAS_CASES))
+def test_attention_reference_matches_pallas_interpret(case):
+    c = PALLAS_CASES[case]
+    q, k, v = _qkv(3, **c)
+    ref = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), interpret=True)
+    # the port's wrapper on CPU tensors computes the plain version
+    got = tattn.flash_attention_fwd(t(q), t(k), t(v))
+    assert rel_err(got, ref) <= TOL
+
+
+def test_attention_reference_matches_pallas_bias_interpret(monkeypatch):
+    # force the biased kernel (#3), which inference keeps off by default
+    monkeypatch.setenv("NEURONS_TPU_BIAS_FLASH", "1")
+    q, k, v = _qkv(4, b=1, h=2, tq=130, tk=131, d=16, hkv=1)
+    bias = np.random.default_rng(5).standard_normal((2, 130, 131),
+                                                    dtype=np.float32)
+    ref = jattn._flash_attention_impl(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jnp.asarray(bias),
+                                      interpret=True, return_lse=True)[0]
+    got = tattn.attention_reference(t(q), t(k), t(v), bias=t(bias))
+    assert rel_err(got, ref) <= TOL
+
+
+def test_dispatcher_routes_like_the_jax_package(monkeypatch):
+    calls = []
+
+    def spy(q, k, v, scale=None):
+        calls.append(tuple(q.shape))
+        return tattn.attention_reference(q, k, v, scale=scale)
+
+    monkeypatch.setattr(tattn, "flash_attention_fwd", spy)
+    big = [torch.randn(1, 2, 128, 8) for _ in range(3)]
+    small = [torch.randn(1, 2, 127, 8) for _ in range(3)]
+    tattn.dot_product_attention(*big)
+    assert calls == [(1, 2, 128, 8)]
+    tattn.dot_product_attention(*small)                       # < 128 tokens
+    tattn.dot_product_attention(*big, mask=torch.ones(128, 128, dtype=bool))
+    tattn.dot_product_attention(*big, bias=torch.zeros(2, 128, 128))
+    assert len(calls) == 1
+
+
+def test_flash_wrapper_on_cpu_is_plain_and_counts_nothing():
+    q, k, v = _qkv(6, b=1, h=2, tq=130, tk=140, d=40, hkv=1)
+    before = tattn.FLASH_FWD_LAUNCHES.total
+    got = tattn.flash_attention_fwd(t(q), t(k), t(v), scale=0.2)
+    want = tattn.attention_reference(t(q), t(k), t(v), scale=0.2)
+    assert torch.equal(got, want)
+    assert tattn.FLASH_FWD_LAUNCHES.total == before
+
+
+def test_round_to_tf32_is_round_to_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one, one + 2**-10, one + 2**-11, one + 2**-12,
+                      one + 3 * 2**-11, -(one + 2**-11), 3.0 * 2**-100])
+    want = torch.tensor([one, one + 2**-10, one + 2**-10, one,
+                         one + 2**-9, -(one + 2**-10), 3.0 * 2**-100])
+    assert torch.equal(tattn.round_to_tf32(x), want)
+
+
+def test_attention_reference_tf32_is_plain_at_tf32_precision():
+    # TF32 keeps 10 mantissa bits (relative rounding 2^-11): the emulated
+    # plain version differs from the f32 one by that order, not more, and
+    # is exact where the operands already are TF32 values
+    q, k, v = (t(a) for a in _qkv(8, b=1, h=2, tq=70, tk=90, d=52, hkv=1))
+    want = tattn.attention_reference(q, k, v)
+    got = tattn.attention_reference_tf32(q, k, v)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert 2**-16 < rel_err(got, want.numpy()) < 2**-8
+    r = tattn.round_to_tf32
+    exact = tattn.attention_reference_tf32(r(q), r(k), r(v))
+    assert torch.equal(exact, got)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 2, 8, 4), (1, 3, 8, 4)),       # k heads neither 1 nor H
+    ((1, 2, 8, 4), (1, 2, 8, 5)),       # head dims differ
+    ((2, 8, 4), (2, 8, 4)),             # not rank 4
+])
+def test_flash_wrapper_rejects_bad_shapes(shapes):
+    qs, ks = shapes
+    with pytest.raises(ValueError):
+        tattn.flash_attention_fwd(torch.zeros(qs), torch.zeros(ks),
+                                  torch.zeros(ks))
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_matches_jax(eps, silu):
+    rng = np.random.default_rng(7)
+    x = 3.0 + rng.standard_normal((2, 6, 5, 16), dtype=np.float32)  # NHWC
+    scale = rng.standard_normal(16, dtype=np.float32)
+    bias = rng.standard_normal(16, dtype=np.float32)
+    jfn = jnorm.group_norm_silu_reference if silu else jnorm.group_norm_reference
+    tfn = group_norm_silu_reference if silu else group_norm_reference
+    ref = np.asarray(jfn(x, scale, bias, 4, eps)).transpose(0, 3, 1, 2)
+    got = tfn(t(x).permute(0, 3, 1, 2), t(scale), t(bias), 4, eps)
+    assert rel_err(got, ref) <= TOL
+
+
+def test_group_norm_over_tokens_matches_jax_module():
+    # the AttnBlock form: [N, T, C] tokens, statistics over (T, C/G)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 7, 8), dtype=np.float32)
+    mod = jnorm.GroupNorm(num_groups=2, epsilon=1e-6)
+    params = {"scale": rng.standard_normal(8, dtype=np.float32),
+              "bias": rng.standard_normal(8, dtype=np.float32)}
+    ref = mod.apply({"params": params}, x)
+    got = group_norm_reference(t(x).transpose(1, 2), t(params["scale"]),
+                               t(params["bias"]), 2, 1e-6).transpose(1, 2)
+    assert rel_err(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("src,dst", [(16, 4), (16, 8), (8, 16), (6, 4)])
+def test_nearest_exact_is_jax_nearest(src, dst):
+    x = np.random.default_rng(9).standard_normal((1, 2, src, src),
+                                                 dtype=np.float32)
+    ref = jax.image.resize(x, (1, 2, dst, dst), "nearest")
+    got = F.interpolate(t(x), size=(dst, dst), mode="nearest-exact")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_load_jax_params_is_strict():
+    from neurons_tpu_torch.interop.from_jax import load_jax_params
+
+    lin = torch.nn.Linear(3, 2)
+    good = {"kernel": np.ones((3, 2), np.float32),
+            "bias": np.zeros(2, np.float32)}
+    load_jax_params(lin, good)
+    assert torch.equal(lin.weight, torch.ones(2, 3))
+    with pytest.raises(ValueError, match="unfilled"):
+        load_jax_params(lin, {"kernel": good["kernel"]})
+    with pytest.raises(ValueError, match="unused"):
+        load_jax_params(lin, dict(good, extra=np.zeros(1, np.float32)))
+    with pytest.raises(ValueError, match="shape"):
+        load_jax_params(lin, dict(good, kernel=np.ones((2, 3), np.float32)))
+
+
+def _port_sources():
+    return sorted((REPO / "neurons_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    banned = ("jax", "jaxlib", "flax", "optax", "neurons_tpu")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in banned, f"{path}: imports {name}"
+
+
+def test_port_import_loads_no_jax_module():
+    code = ("import sys\n"
+            "import neurons_tpu_torch.pipelines.keyframe\n"
+            "import neurons_tpu_torch.models.neurons\n"
+            "import neurons_tpu_torch.interop.from_jax\n"
+            "import neurons_tpu_torch.utils.synth_init\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'neurons_tpu')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from neurons_tpu_torch.config import tiny_pipeline_config
+    from neurons_tpu_torch.models.unet2d import UNetModel
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+    from neurons_tpu_torch.pipelines.keyframe import reconstruct_keyframes
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_pipeline_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UNetModel(cfg.unet2d)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AutoencoderKL(cfg.vae)
+    unet = UNetModel(cfg.unet2d, device="cpu")
+    vae = AutoencoderKL(cfg.vae, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reconstruct_keyframes(unet, unet, vae, torch.zeros(1, 1, 8))
