@@ -1,10 +1,11 @@
-"""Typed configuration for the PyTorch port (stage-3 subset).
+"""Typed configuration for the PyTorch port (stages 3 and 5).
 
 The port's own copy of the JAX package's dataclasses
 (neurons_tpu/config.py:63-321), with the same names and defaults, so a
 configuration written for one package reads the same in the other. Only
-the configurations stage 3 needs are here; GPT-2's lives in
-models/gpt2.py, as in the JAX package.
+the configurations stages 3 and 5 need are here; GPT-2's lives in
+models/gpt2.py and the CLIP text tower's in models/clip.py, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -107,6 +108,41 @@ class UNet2DConfig:
 
 
 @dataclass(frozen=True)
+class UNet3DConfig:
+    """AnimateDiff video UNet (SD-1.5 UNet inflated to video, with a
+    temporal motion module after every spatial transformer)."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "DownBlock3D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+    )
+    cross_attention_dim: int = 768  # SD-1.5 CLIP text
+    attention_head_dim: int = 8
+    norm_num_groups: int = 32
+    use_motion_module: bool = True
+    motion_module_resolutions: Tuple[int, ...] = (1, 2, 4, 8)
+    motion_num_attention_heads: int = 8
+    motion_num_transformer_block: int = 1
+    motion_max_seq_length: int = 32
+    motion_attention_block_types: Tuple[str, ...] = ("Temporal_Self",
+                                                     "Temporal_Self")
+    motion_zero_initialize: bool = True
+    use_inflated_groupnorm: bool = True
+
+
+@dataclass(frozen=True)
 class SamplerConfig:
     """Sampler shapes (38-step CFG-5 unCLIP, 100-step prior)."""
 
@@ -122,13 +158,14 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The stage-3 configurations bundled."""
+    """The stage-3 and stage-5 configurations bundled."""
 
     brain: BrainModelConfig = field(default_factory=BrainModelConfig)
     prior: PriorConfig = field(default_factory=PriorConfig)
     decoupler: DecouplerConfig = field(default_factory=DecouplerConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     unet2d: UNet2DConfig = field(default_factory=UNet2DConfig)
+    unet3d: UNet3DConfig = field(default_factory=UNet3DConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
 
 
@@ -155,6 +192,10 @@ def tiny_pipeline_config() -> PipelineConfig:
                             num_res_blocks=1, transformer_depth=(1, 1),
                             num_head_channels=4, context_dim=32,
                             adm_in_channels=16, attention_resolutions=(2,)),
+        unet3d=UNet3DConfig(block_out_channels=(8, 16, 16, 16),
+                            layers_per_block=1, cross_attention_dim=16,
+                            attention_head_dim=4, norm_num_groups=4,
+                            motion_num_attention_heads=2),
         sampler=SamplerConfig(unclip_steps=3, prior_steps=4, video_steps=3,
                               n_video_frames=4),
     )

@@ -22,7 +22,6 @@ launches the kernel or raises. It never falls back.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Optional
@@ -30,29 +29,14 @@ from typing import Optional
 import torch
 
 from neurons_tpu_torch.ops import cuda_build
+from neurons_tpu_torch.ops.cuda_build import LaunchCounter
 
 _NEG_INF = -1e30
 _KERNEL = "flash_attn_fwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-
-class LaunchCounter:
-    """Kernel launches, in total and by (B, H, Tq, Tk, D, dtype)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.total = 0
-        self.by_shape = collections.Counter()
-
-    def add(self, key):
-        self.total += 1
-        self.by_shape[key] += 1
-
-
 # incremented by flash_attention_fwd where it launches its kernel, and
-# nowhere else
+# nowhere else; keyed by (B, H, Tq, Tk, D, dtype)
 FLASH_FWD_LAUNCHES = LaunchCounter()
 
 

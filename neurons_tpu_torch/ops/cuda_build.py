@@ -11,6 +11,7 @@ builds at once.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,6 +28,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """A kernel wrapper's launches, in total and by shape key; the wrapper
+    adds one where it launches its kernel, and nowhere else."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.total = 0
+        self.by_shape = collections.Counter()
+
+    def add(self, key):
+        self.total += 1
+        self.by_shape[key] += 1
 
 
 def nvcc_path() -> str:

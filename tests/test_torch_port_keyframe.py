@@ -10,6 +10,7 @@ f32 rounding of each module, which the per-module tests hold to 1e-4);
 caption tokens and the classifier's argmax are equal."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -43,9 +44,9 @@ def port_cfg(cls, jax_cfg):
                   for f in dataclasses.fields(cls)})
 
 
-def build_slice(dec_seed):
-    """(cfg, run_jax, run_port, port VAE, port decoupler, JAX decoupler,
-    its params) with the decoupler's weights drawn at `dec_seed`."""
+def slice_parts(dec_seed):
+    """The tiny stage-3 models of both packages with the same weights (the
+    decoupler's drawn at `dec_seed`), and the voxel and class-text inputs."""
     cfg = jcfg.tiny_pipeline_config()
     # the unclip vector is the 1024-d size/crop embedding
     ucfg = jcfg.replace(cfg.unet2d, adm_in_channels=1024)
@@ -82,37 +83,56 @@ def build_slice(dec_seed):
     class_embeds = rng.standard_normal(
         (cfg.decoupler.num_classes, cfg.decoupler.clip_txt_emb_dim),
         dtype=np.float32)
+    return SimpleNamespace(
+        cfg=cfg, ucfg=ucfg, key=key, jdec=jdec, dparams=dparams, junet=junet,
+        uparams=uparams, jvae=jvae, vparams=vparams, tdec=tdec, tunet=tunet,
+        tvae=tvae, voxel=voxel, class_embeds=class_embeds)
+
+
+def jax_stage3(p, enhance=True, mask_latent_hw=None):
+    """The JAX package's `reconstruct_keyframes` on `slice_parts` models."""
+    def dec_apply(params, method, *a, **kw):
+        return p.jdec.apply({"params": params}, *a, method=method, **kw)
+
+    def unet_apply(params, x, tt, crossattn, vector, **kw):
+        return p.junet.apply({"params": params}, x, tt, crossattn, vector,
+                             **kw)
+
+    def vae_decode(z):
+        return p.jvae.apply({"params": p.vparams}, z, method=JVAE.decode)
+
+    return jkf.reconstruct_keyframes(
+        decoupler_apply=dec_apply, decoupler_params=p.dparams,
+        unet_apply=unet_apply, unet_params=p.uparams,
+        vae_decode=vae_decode, key=p.key, voxel=p.voxel,
+        class_text_embeds=jnp.asarray(p.class_embeds),
+        sampler_cfg=p.cfg.sampler,
+        n_frames=p.cfg.decoupler.n_frames, latent_hw=LAT,
+        enhance=enhance, caption_len=CAP, mask_latent_hw=mask_latent_hw,
+        sampler_opts=dict(precompute_kv=lambda params, c: jkv(params, c,
+                                                               p.ucfg)))
+
+
+def build_slice(dec_seed):
+    """(cfg, run_jax, run_port, port VAE, port decoupler, JAX decoupler,
+    its params) with the decoupler's weights drawn at `dec_seed`."""
+    p = slice_parts(dec_seed)
+    cfg, key = p.cfg, p.key
 
     def run_jax(enhance, mask_latent_hw):
-        def dec_apply(p, method, *a, **kw):
-            return jdec.apply({"params": p}, *a, method=method, **kw)
-
-        def unet_apply(p, x, tt, crossattn, vector, **kw):
-            return junet.apply({"params": p}, x, tt, crossattn, vector, **kw)
-
-        def vae_decode(z):
-            return jvae.apply({"params": vparams}, z, method=JVAE.decode)
-
-        return jkf.reconstruct_keyframes(
-            decoupler_apply=dec_apply, decoupler_params=dparams,
-            unet_apply=unet_apply, unet_params=uparams,
-            vae_decode=vae_decode, key=key, voxel=voxel,
-            class_text_embeds=class_embeds, sampler_cfg=cfg.sampler,
-            n_frames=cfg.decoupler.n_frames, latent_hw=LAT,
-            enhance=enhance, caption_len=CAP,
-            mask_latent_hw=mask_latent_hw,
-            sampler_opts=dict(precompute_kv=lambda p, c: jkv(p, c, ucfg)))
+        return jax_stage3(p, enhance, mask_latent_hw)
 
     def run_port(enhance, mask_latent_hw, generator=None):
         noise = None if generator is not None else jax_draws(key, cfg)
         return tkf.reconstruct_keyframes(
-            tdec, tunet, tvae, t(voxel), class_text_embeds=t(class_embeds),
+            p.tdec, p.tunet, p.tvae, t(p.voxel),
+            class_text_embeds=t(p.class_embeds),
             sampler_cfg=port_cfg(tcfg.SamplerConfig, cfg.sampler),
             latent_hw=LAT, enhance=enhance,
             caption_len=CAP, mask_latent_hw=mask_latent_hw,
             generator=generator, noise=noise, device="cpu")
 
-    return cfg, run_jax, run_port, tvae, tdec, jdec, dparams
+    return cfg, run_jax, run_port, p.tvae, p.tdec, p.jdec, p.dparams
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """The port's ops against the JAX package's: attention (plain version vs
-`xla_attention` and the Pallas kernel in interpret mode), the dispatcher's
-routing, GroupNorm(+SiLU), the nearest resize convention, the weight
-carrier, and the port's guards (no JAX import, no silent CPU move).
+`xla_attention` and the Pallas kernel in interpret mode), temporal
+attention (plain version vs the JAX reference and the Pallas kernel in
+interpret mode), the dispatcher's routing, GroupNorm(+SiLU), the nearest
+resize convention, the weight carrier, and the port's guards (no JAX
+import, no silent CPU move).
 
 Tolerance: max |port - JAX| <= 1e-4 * max |JAX| in f32 unless stated;
 both sides run the same f32 arithmetic up to summation order."""
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 
 from neurons_tpu.ops import attention as jattn
 from neurons_tpu.ops import fused_norm as jnorm
+from neurons_tpu.ops import temporal_attention as jtemporal
 from neurons_tpu_torch.ops import attention as tattn
+from neurons_tpu_torch.ops import temporal_attention as ttemporal
 from neurons_tpu_torch.ops.fused_norm import (group_norm_reference,
                                               group_norm_silu_reference)
 from torch_port_utils import rel_err, t
@@ -164,6 +168,70 @@ def test_flash_wrapper_rejects_bad_shapes(shapes):
                                   torch.zeros(ks))
 
 
+# (B F, D, C, F, H): a ragged shape (F=4, H=2, hd=4) and the path's head
+# dims (F=16, H=8; hd 40, 80, 160) at a few pixels
+TEMPORAL_CASES = {
+    "ragged_f4_h2": (8, 6, 8, 4, 2),
+    "hd40": (32, 3, 320, 16, 8),
+    "hd80": (16, 2, 640, 16, 8),
+    "hd160": (16, 2, 1280, 16, 8),
+}
+TEMPORAL_TOL = 1e-5
+
+
+def _temporal_qkv(seed, bf, d, c):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((bf, d, c), dtype=np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("case", sorted(TEMPORAL_CASES))
+def test_temporal_reference_matches_jax(case):
+    bf, d, c, f, h = TEMPORAL_CASES[case]
+    q, k, v = _temporal_qkv(10, bf, d, c)
+    scale = (c // h) ** -0.5
+    ref = jtemporal.temporal_attention_reference(q, k, v, f, h, scale)
+    got = ttemporal.temporal_attention_reference(t(q), t(k), t(v), f, h,
+                                                 scale)
+    assert rel_err(got, ref) <= TEMPORAL_TOL
+
+
+def test_temporal_reference_matches_pallas_interpret():
+    # the Pallas kernel #6 at a shape it takes (F * H == 128), in
+    # interpret mode, as tests/test_temporal_attention.py runs it
+    bf, d, c, f, h = 32, 16, 64, 16, 8
+    q, k, v = _temporal_qkv(11, bf, d, c)
+    scale = (c // h) ** -0.5
+    assert jtemporal._kernel_eligible(bf, d, c, f, h, jnp.float32)
+    ref = jtemporal._temporal_attention_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), f, h, scale, True)
+    # the port's wrapper on CPU tensors computes the plain version
+    got = ttemporal.temporal_attention(t(q), t(k), t(v), f, h, scale)
+    assert rel_err(got, ref) <= TEMPORAL_TOL
+
+
+def test_temporal_wrapper_on_cpu_is_plain_and_counts_nothing():
+    q, k, v = (t(a) for a in _temporal_qkv(12, 12, 5, 12))
+    before = ttemporal.TEMPORAL_ATTN_LAUNCHES.total
+    got = ttemporal.temporal_attention(q, k, v, 3, 4, 0.3)
+    want = ttemporal.temporal_attention_reference(q, k, v, 3, 4, 0.3)
+    assert torch.equal(got, want)
+    assert ttemporal.TEMPORAL_ATTN_LAUNCHES.total == before
+
+
+@pytest.mark.parametrize("shapes,f,h", [
+    (((8, 4, 6), (8, 4, 6)), 3, 2),      # 8 rows are not whole 3-frame clips
+    (((8, 4, 6), (8, 4, 6)), 4, 4),      # 6 channels do not split in 4 heads
+    (((8, 4, 6), (8, 5, 6)), 4, 2),      # shapes differ
+    (((8, 4), (8, 4)), 4, 2),            # not rank 3
+])
+def test_temporal_wrapper_rejects_bad_shapes(shapes, f, h):
+    qs, ks = shapes
+    with pytest.raises(ValueError):
+        ttemporal.temporal_attention(torch.zeros(qs), torch.zeros(ks),
+                                     torch.zeros(ks), f, h, 1.0)
+
+
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
 @pytest.mark.parametrize("silu", [False, True])
 def test_group_norm_matches_jax(eps, silu):
@@ -239,6 +307,7 @@ def test_port_imports_no_jax(path):
 def test_port_import_loads_no_jax_module():
     code = ("import sys\n"
             "import neurons_tpu_torch.pipelines.keyframe\n"
+            "import neurons_tpu_torch.pipelines.e2e\n"
             "import neurons_tpu_torch.models.neurons\n"
             "import neurons_tpu_torch.interop.from_jax\n"
             "import neurons_tpu_torch.utils.synth_init\n"
