@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of stages 3 and 5 on one CUDA card and hold its
-kernels against their plain PyTorch versions.
+"""Drive the PyTorch port of stages 3 and 5 (inference) and stage 2
+(training) on one CUDA card and hold its kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -16,12 +17,24 @@ Phases, in order:
      in f32), against the float64 result on the same inputs, by the same
      1.5x rule. Times: kernel, plain version, one PyTorch library call
      (scaled_dot_product_attention, a yardstick the port never calls), and
-     the bound max(ops / peak, bytes / 3.35 TB/s);
+     the bound max(ops / peak, bytes / 3.35 TB/s). Then the training
+     kernels at every stage-2 shape (the prior's biased multi-query
+     attention, the DecoderVideo's three sizes), in bf16 (and the prior's in
+     f32): the forward with log-sum-exp and the backward, against float64
+     autograd of `attention_reference` on the same inputs, each of out,
+     lse, dq, dk, dv (and dbias) within 1.5x the plain path's error (plain
+     forward, then `flash_attention_bwd_reference` at the kernel's
+     precision); library = scaled_dot_product_attention forward (+
+     backward), the float bias as attn_mask;
   3. small check: the tiny stage-3 pipeline (f32, attention sites of 256
      and 1024 tokens, so the flash kernel runs) and the tiny stage-5
      `reconstruct_video` (16x16 latents: flash at 256 tokens, the temporal
      kernel at every level) on the card against the same pipelines on the
-     CPU, where every attention is the plain version;
+     CPU, where every attention is the plain version; and one f32 stage-2
+     train step of the tiny config widened to 64 CLIP tokens (the prior's
+     129 x 130 and the decoder's 256 and 1024 tokens take both kernels) on
+     the card against the CPU, the same weights, batch, draws and dropout
+     masks: the seven losses and every trainable gradient;
   4. slice phase: the full-width clip (`PipelineConfig()`, `GPT2Config()`,
      `CLIPTextConfig.sd15()`) in bf16 with seeded random weights: stage 3
      (`reconstruct_keyframes(enhance=True)`, the blurry-video decode and
@@ -32,7 +45,17 @@ Phases, in order:
   5. profile: one more clip under torch.profiler (device activity only),
      outside the counted run: its wall time and the device's busy time
      (the sum of kernel and copy times) in the same run, the idle share
-     they give, each kernel's share of busy time, and the top kernels.
+     they give, each kernel's share of busy time, and the top kernels;
+  6. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
+     `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
+     schedule, the core held in bf16) with seeded random weights and random
+     batches at the real tables' shapes: a short `training/loop.py:
+     run_stage2` (one epoch of 2 steps; the kernels' launch counts zeroed
+     just before and read just after), then 1 warm-up and 3 timed steps of
+     `make_stage2_train_step` on one fixed batch and draws (ms/step, peak
+     memory, launches per step against the count predicted from the code,
+     the loss falling, the core bitwise unchanged, the trainable weights
+     moved), then one more step under torch.profiler.
 The last two lines are the kernels' JSON record and the device JSON. Any
 failure raises and exits non-zero; without CUDA the script exits 2 before
 printing anything.
@@ -40,6 +63,7 @@ printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -109,12 +133,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(b, h, tq, tk, d, esize, peak_flops):
-    ops = 4.0 * b * h * tq * tk * d
-    nbytes = esize * (2 * b * h * tq * d + 2 * b * h * tk * d)
+def _bound(ops, nbytes, peak_flops):
     t_ops, t_bytes = ops / peak_flops, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def attention_bound(b, h, tq, tk, d, esize, peak_flops, hkv=None,
+                    bias_elems=0, lse=False):
+    """Forward: 2 products; q, k, v (and the bias) read once, the output
+    (and the f32 lse) written once."""
+    hkv = h if hkv is None else hkv
+    nbytes = (esize * (2 * b * h * tq * d + 2 * b * hkv * tk * d + bias_elems)
+              + (4 * b * h * tq if lse else 0))
+    return _bound(4.0 * b * h * tq * tk * d, nbytes, peak_flops)
+
+
+def attention_bwd_bound(b, h, tq, tk, d, esize, peak_flops, hkv, bias_elems):
+    """Backward: 5 products; q, k, v, g and the f32 lse (and the bias)
+    read once, dq, dk, dv (and the f32 dbias) written once."""
+    nbytes = (esize * (3 * b * h * tq * d + 4 * b * hkv * tk * d + bias_elems)
+              + 4 * b * h * tq + 4 * bias_elems)
+    return _bound(10.0 * b * h * tq * tk * d, nbytes, peak_flops)
 
 
 def flash_phase():
@@ -173,7 +213,7 @@ def flash_phase():
         if not ok:
             raise AssertionError(f"flash kernel disagrees at {name} {tname}: "
                                  f"{err:.3e} > 1.5 x {plain_err:.3e}")
-        records[(b, h, tq, tk, d, tname)] = dict(
+        records[(b, h, tq, tk, d, tname, "")] = dict(
             site=name, max_abs_err=err, plain_err=plain_err, ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by=bound_by)
@@ -251,6 +291,161 @@ def temporal_phase():
         del q, k, v, want, got, plain
     torch.cuda.empty_cache()
     return records
+
+
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape) of every flash launch of
+# the full-width stage-2 step: the prior's 6 layers (a per-head bias over
+# multi-query k/v) and the DecoderVideo's spatial attention (B*F = 60 rows)
+TRAIN_SHAPES = [
+    ("prior", (10, 32, 513, 514, 52, 1), (32, 513, 514)),
+    ("decoder 16x16", (60, 1, 256, 256, 128, 1), None),
+    ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None),
+    ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None),
+]
+TRAIN_F32_CHECKS = ["prior"]
+GRADS = ("dq", "dk", "dv", "dbias")
+
+
+def oracle_f64(q, k, v, bias, g, scale):
+    """float64 autograd of `attention_reference` on the same-valued inputs,
+    in chunks over the batch (the bias is shared by all rows): {out, lse,
+    dq, dk, dv, dbias}."""
+    import torch
+    from neurons_tpu_torch.ops import attention as attn
+
+    b, h, tq, _ = q.shape
+    chunk = max(1, int(2e9 // (8 * h * tq * k.shape[2])))
+    parts = {n: [] for n in ("out", "lse", "dq", "dk", "dv")}
+    dbias = None
+    for s in range(0, b, chunk):
+        ins = [x[s:s + chunk].double().requires_grad_() for x in (q, k, v)]
+        b64 = None if bias is None else bias.double().requires_grad_()
+        out, lse = attn.attention_reference_lse(*ins, b64, scale)
+        wrt = ins + ([] if b64 is None else [b64])
+        grads = torch.autograd.grad(out, wrt, g[s:s + chunk].double())
+        for n, x in zip(("out", "lse", "dq", "dk", "dv"),
+                        (out, lse) + grads[:3]):
+            parts[n].append(x.detach())
+        if b64 is not None:
+            dbias = grads[3] if dbias is None else dbias + grads[3]
+        del out, lse, grads, ins
+    want = {n: torch.cat(x) for n, x in parts.items()}
+    want["dbias"] = dbias
+    return want
+
+
+def train_kernel_phase():
+    """The training kernels (forward with lse, backward) vs their plain
+    versions at every stage-2 shape. Returns {(B, H, Tq, Tk, D, dtype,
+    variant): record} for the forward and for the backward."""
+    import torch
+    import torch.nn.functional as F
+    from neurons_tpu_torch.ops import attention as attn
+
+    fwd_records, bwd_records = {}, {}
+    checks = [(n, s, bs, torch.bfloat16) for n, s, bs in TRAIN_SHAPES]
+    checks += [(n, s, bs, torch.float32) for n, s, bs in TRAIN_SHAPES
+               if n in TRAIN_F32_CHECKS]
+    for name, (b, h, tq, tk, d, hkv), bshape, dt in checks:
+        gen = torch.Generator("cuda").manual_seed(SEED)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+        bias = rand(*bshape) if bshape else None
+        g = rand(b, h, tq, d)
+        scale = d ** -0.5
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = oracle_f64(q, k, v, bias, g, scale)
+        out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                            return_lse=True)
+        got = dict(zip(GRADS, attn.flash_attention_bwd(q, k, v, bias, g, out,
+                                                       lse, scale)),
+                   out=out, lse=lse)
+        torch.cuda.synchronize()
+        tf32 = dt == torch.float32
+        if tf32:
+            pout, plse = attn.attention_reference_tf32(q, k, v, scale, bias,
+                                                       return_lse=True)
+        else:
+            pout, plse = attn.attention_reference_lse(q, k, v, bias, scale)
+        plain = dict(zip(GRADS, attn.flash_attention_bwd_reference(
+            q, k, v, bias, g, pout, plse, scale, tf32=tf32)),
+            out=pout, lse=plse)
+        errs = {}
+        for n in ("out", "lse") + GRADS:
+            if want[n] is None:
+                continue
+            errs[n] = ((got[n].double() - want[n]).abs().max().item(),
+                       (plain[n].double() - want[n]).abs().max().item(),
+                       bool(torch.isfinite(got[n]).all()))
+        del want, plain, pout, plse
+        torch.cuda.empty_cache()
+
+        # times: as the port calls each (TF32 products allowed for f32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        reps = 3 if b * h * tq * tk > 2e8 else 10
+        # the library call gets k/v materialised over the heads (its f32
+        # path faulted on the stride-0 multi-query view at the prior's
+        # shape on the card)
+        kx = k.expand(b, h, tk, d).contiguous()
+        vx = v.expand(b, h, tk, d).contiguous()
+        fwd_ms = cuda_ms(lambda: attn.flash_attention_fwd(
+            q, k, v, scale=scale, bias=bias, return_lse=True), reps)
+        fwd_plain_ms = cuda_ms(lambda: attn.attention_reference_lse(
+            q, k, v, bias, scale), reps)
+        fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=bias, scale=scale), reps)
+        bwd_ms = cuda_ms(lambda: attn.flash_attention_bwd(
+            q, k, v, bias, g, out, lse, scale), reps)
+        bwd_plain_ms = cuda_ms(lambda: attn.flash_attention_bwd_reference(
+            q, k, v, bias, g, out, lse, scale), reps)
+
+        def library_fwd_bwd():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, kx, vx))
+            bb = None if bias is None else bias.detach().requires_grad_()
+            F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bb,
+                                           scale=scale).backward(g)
+
+        bwd_lib_ms = cuda_ms(library_fwd_bwd, reps)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS
+        nbias = 0 if bias is None else bias.numel()
+        esize = q.element_size()
+        fwd_bound, fwd_by = attention_bound(b, h, tq, tk, d, esize, peak,
+                                            hkv, nbias, lse=True)
+        bwd_bound, bwd_by = attention_bwd_bound(b, h, tq, tk, d, esize, peak,
+                                                hkv, nbias)
+        ok = all(fin and err <= 1.5 * perr for err, perr, fin in errs.values())
+        tname = str(dt).split(".")[-1]
+        err_s = " ".join(f"{n} {e:.3e} (plain {pe:.3e})"
+                         for n, (e, pe, _) in errs.items())
+        bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
+        log(f"train {name:14s} {tname:8s} [{b},{h},{tq},{tk},{d}] kv heads "
+            f"{hkv} bias {bshape}  max_abs_err {err_s}  fwd+lse kernel_ms "
+            f"{fwd_ms:.4f} plain_ms {fwd_plain_ms:.4f} library_ms "
+            f"{fwd_lib_ms:.4f} bound_ms {fwd_bound:.4f} ({fwd_by})  bwd "
+            f"tiles {bq}x{bk} smem {smem} B kernel_ms {bwd_ms:.4f} plain_ms "
+            f"{bwd_plain_ms:.4f} library_ms {bwd_lib_ms:.4f} (fwd+bwd) "
+            f"bound_ms {bwd_bound:.4f} ({bwd_by})  {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"training kernels disagree at {name} "
+                                 f"{tname}: {errs}")
+        key = (b, h, tq, tk, d, tname)
+        fwd_records[key + ("bias+lse" if bias is not None else "lse",)] = dict(
+            site=f"{name} (train)", max_abs_err=max(errs["out"][0],
+                                                    errs["lse"][0]),
+            ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
+            bound_ms=fwd_bound, bound_by=fwd_by)
+        bwd_records[key + ("bias" if bias is not None else "",)] = dict(
+            site=f"{name} (train)",
+            max_abs_err=max(errs[n][0] for n in GRADS if n in errs),
+            ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
+            bound_ms=bwd_bound, bound_by=bwd_by)
+        del q, k, v, g, bias, out, lse, got, kx, vx
+        torch.cuda.empty_cache()
+    return fwd_records, bwd_records
 
 
 def build_models(cfgs, device, dtype, seed):
@@ -420,6 +615,148 @@ def small_video_check():
                              "CPU plain version")
 
 
+@contextlib.contextmanager
+def flash_plain_at_tf32():
+    """On the CPU, the flash wrappers' plain versions at the kernels'
+    precision on f32 input: every product's operands rounded to TF32
+    (`attention_reference_tf32`, `flash_attention_bwd_reference(tf32=True)`)."""
+    from neurons_tpu_torch.ops import attention as attn
+
+    fwd, bwd = attn.flash_attention_fwd, attn.flash_attention_bwd
+
+    def tf32_fwd(q, k, v, scale=None, bias=None, return_lse=False):
+        return attn.attention_reference_tf32(q, k, v, scale, bias,
+                                             return_lse=return_lse)
+
+    def tf32_bwd(q, k, v, bias, g, out, lse, scale):
+        return attn.flash_attention_bwd_reference(q, k, v, bias, g, out, lse,
+                                                  scale, tf32=True)
+
+    attn.flash_attention_fwd, attn.flash_attention_bwd = tf32_fwd, tf32_bwd
+    try:
+        yield
+    finally:
+        attn.flash_attention_fwd, attn.flash_attention_bwd = fwd, bwd
+
+
+def small_train_check():
+    """One f32 stage-2 train step of the tiny config with 64 CLIP tokens
+    (the prior attends 129 queries over 130 keys, the decoder reaches 256
+    and 1024 tokens, so every training kernel runs) on the card against the
+    CPU: the same weights, batch, draws and dropout masks. The card's flash
+    kernels multiply in TF32, and TF32 rounding alone moves the decoder's
+    smallest gradients (about 1e-3 of the largest) by 10-13% on this
+    instance, differently for each way of rounding; so the CPU runs the
+    step twice, with the plain attention in f32 and at the kernels'
+    precision (`flash_plain_at_tf32`), and the distance between those two
+    is each gradient's sensitivity to TF32 rounding. Held: the seven
+    losses to 2e-3 of the TF32 CPU step's; each trainable gradient's
+    distance to it (its max difference over its scale: its largest value,
+    at least 1e-4 of the largest gradient of all) to 3x its sensitivity
+    plus 1e-3 (f32 summation order)."""
+    import copy
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.diffusion.prior import PriorDiffusion, PriorDraws
+    from neurons_tpu_torch.models.decoder_video import DecoderDropout
+    from neurons_tpu_torch.models.gpt2 import tiny_gpt2_config
+    from neurons_tpu_torch.ops import attention as attn
+    from neurons_tpu_torch.training import train_decoupler as td
+    from neurons_tpu_torch.training.optimizers import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = config.tiny_pipeline_config()
+    brain = config.replace(pcfg.brain, clip_seq_dim=64)
+    prior = config.replace(pcfg.prior, num_tokens=64)
+    dcfg = pcfg.decoupler
+    tcfg = config.replace(pcfg.train, bf16_autocast=False)
+    gcfg = tiny_gpt2_config()
+    spe = 4
+    cpu_bundle, _ = td.init_stage2(brain, prior, dcfg, tcfg, gcfg, spe,
+                                   seed=7, device="cpu")
+    model = copy.deepcopy(cpu_bundle.model).to("cuda")
+    gpu_bundle = td.Stage2Bundle(
+        model, PriorDiffusion.create(prior.timesteps, prior.cond_drop_prob,
+                                     device="cuda"), cpu_bundle.schedule)
+    params = dict(model.named_parameters())
+    opt, _ = make_optimizer(tcfg, [p for n, p in params.items()
+                                   if not td.is_core(n)], spe)
+    gpu_state = td.TrainState(params, opt, 0)
+
+    g = torch.Generator().manual_seed(SEED)
+    b, f, n = tcfg.batch_size, dcfg.n_frames, brain.clip_seq_dim
+    c, ct = brain.clip_emb_dim, dcfg.clip_txt_emb_dim
+    tokens = torch.randint(1, gcfg.vocab_size, (b, 12), generator=g)
+    tokens[:, 9:] = 0
+    batch = {
+        "voxel": torch.randn((b, 1, brain.voxel_counts[0]), generator=g),
+        "clip_vision_target": torch.randn((b, n, c), generator=g),
+        "clip_video_target": torch.randn((b, f, n, c), generator=g),
+        "text_emb": torch.randn((b, ct), generator=g),
+        "key_obj_text_embed": torch.randn((b, ct), generator=g),
+        "key_obj_masks": (torch.rand((b, f, 32, 32), generator=g) < 0.3
+                          ).float(),
+        "cls_label": (torch.rand((b, dcfg.num_classes), generator=g) < 0.3
+                      ).float(),
+        "clip_tokens": tokens,
+        "vae_latents": torch.randn((b, f, 4, 8, 8), generator=g),
+    }
+    draws = td.draw_stage2(cpu_bundle.diffusion, batch, dcfg, g)
+    gpu_draws = td.Stage2Draws(
+        PriorDraws(*(x.to("cuda") for x in draws.prior)),
+        DecoderDropout(*(x.to("cuda") for x in draws.dropout)))
+    gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+
+    def run(bundle, state, dr, bt):
+        step = td.make_stage2_train_step(bundle, tcfg, dcfg, spe)
+        state, metrics = step(state, dr, bt, 0, 0, 0.05)
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in state.params.items()
+                 if not td.is_core(n)})
+
+    def cpu_init():  # the same seeded weights as the card's copy
+        return td.init_stage2(brain, prior, dcfg, tcfg, gcfg, spe, seed=7,
+                              device="cpu")
+
+    plain = run(*cpu_init(), draws, batch)
+    with flash_plain_at_tf32():
+        oracle = run(*cpu_init(), draws, batch)
+    launches0 = (attn.FLASH_FWD_LAUNCHES.total, attn.FLASH_BWD_LAUNCHES.total)
+    got = run(gpu_bundle, gpu_state, gpu_draws, gpu_batch)
+    fwd = attn.FLASH_FWD_LAUNCHES.total - launches0[0]
+    bwd = attn.FLASH_BWD_LAUNCHES.total - launches0[1]
+
+    # a gradient's scale: its largest value, at least 1e-4 of the largest
+    # of all (one that vanishes in exact arithmetic is rounding noise)
+    floor = 1e-4 * max(x.abs().max().item() for x in oracle[1].values())
+
+    def dist(a, b, n):
+        return ((a[1][n] - b[1][n]).abs().max().item()
+                / max(b[1][n].abs().max().item(), floor))
+
+    loss_err = max(abs(got[0][k] - oracle[0][k]) / abs(oracle[0][k])
+                   for k in td.LOSS_TERMS)
+    rows = [(dist(got, oracle, n), dist(plain, oracle, n), n)
+            for n in oracle[1]]
+    bad = [r for r in rows if r[0] > 3 * r[1] + 1e-3]
+    worst = max(rows)
+    ratio = max(r[0] / (3 * r[1] + 1e-3) for r in rows)
+    log(f"small train check: flash forward launches {fwd}, backward "
+        f"launches {bwd}; losses rel err {loss_err:.3e} (<= 2e-3) against "
+        f"the CPU at TF32; gradients: largest distance {worst[0]:.3e} "
+        f"({worst[2]}, its TF32 sensitivity {worst[1]:.3e}), largest "
+        f"distance / (3 x sensitivity + 1e-3) {ratio:.3f} (<= 1); losses "
+        "card/CPU " + " ".join(f"{k} {got[0][k]:.5f}/{oracle[0][k]:.5f}"
+                               for k in td.LOSS_TERMS))
+    if bad:
+        log(f"  gradients beyond it: {bad[:10]}")
+    if not (fwd > 0 and bwd > 0 and loss_err <= 2e-3 and not bad):
+        raise AssertionError("the tiny train step on the card disagrees "
+                             "with the CPU plain version")
+
+
 class StageTimer:
     """Device time per module, from CUDA events recorded by forward hooks
     (no synchronisation inside the run)."""
@@ -575,18 +912,12 @@ def slice_phase(n_requests: int = 2):
     return by_shape, ctx, per_request[-1]
 
 
-def profile_request(ctx, steady_s: float):
-    """One more clip, after the counted run, under torch.profiler with
-    device activity only: its wall time and the device's busy time (the
-    sum of kernel and copy times on the one stream) come from the same
-    run. `steady_s` is the unprofiled steady clip's time, printed beside
-    it so the profiler's own cost shows."""
+def device_profile(prof, wall: float, what: str, kernels):
+    """Log the device's busy time (the sum of kernel and copy times on the
+    one stream) in a profiled run of `wall` seconds, the idle share they
+    give, each kernel's share of busy time ({label: symbol}) and the top
+    kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, s3, s5 = clip_request(*ctx)
-    wall = s3 + s5
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
@@ -595,41 +926,282 @@ def profile_request(ctx, steady_s: float):
     events = [e for e in prof.key_averages() if dev_us(e) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        log("profile: the profiler recorded no device time; busy time not "
-            "measured")
+        log(f"profile: the profiler recorded no device time; busy time of "
+            f"the {what} not measured")
         return
     busy = sum(dev_us(e) for e in events) / 1e6
     shares = []
-    for kernel, symbol in (("flash", "flash_fwd_kernel"),
-                           ("temporal", "temporal_fwd_kernel")):
+    for kernel, symbol in kernels.items():
         sec = sum(dev_us(e) for e in events if symbol in e.key) / 1e6
         shares.append(f"{kernel} kernel {sec:.3f} s ({sec / busy:.3f} of "
                       f"busy)")
-    log(f"profile: clip wall {wall:.3f} s under the profiler (stage 3 "
-        f"{s3:.3f} s, stage 5 {s5:.3f} s; unprofiled steady clip "
-        f"{steady_s:.3f} s), device busy {busy:.3f} s, idle share "
-        f"{1 - busy / wall:.3f}; " + "; ".join(shares))
+    log(f"profile: {what}: wall {wall:.3f} s under the profiler, device "
+        f"busy {busy:.3f} s, idle share {1 - busy / wall:.3f}; "
+        + "; ".join(shares))
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         log(f"  {dev_us(e) / 1e3:10.2f} ms {e.count:6d}x  {e.key[:100]}")
 
 
-def kernels_record(flash_records, temporal_records, by_shape):
-    """The kernels JSON: one entry per (kernel, shape) of the main path."""
+def profile_request(ctx, steady_s: float):
+    """One more clip, after the counted run, under torch.profiler with
+    device activity only: its wall time and the device's busy time come
+    from the same run. `steady_s` is the unprofiled steady clip's time,
+    printed beside it so the profiler's own cost shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, s3, s5 = clip_request(*ctx)
+    device_profile(prof, s3 + s5,
+                   f"clip (stage 3 {s3:.3f} s, stage 5 {s5:.3f} s; "
+                   f"unprofiled steady clip {steady_s:.3f} s)",
+                   {"flash": "flash_fwd_kernel",
+                    "temporal": "temporal_fwd_kernel"})
+
+
+# launches of one full-width stage-2 step, counted from the code: the
+# prior's 6 layers take the biased forward and backward once each; the
+# decoder's 7 spatial sites (3 at 16x16, 2 at 32x32, 2 at 64x64) run in 2
+# checkpointed calls (seg, recon), each forward twice (the recompute) and
+# backward once
+STEP_LAUNCHES = {
+    "flash_attn_fwd": {
+        (10, 32, 513, 514, 52, "bfloat16", "bias+lse"): 6,
+        (60, 1, 256, 256, 128, "bfloat16", "lse"): 12,
+        (60, 1, 1024, 1024, 64, "bfloat16", "lse"): 8,
+        (60, 1, 4096, 4096, 32, "bfloat16", "lse"): 8},
+    "flash_attn_bwd": {
+        (10, 32, 513, 514, 52, "bfloat16", "bias"): 6,
+        (60, 1, 256, 256, 128, "bfloat16", ""): 6,
+        (60, 1, 1024, 1024, 64, "bfloat16", ""): 4,
+        (60, 1, 4096, 4096, 32, "bfloat16", ""): 4},
+}
+
+
+def stage2_batch(pcfg, gcfg, tcfg, gen):
+    """One random batch at the real tables' shapes
+    (`table_stage2_batch_builder`: 60 caption tokens, 224x224 key-object
+    masks, 28x28 VAE latents), on the card."""
+    import torch
+
+    b, f = tcfg.batch_size, pcfg.decoupler.n_frames
+    c, d = pcfg.brain, pcfg.decoupler
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def bits(p, *shape):
+        return (torch.rand(shape, generator=gen, device="cuda") < p).float()
+
+    tokens = torch.randint(1, gcfg.vocab_size, (b, 60), generator=gen,
+                           device="cuda")
+    length = torch.randint(8, 61, (b, 1), generator=gen, device="cuda")
+    tokens = torch.where(torch.arange(60, device="cuda") < length, tokens, 0)
+    return {
+        "voxel": randn(b, 1, c.voxel_counts[0]),
+        "clip_vision_target": randn(b, c.clip_seq_dim, c.clip_emb_dim),
+        "clip_video_target": randn(b, f, c.clip_seq_dim, c.clip_emb_dim),
+        "text_emb": randn(b, d.clip_txt_emb_dim),
+        "key_obj_text_embed": randn(b, d.clip_txt_emb_dim),
+        "key_obj_masks": bits(0.3, b, f, 224, 224),
+        "cls_label": bits(0.2, b, d.num_classes),
+        "clip_tokens": tokens,
+        "vae_latents": randn(b, f, 4, 28, 28),
+    }
+
+
+def table_shaped_builder(pcfg, vocab, seed):
+    """`run_stage2`'s batch builder at the real tables' shapes, random
+    (numpy, from `seed`)."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    c, f = pcfg.brain, pcfg.decoupler.n_frames
+
+    def build(batch, epoch):
+        b = len(batch["voxel"])
+        return {
+            "voxel": batch["voxel"][:, :1],
+            "clip_vision_target": g.standard_normal(
+                (b, c.clip_seq_dim, c.clip_emb_dim), np.float32),
+            "clip_video_target": g.standard_normal(
+                (b, f, c.clip_seq_dim, c.clip_emb_dim), np.float32),
+            "text_emb": batch["text_emb"],
+            "key_obj_text_embed": g.standard_normal(
+                (b, pcfg.decoupler.clip_txt_emb_dim), np.float32),
+            "key_obj_masks": batch["key_obj_masks"][:, :f],
+            "cls_label": batch["cls_label"],
+            "clip_tokens": (batch["clip_tokens"][:, :60] % vocab
+                            ).astype(np.int32),
+            "vae_latents": g.standard_normal((b, f, 4, 28, 28), np.float32),
+        }
+
+    return build
+
+
+def train_phase():
+    """Stage 2 at full width: a short `run_stage2` (the counted run), then
+    the fixed-batch timed steps and one profiled step. Returns {kernel:
+    launches by shape} of the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.data import cc2017
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.training import loop
+    from neurons_tpu_torch.training import train_decoupler as td
+
+    pcfg, gcfg = config.PipelineConfig(), GPT2Config()
+    counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+                "flash_attn_bwd": FLASH_BWD_LAUNCHES}
+
+    # the entry point: one epoch of 2 steps over 20 random clips
+    tcfg = config.replace(pcfg.train, num_epochs=1)
+    split = cc2017.synthetic_split(
+        n=2 * tcfg.batch_size, n_voxels=pcfg.brain.voxel_counts[0],
+        n_frames=pcfg.decoupler.n_frames, img=224,
+        txt_dim=pcfg.decoupler.clip_txt_emb_dim,
+        n_classes=pcfg.decoupler.num_classes, seed=SEED)
+    records = []
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state = loop.run_stage2(pcfg.brain, pcfg.prior, pcfg.decoupler, tcfg,
+                            gcfg, split,
+                            table_shaped_builder(pcfg, gcfg.vocab_size, SEED),
+                            log_every=1, logger=lambda m, s: records.append(m),
+                            bf16_frozen_core=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+    totals = {k: c.total for k, c in counters.items()}
+    log(f"train run_stage2: 1 epoch of {state.step} steps at full width in "
+        f"{run_s:.1f} s (model build included); launches {totals}; epoch "
+        f"means " + " ".join(f"{k.split('/')[-1]} {v:.4f}"
+                             for k, v in records[-1].items()
+                             if k.startswith("train/")))
+    if any(v == 0 for v in totals.values()):
+        raise AssertionError(f"run_stage2 launched no training kernel: "
+                             f"{totals}")
+    if not all(torch.isfinite(torch.tensor(v)) for k, v in records[-1].items()
+               if k.startswith("train/")):
+        raise AssertionError("run_stage2 gave a non-finite epoch mean")
+    del state
+    torch.cuda.empty_cache()
+
+    # fixed batch and draws: 1 warm-up step, 3 timed steps
+    tcfg = pcfg.train
+    spe = tcfg.num_train_samples // tcfg.batch_size
+    bundle, state = td.init_stage2(pcfg.brain, pcfg.prior, pcfg.decoupler,
+                                   tcfg, gcfg, spe, seed=SEED)
+    bundle.model.core.to(torch.bfloat16)  # run_stage2's bf16_frozen_core
+    state = state._replace(params=dict(bundle.model.named_parameters()))
+    n_core = sum(p.numel() for n, p in state.params.items() if td.is_core(n))
+    n_train = sum(p.numel() for n, p in state.params.items()
+                  if not td.is_core(n))
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batch = stage2_batch(pcfg, gcfg, tcfg, gen)
+    draws = td.draw_stage2(bundle.diffusion, batch, pcfg.decoupler, gen)
+    step = td.make_stage2_train_step(bundle, tcfg, pcfg.decoupler, spe)
+    core0 = {n: p.clone() for n, p in state.params.items() if td.is_core(n)}
+    train0 = {n: p.detach().clone() for n, p in state.params.items()
+              if not td.is_core(n)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for i in range(4):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws, batch, 0, i, tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: dict(c.by_shape) for k, c in counters.items()})
+    peak = torch.cuda.max_memory_allocated()
+    steady_ms = 1e3 * sum(times[1:]) / 3
+    core_same = all(torch.equal(p, core0[n]) for n, p in state.params.items()
+                    if td.is_core(n))
+    moved = [n for n, p in state.params.items() if not td.is_core(n)
+             and not torch.equal(p, train0[n])]
+    with_grad = [n for n, p in state.params.items() if not td.is_core(n)
+                 and bool(p.grad.any())]
+    launches_ok = all(s == STEP_LAUNCHES for s in per_step)
+    log(f"train steps: {n_train / 1e6:.1f} M trainable f32 parameters, "
+        f"{n_core / 1e9:.3f} B frozen core in bf16; ms/step "
+        f"{[round(1e3 * t, 1) for t in times]} (steady {steady_ms:.1f}); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; loss "
+        f"{[round(x, 4) for x in losses]}; launches per step "
+        f"{ {k: sum(v.values()) for k, v in per_step[-1].items()} } "
+        f"(as predicted: {launches_ok}); core bitwise unchanged {core_same}; "
+        f"{len(moved)} of {len(train0)} trainable tensors moved, "
+        f"{len(with_grad)} had a nonzero gradient")
+    if not launches_ok:
+        raise AssertionError(f"launches per step {per_step} differ from the "
+                             f"count predicted from the code {STEP_LAUNCHES}")
+    if not (losses[-1] < losses[0] and core_same
+            and set(with_grad) <= set(moved) and len(moved) > 0):
+        raise AssertionError("the full-width train steps fail their checks")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, draws, batch, 0, 4, tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+    device_profile(prof, time.perf_counter() - t0,
+                   f"stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
+                   {"flash forward": "flash_fwd_kernel",
+                    "flash backward dk/dv": "flash_bwd_dkdv_kernel",
+                    "flash backward dq": "flash_bwd_dq_kernel"})
+    del state, bundle, core0, train0
+    torch.cuda.empty_cache()
+    return by_shape
+
+
+def kernels_record(flash_records, temporal_records, train_records, by_shape,
+                   train_by_shape):
+    """The kernels JSON: one entry per (kernel, shape) of the main paths
+    (the clip's, then stage 2's)."""
+    fwd_records = {**flash_records, **train_records[0]}
     entries = []
-    for key, launches in sorted(by_shape["flash_attn_fwd"].items()):
-        b, h, tq, tk, d, dt = key
-        rec = flash_records.get(key)
+    for key, launches in (sorted(by_shape["flash_attn_fwd"].items())
+                          + sorted(train_by_shape["flash_attn_fwd"].items())):
+        b, h, tq, tk, d, dt, variant = key
+        rec = fwd_records.get(key)
         if rec is None or dt != "bfloat16":
             raise AssertionError(f"the main path launched the flash kernel "
                                  f"at {key}, a shape the kernel phase did "
                                  f"not check")
         whole_kv = tk * 2 <= 4608  # the TPU package's whole-KV regime
         entries.append({
-            "name": f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} bf16]",
+            "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} bf16"
+                     + (f" {variant}]" if variant else "]")),
             "route": "cuda",
             "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
-            "replaces": ("neurons_tpu/ops/attention.py:137" if whole_kv
+            "replaces": ("neurons_tpu/ops/attention.py:185"
+                         if "bias" in variant else
+                         "neurons_tpu/ops/attention.py:137" if whole_kv
                          else "neurons_tpu/ops/attention.py:226"),
+            "launches": launches,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        })
+    for key, launches in sorted(train_by_shape["flash_attn_bwd"].items()):
+        b, h, tq, tk, d, dt, variant = key
+        rec = train_records[1].get(key)
+        if rec is None or dt != "bfloat16":
+            raise AssertionError(f"stage 2 launched the flash backward at "
+                                 f"{key}, a shape the kernel phase did not "
+                                 f"check")
+        entries.append({
+            "name": (f"flash_attn_bwd[{b}x{h}x{tq}x{tk}x{d} bf16"
+                     + (f" {variant}]" if variant else "]")),
+            "route": "cuda",
+            "source": "neurons_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": ("neurons_tpu/ops/attention.py:458" if variant
+                         else "neurons_tpu/ops/attention.py:276"),
             "launches": launches,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -681,13 +1253,18 @@ def main():
 
     flash_records = flash_phase()
     temporal_records = temporal_phase()
+    train_records = train_kernel_phase()
     small_check()
     small_video_check()
+    small_train_check()
     by_shape, ctx, steady_s = slice_phase()
     profile_request(ctx, steady_s)
+    del ctx
+    torch.cuda.empty_cache()
+    train_by_shape = train_phase()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels_record(flash_records, temporal_records,
-                                  by_shape)))
+                                  train_records, by_shape, train_by_shape)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

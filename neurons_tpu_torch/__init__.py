@@ -1,10 +1,10 @@
 """neurons_tpu_torch: the PyTorch/CUDA port of neurons_tpu.
 
 Mirrors the JAX package's layout module by module. It imports torch,
-numpy and the standard library only; its one hand-written kernel (the
-flash-attention forward, csrc/flash_attn_fwd.cu) is built with nvcc on
-first use. Entry points run on the card unless the caller passes
-device="cpu".
+numpy and the standard library only; its hand-written CUDA kernels
+(csrc/*.cu: the flash-attention forward and backward, the temporal
+attention) are built with nvcc on first use. Entry points run on the card
+unless the caller passes device="cpu".
 """
 
 import torch

@@ -1,9 +1,9 @@
-"""Typed configuration for the PyTorch port (stages 3 and 5).
+"""Typed configuration for the PyTorch port (stages 2, 3 and 5).
 
 The port's own copy of the JAX package's dataclasses
 (neurons_tpu/config.py:63-321), with the same names and defaults, so a
 configuration written for one package reads the same in the other. Only
-the configurations stages 3 and 5 need are here; GPT-2's lives in
+the configurations stages 2, 3 and 5 need are here; GPT-2's lives in
 models/gpt2.py and the CLIP text tower's in models/clip.py, as in the JAX
 package.
 """
@@ -72,6 +72,33 @@ class DecouplerConfig:
     decoder_in_channels: int = 64
     decoder_block_out_channels: Tuple[int, ...] = (32, 64, 128)
     decoder_layers_per_block: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Stage-1/2 trainer shape."""
+
+    subj: int = 1
+    batch_size: int = 10
+    num_epochs: int = 150
+    max_lr: float = 3e-4
+    mixup_pct: float = 0.33
+    prior_scale: float = 30.0
+    lr_scheduler_type: str = "cycle"  # cycle | linear | cosine
+    neurons_decoupler: bool = False
+    n_frames: int = 6
+    seed: int = 42
+    num_train_samples: int = 4320
+    num_test_samples: int = 1200
+    mixco_temp: float = 0.006
+    nce_temp: float = 0.1
+    soft_temp_start: float = 0.004
+    soft_temp_end: float = 0.0075
+    weight_decay: float = 0.0
+    ckpt_saving: bool = True
+    grad_clip: float = 0.0  # 0 disables
+    # bf16 module forwards with f32 master weights, gradients and losses
+    bf16_autocast: bool = True
 
 
 @dataclass(frozen=True)
@@ -158,11 +185,12 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The stage-3 and stage-5 configurations bundled."""
+    """The stage-2, stage-3 and stage-5 configurations bundled."""
 
     brain: BrainModelConfig = field(default_factory=BrainModelConfig)
     prior: PriorConfig = field(default_factory=PriorConfig)
     decoupler: DecouplerConfig = field(default_factory=DecouplerConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     unet2d: UNet2DConfig = field(default_factory=UNet2DConfig)
     unet3d: UNet3DConfig = field(default_factory=UNet3DConfig)
@@ -186,6 +214,8 @@ def tiny_pipeline_config() -> PipelineConfig:
                                   clip_txt_emb_dim=24,
                                   decoder_in_channels=8,
                                   decoder_block_out_channels=(8, 8, 8)),
+        train=TrainConfig(batch_size=4, num_epochs=2, num_train_samples=16,
+                          num_test_samples=8),
         vae=VAEConfig(block_out_channels=(8, 8), layers_per_block=1,
                       norm_num_groups=4, sample_size=32),
         unet2d=UNet2DConfig(model_channels=8, channel_mult=(1, 2),

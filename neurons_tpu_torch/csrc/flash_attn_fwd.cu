@@ -1,13 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (neurons_tpu_torch/ops/attention.py).
 //
-// Replaces the JAX package's two Pallas TPU kernels
-//   neurons_tpu/ops/attention.py:137  _flash_kernel_smallkv  (whole K/V resident)
-//   neurons_tpu/ops/attention.py:226  _flash_kernel          (K/V streamed by block)
-// which compute the same function: out = softmax(q k^T * scale) v, with f32
-// logits, f32 running max and sum, f32 accumulation, and the output in the
-// input type. The TPU split between the two exists because VMEM holds a whole
-// K/V window only up to ~4.6 KB a row; here one kernel serves both.
+// Replaces the JAX package's three Pallas TPU forward kernels
+//   neurons_tpu/ops/attention.py:137  _flash_kernel_smallkv       (whole K/V resident)
+//   neurons_tpu/ops/attention.py:226  _flash_kernel               (K/V streamed by block)
+//   neurons_tpu/ops/attention.py:185  _flash_kernel_smallkv_bias  (#137 plus a bias)
+// which compute the same function: out = softmax(q k^T * scale + bias) v, with
+// f32 logits, f32 running max and sum, f32 accumulation, and the output in the
+// input type. The TPU split between them exists because VMEM holds a whole
+// K/V window only up to ~4.6 KB a row; here one kernel serves all three.
+//
+// Training outputs. An optional additive bias [N, Tq, Tk] (N in {1, H, B*H},
+// unit stride over keys, the input type) is added in f32 after the scale, as
+// the Pallas kernel does (:208). An optional log-sum-exp output [B*H, Tq] f32
+// takes m + log(max(l, 1e-30)) over the scaled and biased logits, the JAX
+// convention (:182), which the backward (flash_attn_bwd.cu) recomputes its
+// probabilities from. Inference launches pass neither and run as before.
 //
 // Layout: q [B, H, Tq, D], k/v [B, Hkv, Tk, D] with Hkv in {1, H} (multi-query
 // k/v are read through a head stride of 0, never broadcast in memory), any
@@ -35,75 +43,27 @@
 // shared memory and does not overlap the K/V loads with the products, so it
 // reaches a fraction of that peak; its measured times stand in PERF.md.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static constexpr int K = 16;     // depth of one tensor-core step
-  static constexpr int kSkew = 8;  // row padding of 16-bit tiles (16 bytes)
-  using A = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major>;
-  using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
-  using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::row_major>;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  template <typename F>
-  __device__ static void to_tf32(F&) {}
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-};
-
-template <>
-struct Mma<float> {
-  static constexpr int K = 8;
-  static constexpr int kSkew = 4;  // row padding of 32-bit tiles (16 bytes)
-  using A = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
-                           wmma::row_major>;
-  using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                              wmma::precision::tf32, wmma::col_major>;
-  using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                              wmma::precision::tf32, wmma::row_major>;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-  template <typename F>
-  __device__ static void to_tf32(F& f) {
-    for (int i = 0; i < f.num_elements; ++i) f.x[i] = wmma::__float_to_tf32(f.x[i]);
-  }
-  __device__ static float from_float(float x) { return x; }
-};
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  const void* bias;            // [N, Tq, Tk] or null
+  float* lse;                  // [B*H, Tq] or null
   long long q_sb, q_sh, q_st;  // element strides over batch, head, token
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
+  long long bias_sn, bias_sq;  // bias strides over slice and query row
+  int bias_mode;               // see bias_slice()
   int H, Tq, Tk, D, DP;        // DP: D rounded up to 16
   int bq, bk;
   float scale;
   int vec;                     // 1 when rows move 16 bytes at a time
 };
-
-__host__ __device__ inline size_t align128(size_t b) {
-  return (b + 127) / 128 * 128;
-}
 
 // Shared-memory bytes of one block; the kernel carves its buffers in the
 // same order.
@@ -119,43 +79,12 @@ __host__ __device__ inline size_t smem_bytes(int bq, int bk, int dp,
          + 2 * align128(4 * (size_t)bq);           // row max, row sum
 }
 
-// Copy `rows` rows of D elements starting at row `row0` of a [n, D] operand
-// (row stride `st`) into a [rows, ldt] shared tile; rows past n and columns
-// past D are zero.
-template <typename T>
-__device__ void load_tile(T* dst, const T* src, long long st, int row0, int n,
-                          int rows, int D, int DP, int ldt, int vec) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const int per_row = DP / V;
-    for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-      const int r = i / per_row, c = (i % per_row) * V;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row0 + r < n && c < D)
-        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st + c);
-      *reinterpret_cast<uint4*>(dst + r * ldt + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP;
-      T val = Mma<T>::from_float(0.f);
-      if (row0 + r < n && c < D) val = src[(long long)(row0 + r) * st + c];
-      dst[r * ldt + c] = val;
-    }
-  }
-}
-
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T>
+// kBias, kLse: the launch adds a bias, writes the log-sum-exp. Both are
+// template switches, so the inference instance (neither) carries no code of
+// the training one. The lse instance takes the accurate expf, so that the
+// lse stays within the plain version's f32 error (the fast __expf left it
+// up to 1.4x worse); inference keeps __expf.
+template <typename T, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   using M = Mma<T>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -183,6 +112,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* og = static_cast<T*>(p.o) + (long long)bh * p.Tq * D;
+  const T* bg = kBias ? static_cast<const T*>(p.bias)
+                            + bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                      : nullptr;
 
   load_tile(sQ, qg, p.q_st, q0, p.Tq, BQ, D, DP, ldt, p.vec);
   for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) sO[i] = 0.f;
@@ -218,21 +150,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     // online softmax: one warp per row, lanes across the tile's keys
     for (int r = warp; r < BQ; r += kWarps) {
       const float m_old = sM[r];
+      // bias row of this query (padded rows carry none; they are not written)
+      const T* brow = (kBias && q0 + r < p.Tq) ? bg + (q0 + r) * p.bias_sq
+                                               : nullptr;
       float mx = -INFINITY;
       for (int c = lane; c < BK; c += 32) {
-        const float s = (k0 + c < p.Tk) ? sS[r * lds + c] * p.scale : -INFINITY;
+        float s = (k0 + c < p.Tk) ? sS[r * lds + c] * p.scale : -INFINITY;
+        if (kBias && brow && k0 + c < p.Tk) s += M::to_float(brow[k0 + c]);
         sS[r * lds + c] = s;
         mx = fmaxf(mx, s);
       }
       const float m_new = fmaxf(m_old, warp_max(mx));
       float sum = 0.f;
       for (int c = lane; c < BK; c += 32) {
-        const float e = __expf(sS[r * lds + c] - m_new);
+        const float x = sS[r * lds + c] - m_new;
+        const float e = kLse ? expf(x) : __expf(x);
         sP[r * ldp + c] = M::from_float(e);
         sum += e;
       }
       sum = warp_sum(sum);
-      const float alpha = __expf(m_old - m_new);
+      const float alpha = kLse ? expf(m_old - m_new) : __expf(m_old - m_new);
       __syncwarp();
       if (lane == 0) {
         sM[r] = m_new;
@@ -267,6 +204,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     if (q0 + r < p.Tq)
       og[(long long)(q0 + r) * D + d] = M::from_float(sO[r * ldo + d] / sL[r]);
   }
+  if (kLse) {
+    for (int r = threadIdx.x; r < BQ; r += kThreads)
+      if (q0 + r < p.Tq)
+        p.lse[(long long)bh * p.Tq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  }
 }
 
 // Largest (BQ, BK) whose tiles fit the block's shared memory.
@@ -282,39 +224,51 @@ bool pick_tiles(int dp, int esize, int max_smem, int* bq, int* bk) {
   return false;
 }
 
-template <typename T>
-cudaError_t launch(Params p, int B, cudaStream_t stream) {
+template <typename T, bool kBias, bool kLse>
+cudaError_t launch_as(Params p, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.bq, p.bk, p.DP, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, kBias, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((p.Tq + p.bq - 1) / p.bq) * B * p.H;
-  flash_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, kBias, kLse><<<(unsigned)blocks, kThreads, smem,
+                                     stream>>>(p);
   return cudaGetLastError();
 }
 
-int max_block_smem() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
+template <typename T>
+cudaError_t launch(Params p, int B, cudaStream_t stream) {
+  if (p.bias)
+    return p.lse ? launch_as<T, true, true>(p, B, stream)
+                 : launch_as<T, true, false>(p, B, stream);
+  return p.lse ? launch_as<T, false, true>(p, B, stream)
+               : launch_as<T, false, false>(p, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, bias and the output).
+// bias_mode: 0 = no bias (bias may be null), 1 = one [Tq, Tk] slice,
+// 2 = one per head, 3 = one per (b, h). lse may be null. Returns a
+// cudaError_t (0 on success).
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                   const void* bias, float* lse,
                    long long q_sb, long long q_sh, long long q_st,
                    long long k_sb, long long k_sh, long long k_st,
                    long long v_sb, long long v_sh, long long v_st,
+                   long long bias_sn, long long bias_sq, int bias_mode,
                    int B, int H, int Tq, int Tk, int D, float scale,
                    int dtype, int vec, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || (dtype != 0 && dtype != 1)
+      || bias_mode < 0 || bias_mode > 3 || ((bias_mode != 0) != (bias != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
+  p.bias = bias; p.lse = lse;
+  p.bias_sn = bias_sn; p.bias_sq = bias_sq; p.bias_mode = bias_mode;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;

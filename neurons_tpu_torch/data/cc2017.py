@@ -1,0 +1,90 @@
+"""CC2017 (Wen et al.) dataset as host-side numpy arrays, and its batch
+iterator.
+
+Counterpart of neurons_tpu/data/cc2017.py (numpy only): the split's field
+contract, random splits for tests and benches, and shuffled fixed-size
+batches carrying each sample's dataset index (precomputed-table lookups
+address rows by it). Loading the released tensors (`load_split`) is not
+ported yet.
+
+Train tensors (lengths as the released dataset):
+  voxel         [4320, 2, n_voxels]   two fMRI repeats
+  images        [4320, 6, 3, 224, 224]
+  text_emb      [4320, 1280]          caption CLIP-bigG embedding
+  clip_tokens   [4320, 60]            padded CLIP BPE tokens (pad=0)
+  cls_label     [4320, 51]            multi-hot concept labels
+  key_obj_masks [4320, 6, 224, 224]   binary key-object masks
+  key_obj_cls   [4320]                key-object category id
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+MAX_TOKENS = 60
+N_FRAMES = 6
+IMG_SIZE = 224
+
+
+@dataclass
+class CC2017Split:
+    voxel: np.ndarray
+    images: np.ndarray
+    text_emb: np.ndarray
+    clip_tokens: Optional[np.ndarray] = None
+    cls_label: Optional[np.ndarray] = None
+    key_obj_masks: Optional[np.ndarray] = None
+    key_obj_cls: Optional[np.ndarray] = None
+    clip_image_target: Optional[np.ndarray] = None  # [N, F, 256, 1664] cache
+
+    def __len__(self) -> int:
+        return self.voxel.shape[0]
+
+    @property
+    def n_voxels(self) -> int:
+        return self.voxel.shape[-1]
+
+
+def synthetic_split(n: int = 16, n_voxels: int = 120, n_frames: int = N_FRAMES,
+                    img: int = 32, txt_dim: int = 24, n_classes: int = 7,
+                    repeats: int = 2, seed: int = 0, train: bool = True
+                    ) -> CC2017Split:
+    """Random data with the exact field contract (the JAX package's draws
+    from the same seed)."""
+    g = np.random.default_rng(seed)
+    return CC2017Split(
+        voxel=g.normal(size=(n, repeats if train else 1, n_voxels)).astype(np.float32),
+        images=g.uniform(size=(n, n_frames, 3, img, img)).astype(np.float32),
+        text_emb=g.normal(size=(n, txt_dim)).astype(np.float32),
+        clip_tokens=g.integers(1, 100, size=(n, MAX_TOKENS)).astype(np.int64),
+        cls_label=(g.uniform(size=(n, n_classes)) < 0.2).astype(np.float32),
+        key_obj_masks=(g.uniform(size=(n, n_frames, img, img)) < 0.3
+                       ).astype(np.float32) if train else None,
+        key_obj_cls=g.integers(0, n_classes, size=(n,)).astype(np.int32)
+        if train else None,
+    )
+
+
+def batches(split: CC2017Split, batch_size: int, seed: int = 0,
+            shuffle: bool = True, drop_last: bool = True
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield batch dicts of numpy arrays, each with the samples' dataset
+    indices under "index"; with drop_last the trailing partial batch is
+    dropped, so every batch has one shape."""
+    n = len(split)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    stop = n - (n % batch_size) if drop_last else n
+    fields = {f.name: getattr(split, f.name)
+              for f in dataclasses.fields(split)
+              if getattr(split, f.name) is not None}
+    for start in range(0, stop, batch_size):
+        sel = idx[start:start + batch_size]
+        out = {k: v[sel] for k, v in fields.items()}
+        out["index"] = sel
+        yield out

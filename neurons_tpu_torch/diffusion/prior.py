@@ -1,9 +1,10 @@
-"""DDPM sampling loop of the diffusion prior.
+"""Training loss and DDPM sampling loop of the diffusion prior.
 
-Counterpart of neurons_tpu/diffusion/prior.py (inference part):
-x0-prediction DDPM over the CLIP image-token grid with a cosine schedule,
-ancestral sampling. The JAX `lax.scan` becomes a Python loop over the
-timesteps.
+Counterpart of neurons_tpu/diffusion/prior.py: x0-prediction DDPM over the
+CLIP image-token grid with a cosine schedule and cond-drop CFG training,
+and ancestral sampling. The JAX `lax.scan` becomes a Python loop over the
+timesteps. JAX's key splits become explicit draws: a `torch.Generator`, or
+tensors passed in.
 """
 
 from __future__ import annotations
@@ -30,6 +31,56 @@ class PriorDiffusion(NamedTuple):
             schedule=sched_lib.make_ddpm_schedule(
                 sched_lib.cosine_betas(timesteps), device=device),
             cond_drop_prob=cond_drop_prob)
+
+
+class PriorDraws(NamedTuple):
+    """Explicit draws for `p_losses`: timesteps [B] (int64), the noise in
+    the target's shape, and the keep masks [B] (bool; True keeps the row's
+    condition) of the brain and image conditions."""
+
+    times: torch.Tensor
+    noise: torch.Tensor
+    brain_keep: torch.Tensor
+    image_keep: torch.Tensor
+
+
+def draw_prior(diff: "PriorDiffusion", shape: Tuple[int, ...],
+               generator: torch.Generator, device) -> PriorDraws:
+    """t ~ U[0, T), standard-normal noise of `shape`, and a row keeps each
+    condition where a uniform draw is >= the cond-drop probability."""
+    b = shape[0]
+
+    def keep():
+        return torch.rand((b,), generator=generator,
+                          device=device) >= diff.cond_drop_prob
+
+    times = torch.randint(0, diff.schedule.num_timesteps, (b,),
+                          generator=generator, device=device)
+    noise = torch.randn(shape, generator=generator, device=device)
+    return PriorDraws(times, noise, keep(), keep())
+
+
+def p_losses(diff: PriorDiffusion, net: NetApply, image_embed: torch.Tensor,
+             brain_embed: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[PriorDraws] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training loss: noise the CLIP target at t, predict x0 with cond-drop,
+    MSE against the clean target. Returns (loss, pred); the prediction
+    feeds the decoupler heads. The draws come from `draws`, or from
+    `generator`."""
+    if draws is None:
+        if generator is None:
+            raise ValueError("p_losses needs a generator or explicit draws")
+        draws = draw_prior(diff, tuple(image_embed.shape), generator,
+                           image_embed.device)
+    noisy = sched_lib.q_sample(diff.schedule, image_embed, draws.times,
+                               draws.noise.to(image_embed.dtype))
+    pred = net(noisy, draws.times, brain_embed,
+               brain_cond_drop_prob=diff.cond_drop_prob,
+               image_cond_drop_prob=diff.cond_drop_prob,
+               brain_keep=draws.brain_keep, image_keep=draws.image_keep)
+    return torch.mean(torch.square(pred - image_embed)), pred
 
 
 class PriorNoise(NamedTuple):

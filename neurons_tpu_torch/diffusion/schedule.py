@@ -1,7 +1,8 @@
 """Diffusion noise schedules as precomputed tensors.
 
 Counterpart of neurons_tpu/diffusion/schedule.py: the cosine DDPM schedule
-of the prior, the posterior q(x_{t-1} | x_t, x_0), and the sigma ladder of
+of the prior, the forward process q(x_t | x_0) and the posterior
+q(x_{t-1} | x_t, x_0), and the sigma ladder of
 sgm's LegacyDDPMDiscretization used by the unCLIP sampler. The tables are
 computed in float64 numpy, then stored as f32 tensors, as in the JAX
 package.
@@ -83,6 +84,14 @@ def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-timestep scalars and broadcast to rank `ndim`."""
     out = arr[t]
     return out.reshape(out.shape + (1,) * (ndim - out.dim()))
+
+
+def q_sample(sched: DDPMSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0)."""
+    return (_extract(sched.sqrt_alphas_cumprod, t, x_start.dim()) * x_start
+            + _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.dim())
+            * noise)
 
 
 def q_posterior(sched: DDPMSchedule, x_start: torch.Tensor,

@@ -13,14 +13,21 @@ throughout:
     over frames, blended as w * spatial + (1 - w) * temporal.
 
 The spatial AttnBlock runs one head over up to 4096 tokens (d=32 at the
-last up block) through the dispatcher, so it takes the flash kernel on
-the card; the temporal rows (a few frames) take the plain path.
+last up block) through the dispatcher, so it takes the flash kernels on
+the card (under autograd, the forward with lse and the backward); the
+temporal rows (a few frames) take the plain path.
+
+Training dropout (stage 2): 0.1 on the text-attention weights and on the
+attention output, 0.3 after the maps projector, as the JAX package's
+TextDrivenDecoder. The keep masks are drawn by `draw_decoder_dropout` and
+passed in, so that a checkpointed call recomputes with the same masks (a
+recompute restores the global RNG state, not a user generator's).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -180,6 +187,44 @@ class DecoderVideo(nn.Module):
         return self.conv_norm_out(x)
 
 
+ATTENTION_DROPOUT = 0.1
+MAPS_DROPOUT = 0.3
+
+
+class DecoderDropout(NamedTuple):
+    """Keep masks (bool) of the TextDrivenDecoder's dropout sites: `attn` on
+    the text-attention weights [B', N, B] (rate 0.1; unused without text),
+    `out` on the attention output [B', N, Ct] (0.1) and `maps` after the
+    maps projector [B', 64, h, w] (0.3)."""
+
+    attn: torch.Tensor
+    out: torch.Tensor
+    maps: torch.Tensor
+
+
+def draw_decoder_dropout(n_rows: int, n_tokens: int, n_texts: int,
+                         txt_dim: int, generator: torch.Generator,
+                         device) -> DecoderDropout:
+    """Keep masks for `n_rows` (= B * F) rows of `n_tokens` vision tokens
+    attending over `n_texts` texts: each element kept with probability
+    1 - rate."""
+    hw = math.isqrt(n_tokens)
+
+    def keep(shape, rate):
+        return torch.rand(shape, generator=generator, device=device) < 1 - rate
+
+    return DecoderDropout(
+        keep((n_rows, n_tokens, n_texts), ATTENTION_DROPOUT),
+        keep((n_rows, n_tokens, txt_dim), ATTENTION_DROPOUT),
+        keep((n_rows, 64, hw, hw), MAPS_DROPOUT))
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax's Dropout with a given mask: kept elements scaled by
+    1 / (1 - rate), the rest zero."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class TextDrivenDecoder(nn.Module):
     """`vision_feat` [B', N, Cv] (B' = batch * frames), `text_feat` [B, Ct]
     pooled text embeddings or None. Returns NCHW maps:
@@ -212,7 +257,15 @@ class TextDrivenDecoder(nn.Module):
         self.recon_head = nn.Conv2d(chans[0], 4, 3, padding=1)
 
     def forward(self, vision_feat, text_feat: Optional[torch.Tensor] = None,
-                time: int = 1, is_seg: bool = True):
+                time: int = 1, is_seg: bool = True,
+                deterministic: bool = True,
+                dropout_masks: Optional[DecoderDropout] = None):
+        """`deterministic=False` applies the training dropout with the
+        given `dropout_masks`."""
+        if not deterministic and dropout_masks is None:
+            raise ValueError("training dropout needs its keep masks "
+                             "(draw_decoder_dropout)")
+        masks = None if deterministic else dropout_masks
         q = self.q(vision_feat)
         if text_feat is not None:
             # each vision token attends over the batch of texts; the scale
@@ -222,14 +275,21 @@ class TextDrivenDecoder(nn.Module):
                 torch.promote_types(q.dtype, torch.float32))
             attn = torch.softmax(attn * self.clip_vision_emb_dim ** -0.5,
                                  dim=-1).to(q.dtype)
+            if masks is not None:
+                attn = dropout(attn, masks.attn, ATTENTION_DROPOUT)
             out = self.out(torch.einsum("bnt,tc->bnc", attn, v))
         else:
             out = self.out(q)
+        if masks is not None:
+            out = dropout(out, masks.out, ATTENTION_DROPOUT)
         bb, n, c = out.shape
         hw = math.isqrt(n)
         x = out.reshape(bb, hw, hw, c).permute(0, 3, 1, 2)
         x = F.relu(self.maps_gn_0(self.maps_0(x)))
         x = F.relu(self.maps_gn_1(self.maps_1(x)))
-        x = self.norm(self.maps_2(x))
+        x = self.maps_2(x)
+        if masks is not None:
+            x = dropout(x, masks.maps, MAPS_DROPOUT)
+        x = self.norm(x)
         x = self.video_decoder(x, time)
         return self.seg_head(x) if is_seg else self.recon_head(x)

@@ -1,4 +1,4 @@
-"""The `Neurons` ensemble: one module bundling every stage-3 piece.
+"""The `Neurons` ensemble: one module bundling every stage-2/3 piece.
 
 Counterpart of neurons_tpu/models/neurons.py, with the submodule names of
 the flax tree (`core`, `prior_net`, `motion_proj`, `classifier`,
@@ -19,7 +19,8 @@ from neurons_tpu_torch.config import (BrainModelConfig, DecouplerConfig,
 from neurons_tpu_torch.models.brain import (BrainBackbone, CLIPProj,
                                             MotionProj, MultiLabelClassifier,
                                             RidgeRegression)
-from neurons_tpu_torch.models.decoder_video import TextDrivenDecoder
+from neurons_tpu_torch.models.decoder_video import (DecoderDropout,
+                                                    TextDrivenDecoder)
 from neurons_tpu_torch.models.gpt2 import GPT2Config, TextDecoder
 from neurons_tpu_torch.models.prior import PriorNetwork
 
@@ -68,11 +69,13 @@ class NeuronsDecoupler(nn.Module):
     def prior_apply(self, image_embed, times, brain_embed,
                     brain_cond_drop_prob: float = 0.0,
                     image_cond_drop_prob: float = 0.0,
-                    attn_bias: Optional[torch.Tensor] = None):
+                    attn_bias: Optional[torch.Tensor] = None, **keep):
+        """`keep`: the prior's `brain_keep`, `image_keep` or `generator`
+        for a fractional cond drop."""
         return self.prior_net(image_embed, times, brain_embed,
                               brain_cond_drop_prob=brain_cond_drop_prob,
                               image_cond_drop_prob=image_cond_drop_prob,
-                              attn_bias=attn_bias)
+                              attn_bias=attn_bias, **keep)
 
     def motion(self, prior_out):
         return self.motion_proj(prior_out)
@@ -84,9 +87,11 @@ class NeuronsDecoupler(nn.Module):
         return self.core.clipproj(tokens)
 
     def seg_decode(self, vision_tokens, text_embed, time: int,
-                   is_seg: bool = True):
+                   is_seg: bool = True, deterministic: bool = True,
+                   dropout_masks: Optional[DecoderDropout] = None):
         return self.text_seg_dec(vision_tokens, text_embed, time=time,
-                                 is_seg=is_seg)
+                                 is_seg=is_seg, deterministic=deterministic,
+                                 dropout_masks=dropout_masks)
 
     def caption_logits(self, clip_features, tokens):
         return self.text_dec(clip_features, tokens)

@@ -10,9 +10,11 @@ Counterpart of neurons_tpu/models/prior.py (the dalle2-style prior):
                       T5-style relative-position bias, SwiGLU feed-forward,
                       stable output norm and a final projection
 
-Attention carries the additive relative-position bias, so it takes the
-plain path of ops/attention.py, as the JAX package routes its inference
-call to XLA. q is pre-scaled and attention runs with scale=1.0.
+Attention carries the additive relative-position bias and multi-query
+k/v: at inference it takes the plain path of ops/attention.py, as the JAX
+package routes its inference call to XLA; under autograd (stage-2
+training) it takes the biased flash kernels. q is pre-scaled and attention
+runs with scale=1.0.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from neurons_tpu_torch.ops.attention import dot_product_attention
 
 class GainLayerNorm(nn.Module):
     """Gain-only LayerNorm (no bias); `stable` divides by the row's amax
-    first."""
+    first, with no gradient through the amax (the JAX package stops it)."""
 
     def __init__(self, dim: int, stable: bool = False, eps: float = 1e-5):
         super().__init__()
@@ -40,7 +42,8 @@ class GainLayerNorm(nn.Module):
 
     def forward(self, x):
         if self.stable:
-            x = x / x.abs().amax(dim=-1, keepdim=True).clamp(min=self.eps)
+            x = x / x.detach().abs().amax(dim=-1, keepdim=True).clamp(
+                min=self.eps)
         mean = x.mean(dim=-1, keepdim=True)
         var = x.var(dim=-1, keepdim=True, unbiased=False)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.g
@@ -227,8 +230,10 @@ class PriorTransformer(nn.Module):
 class PriorNetwork(nn.Module):
     """Denoiser over CLIP image tokens conditioned on brain tokens; the
     prediction is read from the last N positions. CFG drops brain/image
-    conditioning to learned null embeddings (probability 0 or 1 here; the
-    fractional, random drop belongs to training, not ported yet)."""
+    conditioning to learned null embeddings: all rows at probability 1,
+    none at 0, and at a fractional probability the rows whose keep mask is
+    False (masks [B] passed in, or drawn from `generator`: a row keeps its
+    condition where a uniform draw is >= the probability)."""
 
     def __init__(self, cfg: PriorConfig):
         super().__init__()
@@ -246,21 +251,34 @@ class PriorNetwork(nn.Module):
                 brain_embed: torch.Tensor,
                 brain_cond_drop_prob: float = 0.0,
                 image_cond_drop_prob: float = 0.0,
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_bias: Optional[torch.Tensor] = None,
+                brain_keep: Optional[torch.Tensor] = None,
+                image_keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.cfg
         b, n, d = image_embed.shape
         if n != c.num_tokens or d != c.dim:
             raise ValueError(f"image_embed {tuple(image_embed.shape)} is not "
                              f"[B, {c.num_tokens}, {c.dim}]")
 
-        for prob in (brain_cond_drop_prob, image_cond_drop_prob):
-            if prob not in (0.0, 1.0):
-                raise ValueError(f"cond drop probability {prob}: only 0 or 1 "
-                                 f"(inference) is ported")
-        if brain_cond_drop_prob == 1.0:
-            brain_embed = self.null_brain_embeds[None].expand(b, n, d)
-        if image_cond_drop_prob == 1.0:
-            image_embed = self.null_image_embed[None].expand(b, n, d)
+        def drop(x, null, prob, keep):
+            if prob == 0.0:
+                return x
+            if prob == 1.0:
+                return null[None].expand(b, n, d)
+            if keep is None:
+                if generator is None:
+                    raise ValueError("a fractional cond drop needs keep "
+                                     "masks or a generator")
+                keep = torch.rand((b,), generator=generator,
+                                  device=x.device) >= prob
+            return torch.where(keep.reshape(b, 1, 1), x, null[None])
+
+        # the brain mask is drawn first, as the JAX package splits its key
+        brain_embed = drop(brain_embed, self.null_brain_embeds,
+                           brain_cond_drop_prob, brain_keep)
+        image_embed = drop(image_embed, self.null_image_embed,
+                           image_cond_drop_prob, image_keep)
 
         dtype = self.learned_query.dtype
         time_embed = self.time_mlp(

@@ -1,30 +1,35 @@
-"""Attention ops: the hand-written CUDA flash-attention forward and its
-plain PyTorch version.
+"""Attention ops: the hand-written CUDA flash-attention forward and backward
+and their plain PyTorch versions.
 
 Counterpart of neurons_tpu/ops/attention.py. One entry point,
-`dot_product_attention`, serves every attention site of stage 3 in the
-[B, H, T, D] layout:
+`dot_product_attention`, serves every attention site in the [B, H, T, D]
+layout, and routes as the JAX package does:
 
-  * UNet2D self-attention (2304 and 576 tokens, d=64) and cross-attention
-    over the 256 CLIP tokens;
-  * the DecoderVideo AttnBlock (up to 4096 tokens, one head, d=32..128);
-  * the VAE mid-block attention (one head, d=512, 4096 or 9216 tokens).
+  * without autograd (inference): unmasked, unbiased attention with
+    Tq, Tk >= 128 goes to `flash_attention_fwd` (csrc/flash_attn_fwd.cu,
+    replacing the Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
+    UNet2D/UNet3D self- and cross-attention, the DecoderVideo AttnBlock, the
+    VAE mid-block attention. Biased attention (the prior's relative-position
+    bias) stays on the plain path, as the JAX package keeps its inference
+    call on XLA;
+  * when autograd records (training): the same unbiased sites, and biased
+    attention with multi-query k/v (the prior), go to `flash_attention`, an
+    autograd Function whose forward also writes the log-sum-exp (the biased
+    forward replaces `_flash_kernel_smallkv_bias`) and whose backward is
+    `flash_attention_bwd` (csrc/flash_attn_bwd.cu, replacing
+    `_flash_bwd_kernel` and `_flash_bwd_bias_kernel`);
+  * short rows (< 128 tokens) and masked attention (GPT-2's causal mask)
+    take `attention_reference`.
 
-Those go to `flash_attention_fwd`, whose CUDA kernel (csrc/flash_attn_fwd.cu)
-replaces the Pallas kernels `_flash_kernel_smallkv` and `_flash_kernel`.
-Short rows (< 128 tokens), masked attention (GPT-2's causal mask) and biased
-attention (the prior's relative-position bias, which the JAX package also
-keeps off its kernel at inference) take `attention_reference`.
-
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. It never falls back.
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises. It never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,12 +37,36 @@ from neurons_tpu_torch.ops import cuda_build
 from neurons_tpu_torch.ops.cuda_build import LaunchCounter
 
 _NEG_INF = -1e30
-_KERNEL = "flash_attn_fwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# incremented by flash_attention_fwd where it launches its kernel, and
-# nowhere else; keyed by (B, H, Tq, Tk, D, dtype)
+# incremented by flash_attention_fwd / flash_attention_bwd where they launch
+# their kernels, and nowhere else; keyed by (B, H, Tq, Tk, D, dtype,
+# variant): the forward's variant is "", "lse", "bias" or "bias+lse", the
+# backward's "" or "bias"
 FLASH_FWD_LAUNCHES = LaunchCounter()
+FLASH_BWD_LAUNCHES = LaunchCounter()
+
+
+def _logits(q, k, bias, mask, scale):
+    """f32 (f64 for f64 operands) logits q k^T * scale + bias, masked;
+    multi-query k broadcast over q's heads."""
+    if (q.dim() == 4 and k.dim() == 4 and k.shape[1] == 1
+            and q.shape[1] != 1):
+        k = k.expand(q.shape[:2] + k.shape[2:])
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.to(acc)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    return logits
+
+
+def _weighted(weights, q, v):
+    if (q.dim() == 4 and v.dim() == 4 and v.shape[1] == 1
+            and q.shape[1] != 1):
+        v = v.expand(q.shape[:2] + v.shape[2:])
+    return torch.matmul(weights.to(v.dtype), v).to(q.dtype)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,20 +79,25 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [..., Tq, D], k/v: [..., Tk, D]; bias/mask broadcastable to
     [..., Tq, Tk] (mask True = keep). Multi-query: rank-4 k/v may carry 1
     where q carries H on the head axis."""
-    if (q.dim() == 4 and k.dim() == 4 and k.shape[1] == 1
-            and q.shape[1] != 1):
-        k = k.expand(q.shape[:2] + k.shape[2:])
-        v = v.expand(q.shape[:2] + v.shape[2:])
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    acc = torch.promote_types(q.dtype, torch.float32)
-    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    if bias is not None:
-        logits = logits + bias.to(acc)
-    if mask is not None:
-        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
-    weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(weights, v).to(q.dtype)
+    logits = _logits(q, k, bias, mask, scale)
+    return _weighted(torch.softmax(logits, dim=-1), q, v)
+
+
+def attention_reference_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`attention_reference` and the per-row log-sum-exp [..., Tq] of the
+    scaled and biased logits, f32 (f64 for f64 operands): the plain version
+    of the kernel's training forward (the JAX convention m + log(l))."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = _logits(q, k, bias, None, scale)
+    out = _weighted(torch.softmax(logits, dim=-1), q, v)
+    return out, torch.logsumexp(logits, dim=-1)
 
 
 def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -74,24 +108,86 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to TF32 and the products summed in
+    f64, f32 out: one of the kernels' tensor-core products on f32 input."""
+    return torch.matmul(round_to_tf32(a).double(),
+                        round_to_tf32(b).double()).float()
+
+
 def attention_reference_tf32(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None,
+                             bias: Optional[torch.Tensor] = None,
+                             return_lse: bool = False):
     """The plain version at the precision of the kernel's f32 route: q, k,
     the probabilities and v rounded to TF32 before their product, the
-    products summed in f64, the softmax in f32; f32 out. Shapes as
-    `attention_reference` (multi-query k/v broadcast in the products)."""
+    products summed in f64, the bias and softmax in f32; f32 out (and the
+    f32 log-sum-exp with `return_lse`). Shapes as `attention_reference`
+    (multi-query k/v broadcast in the products)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    q, k, v = (round_to_tf32(x).double() for x in (q, k, v))
-    logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
-    weights = round_to_tf32(torch.softmax(logits, dim=-1)).double()
-    return torch.matmul(weights, v).float()
+    if k.shape[1] == 1 and q.shape[1] != 1:
+        k = k.expand(q.shape[:2] + k.shape[2:])
+        v = v.expand(q.shape[:2] + v.shape[2:])
+    logits = _tf32_matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    out = _tf32_matmul(torch.softmax(logits, dim=-1), v)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  bias: Optional[torch.Tensor],
+                                  g: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, scale: float,
+                                  tf32: bool = False):
+    """The plain version of the flash backward: (dq, dk, dv, dbias) from the
+    forward's output and log-sum-exp, recomputing p = exp(s - lse), with the
+    JAX package's roundings (neurons_tpu/ops/attention.py:318-333,
+    :489-507): g cast to q's type, p cast to v's type before p^T g, ds*scale
+    cast to k's type before the dk and dq products, f32 accumulation (f64
+    for f64), dbias from the unscaled ds summed over the bias's broadcast
+    axes and cast to its type. Multi-query k/v [B, 1, Tk, D]: the per-head
+    dk/dv, in k's type, summed over heads in f32. `tf32=True` (f32 input):
+    every product's operands rounded to TF32 and summed in f64, as the
+    kernel's f32 route multiplies."""
+    b, h = q.shape[:2]
+    mq = k.shape[1] == 1 and h > 1
+    acc = torch.promote_types(q.dtype, torch.float32)
+    if tf32:
+        mm = _tf32_matmul
+    else:
+        def mm(x, y):
+            return torch.matmul(x.to(acc), y.to(acc))
+    kx = k.expand(q.shape[:2] + k.shape[2:]) if mq else k
+    vx = v.expand(q.shape[:2] + v.shape[2:]) if mq else v
+    gx = g.to(q.dtype)
+    s = mm(q, kx.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(acc)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    delta = (g.to(acc) * out.to(acc)).sum(-1, keepdim=True)
+    dv = mm(p.to(v.dtype).transpose(-1, -2), gx)
+    ds_u = p * (mm(gx, vx.transpose(-1, -2)) - delta)
+    ds = (ds_u * scale).to(k.dtype)
+    dk = mm(ds.transpose(-1, -2), q)
+    dq = mm(ds, kx)
+    dbias = None
+    if bias is not None:
+        dbias = ds_u.sum_to_size(bias.shape).to(bias.dtype)
+    if mq:
+        dk = dk.to(k.dtype).to(acc).sum(1, keepdim=True)
+        dv = dv.to(v.dtype).to(acc).sum(1, keepdim=True)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def _check_operands(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_fwd takes [B, H, T, D] operands, got "
+        raise ValueError("flash attention takes [B, H, T, D] operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
@@ -104,77 +200,240 @@ def _check_operands(q, k, v):
         raise ValueError("q, k and v lie on different devices")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal attention, q [B, H, Tq, D], k/v [B, H or 1, Tk, D].
+def _check_cuda(q, *others):
+    """The launch's common requirements: a CUDA device, bf16 or f32, unit
+    stride over D."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash attention takes bfloat16 or float32, got "
+                         f"{q.dtype}")
+    if any(t.stride(-1) != 1 for t in (q,) + others):
+        raise ValueError("flash attention needs unit stride over D")
 
-    CUDA tensors launch csrc/flash_attn_fwd.cu (bf16 or f32; any strides
-    over batch, head and token, unit stride over D). CPU tensors compute
-    `attention_reference`."""
+
+def _bias_slices(bias: torch.Tensor, b: int, h: int, tq: int, tk: int,
+                 dtype: torch.dtype):
+    """The bias as [N, Tq, Tk] slices with unit stride over keys, and the
+    kernels' bias mode: 1 = one slice ([Tq, Tk]), 2 = one per head
+    ([H, Tq, Tk], shared over the batch), 3 = one per (b, h)."""
+    if bias.dim() < 2 or bias.dim() > 4 or tuple(bias.shape[-2:]) != (tq, tk):
+        raise ValueError(f"bias {tuple(bias.shape)} is not [..., {tq}, {tk}]")
+    if bias.dtype != dtype or bias.device.type != "cuda":
+        raise ValueError(f"bias must be a CUDA {dtype} tensor, got "
+                         f"{bias.dtype} on {bias.device}")
+    b4 = bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
+    nb, nh = b4.shape[:2]
+    if nb == 1 and nh == 1:
+        mode = 1
+    elif nb == 1 and nh == h:
+        mode = 2
+    elif nb == b and nh == h:
+        mode = 3
+    else:
+        raise ValueError(f"bias {tuple(bias.shape)}: batch/head dims must "
+                         f"be 1 or q's ({b}, {h}), a batch of 1 with heads")
+    b3 = b4.reshape(nb * nh, tq, tk)
+    if b3.stride(-1) != 1:
+        b3 = b3.contiguous()
+    return b3, mode
+
+
+def _vec(d, esize, strides, tensors) -> int:
+    """1 when every row moves in 16-byte loads."""
+    lanes = 16 // esize
+    return int(d % lanes == 0 and all(s % lanes == 0 for s in strides)
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _kv_strides(t, h):  # multi-query k/v: every head reads head 0
+    return (t.stride(0), t.stride(1) if t.shape[1] == h else 0, t.stride(2))
+
+
+def _raise_on(err, lib_error, name, q, k):
+    if err != 0:
+        msg = lib_error(err).decode()
+        raise RuntimeError(f"{name} failed at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype}: CUDA error {err} "
+                           f"({msg})")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        return_lse: bool = False):
+    """Non-causal attention, q [B, H, Tq, D], k/v [B, H or 1, Tk, D], with
+    an optional additive bias [Tq, Tk], [H, Tq, Tk] or [B, H, Tq, Tk] (after
+    the scale). With `return_lse` also the log-sum-exp [B, H, Tq] f32 of the
+    scaled and biased logits (the JAX convention m + log(max(l, 1e-30))).
+
+    CUDA tensors launch csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the
+    same type; any strides over batch, head and token, unit stride over D).
+    CPU tensors compute the plain version."""
     _check_operands(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention_fwd takes bfloat16 or float32, "
-                         f"got {q.dtype}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention_fwd needs unit stride over D")
+        if return_lse:
+            return attention_reference_lse(q, k, v, bias=bias, scale=scale)
+        return attention_reference(q, k, v, bias=bias, scale=scale)
+    _check_cuda(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    esize = q.element_size()
-    lanes = 16 // esize  # elements in one 16-byte load
-
-    def kv_head(t):  # multi-query k/v: every head reads head 0
-        return t.stride(1) if t.shape[1] == h else 0
-
-    strides = (q.stride(0), q.stride(1), q.stride(2),
-               k.stride(0), kv_head(k), k.stride(2),
-               v.stride(0), kv_head(v), v.stride(2))
-    vec = int(d % lanes == 0 and all(s % lanes == 0 for s in strides)
-              and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
-    lib = _library()
+    strides = ((q.stride(0), q.stride(1), q.stride(2))
+               + _kv_strides(k, h) + _kv_strides(v, h))
+    bias_ptr, bias_strides, mode = None, (0, 0), 0
+    if bias is not None:
+        bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
+        bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
+    vec = _vec(d, q.element_size(), strides, (q, k, v))
+    lib = _library("flash_attn_fwd")
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), *strides, b, h, tq, tk, d,
-                                 float(scale), _DTYPE_CODE[q.dtype], vec,
-                                 stream)
-    if err != 0:
-        msg = lib.flash_attn_error_string(err).decode()
-        raise RuntimeError(f"flash_attn_fwd failed at q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {q.dtype}: CUDA error "
-                           f"{err} ({msg})")
-    FLASH_FWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1]))
-    return out
+        err = lib.flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bias_ptr, None if lse is None else lse.data_ptr(), *strides,
+            *bias_strides, mode, b, h, tq, tk, d, float(scale),
+            _DTYPE_CODE[q.dtype], vec, stream)
+    _raise_on(err, lib.flash_attn_error_string, "flash_attn_fwd", q, k)
+    variant = "+".join(["bias"] * (bias is not None) + ["lse"] * return_lse)
+    FLASH_FWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
+                            variant))
+    return (out, lse) if return_lse else out
 
 
-def flash_tiles(d: int, dtype: torch.dtype):
-    """(BQ, BK, shared-memory bytes) the kernel picks at head dim d."""
-    lib = _library()
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor], g: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, scale: float):
+    """Gradients (dq, dk, dv, dbias) of `flash_attention_fwd` from its
+    output and log-sum-exp; dbias is None without a bias. Multi-query k/v
+    get their gradients summed over heads, in f32.
+
+    CUDA tensors launch csrc/flash_attn_bwd.cu: delta = sum(g * out) is
+    taken here in f32, as the JAX package takes it outside its kernel; the
+    kernels write dq in q's type, per-(b, h) dk/dv and dbias in f32, which
+    are summed and cast here. CPU tensors compute
+    `flash_attention_bwd_reference`."""
+    _check_operands(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, bias, g, out, lse,
+                                             scale)
+    _check_cuda(q, k, v)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if tuple(lse.shape) != (b, h, tq) or tuple(g.shape) != (b, h, tq, d):
+        raise ValueError(f"lse {tuple(lse.shape)} / g {tuple(g.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    delta = (g.float() * out.float()).sum(-1).contiguous()
+    lse = lse.float().contiguous()
+    g = g.to(q.dtype).contiguous()
+    strides = ((q.stride(0), q.stride(1), q.stride(2))
+               + _kv_strides(k, h) + _kv_strides(v, h)
+               + (g.stride(0), g.stride(1), g.stride(2)))
+    bias_ptr, bias_strides, mode, dbias = None, (0, 0), 0, None
+    if bias is not None:
+        bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
+        bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
+        dbias = torch.empty(bias3.shape, dtype=torch.float32,
+                            device=q.device)
+    vec = _vec(d, q.element_size(), strides, (q, k, v, g))
+    lib = _library("flash_attn_bwd")
+    dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), *strides,
+            *bias_strides, mode, b, h, tq, tk, d, float(scale),
+            _DTYPE_CODE[q.dtype], vec, stream)
+    _raise_on(err, lib.flash_attn_bwd_error_string, "flash_attn_bwd", q, k)
+    FLASH_BWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
+                            "bias" if bias is not None else ""))
+    if k.shape[1] != h:  # multi-query: the shared row's gradient
+        dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
+    if dbias is not None:
+        dbias = dbias.reshape(bias.shape).to(bias.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the JAX package's custom-VJP
+    `flash_attention`): the forward keeps its output and log-sum-exp, the
+    backward recomputes the probabilities from them. Both passes are pure
+    functions of their inputs, so a checkpointed region may run the forward
+    twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, g, out, lse,
+                                                ctx.scale)
+        return dq, dk, dv, dbias, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """`flash_attention_fwd` under autograd, with `flash_attention_bwd` as
+    its backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, bias, float(scale))
+
+
+def flash_tiles(d: int, dtype: torch.dtype, kernel: str = "flash_attn_fwd"):
+    """(BQ, BK, shared-memory bytes) the forward (or, with kernel=
+    "flash_attn_bwd", the backward) picks at head dim d."""
+    lib = _library(kernel)
     bq, bk, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if not lib.flash_attn_fwd_tiles(d, _DTYPE_CODE[dtype], ctypes.byref(bq),
-                                    ctypes.byref(bk), ctypes.byref(smem)):
+    if not getattr(lib, f"{kernel}_tiles")(d, _DTYPE_CODE[dtype],
+                                           ctypes.byref(bq), ctypes.byref(bk),
+                                           ctypes.byref(smem)):
         raise ValueError(f"no tile fits shared memory at head dim {d}")
     return bq.value, bk.value, smem.value
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(_KERNEL)
+def _library(name: str) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    lib.flash_attn_fwd.argtypes = ([ptr] * 4 + [i64] * 9 + [i32] * 5
-                                   + [ctypes.c_float, i32, i32, ptr])
-    lib.flash_attn_fwd.restype = i32
-    lib.flash_attn_fwd_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
-    lib.flash_attn_fwd_tiles.restype = i32
-    lib.flash_attn_error_string.argtypes = [i32]
-    lib.flash_attn_error_string.restype = ctypes.c_char_p
+    tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]  # B..D, scale, dtype, vec, stream
+    if name == "flash_attn_fwd":
+        lib.flash_attn_fwd.argtypes = ([ptr] * 6 + [i64] * 11 + [i32]
+                                       + tail)
+        lib.flash_attn_fwd.restype = i32
+        lib.flash_attn_error_string.argtypes = [i32]
+        lib.flash_attn_error_string.restype = ctypes.c_char_p
+    else:
+        lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i64] * 14 + [i32]
+                                       + tail)
+        lib.flash_attn_bwd.restype = i32
+        lib.flash_attn_bwd_error_string.argtypes = [i32]
+        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+    tiles = getattr(lib, f"{name}_tiles")
+    tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    tiles.restype = i32
     return lib
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,11 +442,19 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Dispatching attention entry point, [B, H, T, D] layout.
 
-    Unmasked, unbiased attention with Tq, Tk >= 128 takes the flash kernel
-    (on a CUDA tensor; its plain version on a CPU tensor). Short rows,
-    masks and biases take `attention_reference`, as the JAX package routes
-    them to XLA."""
-    if (mask is None and bias is None and q.dim() == 4
-            and q.shape[-2] >= 128 and k.shape[-2] >= 128):
-        return flash_attention_fwd(q, k, v, scale=scale)
+    Unmasked attention with Tq, Tk >= 128 takes the flash kernels (on a
+    CUDA tensor; their plain versions on a CPU tensor): without autograd
+    the forward when there is no bias; when autograd records, the
+    differentiable `flash_attention` when there is no bias or the k/v are
+    multi-query (the JAX package's default routing, ops/attention.py:
+    1105-1129). Everything else takes `attention_reference`, as the JAX
+    package routes it to XLA."""
+    if (mask is None and q.dim() == 4 and q.shape[-2] >= 128
+            and k.shape[-2] >= 128):
+        if _records_grad(q, k, v, bias):
+            multi_query = k.shape[1] == 1 and q.shape[1] != 1
+            if bias is None or multi_query:
+                return flash_attention(q, k, v, bias=bias, scale=scale)
+        elif bias is None:
+            return flash_attention_fwd(q, k, v, scale=scale)
     return attention_reference(q, k, v, bias=bias, mask=mask, scale=scale)

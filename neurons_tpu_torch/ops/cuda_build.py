@@ -2,8 +2,9 @@
 
 Each source `csrc/<name>.cu` exposes a plain C interface and is compiled on
 first use into `_build/lib<name>-<digest>.so` beside the package (the
-directory is listed in .gitignore). The digest is that of the source and
-the flags, so an edited source builds anew and a stale library is never
+directory is listed in .gitignore). The digest is that of the source, the
+shared headers `csrc/*.cuh` and the flags, so an edited source or header
+builds anew and a stale library is never
 loaded. Nothing is built at import time: this module only runs nvcc when a
 kernel is first launched, or when `build` is called to start several
 builds at once.
@@ -61,6 +62,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # every shared header too: an edited header rebuilds each source
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -134,3 +134,110 @@ def test_temporal_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         big = torch.randn((33, 5, 16), device="cuda", dtype=torch.bfloat16)
         ta.temporal_attention(big, big, big, 33, 2, 0.5)
+
+
+# The training kernels: the biased forward with lse (#3, and #1/#2 with
+# lse) and the backward (#4, #5). Oracle: float64 autograd of
+# `attention_reference` on the same (bf16- or f32-valued) inputs. The
+# kernel path (kernel forward, then kernel backward from its out and lse)
+# must be within 1.5x of the plain path's error (plain forward, then
+# `flash_attention_bwd_reference` at the kernel's precision: bf16 roundings
+# as the JAX package's, or TF32 products for f32) for out, lse, dq, dk, dv
+# and dbias. The backward sums in a fixed order (no atomics), so a rerun
+# gives the same bits.
+def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3):
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+    bias = rand(*bias_shape) if bias_shape else None
+    go = rand(b, h, tq, d)
+    scale = d ** -0.5
+    ins = [x.double().requires_grad_() for x in (q, k, v)]
+    bias64 = bias.double().requires_grad_() if bias is not None else None
+    want_out = attn.attention_reference(*ins, bias=bias64, scale=scale)
+    want_lse = torch.logsumexp(attn._logits(ins[0], ins[1], bias64, None,
+                                            scale), -1)
+    wrt = ins + ([bias64] if bias is not None else [])
+    want = dict(zip(("dq", "dk", "dv", "dbias"),
+                    torch.autograd.grad(want_out, wrt, go.double())))
+    want.update(out=want_out.detach(), lse=want_lse.detach())
+
+    fwd0, bwd0 = attn.FLASH_FWD_LAUNCHES.total, attn.FLASH_BWD_LAUNCHES.total
+    out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                        return_lse=True)
+    got = dict(zip(("dq", "dk", "dv", "dbias"), attn.flash_attention_bwd(
+        q, k, v, bias, go, out, lse, scale)), out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert attn.FLASH_FWD_LAUNCHES.total == fwd0 + 1
+    assert attn.FLASH_BWD_LAUNCHES.total == bwd0 + 1
+    again = attn.flash_attention_bwd(q, k, v, bias, go, out, lse, scale)
+    assert all(torch.equal(a, got[n]) for a, n in zip(again, got)
+               if a is not None)
+
+    tf32 = dtype == torch.float32
+    if tf32:
+        pout, plse = attn.attention_reference_tf32(q, k, v, scale, bias,
+                                                   return_lse=True)
+    else:
+        pout, plse = attn.attention_reference_lse(q, k, v, bias, scale)
+    plain = dict(zip(("dq", "dk", "dv", "dbias"),
+                     attn.flash_attention_bwd_reference(
+                         q, k, v, bias, go, pout, plse, scale, tf32=tf32)),
+                 out=pout, lse=plse)
+    for name in want:
+        if bias is None and name == "dbias":
+            continue
+        assert got[name].dtype == (torch.float32 if name == "lse" else dtype)
+        assert got[name].shape == want[name].shape, name
+        err = (got[name].double() - want[name]).abs().max().item()
+        plain_err = (plain[name].double() - want[name]).abs().max().item()
+        print(f"{dtype} [{b},{h},{tq},{tk},{d}] kv heads {hkv} bias "
+              f"{bias_shape} {name}: err {err:.3e}, plain {plain_err:.3e}, "
+              f"ratio {err / plain_err:.3f}")
+        assert err <= 1.5 * plain_err, (name, err, plain_err)
+
+
+# (B, H, Tq, Tk, D, Hkv, bias shape): the prior's layout at a few heads
+# (multi-query, per-head bias, ragged 129 x 130, d = 52), a shared and a
+# per-(b, h) bias, and the decoder's unbiased single head at d = 32, 64, 128
+TRAIN_SHAPES = [
+    (2, 4, 129, 130, 52, 1, (4, 129, 130)),
+    (2, 3, 70, 200, 40, 3, (70, 200)),
+    (2, 2, 100, 90, 64, 2, (2, 2, 100, 90)),
+    (3, 1, 256, 256, 32, 1, None),
+    (2, 1, 200, 150, 64, 1, None),
+    (2, 1, 130, 130, 128, 1, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:6])))
+def test_train_kernels_match_plain(cuda, dtype, shape):
+    _check_train(*shape, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+def test_train_kernels_at_the_prior_shape(cuda):
+    # the prior's [10, 32, 513, 514, 52] multi-query with its per-head bias
+    _check_train(10, 32, 513, 514, 52, 1, (32, 513, 514), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_dispatcher_takes_the_autograd_function_under_grad(cuda):
+    q = torch.randn((1, 2, 128, 16), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 1, 130, 16), device="cuda", dtype=torch.bfloat16)
+    bias = torch.randn((2, 128, 130), device="cuda", dtype=torch.bfloat16)
+    fwd0, bwd0 = attn.FLASH_FWD_LAUNCHES.total, attn.FLASH_BWD_LAUNCHES.total
+    attn.dot_product_attention(q, kv, kv, bias=bias).sum().backward()
+    assert attn.FLASH_FWD_LAUNCHES.total == fwd0 + 1
+    assert attn.FLASH_BWD_LAUNCHES.total == bwd0 + 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    with torch.no_grad():  # inference keeps biased attention plain
+        attn.dot_product_attention(q, kv, kv, bias=bias)
+    assert attn.FLASH_FWD_LAUNCHES.total == fwd0 + 1

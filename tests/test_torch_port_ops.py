@@ -311,6 +311,7 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.models.neurons\n"
             "import neurons_tpu_torch.interop.from_jax\n"
             "import neurons_tpu_torch.utils.synth_init\n"
+            "import neurons_tpu_torch.training.loop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'neurons_tpu')]\n"
             "assert not bad, bad\n")
