@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of stages 3 and 5 (inference) and stage 2
-(training) on one CUDA card and hold its kernels against their plain
-PyTorch versions.
+(training) on one CUDA card, in the default configuration and in the
+fused-norm one, and hold its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
+
+The fused-norm configuration is the JAX package's: NEURONS_TPU_FUSED_NORM=1
+(every GroupNorm+SiLU through kernel #7, csrc/gn_silu.cu) and
+NEURONS_TPU_FUSED_GNCONV=1 (the res blocks' GN -> SiLU -> 3x3 conv pairs
+through kernel #8, csrc/gn_silu_conv.cu). The script sets and unsets both
+itself, whatever the environment holds.
 
 Phases, in order:
   1. the card's name and power limit (nvidia-smi), then the build of every
@@ -26,27 +32,32 @@ Phases, in order:
      forward, then `flash_attention_bwd_reference` at the kernel's
      precision); library = scaled_dot_product_attention forward (+
      backward), the float bias as attn_mask;
-  3. small check: the tiny stage-3 pipeline (f32, attention sites of 256
-     and 1024 tokens, so the flash kernel runs) and the tiny stage-5
-     `reconstruct_video` (16x16 latents: flash at 256 tokens, the temporal
-     kernel at every level) on the card against the same pipelines on the
-     CPU, where every attention is the plain version; and one f32 stage-2
-     train step of the tiny config widened to 64 CLIP tokens (the prior's
-     129 x 130 and the decoder's 256 and 1024 tokens take both kernels) on
-     the card against the CPU, the same weights, batch, draws and dropout
-     masks: the seven losses and every trainable gradient;
+  3. small check, unfused then fused: the tiny stage-3 pipeline (f32,
+     attention sites of 256 and 1024 tokens, so the flash kernel runs) and
+     the tiny stage-5 `reconstruct_video` (16x16 latents: flash at 256
+     tokens, the temporal kernel at every level) on the card against the
+     same pipelines on the CPU, where every attention is the plain version;
+     and one f32 stage-2 train step of the tiny config widened to 64 CLIP
+     tokens (the prior's 129 x 130 and the decoder's 256 and 1024 tokens
+     take both kernels) on the card against the CPU, the same weights,
+     batch, draws and dropout masks: the seven losses and every trainable
+     gradient. Fused, #7 and #8 run on the card under the same gates;
   4. slice phase: the full-width clip (`PipelineConfig()`, `GPT2Config()`,
      `CLIPTextConfig.sd15()`) in bf16 with seeded random weights: stage 3
      (`reconstruct_keyframes(enhance=True)`, the blurry-video decode and
      the 256-px artifact resize) then stage 5 (SD-1.5 text tower, 25-step
      CFG-8.5 DDIM through UNet3D + SparseCtrl over 16 frames of 32x32
-     latents, VAE decode) for 2 voxel requests one at a time; the kernels'
-     launch counts are zeroed just before and read just after;
-  5. profile: one more clip under torch.profiler (device activity only),
-     outside the counted run: its wall time and the device's busy time
-     (the sum of kernel and copy times) in the same run, the idle share
-     they give, each kernel's share of busy time, and the top kernels;
-  6. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
+     latents, VAE decode) for 2 voxel requests one at a time, unfused and
+     then fused on the same models and seeds; the kernels' launch counts
+     are zeroed just before and read just after each, #7/#8 held to the
+     count from the code. After each, one more clip under torch.profiler
+     (device activity only), outside the counted run: its wall time and
+     the device's busy time (the sum of kernel and copy times) in the same
+     run, the idle share they give, each kernel's share of busy time, and
+     the top kernels. Then one full-width UNet2D and one UNet3D forward,
+     fused and unfused in bf16 on the same input against the same forward
+     in f32 (the fused error within 1.5x the unfused one);
+  5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
      schedule, the core held in bf16) with seeded random weights and random
      batches at the real tables' shapes: a short `training/loop.py:
@@ -55,7 +66,14 @@ Phases, in order:
      `make_stage2_train_step` on one fixed batch and draws (ms/step, peak
      memory, launches per step against the count predicted from the code,
      the loss falling, the core bitwise unchanged, the trainable weights
-     moved), then one more step under torch.profiler.
+     moved), then one more step under torch.profiler; then the same fixed
+     steps fused (#7 launches per step against the count from the code,
+     the first step's losses within 2e-2 of the unfused first step's) and
+     one fused step under the profiler;
+  6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip and
+     the fused step launched, against float64 on the same inputs by the
+     1.5x rule; times: kernel, plain version, the library composite
+     (`F.silu(F.group_norm(...))`, then `F.conv2d` for #8) and the bound.
 The last two lines are the kernels' JSON record and the device JSON. Any
 failure raises and exits non-zero; without CUDA the script exits 2 before
 printing anything.
@@ -111,6 +129,50 @@ TEMPORAL_F32_CHECKS = ["motion 32x32"]
 
 def log(msg):
     print(msg, flush=True)
+
+
+# the fused-norm configuration's two switches (ops/fused_norm.py,
+# ops/fused_conv.py), the JAX package's names
+SWITCHES = ("NEURONS_TPU_FUSED_NORM", "NEURONS_TPU_FUSED_GNCONV")
+
+
+@contextlib.contextmanager
+def configuration(fused: bool):
+    """Both switches "1" (the fused-norm configuration) or both unset (the
+    default), whatever the caller's environment held; restored after."""
+    import os
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        if fused:
+            os.environ[k] = "1"
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def config_name(fused: bool) -> str:
+    return "fused" if fused else "unfused"
+
+
+def gn_counters():
+    from neurons_tpu_torch.ops.fused_conv import GN_SILU_CONV_LAUNCHES
+    from neurons_tpu_torch.ops.fused_norm import GN_SILU_LAUNCHES
+    return {"gn_silu": GN_SILU_LAUNCHES, "gn_silu_conv": GN_SILU_CONV_LAUNCHES}
+
+
+def gn_sites(module) -> int:
+    """GroupNormSiLU modules in `module`: each runs once per forward, as
+    kernel #7 or, where its res block fuses it with the conv after it,
+    #8."""
+    from neurons_tpu_torch.ops.fused_norm import GroupNormSiLU
+    return sum(isinstance(m, GroupNormSiLU) for m in module.modules())
 
 
 def card_line() -> str:
@@ -487,13 +549,16 @@ def build_video_models(pcfg, text_cfg, device, dtype, seed):
     return text, unet3d, cn
 
 
-def small_check():
+def small_check(fused: bool = False):
     """The tiny stage-3 pipeline on the card (kernel at the 256-token UNet
     and 1024-token VAE sites) against the CPU (plain attention), f32, the
     same weights and draws. The card's attention multiplies in TF32
     (relative 2^-11); three CFG-5 Euler steps and the decoder carry that
     into the pixels, hence 2e-2 * max |CPU| on keyframes; the prior
-    (no kernel) is held to 1e-3, captions and argmax to equality."""
+    (no kernel) is held to 1e-3, captions and argmax to equality. `fused`:
+    in the fused-norm configuration (the caller sets it), where the UNet's
+    norm/conv pairs take #8 (TF32 products) and the VAE's and decoder's
+    norms #7, under the same gates."""
     import copy
 
     import torch
@@ -527,6 +592,7 @@ def small_check():
                            pcfg.decoupler.clip_txt_emb_dim), generator=g)
     outs = {}
     before = FLASH_FWD_LAUNCHES.total
+    gn0 = {k: c.total for k, c in gn_counters().items()}
     for dev, models in (("cpu", cpu), ("cuda", gpu)):
         outs[dev] = kf.reconstruct_keyframes(
             *models, voxel, class_text_embeds=classes,
@@ -534,6 +600,7 @@ def small_check():
             caption_len=8, noise=noise,
             device=dev)
     launched = FLASH_FWD_LAUNCHES.total - before
+    gn = {k: c.total - gn0[k] for k, c in gn_counters().items()}
     ref, got = outs["cpu"], outs["cuda"]
 
     def rel(name):
@@ -544,16 +611,18 @@ def small_check():
     same_caps = torch.equal(got.captions.cpu(), ref.captions)
     same_cls = torch.equal(got.cls_logits.argmax(-1).cpu(),
                            ref.cls_logits.argmax(-1))
-    log(f"small check: kernel launches {launched}, keyframes rel err "
-        f"{kf_err:.3e} (<= 2e-2), prior tokens {prior_err:.3e} (<= 1e-3), "
-        f"captions equal {same_caps}, class argmax equal {same_cls}")
+    log(f"small check ({config_name(fused)}): kernel launches {launched}, "
+        f"{gn}, keyframes rel err {kf_err:.3e} (<= 2e-2), prior tokens "
+        f"{prior_err:.3e} (<= 1e-3), captions equal {same_caps}, class "
+        f"argmax equal {same_cls}")
     if not (launched > 0 and kf_err <= 2e-2 and prior_err <= 1e-3
-            and same_caps and same_cls):
+            and same_caps and same_cls
+            and all((v > 0) == fused for v in gn.values())):
         raise AssertionError("tiny pipeline on the card disagrees with the "
                              "CPU plain version")
 
 
-def small_video_check():
+def small_video_check(fused: bool = False):
     """Tiny stage 5 (`reconstruct_video`, 3 DDIM steps, 4 frames of 16x16
     latents) on the card against the CPU, f32, the same weights, inputs
     and init noise: the flash kernel runs at the 256-token level-0
@@ -562,7 +631,9 @@ def small_video_check():
     2^-11) and CFG 8.5 multiplies the difference of the two halves' eps by
     8.5 at each of three steps before the decoder, hence 2e-2 * max |CPU|
     on latents and video, as for the stage-3 keyframes; the temporal
-    kernel alone is exact f32."""
+    kernel alone is exact f32. `fused`: in the fused-norm configuration
+    (the UNet3D's and SparseCtrl's norm/conv pairs take #8, the VAE's
+    norms #7), under the same gates."""
     import copy
 
     import torch
@@ -592,6 +663,7 @@ def small_video_check():
     noise = torch.randn((b, 4, f, px // 2, px // 2), generator=g)
     outs = {}
     flash0, temporal0 = FLASH_FWD_LAUNCHES.total, TEMPORAL_ATTN_LAUNCHES.total
+    gn0 = {k: c.total for k, c in gn_counters().items()}
     for dev, (vae, unet3d, cn) in (("cpu", cpu), ("cuda", gpu)):
         outs[dev] = reconstruct_video(
             unet3d, cn, vae, blurry, keyframe, text, uncond,
@@ -599,6 +671,7 @@ def small_video_check():
             device=dev)
     flash = FLASH_FWD_LAUNCHES.total - flash0
     temporal = TEMPORAL_ATTN_LAUNCHES.total - temporal0
+    gn = {k: c.total - gn0[k] for k, c in gn_counters().items()}
     ref, got = outs["cpu"], outs["cuda"]
 
     def rel(name):
@@ -606,11 +679,12 @@ def small_video_check():
         return ((a - r).abs().max() / r.abs().max()).item()
 
     lat_err, vid_err = rel("latents"), rel("video")
-    log(f"small video check: flash launches {flash}, temporal launches "
-        f"{temporal}, latents rel err {lat_err:.3e} (<= 2e-2), video rel err "
-        f"{vid_err:.3e} (<= 2e-2)")
+    log(f"small video check ({config_name(fused)}): flash launches {flash}, "
+        f"temporal launches {temporal}, {gn}, latents rel err {lat_err:.3e} "
+        f"(<= 2e-2), video rel err {vid_err:.3e} (<= 2e-2)")
     if not (flash > 0 and temporal > 0 and lat_err <= 2e-2
-            and vid_err <= 2e-2):
+            and vid_err <= 2e-2
+            and all((v > 0) == fused for v in gn.values())):
         raise AssertionError("tiny stage 5 on the card disagrees with the "
                              "CPU plain version")
 
@@ -639,7 +713,64 @@ def flash_plain_at_tf32():
         attn.flash_attention_fwd, attn.flash_attention_bwd = fwd, bwd
 
 
-def small_train_check():
+@contextlib.contextmanager
+def gn_plain_in_f64():
+    """On the CPU, the GroupNorm+SiLU plain version computed in float64 and
+    rounded once to its input type (forward, and the recompute the
+    autograd Function differentiates)."""
+    from neurons_tpu_torch.ops import fused_norm as fn
+
+    ref = fn.group_norm_silu_reference
+
+    def f64(x, weight, bias, groups, eps=1e-5):
+        return ref(x.double(), weight.double(), bias.double(), groups,
+                   eps).to(x.dtype)
+
+    fn.group_norm_silu_reference = f64
+    try:
+        yield
+    finally:
+        fn.group_norm_silu_reference = ref
+
+
+@contextlib.contextmanager
+def train_step_in_f64():
+    """On the CPU, every module call of the stage-2 step in float64: the f32
+    masters, inputs and outputs cast to it, the plain attention and
+    GroupNorm computing in it, each gradient rounded once to its f32
+    master. Its gradients are the step's without f32 rounding."""
+    import torch
+    from torch.func import functional_call
+    from neurons_tpu_torch.training import train_decoupler as td
+
+    caller = td._module_caller
+
+    def cast(x):
+        return (x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x)
+
+    def f64_caller(model, params, bf16):
+        weights = {n: p.double() for n, p in params.items()}
+
+        def call(sub, *args, **kw):
+            prefix = sub + "."
+            out = functional_call(
+                model.get_submodule(sub),
+                {n[len(prefix):]: w for n, w in weights.items()
+                 if n.startswith(prefix)},
+                tuple(cast(a) for a in args), kw)
+            return tuple(map(cast, out)) if isinstance(out, tuple) else cast(out)
+
+        return call
+
+    td._module_caller = f64_caller
+    try:
+        yield
+    finally:
+        td._module_caller = caller
+
+
+def small_train_check(fused: bool = False):
     """One f32 stage-2 train step of the tiny config with 64 CLIP tokens
     (the prior attends 129 queries over 130 keys, the decoder reaches 256
     and 1024 tokens, so every training kernel runs) on the card against the
@@ -653,7 +784,18 @@ def small_train_check():
     losses to 2e-3 of the TF32 CPU step's; each trainable gradient's
     distance to it (its max difference over its scale: its largest value,
     at least 1e-4 of the largest gradient of all) to 3x its sensitivity
-    plus 1e-3 (f32 summation order)."""
+    plus 1e-3 (f32 summation order). `fused`: in the fused-norm
+    configuration (the decoder's norms take #7 forward, the plain
+    composite backward; nothing of the step routes to #8), under the same
+    gates; #7 sums the GroupNorm statistics in another order than the CPU,
+    so a third CPU step, at TF32 with the GroupNorm computed in float64
+    and rounded once (`gn_plain_in_f64`), gives each gradient's
+    sensitivity to that rounding too, and the larger of the two counts.
+    (A gradient that vanishes in exact arithmetic, such as a key bias
+    under softmax, is rounding noise that any reordering moves.) The three
+    gradients nearest their gate are logged with their size in each step
+    and in a CPU step computed in float64 (`train_step_in_f64`), which
+    shows which of them vanish."""
     import copy
 
     import torch
@@ -723,10 +865,16 @@ def small_train_check():
     plain = run(*cpu_init(), draws, batch)
     with flash_plain_at_tf32():
         oracle = run(*cpu_init(), draws, batch)
+    perturbed = [plain]
+    if fused:
+        with flash_plain_at_tf32(), gn_plain_in_f64():
+            perturbed.append(run(*cpu_init(), draws, batch))
     launches0 = (attn.FLASH_FWD_LAUNCHES.total, attn.FLASH_BWD_LAUNCHES.total)
+    gn0 = {k: c.total for k, c in gn_counters().items()}
     got = run(gpu_bundle, gpu_state, gpu_draws, gpu_batch)
     fwd = attn.FLASH_FWD_LAUNCHES.total - launches0[0]
     bwd = attn.FLASH_BWD_LAUNCHES.total - launches0[1]
+    gn = {k: c.total - gn0[k] for k, c in gn_counters().items()}
 
     # a gradient's scale: its largest value, at least 1e-4 of the largest
     # of all (one that vanishes in exact arithmetic is rounding noise)
@@ -738,21 +886,45 @@ def small_train_check():
 
     loss_err = max(abs(got[0][k] - oracle[0][k]) / abs(oracle[0][k])
                    for k in td.LOSS_TERMS)
-    rows = [(dist(got, oracle, n), dist(plain, oracle, n), n)
+    rows = [(dist(got, oracle, n),
+             max(dist(p, oracle, n) for p in perturbed), n)
             for n in oracle[1]]
     bad = [r for r in rows if r[0] > 3 * r[1] + 1e-3]
     worst = max(rows)
     ratio = max(r[0] / (3 * r[1] + 1e-3) for r in rows)
-    log(f"small train check: flash forward launches {fwd}, backward "
-        f"launches {bwd}; losses rel err {loss_err:.3e} (<= 2e-3) against "
+    log(f"small train check ({config_name(fused)}): flash forward launches "
+        f"{fwd}, backward launches {bwd}, {gn}; losses rel err "
+        f"{loss_err:.3e} (<= 2e-3) against "
         f"the CPU at TF32; gradients: largest distance {worst[0]:.3e} "
-        f"({worst[2]}, its TF32 sensitivity {worst[1]:.3e}), largest "
+        f"({worst[2]}, its sensitivity {worst[1]:.3e}), largest "
         f"distance / (3 x sensitivity + 1e-3) {ratio:.3f} (<= 1); losses "
         "card/CPU " + " ".join(f"{k} {got[0][k]:.5f}/{oracle[0][k]:.5f}"
                                for k in td.LOSS_TERMS))
+    # the three gradients nearest their gate, their size in each step and
+    # in one more CPU step computed in float64
+    steps = {"card": got, "CPU f32": plain, "CPU TF32": oracle}
+    if fused:
+        steps["CPU TF32 + float64 GroupNorm"] = perturbed[-1]
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    with train_step_in_f64():
+        steps["CPU float64"] = run(
+            *cpu_init(),
+            td.Stage2Draws(PriorDraws(*map(f64, draws.prior)),
+                           DecoderDropout(*map(f64, draws.dropout))),
+            {k: f64(v) for k, v in batch.items()})
+    for r in sorted(rows, key=lambda r: r[0] / (3 * r[1] + 1e-3))[-3:]:
+        log(f"  {r[2]}: distance / gate {r[0] / (3 * r[1] + 1e-3):.3f}, "
+            "max |gradient| " + ", ".join(
+                f"{k} {v[1][r[2]].abs().max().item():.3e}"
+                for k, v in steps.items())
+            + f"; the largest gradient of all {floor / 1e-4:.3e}")
     if bad:
         log(f"  gradients beyond it: {bad[:10]}")
-    if not (fwd > 0 and bwd > 0 and loss_err <= 2e-3 and not bad):
+    if not (fwd > 0 and bwd > 0 and loss_err <= 2e-3 and not bad
+            and (gn["gn_silu"] > 0) == fused and gn["gn_silu_conv"] == 0):
         raise AssertionError("the tiny train step on the card disagrees "
                              "with the CPU plain version")
 
@@ -844,29 +1016,63 @@ def clip_checks(art, vid):
     }
 
 
-def slice_phase(n_requests: int = 2):
-    """The full-width clip for `n_requests` requests, one at a time.
-    Returns ({kernel: launches by shape}, the request's context, the last
-    request's s)."""
+def build_clip():
+    """The full-width clip's models (stage 3's and stage 5's), bf16, seeded
+    random weights. Returns (models, pipeline config)."""
     import torch
     from neurons_tpu_torch import config
     from neurons_tpu_torch.models.clip import CLIPTextConfig
     from neurons_tpu_torch.models.gpt2 import GPT2Config
-    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
-    from neurons_tpu_torch.ops.temporal_attention import \
-        TEMPORAL_ATTN_LAUNCHES
 
     t0 = time.perf_counter()
     pcfg = config.PipelineConfig()
     models = build_models((pcfg, GPT2Config()), "cuda", torch.bfloat16, SEED)
     models += build_video_models(pcfg, CLIPTextConfig.sd15(), "cuda",
                                  torch.bfloat16, SEED)
-    dec, unet, vae, text, unet3d, cn = models
     torch.cuda.synchronize()
     n_params = [sum(p.numel() for p in m.parameters()) for m in models]
     log(f"slice: built full-width models ({sum(n_params) / 1e9:.3f} B "
         f"params, bf16, of which stage 5's own {sum(n_params[3:]) / 1e9:.3f}"
         f" B) in {time.perf_counter() - t0:.1f} s")
+    return models, pcfg
+
+
+def clip_gn_launches(models, pcfg, fused: bool):
+    """#7 and #8 launches of one clip, counted from the code: in the
+    fused-norm configuration every res-block norm/conv pair of the unCLIP
+    UNet (and its head) runs #8 at each of `unclip_steps` calls, those of
+    UNet3D and SparseCtrl at each of `video_steps` calls; every other
+    GroupNormSiLU runs #7: the VAE decoder's 1 + n_frames + 1 calls (the
+    keyframe, the blurry frames one at a time, the 16 video frames in one
+    chunk), its encoder's 2 (the interpolated blurry video, the keyframe)
+    and the seg/blurry decoder's 2 (the seg masks, the blurry latents).
+    Unfused, neither kernel runs."""
+    if not fused:
+        return {"gn_silu": 0, "gn_silu_conv": 0}
+    dec, unet, vae, _, unet3d, cn = models
+    s = pcfg.sampler
+    vae_decodes = 1 + pcfg.decoupler.n_frames + 1
+    return {"gn_silu": (gn_sites(vae.decoder) * vae_decodes
+                        + gn_sites(vae.encoder) * 2
+                        + gn_sites(dec.text_seg_dec) * 2),
+            "gn_silu_conv": (gn_sites(unet) * s.unclip_steps
+                             + (gn_sites(unet3d) + gn_sites(cn))
+                             * s.video_steps)}
+
+
+def clip_run(models, pcfg, fused: bool, n_requests: int = 2):
+    """`n_requests` full-width clips one at a time in one configuration (the
+    caller sets it), the same seeds in either; the kernels' launch counts
+    zeroed just before and read just after, #7/#8 held to the count from
+    the code. Returns ({kernel: launches by shape}, the request context,
+    the last request's s)."""
+    import torch
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from neurons_tpu_torch.ops.temporal_attention import \
+        TEMPORAL_ATTN_LAUNCHES
+
+    name = config_name(fused)
+    dec, unet, vae, text, unet3d, cn = models
     g = torch.Generator("cuda").manual_seed(SEED)
     classes = torch.randn((pcfg.decoupler.num_classes,
                            pcfg.decoupler.clip_txt_emb_dim), generator=g,
@@ -879,7 +1085,8 @@ def slice_phase(n_requests: int = 2):
                         "text tower": text, "unet3d": unet3d,
                         "sparsectrl": cn})
     counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
-                "temporal_attn_fwd": TEMPORAL_ATTN_LAUNCHES}
+                "temporal_attn_fwd": TEMPORAL_ATTN_LAUNCHES, **gn_counters()}
+    expected = clip_gn_launches(models, pcfg, fused)
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
@@ -890,26 +1097,128 @@ def slice_phase(n_requests: int = 2):
         split = timer.take()
         launches = {k: c.total - launched0[k] for k, c in counters.items()}
         split_s = " ".join(f"{k}={v:.3f}" for k, v in split.items())
-        log(f"slice request {r}: {s3 + s5:.3f} s per clip (stage 3 "
+        log(f"slice {name} request {r}: {s3 + s5:.3f} s per clip (stage 3 "
             f"{s3:.3f} s, stage 5 {s5:.3f} s)  launches {launches}  device "
             f"split (s): {split_s}")
         failed = [k for k, ok in clip_checks(art, vid).items() if not ok]
         if failed:
             raise AssertionError(f"slice outputs fail {failed}")
+        got = {k: launches[k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"{name} clip: #7/#8 launches {got} differ "
+                                 f"from the count from the code {expected}")
         per_request.append(s3 + s5)
     by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
     timer.close()
     peak = torch.cuda.max_memory_allocated()
     totals = {k: c.total for k, c in counters.items()}
     per_clip = {k: v / n_requests for k, v in totals.items()}
-    log(f"slice: {n_requests} requests, s/clip "
+    log(f"slice {name}: {n_requests} requests, s/clip "
         f"{[round(s, 3) for s in per_request]}, launches {totals} "
-        f"({per_clip} per clip), max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB")
-    for kernel, total in totals.items():
-        if total == 0:
-            raise AssertionError(f"the main path launched no {kernel}")
+        f"({per_clip} per clip; #7/#8 as counted from the code: "
+        f"{expected}), max_memory_allocated {peak / 2**30:.2f} GiB")
+    for kernel in ("flash_attn_fwd", "temporal_attn_fwd", *(
+            k for k in expected if fused)):
+        if totals[kernel] == 0:
+            raise AssertionError(f"the {name} clip launched no {kernel}")
     return by_shape, ctx, per_request[-1]
+
+
+def slice_phase():
+    """The full-width clip in both configurations on the same models and
+    seeds: unfused, then fused, each 2 counted requests and 1 profiled;
+    then one UNet2D and one UNet3D forward in both. Returns {fused:
+    {kernel: launches by shape}}."""
+    import torch
+
+    models, pcfg = build_clip()
+    by_config = {}
+    for fused in (False, True):
+        with configuration(fused):
+            by_shape, ctx, steady_s = clip_run(models, pcfg, fused)
+            profile_request(ctx, steady_s, fused)
+        by_config[fused] = by_shape
+        del ctx
+    fused_forward_check(models, pcfg)
+    del models
+    torch.cuda.empty_cache()
+    return by_config
+
+
+@contextlib.contextmanager
+def flash_plain_f32():
+    """The flash forward's plain version in full f32 on the card (the
+    kernel's f32 route multiplies in TF32)."""
+    from neurons_tpu_torch.ops import attention as attn
+
+    fwd = attn.flash_attention_fwd
+
+    def plain(q, k, v, scale=None, bias=None, return_lse=False):
+        return attn.attention_reference(q, k, v, bias=bias, scale=scale)
+
+    attn.flash_attention_fwd = plain
+    try:
+        yield
+    finally:
+        attn.flash_attention_fwd = fwd
+
+
+def fused_forward_check(models, pcfg):
+    """One full-width UNet2D forward (the unCLIP CFG batch at 96x96
+    latents) and one UNet3D forward (16 frames of 32x32, CFG batch) on the
+    same inputs, unfused and fused in bf16, both against the same forward
+    in f32 (a copy of the weights, plain f32 attention, no TF32): the fused
+    error within 1.5x the unfused one, the rule the kernels are held to.
+    Their gap to each other is printed beside it: two bf16 paths that
+    round in other places (the kernel adds the conv bias before rounding,
+    the composite after) drift apart through the network, and the gap
+    says nothing of which one is off."""
+    import copy
+
+    import torch
+
+    _, unet, _, _, unet3d, _ = models
+    g = torch.Generator("cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    u2, u3 = pcfg.unet2d, pcfg.unet3d
+    t2 = torch.full((2,), 500.0, device="cuda")
+    cases = {
+        "unet2d": (unet, (randn(2, u2.in_channels, 96, 96), t2,
+                          randn(2, 256, u2.context_dim),
+                          randn(2, u2.adm_in_channels))),
+        "unet3d": (unet3d, (randn(2, u3.in_channels,
+                                  pcfg.sampler.n_video_frames, 32, 32), t2,
+                            randn(2, 77, u3.cross_attention_dim))),
+    }
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, (net, args) in cases.items():
+        outs = {}
+        for fused in (False, True):
+            with configuration(fused), torch.inference_mode():
+                outs[fused] = net(*args).float()
+        net32 = copy.deepcopy(net).float()
+        with configuration(False), flash_plain_f32(), torch.inference_mode():
+            ref = net32(*(a.float() for a in args))
+        del net32
+        torch.cuda.empty_cache()
+        scale = ref.abs().max()
+        err = {f: ((o - ref).abs().max() / scale).item()
+               for f, o in outs.items()}
+        gap = ((outs[True] - outs[False]).abs().max()
+               / outs[False].abs().max()).item()
+        ok = (bool(torch.isfinite(outs[True]).all())
+              and err[True] <= 1.5 * err[False])
+        log(f"fused forward {name} {list(args[0].shape)}: max error / max "
+            f"|f32| fused {err[True]:.3e}, unfused {err[False]:.3e} (fused "
+            f"<= 1.5x unfused); fused vs unfused gap {gap:.3e}  "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the fused {name} forward is less accurate "
+                                 f"than the unfused one: {err}")
 
 
 def device_profile(prof, wall: float, what: str, kernels):
@@ -931,8 +1240,9 @@ def device_profile(prof, wall: float, what: str, kernels):
         return
     busy = sum(dev_us(e) for e in events) / 1e6
     shares = []
-    for kernel, symbol in kernels.items():
-        sec = sum(dev_us(e) for e in events if symbol in e.key) / 1e6
+    for kernel, symbols in kernels.items():
+        sec = sum(dev_us(e) for e in events
+                  if any(sym in e.key for sym in symbols)) / 1e6
         shares.append(f"{kernel} kernel {sec:.3f} s ({sec / busy:.3f} of "
                       f"busy)")
     log(f"profile: {what}: wall {wall:.3f} s under the profiler, device "
@@ -942,7 +1252,19 @@ def device_profile(prof, wall: float, what: str, kernels):
         log(f"  {dev_us(e) / 1e3:10.2f} ms {e.count:6d}x  {e.key[:100]}")
 
 
-def profile_request(ctx, steady_s: float):
+# {label: kernel symbols} whose share of busy time a profile reports; the
+# GroupNorm statistics kernels carry a prefix of the library that launched
+# them (csrc/gn_common.cuh)
+GN_SILU_SYMBOLS = ("gn_silu_stats", "gn_silu_apply_kernel")
+PROFILE_KERNELS = {"flash": ("flash_fwd_kernel",),
+                   "temporal": ("temporal_fwd_kernel",),
+                   "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS,
+                   "gn_silu_conv #8 (statistics + conv)": (
+                       "gn_conv_stats", "gn_silu_conv_kernel"),
+                   "#8 statistics": ("gn_conv_stats",)}
+
+
+def profile_request(ctx, steady_s: float, fused: bool):
     """One more clip, after the counted run, under torch.profiler with
     device activity only: its wall time and the device's busy time come
     from the same run. `steady_s` is the unprofiled steady clip's time,
@@ -952,10 +1274,9 @@ def profile_request(ctx, steady_s: float):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, s3, s5 = clip_request(*ctx)
     device_profile(prof, s3 + s5,
-                   f"clip (stage 3 {s3:.3f} s, stage 5 {s5:.3f} s; "
-                   f"unprofiled steady clip {steady_s:.3f} s)",
-                   {"flash": "flash_fwd_kernel",
-                    "temporal": "temporal_fwd_kernel"})
+                   f"{config_name(fused)} clip (stage 3 {s3:.3f} s, stage 5 "
+                   f"{s5:.3f} s; unprofiled steady clip {steady_s:.3f} s)",
+                   PROFILE_KERNELS)
 
 
 # launches of one full-width stage-2 step, counted from the code: the
@@ -1039,9 +1360,10 @@ def table_shaped_builder(pcfg, vocab, seed):
 
 
 def train_phase():
-    """Stage 2 at full width: a short `run_stage2` (the counted run), then
-    the fixed-batch timed steps and one profiled step. Returns {kernel:
-    launches by shape} of the counted run."""
+    """Stage 2 at full width, unfused: a short `run_stage2` (the counted
+    run), then the fixed-batch timed steps and one profiled step; then the
+    same steps fused (`fused_train_steps`). Returns ({kernel: launches by
+    shape} of the counted run, the same of the fused steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch import config
@@ -1119,6 +1441,8 @@ def train_phase():
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         per_step.append({k: dict(c.by_shape) for k, c in counters.items()})
+        if i == 0:
+            first = {k: float(metrics[k]) for k in ("loss",) + td.LOSS_TERMS}
     peak = torch.cuda.max_memory_allocated()
     steady_ms = 1e3 * sum(times[1:]) / 3
     core_same = all(torch.equal(p, core0[n]) for n, p in state.params.items()
@@ -1150,18 +1474,192 @@ def train_phase():
         torch.cuda.synchronize()
     device_profile(prof, time.perf_counter() - t0,
                    f"stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
-                   {"flash forward": "flash_fwd_kernel",
-                    "flash backward dk/dv": "flash_bwd_dkdv_kernel",
-                    "flash backward dq": "flash_bwd_dq_kernel"})
-    del state, bundle, core0, train0
+                   {"flash forward": ("flash_fwd_kernel",),
+                    "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
+                    "flash backward dq": ("flash_bwd_dq_kernel",)})
+    del state, bundle, core0, train0, step
     torch.cuda.empty_cache()
-    return by_shape
+    with configuration(True):
+        fused_by_shape = fused_train_steps(pcfg, gcfg, tcfg, spe, batch,
+                                           draws, first, steady_ms)
+    return by_shape, fused_by_shape
+
+
+def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
+                      unfused_ms):
+    """The fixed-batch steps in the fused-norm configuration (the caller
+    sets it): the same seeded weights, batch and draws as the unfused
+    steps; 1 warm-up and 3 timed steps, each held to the #7 launches
+    counted from the code (every GroupNormSiLU of the model, all in the
+    checkpointed DecoderVideo head, runs in 2 calls, each forward twice;
+    no #8), the first step's losses to 2e-2 of the unfused first step's;
+    then one profiled step. Returns {kernel: launches by shape} of the 4
+    steps."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch.training import train_decoupler as td
+
+    bundle, state = td.init_stage2(pcfg.brain, pcfg.prior, pcfg.decoupler,
+                                   tcfg, gcfg, spe, seed=SEED)
+    bundle.model.core.to(torch.bfloat16)
+    state = state._replace(params=dict(bundle.model.named_parameters()))
+    step = td.make_stage2_train_step(bundle, tcfg, pcfg.decoupler, spe)
+    counters = gn_counters()
+    expected = {"gn_silu": 4 * gn_sites(bundle.model), "gn_silu_conv": 0}
+    by_shape = {k: collections.Counter() for k in counters}
+    times, per_step, losses = [], [], []
+    for i in range(4):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws, batch, 0, i, tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: c.total for k, c in counters.items()})
+        for k, c in counters.items():
+            by_shape[k].update(c.by_shape)
+        if i == 0:
+            first = {k: float(metrics[k]) for k in unfused_first}
+    steady_ms = 1e3 * sum(times[1:]) / 3
+    loss_err = {k: abs(first[k] - v) / abs(v) for k, v in unfused_first.items()}
+    launches_ok = all(s == expected for s in per_step)
+    log(f"train steps (fused): ms/step {[round(1e3 * t, 1) for t in times]} "
+        f"(steady {steady_ms:.1f}; unfused steady {unfused_ms:.1f}); loss "
+        f"{[round(x, 4) for x in losses]}; launches per step {per_step[-1]} "
+        f"(as counted from the code {expected}: {launches_ok}); first-step "
+        f"losses fused/unfused " + " ".join(
+            f"{k} {first[k]:.5f}/{v:.5f}" for k, v in unfused_first.items())
+        + f"; largest rel diff {max(loss_err.values()):.3e} (<= 2e-2)")
+    if not launches_ok:
+        raise AssertionError(f"fused launches per step {per_step} differ "
+                             f"from the count from the code {expected}")
+    if max(loss_err.values()) > 2e-2 or not losses[-1] < losses[0]:
+        raise AssertionError("the fused train steps fail their checks")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, draws, batch, 0, 4, tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+    device_profile(prof, time.perf_counter() - t0,
+                   f"fused stage-2 step (unprofiled steady {steady_ms:.1f} "
+                   f"ms)",
+                   {"flash forward": ("flash_fwd_kernel",),
+                    "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
+                    "flash backward dq": ("flash_bwd_dq_kernel",),
+                    "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS})
+    del state, bundle, step
+    torch.cuda.empty_cache()
+    return {k: dict(v) for k, v in by_shape.items()}
+
+
+# f32 operations an element of GroupNorm+SiLU takes on the CUDA cores:
+# statistics 5 (sum, centred sum and square), the affine 3, SiLU 4
+GN_OPS_PER_ELEMENT = 12
+
+
+def gn_kernel_phase(shapes7, shapes8):
+    """Kernels #7 (GroupNorm+SiLU) and #8 (GroupNorm+SiLU+3x3 conv) at every
+    (shape, dtype) key the fused clip and the fused step launched, against
+    float64 on the same inputs: each error within 1.5x the plain version's
+    at that dtype. Times: kernel, plain version, the library composite
+    (`F.silu(F.group_norm(...))`, and `F.conv2d` after it for #8: a
+    yardstick of several calls the port never makes) and the bound, each
+    input read once and each output written once: #7 max(12 f32 ops an
+    element / 67 TFLOP/s, x + y + GroupNorm parameters / 3.35 TB/s); #8
+    max(2 * M * Cout * 9 * Cin / 989 TFLOP/s, x + W + y + parameters /
+    3.35 TB/s). Returns ({key: record} of #7, of #8)."""
+    import torch
+    import torch.nn.functional as F
+    from neurons_tpu_torch.ops import fused_conv as fc
+    from neurons_tpu_torch.ops import fused_norm as fn
+
+    def inputs(gen, xshape, dt):
+        c = xshape[1]
+        x = torch.randn(xshape, generator=gen, device="cuda").to(dt)
+        gw = (1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+              ).to(dt)
+        gb = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+        return x, gw, gb
+
+    def record(name, key, got, want, plain, ms, plain_ms, library_ms,
+               bound):
+        err = (got.double() - want).abs().max().item()
+        plain_err = (plain.double() - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
+        log(f"{name} {key}  max_abs_err {err:.3e} (plain {plain_err:.3e})"
+            f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} bound_ms {bound[0]:.4f} ({bound[1]})  "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees at {key}: {err:.3e} > "
+                                 f"1.5 x {plain_err:.3e}")
+        return dict(max_abs_err=err, plain_err=plain_err, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound[0], bound_by=bound[1])
+
+    records7, records8 = {}, {}
+    for key in sorted(shapes7):
+        *xshape, groups, tname = key
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        x, gw, gb = inputs(gen, xshape, getattr(torch, tname))
+        want = fn.group_norm_silu_reference(x.double(), gw.double(),
+                                            gb.double(), groups, 1e-5)
+        got = fn.gn_silu_fwd(x, gw, gb, groups, 1e-5)
+        torch.cuda.synchronize()
+        plain = fn.group_norm_silu_reference(x, gw, gb, groups, 1e-5)
+        reps = 5 if x.numel() > 5e7 else 20
+        times = [cuda_ms(f, reps) for f in (
+            lambda: fn.gn_silu_fwd(x, gw, gb, groups, 1e-5),
+            lambda: fn.group_norm_silu_reference(x, gw, gb, groups, 1e-5),
+            lambda: F.silu(F.group_norm(x, groups, gw, gb, 1e-5)))]
+        bound = _bound(GN_OPS_PER_ELEMENT * x.numel(),
+                       x.element_size() * (x.numel() + got.numel()
+                                           + gw.numel() + gb.numel()),
+                       PEAK_F32_FLOPS)
+        records7[key] = record("gn_silu", key, got, want, plain, *times,
+                               bound)
+        del x, want, got, plain
+        torch.cuda.empty_cache()
+    for key in sorted(shapes8):
+        n, cin, h, w, cout, groups, tname = key
+        dt = getattr(torch, tname)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        x, gw, gb = inputs(gen, (n, cin, h, w), dt)
+        cw = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+              / (9 * cin) ** 0.5).to(dt)
+        cb = (0.1 * torch.randn((cout,), generator=gen, device="cuda")
+              ).to(dt)
+        args = (x, gw, gb, cw, cb, groups, 1e-5)
+        want = fc.gn_silu_conv_reference(
+            *(a.double() for a in args[:5]), groups, 1e-5)
+        got = fc.gn_silu_conv_fwd(*args)
+        torch.cuda.synchronize()
+        plain = fc.gn_silu_conv_reference(*args)
+        times = [cuda_ms(f, 10) for f in (
+            lambda: fc.gn_silu_conv_fwd(*args),
+            lambda: fc.gn_silu_conv_reference(*args),
+            lambda: F.conv2d(F.silu(F.group_norm(x, groups, gw, gb, 1e-5)),
+                             cw, cb, padding=1))]
+        esize = x.element_size()
+        bound = _bound(2.0 * n * h * w * cout * 9 * cin,
+                       esize * sum(a.numel() for a in (x, gw, gb, cw, cb,
+                                                       got)),
+                       PEAK_BF16_FLOPS if dt == torch.bfloat16
+                       else PEAK_TF32_FLOPS)
+        records8[key] = record("gn_silu_conv", key, got, want, plain, *times,
+                               bound)
+        del x, cw, want, got, plain, args
+        torch.cuda.empty_cache()
+    return records7, records8
 
 
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
-                   train_by_shape):
+                   train_by_shape, gn_records, fused_by_shapes):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
-    (the clip's, then stage 2's)."""
+    (the unfused clip's, then stage 2's; for #7 and #8 the fused clip's,
+    then the fused step's)."""
     fwd_records = {**flash_records, **train_records[0]}
     entries = []
     for key, launches in (sorted(by_shape["flash_attn_fwd"].items())
@@ -1226,6 +1724,33 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+    sources = {"gn_silu": ("neurons_tpu_torch/csrc/gn_silu.cu",
+                           "neurons_tpu/ops/fused_norm.py:102"),
+               "gn_silu_conv": ("neurons_tpu_torch/csrc/gn_silu_conv.cu",
+                                "neurons_tpu/ops/fused_conv.py:91")}
+    for path, shapes in fused_by_shapes:
+        for kernel, records in zip(("gn_silu", "gn_silu_conv"), gn_records):
+            for key, launches in sorted(shapes[kernel].items()):
+                rec = records.get(key)
+                if rec is None or key[-1] != "bfloat16":
+                    raise AssertionError(f"the fused {path} launched {kernel} "
+                                         f"at {key}, a shape the kernel "
+                                         f"phase did not check")
+                if kernel == "gn_silu":
+                    shape = "x".join(map(str, key[:-2]))
+                else:
+                    shape = "x".join(map(str, key[:4])) + f"->{key[4]}"
+                entries.append({
+                    "name": f"{kernel}[{shape} G{key[-2]} bf16 {path}]",
+                    "route": "cuda",
+                    "source": sources[kernel][0],
+                    "replaces": sources[kernel][1],
+                    "launches": launches,
+                    "max_abs_err": rec["max_abs_err"],
+                    "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                    "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"],
+                })
     return {"kernels": entries}
 
 
@@ -1254,17 +1779,24 @@ def main():
     flash_records = flash_phase()
     temporal_records = temporal_phase()
     train_records = train_kernel_phase()
-    small_check()
-    small_video_check()
-    small_train_check()
-    by_shape, ctx, steady_s = slice_phase()
-    profile_request(ctx, steady_s)
-    del ctx
-    torch.cuda.empty_cache()
-    train_by_shape = train_phase()
+    for fused in (False, True):
+        with configuration(fused):
+            small_check(fused)
+            small_video_check(fused)
+            small_train_check(fused)
+    clip_by_shape = slice_phase()
+    with configuration(False):
+        train_by_shape, fused_train_by_shape = train_phase()
+    fused_by_shapes = (("clip", clip_by_shape[True]),
+                       ("step", fused_train_by_shape))
+    gn_records = gn_kernel_phase(
+        *({k for _, shapes in fused_by_shapes for k in shapes[kernel]}
+          for kernel in ("gn_silu", "gn_silu_conv")))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels_record(flash_records, temporal_records,
-                                  train_records, by_shape, train_by_shape)))
+                                  train_records, clip_by_shape[False],
+                                  train_by_shape, gn_records,
+                                  fused_by_shapes)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,10 @@ flash kernel on the card). The timestep embedding is cat(cos, sin); GEGLU
 uses exact GELU; the LayerNorms use eps 1e-5, the transformer GroupNorm
 1e-6 and the res-block GroupNorms 1e-5.
 
+Every GN -> SiLU -> 3x3 conv pair (both of each ResBlock, and the output
+head) goes through ops.fused_conv.norm_silu_conv: the fused CUDA kernel
+with NEURONS_TPU_FUSED_GNCONV=1, as the JAX ResBlock routes it.
+
 Only the exact path is ported: the TGATE, PAB, DeepCache and
 encoder-reuse hooks of the JAX UNet are later work (ROADMAP.md).
 """
@@ -25,6 +29,7 @@ from torch import nn
 from neurons_tpu_torch import resolve_device
 from neurons_tpu_torch.config import UNet2DConfig
 from neurons_tpu_torch.ops.attention import dot_product_attention
+from neurons_tpu_torch.ops.fused_conv import norm_silu_conv
 from neurons_tpu_torch.ops.fused_norm import GroupNorm, GroupNormSiLU
 
 
@@ -95,9 +100,9 @@ class ResBlock(nn.Module):
             self.skip_conv = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, emb):
-        h = self.in_conv(self.in_norm(x))
+        h = norm_silu_conv(self.in_norm, self.in_conv, x)
         h = h + self.emb_proj(F.silu(emb))[:, :, None, None]
-        h = self.out_conv(self.out_norm(h))
+        h = norm_silu_conv(self.out_norm, self.out_conv, h)
         if hasattr(self, "skip_conv"):
             x = self.skip_conv(x)
         return x + h
@@ -300,4 +305,4 @@ class UNetModel(nn.Module):
                 h = attn(f"up_{level}_attn_{i}", h)
                 if level and i == c.num_res_blocks:
                     h = getattr(self, f"up_{level}_upsample")(h)
-        return self.out_conv(self.out_norm(h))
+        return norm_silu_conv(self.out_norm, self.out_conv, h)

@@ -22,8 +22,12 @@ LayerNorm. The JAX package's MHAttention and GEGLU_FF are
 models/unet2d.py's CrossAttention and GEGLUFeedForward here (the same
 parameter names; GEGLU uses exact GELU).
 
+Both norm/conv pairs of every ResnetBlock3D (SparseCtrl's included) go
+through ops.fused_conv.norm_silu_conv: the fused CUDA kernel with
+NEURONS_TPU_FUSED_GNCONV=1, as the JAX res block routes them.
+
 Only the exact path is ported: no encoder cache, no TGATE/PAB capture or
-cached-attention hooks, no fused GroupNorm+SiLU+conv branch. The motion
+cached-attention hooks. The motion
 modules' `Temporal_Cross` attention is never given a context in the JAX
 package, so every attention block here is temporal self-attention.
 """
@@ -42,6 +46,7 @@ from neurons_tpu_torch.config import UNet3DConfig
 from neurons_tpu_torch.models.unet2d import (CrossAttention,
                                              GEGLUFeedForward,
                                              timestep_embedding)
+from neurons_tpu_torch.ops.fused_conv import norm_silu_conv
 from neurons_tpu_torch.ops.fused_norm import GroupNorm, GroupNormSiLU
 from neurons_tpu_torch.ops.temporal_attention import temporal_attention
 
@@ -147,9 +152,9 @@ class ResnetBlock3D(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, emb):
-        h = self.conv1(self.norm1(x))
+        h = norm_silu_conv(self.norm1, self.conv1, x)
         h = h + self.time_emb_proj(F.silu(emb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = norm_silu_conv(self.norm2, self.conv2, h)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h

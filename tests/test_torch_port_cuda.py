@@ -13,12 +13,16 @@ does not hang on which precision cuBLAS picks for a TF32-allowed GEMM.
 
 The temporal kernel's oracle: its max error against the float64 result on
 the same (bf16- or f32-valued) inputs is no worse than 1.5x the plain
-version's at that dtype."""
+version's at that dtype. The GroupNorm+SiLU and GroupNorm+SiLU+conv
+kernels are held the same way; the plain conv on f32 input is
+`gn_silu_conv_reference_tf32` (the kernel multiplies in TF32)."""
 
 import pytest
 import torch
 
 from neurons_tpu_torch.ops import attention as attn
+from neurons_tpu_torch.ops import fused_conv as fc
+from neurons_tpu_torch.ops import fused_norm as fn
 from neurons_tpu_torch.ops import temporal_attention as ta
 
 
@@ -241,3 +245,170 @@ def test_dispatcher_takes_the_autograd_function_under_grad(cuda):
     with torch.no_grad():  # inference keeps biased attention plain
         attn.dot_product_attention(q, kv, kv, bias=bias)
     assert attn.FLASH_FWD_LAUNCHES.total == fwd0 + 1
+
+
+# The GroupNorm+SiLU kernel (#7) and the GroupNorm+SiLU+3x3-conv kernel
+# (#8) against float64 on the same (bf16- or f32-valued) inputs, within
+# 1.5x the plain version's error at that dtype.
+def _gn_inputs(n, c, h, w, mean, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = mean + torch.randn((n, c, h, w), generator=g, device="cuda")
+    gw = 1.0 + 0.2 * torch.randn((c,), generator=g, device="cuda")
+    gb = 0.2 * torch.randn((c,), generator=g, device="cuda")
+    return x, gw, gb, g
+
+
+def _report(what, err, plain_err):
+    print(f"{what}: err {err:.3e}, plain {plain_err:.3e}, ratio "
+          f"{err / plain_err:.3f}")
+    assert err <= 1.5 * plain_err, err
+
+
+def _check_gn_silu(n, c, h, w, groups, dtype, mean=0.0, seed=4):
+    x, gw, gb, _ = _gn_inputs(n, c, h, w, mean, seed)
+    x, gw, gb = x.to(dtype), gw.to(dtype), gb.to(dtype)
+    want = fn.group_norm_silu_reference(x.double(), gw.double(), gb.double(),
+                                        groups, 1e-5)
+    before = fn.GN_SILU_LAUNCHES.total
+    got = fn.gn_silu_fwd(x, gw, gb, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert fn.GN_SILU_LAUNCHES.total == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    plain = fn.group_norm_silu_reference(x, gw, gb, groups, 1e-5)
+    _report(f"gn_silu {dtype} [{n},{c},{h},{w}] G={groups} mean {mean}",
+            (got.double() - want).abs().max().item(),
+            (plain.double() - want).abs().max().item())
+
+
+def _check_gn_silu_conv(n, cin, h, w, cout, groups, dtype, mean=0.0, seed=5):
+    x, gw, gb, g = _gn_inputs(n, cin, h, w, mean, seed)
+    cw = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") \
+        / (9 * cin) ** 0.5
+    cb = 0.1 * torch.randn((cout,), generator=g, device="cuda")
+    x, gw, gb, cw, cb = (t.to(dtype) for t in (x, gw, gb, cw, cb))
+    want = fc.gn_silu_conv_reference(*(t.double() for t in (x, gw, gb, cw,
+                                                             cb)),
+                                      groups, 1e-5)
+    before = fc.GN_SILU_CONV_LAUNCHES.total
+    got = fc.gn_silu_conv_fwd(x, gw, gb, cw, cb, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert fc.GN_SILU_CONV_LAUNCHES.total == before + 1
+    assert got.dtype == dtype and got.shape == (n, cout, h, w)
+    if dtype == torch.float32:
+        plain = fc.gn_silu_conv_reference_tf32(x, gw, gb, cw, cb, groups,
+                                               1e-5)
+    else:
+        plain = fc.gn_silu_conv_reference(x, gw, gb, cw, cb, groups, 1e-5)
+    _report(f"gn_silu_conv {dtype} [{n},{cin},{h},{w}] -> {cout} "
+            f"G={groups} mean {mean}",
+            (got.double() - want).abs().max().item(),
+            (plain.double() - want).abs().max().item())
+
+
+# (N, C, H, W, groups): HW not a multiple of the 16-byte lanes, the 4x4
+# level at 32 samples, 960 channels at a small map, groups < 32, a slab of
+# 25 statistics chunks
+GN_SHAPES = [(2, 64, 7, 9, 32), (32, 1280, 4, 4, 32), (2, 960, 6, 6, 32),
+             (2, 32, 33, 31, 8), (1, 128, 160, 160, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", GN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gn_silu_kernel_matches_plain(cuda, dtype, shape):
+    _check_gn_silu(*shape, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gn_silu_kernel_large_mean(cuda, dtype):
+    _check_gn_silu(2, 64, 24, 24, 32, getattr(torch, dtype), mean=100.0)
+
+
+# (N, Cin, H, W, Cout, groups): the UNet head's Cout = 4 at an odd map,
+# 4x4 at 32 samples, Cin = 960 at a small map, Cin and Cout off the tiles
+# with groups < 32, a map larger than one M tile per sample
+CONV_SHAPES = [(2, 64, 7, 9, 4, 32), (32, 1280, 4, 4, 1280, 32),
+               (2, 960, 6, 6, 320, 32), (2, 40, 13, 11, 24, 8),
+               (1, 64, 40, 36, 96, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gn_silu_conv_kernel_matches_plain(cuda, dtype, shape):
+    _check_gn_silu_conv(*shape, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gn_silu_conv_kernel_large_mean(cuda, dtype):
+    _check_gn_silu_conv(2, 64, 12, 12, 64, 32, getattr(torch, dtype),
+                        mean=100.0)
+
+
+@pytest.mark.cuda
+def test_gn_autograd_functions_on_the_card(cuda):
+    # forward through the kernels, backward through the plain composites:
+    # gradients as float64 autograd of the plain versions, to f32 level
+    x, gw, gb, g = _gn_inputs(2, 32, 9, 7, 0.0, 6)
+    cw = 0.1 * torch.randn((16, 32, 3, 3), generator=g, device="cuda")
+    cb = 0.1 * torch.randn((16,), generator=g, device="cuda")
+    dy = torch.randn((2, 16, 9, 7), generator=g, device="cuda")
+    for fused, ref, args in (
+            (lambda *a: fn.GroupNormSiLUFn.apply(*a, 8, 1e-5),
+             lambda *a: fn.group_norm_silu_reference(*a, 8, 1e-5),
+             (x, gw, gb)),
+            (lambda *a: fc.GNSiLUConvFn.apply(*a, 8, 1e-5),
+             lambda *a: fc.gn_silu_conv_reference(*a, 8, 1e-5),
+             (x, gw, gb, cw, cb))):
+        ins = [a.clone().requires_grad_() for a in args]
+        out = fused(*ins)
+        g_out = dy if out.shape == dy.shape else torch.ones_like(out)
+        got = torch.autograd.grad(out, ins, g_out)
+        ins64 = [a.double().requires_grad_() for a in args]
+        want = torch.autograd.grad(ref(*ins64), ins64, g_out.double())
+        for a, b in zip(got, want):
+            assert (a.double() - b).abs().max().item() \
+                <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_switches_send_cuda_tensors_to_the_kernels(cuda, monkeypatch):
+    x, gw, gb, g = _gn_inputs(2, 64, 8, 8, 0.0, 7)
+    cw = 0.1 * torch.randn((32, 64, 3, 3), generator=g, device="cuda")
+    cb = torch.zeros((32,), device="cuda")
+    monkeypatch.setenv("NEURONS_TPU_FUSED_NORM", "1")
+    monkeypatch.setenv("NEURONS_TPU_FUSED_GNCONV", "1")
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fn, "group_norm_silu_reference", plain)
+    monkeypatch.setattr(fc, "gn_silu_conv_reference", plain)
+    n7, n8 = fn.GN_SILU_LAUNCHES.total, fc.GN_SILU_CONV_LAUNCHES.total
+    fn.group_norm_silu(x, gw, gb, 32)
+    assert fn.GN_SILU_LAUNCHES.total == n7 + 1
+    fc.gn_silu_conv(x, gw, gb, cw, cb, 32)
+    assert fc.GN_SILU_CONV_LAUNCHES.total == n8 + 1
+    assert fn.GN_SILU_LAUNCHES.total == n7 + 1  # the conv's norm is fused
+    with pytest.raises(ValueError):
+        fn.gn_silu_fwd(x.half(), gw.half(), gb.half(), 32)
+    with pytest.raises(ValueError):
+        fc.gn_silu_conv_fwd(x.half(), gw, gb, cw.half(), cb, 32)
+
+
+@pytest.mark.cuda
+def test_packed_conv_weight_is_cached_until_it_changes(cuda):
+    cw = torch.randn((8, 16, 3, 3), device="cuda")
+    p1 = fc.packed_weight(cw, torch.bfloat16)
+    assert fc.packed_weight(cw, torch.bfloat16) is p1
+    cw.mul_(2.0)  # an in-place update moves the version counter
+    p2 = fc.packed_weight(cw, torch.bfloat16)
+    assert p2 is not p1
+    assert torch.equal(p2[:, :16, :8].float(),
+                       cw.permute(2, 3, 1, 0).reshape(9, 16, 8)
+                       .to(torch.bfloat16).float())
+    assert not p2[:, 16:].any() and not p2[:, :, 8:].any()
