@@ -74,9 +74,13 @@ Phases, in order:
      the fused step launched, against float64 on the same inputs by the
      1.5x rule; times: kernel, plain version, the library composite
      (`F.silu(F.group_norm(...))`, then `F.conv2d` for #8) and the bound.
-The last two lines are the kernels' JSON record and the device JSON. Any
-failure raises and exits non-zero; without CUDA the script exits 2 before
-printing anything.
+Then one line of per-kernel totals for one clip or one step (launches x
+time summed: kernel, bound, library call), which gives the redesign order
+from one run. The last two lines are the kernels' JSON record (each
+(kernel, shape) of the main paths, those totals, the f32 flash checks with
+their bound and library time, each kernel's registers and spills from
+nvcc's -Xptxas -v log) and the device JSON. Any failure raises and exits
+non-zero; without CUDA the script exits 2 before printing anything.
 """
 
 from __future__ import annotations
@@ -96,6 +100,8 @@ PEAK_TF32_FLOPS = 495e12    # dense TF32
 PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SEED = 0
+CLIP_REQUESTS = 2   # full-width clips a configuration
+FIXED_STEPS = 4     # fixed-batch train steps a configuration
 
 # (B, H, Tq, Tk, D) of every flash-attention launch of the full-width clip
 FLASH_SHAPES = [
@@ -1060,7 +1066,7 @@ def clip_gn_launches(models, pcfg, fused: bool):
                              * s.video_steps)}
 
 
-def clip_run(models, pcfg, fused: bool, n_requests: int = 2):
+def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
     """`n_requests` full-width clips one at a time in one configuration (the
     caller sets it), the same seeds in either; the kernels' launch counts
     zeroed just before and read just after, #7/#8 held to the count from
@@ -1256,11 +1262,14 @@ def device_profile(prof, wall: float, what: str, kernels):
 # GroupNorm statistics kernels carry a prefix of the library that launched
 # them (csrc/gn_common.cuh)
 GN_SILU_SYMBOLS = ("gn_silu_stats", "gn_silu_apply_kernel")
-PROFILE_KERNELS = {"flash": ("flash_fwd_kernel",),
+# (the forward's three kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
+# flash_fwd_kernel; #8's halo, split-reduce and TF32 kernels)
+FLASH_FWD_SYMBOLS = ("flash_fwd_",)
+PROFILE_KERNELS = {"flash": FLASH_FWD_SYMBOLS,
                    "temporal": ("temporal_fwd_kernel",),
                    "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS,
                    "gn_silu_conv #8 (statistics + conv)": (
-                       "gn_conv_stats", "gn_silu_conv_kernel"),
+                       "gn_conv_stats", "gn_silu_conv_"),
                    "#8 statistics": ("gn_conv_stats",)}
 
 
@@ -1432,7 +1441,7 @@ def train_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, per_step = [], [], []
-    for i in range(4):
+    for i in range(FIXED_STEPS):
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
@@ -1444,7 +1453,7 @@ def train_phase():
         if i == 0:
             first = {k: float(metrics[k]) for k in ("loss",) + td.LOSS_TERMS}
     peak = torch.cuda.max_memory_allocated()
-    steady_ms = 1e3 * sum(times[1:]) / 3
+    steady_ms = 1e3 * sum(times[1:]) / (FIXED_STEPS - 1)
     core_same = all(torch.equal(p, core0[n]) for n, p in state.params.items()
                     if td.is_core(n))
     moved = [n for n, p in state.params.items() if not td.is_core(n)
@@ -1474,7 +1483,7 @@ def train_phase():
         torch.cuda.synchronize()
     device_profile(prof, time.perf_counter() - t0,
                    f"stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
-                   {"flash forward": ("flash_fwd_kernel",),
+                   {"flash forward": FLASH_FWD_SYMBOLS,
                     "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
                     "flash backward dq": ("flash_bwd_dq_kernel",)})
     del state, bundle, core0, train0, step
@@ -1510,7 +1519,7 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
     expected = {"gn_silu": 4 * gn_sites(bundle.model), "gn_silu_conv": 0}
     by_shape = {k: collections.Counter() for k in counters}
     times, per_step, losses = [], [], []
-    for i in range(4):
+    for i in range(FIXED_STEPS):
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
@@ -1523,7 +1532,7 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
             by_shape[k].update(c.by_shape)
         if i == 0:
             first = {k: float(metrics[k]) for k in unfused_first}
-    steady_ms = 1e3 * sum(times[1:]) / 3
+    steady_ms = 1e3 * sum(times[1:]) / (FIXED_STEPS - 1)
     loss_err = {k: abs(first[k] - v) / abs(v) for k, v in unfused_first.items()}
     launches_ok = all(s == expected for s in per_step)
     log(f"train steps (fused): ms/step {[round(1e3 * t, 1) for t in times]} "
@@ -1545,7 +1554,7 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
     device_profile(prof, time.perf_counter() - t0,
                    f"fused stage-2 step (unprofiled steady {steady_ms:.1f} "
                    f"ms)",
-                   {"flash forward": ("flash_fwd_kernel",),
+                   {"flash forward": FLASH_FWD_SYMBOLS,
                     "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
                     "flash backward dq": ("flash_bwd_dq_kernel",),
                     "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS})
@@ -1648,6 +1657,8 @@ def gn_kernel_phase(shapes7, shapes8):
                                                        got)),
                        PEAK_BF16_FLOPS if dt == torch.bfloat16
                        else PEAK_TF32_FLOPS)
+        if dt == torch.bfloat16:
+            log(f"gn_silu_conv {key} plan {fc.conv_plan(n, cin, h, w, cout)}")
         records8[key] = record("gn_silu_conv", key, got, want, plain, *times,
                                bound)
         del x, cw, want, got, plain, args
@@ -1656,14 +1667,21 @@ def gn_kernel_phase(shapes7, shapes8):
 
 
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
-                   train_by_shape, gn_records, fused_by_shapes):
+                   train_by_shape, gn_records, fused_by_shapes, f32_checks,
+                   ptxas, runs):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
     (the unfused clip's, then stage 2's; for #7 and #8 the fused clip's,
-    then the fused step's)."""
+    then the fused step's); per kernel and path the sums of launches x
+    time (kernel, bound, library); the f32 flash checks; each kernel's
+    registers and spills. `runs`: the clips or steps each path's counts
+    span ("clip", "step", "fused clip", "fused step")."""
     fwd_records = {**flash_records, **train_records[0]}
-    entries = []
-    for key, launches in (sorted(by_shape["flash_attn_fwd"].items())
-                          + sorted(train_by_shape["flash_attn_fwd"].items())):
+    entries, groups = [], []
+    for path, key, launches in (
+            [("clip", k, n) for k, n in sorted(by_shape["flash_attn_fwd"]
+                                                .items())]
+            + [("step", k, n) for k, n in sorted(
+                train_by_shape["flash_attn_fwd"].items())]):
         b, h, tq, tk, d, dt, variant = key
         rec = fwd_records.get(key)
         if rec is None or dt != "bfloat16":
@@ -1686,6 +1704,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+        groups.append(("flash_attn_fwd", path, runs[path]))
     for key, launches in sorted(train_by_shape["flash_attn_bwd"].items()):
         b, h, tq, tk, d, dt, variant = key
         rec = train_records[1].get(key)
@@ -1706,6 +1725,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+        groups.append(("flash_attn_bwd", "step", runs["step"]))
     for key, launches in sorted(by_shape["temporal_attn_fwd"].items()):
         bf, d, c, f, h, dt = key
         rec = temporal_records.get(key)
@@ -1724,6 +1744,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+        groups.append(("temporal_attn_fwd", "clip", runs["clip"]))
     sources = {"gn_silu": ("neurons_tpu_torch/csrc/gn_silu.cu",
                            "neurons_tpu/ops/fused_norm.py:102"),
                "gn_silu_conv": ("neurons_tpu_torch/csrc/gn_silu_conv.cu",
@@ -1751,7 +1772,63 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
                 })
-    return {"kernels": entries}
+                groups.append((kernel, path, runs[f"fused {path}"]))
+    return {"kernels": entries, "totals": kernel_totals(entries, groups),
+            "f32_checks": f32_checks, "ptxas": ptxas}
+
+
+def kernel_totals(entries, groups):
+    """Per kernel and path, for one clip or one step: launches, and the
+    sums of launches x time of the kernel, of its bound and of the library
+    call, in seconds; the rule-2 order reads off kernel_s - bound_s.
+    `groups` gives each entry's (kernel, path, runs its launches span)."""
+    out = {}
+    for entry, (kernel, path, runs) in zip(entries, groups):
+        t = out.setdefault((kernel, path), dict(
+            kernel=kernel, path=path, launches=0, kernel_s=0.0, bound_s=0.0,
+            library_s=0.0))
+        n = entry["launches"] / runs
+        t["launches"] += n
+        t["kernel_s"] += n * entry["ms"] / 1e3
+        t["bound_s"] += n * entry["bound_ms"] / 1e3
+        if entry["library_ms"] is not None:
+            t["library_s"] += n * entry["library_ms"] / 1e3
+    return sorted(out.values(), key=lambda t: t["bound_s"] - t["kernel_s"])
+
+
+def f32_check_records(flash_records):
+    """The f32 (TF32) flash checks: not on a main path, recorded with their
+    bound and library time."""
+    return [dict(name=f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} float32]",
+                 site=rec["site"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                 bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                 library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"])
+            for (b, h, tq, tk, d, dt, _), rec in sorted(flash_records.items())
+            if dt == "float32"]
+
+
+def ptxas_summary(name):
+    """Per kernel of csrc/<name>.cu, from nvcc's -Xptxas -v log: the
+    registers a thread and the bytes of local-memory spill stores and
+    loads."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    out, fn = [], None
+    for line in cuda_build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = dict(source=name, function=m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+            out.append(fn)
+            fn = None
+    return out
 
 
 def main():
@@ -1770,10 +1847,11 @@ def main():
     t0 = time.perf_counter()
     libs = cuda_build.build(sources)
     log(f"built {sources} in {time.perf_counter() - t0:.1f} s")
-    for name in sources:
-        for line in cuda_build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas = [f for name in sources for f in ptxas_summary(name)]
+    for f in ptxas:
+        log(f"  ptxas {f['source']}: {f['function']} {f['registers']} "
+            f"registers, spill stores {f.get('spill_stores', 0)} B, loads "
+            f"{f.get('spill_loads', 0)} B")
     del libs
 
     flash_records = flash_phase()
@@ -1793,10 +1871,21 @@ def main():
         *({k for _, shapes in fused_by_shapes for k in shapes[kernel]}
           for kernel in ("gn_silu", "gn_silu_conv")))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(kernels_record(flash_records, temporal_records,
-                                  train_records, clip_by_shape[False],
-                                  train_by_shape, gn_records,
-                                  fused_by_shapes)))
+    # the clips and steps the counted runs span: 2 requests a
+    # configuration, run_stage2's steps, the 4 fixed fused steps
+    stage2_steps = (sum(train_by_shape["flash_attn_fwd"].values())
+                    / sum(STEP_LAUNCHES["flash_attn_fwd"].values()))
+    runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
+            "fused clip": CLIP_REQUESTS, "fused step": FIXED_STEPS}
+    record = kernels_record(flash_records, temporal_records, train_records,
+                            clip_by_shape[False], train_by_shape, gn_records,
+                            fused_by_shapes, f32_check_records(flash_records),
+                            ptxas, runs)
+    log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
+        f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
+        f"{t['kernel_s']:.4f} bound {t['bound_s']:.4f} library "
+        f"{t['library_s']:.4f}" for t in record["totals"]))
+    log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

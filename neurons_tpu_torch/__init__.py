@@ -1,9 +1,11 @@
 """neurons_tpu_torch: the PyTorch/CUDA port of neurons_tpu.
 
 Mirrors the JAX package's layout module by module. It imports torch,
-numpy and the standard library only; its hand-written CUDA kernels
-(csrc/*.cu: the flash-attention forward and backward, the temporal
-attention) are built with nvcc on first use. Entry points run on the card
+numpy and the standard library only; its hand-written CUDA kernels, five
+sources under csrc/ (flash_attn_fwd.cu, the flash-attention forward;
+flash_attn_bwd.cu, its backward; temporal_attn_fwd.cu, the temporal
+attention; gn_silu.cu, GroupNorm+SiLU; gn_silu_conv.cu, GroupNorm+SiLU+3x3
+conv), are built with nvcc on first use. Entry points run on the card
 unless the caller passes device="cpu".
 """
 

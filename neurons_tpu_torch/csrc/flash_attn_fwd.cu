@@ -8,7 +8,7 @@
 // which compute the same function: out = softmax(q k^T * scale + bias) v, with
 // f32 logits, f32 running max and sum, f32 accumulation, and the output in the
 // input type. The TPU split between them exists because VMEM holds a whole
-// K/V window only up to ~4.6 KB a row; here one kernel serves all three.
+// K/V window only up to ~4.6 KB a row; here one source serves all three.
 //
 // Training outputs. An optional additive bias [N, Tq, Tk] (N in {1, H, B*H},
 // unit stride over keys, the input type) is added in f32 after the scale, as
@@ -24,26 +24,44 @@
 // zero-padded to a multiple of 16 in shared memory, so no padded copy of any
 // operand is made in device memory.
 //
-// Design. One block of 4 warps owns one (b, h) and a tile of BQ query rows,
-// and loops over K/V in tiles of BK keys held in shared memory (blocks run in
-// parallel on the SMs; the TPU's sequential grid axis becomes this loop).
-// Per K tile: S = Q K^T on the tensor cores (WMMA bf16 16x16x16, or TF32
-// 16x16x8 for f32 inputs), an online-softmax update of the row max and sum in
-// f32, then O += P V on the tensor cores. The O accumulator lives in shared
-// memory in f32, not in registers: at d=512 a 64-row f32 accumulator alone
-// is 128 KB, more than the register file of a block can hold. BQ and BK are
-// chosen at launch as the largest pair whose tiles fit the 227 KB a block may
-// use (64x64 at d <= 128; 32x32 at d=512 in bf16), so no head dim is
-// hard-coded.
+// Design of the bf16 instances at D <= 128 (flash_fwd_reg_kernel), every
+// inference and training site of the paths: one block of 4 warps owns one
+// (b, h) and 64 query rows, 16 per warp. Q is staged once and held as
+// ldmatrix A fragments in registers. K and V tiles of 64 keys sit in a
+// 2-stage shared-memory ring filled by cp.async one tile ahead (16-, 8- or
+// 4-byte copies as the rows allow, element copies otherwise, zero-filled
+// past Tk and past D): one barrier a tile. S = Q K^T runs as mma.sync
+// m16n8k16 bf16 into f32 registers; the online softmax (row max and sum in
+// f32) runs in registers with quad shuffles; P goes from S's C-fragment
+// layout straight into the A fragments of O += P V as bf16, never through
+// shared memory; O is an f32 register accumulator rescaled in place. The
+// head dim is padded to 16 only in shared memory and in the Q K^T
+// fragments (instances for 32, 48, 64, 80, 96, 128), and P V runs the real
+// D's n8 tiles (40 = 5, 52 = 7).
 //
-// What bounds it on an H100: at the stage-3 shapes (d=32..512, Tk >= 256)
-// attention does 4*Tq*Tk*D operations against (Tq+2Tk+Tq)*D*esize bytes, so
-// it is operation-bound (989 TFLOP/s bf16 dense against 3.35 TB/s). This
-// first kernel uses WMMA (mma.sync underneath), not wgmma/TMA, keeps O in
-// shared memory and does not overlap the K/V loads with the products, so it
-// reaches a fraction of that peak; its measured times stand in PERF.md.
+// The bf16 instances at 128 < D <= 512 (flash_fwd_wide_kernel; the VAE's
+// d = 512 sites, and biased launches at 96 < D <= 128, none on the paths,
+// whose register instance spilled): O (64 rows x 512 f32 = 128 KB) cannot sit in one warp's
+// registers, so it is split by columns across 8 warps, 64 columns each, in
+// registers. S and P are computed once a 32-key tile and shared through
+// shared memory (each warp one 16 x 16 piece of S; 4 lanes a row for the
+// softmax), with the row rescale; K/V tiles come in by cp.async one tile
+// ahead. Three barriers a tile.
+//
+// The f32 (TF32) instances, which serve only the small card-vs-CPU checks,
+// and any D past 512 keep the first design (flash_fwd_kernel): one block of
+// 4 warps per (b, h) and query tile, WMMA products, S, P and the f32 O
+// accumulator in shared memory, BQ x BK the largest pair whose tiles fit
+// the 227 KB a block may use.
+//
+// What bounds it on an H100: at the clip's shapes attention does 4 Tq Tk D
+// operations against (2 Tq + 2 Tk) D esize bytes, so all but the short
+// cross-attention sites are bound by operations (989 TFLOP/s bf16 dense
+// against 3.35 TB/s). mma.sync reaches a part of the wgmma peak; the
+// measured times stand in PERF.md.
 
 #include "flash_common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -62,7 +80,7 @@ struct Params {
   int H, Tq, Tk, D, DP;        // DP: D rounded up to 16
   int bq, bk;
   float scale;
-  int vec;                     // 1 when rows move 16 bytes at a time
+  int vec;                     // bytes a row moves in (16, 8, 4; 0: elements)
 };
 
 // Shared-memory bytes of one block; the kernel carves its buffers in the
@@ -211,6 +229,575 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D <= 128: S, P and O in registers, K/V pipelined
+
+constexpr int kRBQ = 64, kRBK = 64;  // query rows a block, keys a tile
+constexpr int kRThreads = 128;       // 4 warps, 16 query rows each
+
+template <int DK>  // the head dim padded to 16 (QK depth), in shared memory
+struct RegCfg {
+  static constexpr int LD = DK + 8;  // row stride in elements: a 16-byte skew,
+                                     // so 8 rows at one column hit 8 banks
+  static constexpr int kTile = kRBK * LD * 2;  // one K or V tile, bytes
+  static constexpr int kSmem = 5 * kTile;      // Q, then K and V x 2 stages
+  static constexpr int KS = DK / 16;           // k16 steps of Q K^T
+  static constexpr int NO = DK / 8;            // n8 tiles of O at most
+};
+
+// Copy ROWS rows of D elements (row `row0` on, of n, row stride st) into a
+// [ROWS][LD] tile with NT threads; rows past n and columns past D (up to
+// DK) are zero. kGran: bytes a cp.async moves (16, 8, 4), or 0 for
+// synchronous element copies. kRolled keeps the copy a loop, which leaves
+// the caller's registers to its products: the inference instances measured
+// faster so (118-164 registers against 195-255 when the compiler unrolls
+// it; d = 512 ran the same either way at fewer registers), while some
+// training instances then spilled a few bytes; those leave the loop to the
+// compiler.
+template <int ROWS, int DK, int NT, int kGran, bool kRolled>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long st, int row0, int n,
+                                           int D) {
+  constexpr int LD = DK + 8;
+  constexpr int E = kGran ? kGran / 2 : 1, per_row = DK / E;
+  auto copy = [&](int i) {
+    const int r = i / per_row, c = (i % per_row) * E;
+    const bool ok = row0 + r < n && c < D;
+    if constexpr (kGran == 0) {
+      dst[r * LD + c] = ok ? src[(long long)(row0 + r) * st + c]
+                           : __float2bfloat16(0.f);
+    } else {
+      cp_async<kGran>(smem_addr(dst + r * LD + c),
+                      ok ? src + (long long)(row0 + r) * st + c : src,
+                      ok ? kGran : 0);
+    }
+  };
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
+  } else {
+    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
+  }
+}
+
+template <int ROWS, int DK, int NT, bool kRolled = true>
+__device__ __forceinline__ void stage_rows_any(int gran, __nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long st, int row0, int n,
+                                               int D) {
+  switch (gran) {
+    case 16: stage_rows<ROWS, DK, NT, 16, kRolled>(dst, src, st, row0, n, D); break;
+    case 8: stage_rows<ROWS, DK, NT, 8, kRolled>(dst, src, st, row0, n, D); break;
+    case 4: stage_rows<ROWS, DK, NT, 4, kRolled>(dst, src, st, row0, n, D); break;
+    default: stage_rows<ROWS, DK, NT, 0, kRolled>(dst, src, st, row0, n, D); break;
+  }
+}
+
+// The block: 64 query rows of one (b, h), 4 warps of 16 rows. Q's A
+// fragments are loaded once into registers; per 64-key tile a warp computes
+// S = Q K^T into registers (mma.sync m16n8k16, f32), updates the row max
+// and sum with quad shuffles, turns P into bf16 A fragments in place (the C
+// layout of S is the A layout of P) and adds P V into its f32 O
+// accumulator. The next tile's K and V come in by cp.async while these
+// products run: one barrier a tile. kBias, kLse as flash_fwd_kernel.
+template <int DK, bool kBias, bool kLse>
+__global__ void __launch_bounds__(kRThreads)
+flash_fwd_reg_kernel(Params p) {
+  using C = RegCfg<DK>;
+  constexpr int LD = C::LD;
+  constexpr bool kRolled = !(kBias || kLse);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + kRBK * LD;      // [2][64][LD]
+  __nv_bfloat16* sV = sK + 2 * kRBK * LD;  // [2][64][LD]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kRBQ - 1) / kRBQ;
+  const int q0 = (blockIdx.x % nq) * kRBQ;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const __nv_bfloat16* qg =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (long long)bh * p.Tq * D;
+  const __nv_bfloat16* bg =
+      kBias ? static_cast<const __nv_bfloat16*>(p.bias) +
+                  bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+            : nullptr;
+  const int ntiles = (p.Tk + kRBK - 1) / kRBK;
+
+  stage_rows_any<kRBK, DK, kRThreads, kRolled>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
+  stage_rows_any<kRBK, DK, kRThreads, kRolled>(p.vec, sK, kg, p.k_st, 0, p.Tk, D);
+  stage_rows_any<kRBK, DK, kRThreads, kRolled>(p.vec, sV, vg, p.v_st, 0, p.Tk, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const uint32_t q_addr =
+      smem_addr(sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+  uint32_t qf[C::KS][4];
+#pragma unroll
+  for (int ks = 0; ks < C::KS; ++ks) ldmatrix_x4(qf[ks], q_addr + ks * 32);
+
+  float o[C::NO][4];
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int nv8 = (D + 7) / 8;  // O's n8 tiles: the real D, not DK
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int stg = t & 1;
+    if (t + 1 < ntiles) {
+      stage_rows_any<kRBK, DK, kRThreads, kRolled>(p.vec, sK + (stg ^ 1) * kRBK * LD, kg, p.k_st,
+                         (t + 1) * kRBK, p.Tk, D);
+      stage_rows_any<kRBK, DK, kRThreads, kRolled>(p.vec, sV + (stg ^ 1) * kRBK * LD, vg, p.v_st,
+                         (t + 1) * kRBK, p.Tk, D);
+    }
+    cp_async_commit();
+    const int k0 = t * kRBK;
+
+    // this thread's bias pairs, loaded ahead of the products where the
+    // registers allow (d <= 64: the prior); wider instances read them in
+    // the softmax
+    constexpr bool kPrefetch = kBias && DK <= 64;
+    uint32_t bpk[8][2];
+    if (kPrefetch) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_a + 8 * r, key = k0 + j * 8 + (lane & 3) * 2;
+          unsigned short lo = 0, hi = 0;
+          if (row < p.Tq) {
+            const unsigned short* br = reinterpret_cast<const unsigned short*>(
+                bg + (long long)row * p.bias_sq);
+            if (key < p.Tk) lo = br[key];
+            if (key + 1 < p.Tk) hi = br[key + 1];
+          }
+          bpk[j][r] = (uint32_t)lo | ((uint32_t)hi << 16);
+        }
+    }
+
+    // S = Q K^T
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const __nv_bfloat16* kt = sK + stg * kRBK * LD;
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t r[4];
+        ldmatrix_x4(r, smem_addr(kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                                 ks * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * jp], qf[ks], r);
+        mma_bf16(s[2 * jp + 1], qf[ks], r + 2);
+      }
+
+    // online softmax over the tile's keys, rows row_a and row_a + 8
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+        float x = s[j][e] * p.scale;
+        if (kPrefetch) {
+          x += __uint_as_float((e & 1) ? (bpk[j][e >> 1] & 0xffff0000u)
+                                       : (bpk[j][e >> 1] << 16));
+        } else if (kBias && row_a + 8 * (e >> 1) < p.Tq && key < p.Tk) {
+          x += __bfloat162float(bg[(long long)(row_a + 8 * (e >> 1)) * p.bias_sq + key]);
+        }
+        if (key >= p.Tk) x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], msafe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      msafe[r] = mn == -INFINITY ? 0.f : mn;  // a row with no finite logit
+      alpha[r] = kLse ? expf(m[r] - msafe[r]) : __expf(m[r] - msafe[r]);
+      m[r] = mn;
+    }
+    uint32_t pf[4][4];  // P as the A fragments of 4 k16 steps
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float e4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e] - msafe[e >> 1];
+        e4[e] = kLse ? expf(x) : __expf(x);
+      }
+      rs[0] += e4[0] + e4[1];
+      rs[1] += e4[2] + e4[3];
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(e4[0], e4[1]);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e4[2], e4[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // this
+                                                                 // thread's keys
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V over the real head dim's n8 tiles
+    const __nv_bfloat16* vt = sV + stg * kRBK * LD;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < C::NO / 2; ++np) {
+        if (2 * np >= nv8) continue;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_addr(vt + (kk * 16 + (lane & 7) +
+                                             ((lane >> 3) & 1) * 8) * LD +
+                                       (np * 2 + (lane >> 4)) * 8));
+        mma_bf16(o[2 * np], pf[kk], r);
+        if (2 * np + 1 < nv8) mma_bf16(o[2 * np + 1], pf[kk], r + 2);
+      }
+
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= p.Tq) continue;
+    __nv_bfloat16* orow = og + (long long)row * D;
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      const int col = n * 8 + (lane & 3) * 2;
+      if (n >= nv8 || col >= D) continue;
+      const float v0 = o[n][2 * r] / l[r], v1 = o[n][2 * r + 1] / l[r];
+      if (col + 1 < D && (D & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        orow[col] = __float2bfloat16(v0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+      }
+    }
+    if (kLse && (lane & 3) == 0)
+      p.lse[(long long)bh * p.Tq + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+// The padded head dim of the register kernel's instance for D, 0 when D is
+// past 128 or, with a bias, past 96: the biased d = 128 instances spilled
+// registers, so such launches (none on the paths) take the wide kernel.
+inline int reg_dk(int D, bool bias = false) {
+  if (bias && D > 96) return 0;
+  return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : D <= 80 ? 80
+       : D <= 96 ? 96 : D <= 128 ? 128 : 0;
+}
+
+inline int reg_smem(int dk) { return 5 * kRBK * (dk + 8) * 2; }
+
+template <int DK, bool kBias, bool kLse>
+cudaError_t launch_reg_as(Params p, int B, cudaStream_t stream) {
+  const int smem = RegCfg<DK>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_reg_kernel<DK, kBias, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.Tq + kRBQ - 1) / kRBQ) * B * p.H;
+  flash_fwd_reg_kernel<DK, kBias, kLse><<<(unsigned)blocks, kRThreads, smem,
+                                          stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DK>
+cudaError_t launch_reg_dk(Params p, int B, cudaStream_t stream) {
+  if constexpr (DK < 128) {
+    if (p.bias)
+      return p.lse ? launch_reg_as<DK, true, true>(p, B, stream)
+                   : launch_reg_as<DK, true, false>(p, B, stream);
+  }
+  return p.lse ? launch_reg_as<DK, false, true>(p, B, stream)
+               : launch_reg_as<DK, false, false>(p, B, stream);
+}
+
+cudaError_t launch_reg(Params p, int B, cudaStream_t stream) {
+  switch (reg_dk(p.D, p.bias != nullptr)) {
+    case 32: return launch_reg_dk<32>(p, B, stream);
+    case 48: return launch_reg_dk<48>(p, B, stream);
+    case 64: return launch_reg_dk<64>(p, B, stream);
+    case 80: return launch_reg_dk<80>(p, B, stream);
+    case 96: return launch_reg_dk<96>(p, B, stream);
+    case 128: return launch_reg_dk<128>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at 128 < D <= 512 (and biased at 96 < D <= 128): O split by columns
+// across 8 warps
+
+constexpr int kWBQ = 64, kWBK = 32;  // query rows a block, keys a tile
+constexpr int kWThreads = 256;       // 8 warps
+constexpr int kWDK = 512;            // the head dim padded in shared memory
+constexpr int kWLD = kWDK + 8;
+constexpr int kWLDS = kWBK + 1;      // f32 logits row
+constexpr int kWLDP = kWBK + 8;      // bf16 probabilities row (80 bytes)
+constexpr int kWQBytes = kWBQ * kWLD * 2;
+constexpr int kWKVBytes = kWBK * kWLD * 2;
+constexpr int kWSmem = kWQBytes + 4 * kWKVBytes + kWBQ * kWLDS * 4 +
+                       kWBQ * kWLDP * 2 + 3 * kWBQ * 4;
+
+// The block: 64 query rows of one (b, h), 8 warps, K/V tiles of 32 keys in
+// a 2-stage cp.async ring. Per tile: S = Q K^T with each warp one 16 x 16
+// piece over the whole depth (Q and K from shared memory), written to
+// shared memory as scaled (and biased) f32 logits; the online softmax with
+// 4 lanes a row, which writes P in bf16, the rescale factor, and the row
+// max and sum; then O += P V with each warp owning 64 columns of O for all
+// 64 rows in f32 registers (O cannot sit in one warp's registers at d =
+// 512). S and P are computed once a tile and shared; three barriers a tile.
+template <bool kBias, bool kLse>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_fwd_wide_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + kWQBytes);
+  __nv_bfloat16* sV = sK + 2 * kWBK * kWLD;
+  float* sS = reinterpret_cast<float*>(smem + kWQBytes + 4 * kWKVBytes);
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(sS + kWBQ * kWLDS);
+  float* sAlpha = reinterpret_cast<float*>(sP + kWBQ * kWLDP);
+  float* sM = sAlpha + kWBQ;
+  float* sL = sM + kWBQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kWBQ - 1) / kWBQ;
+  const int q0 = (blockIdx.x % nq) * kWBQ;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const int ksteps = (D + 15) / 16;
+  const __nv_bfloat16* qg =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (long long)bh * p.Tq * D;
+  const __nv_bfloat16* bg =
+      kBias ? static_cast<const __nv_bfloat16*>(p.bias) +
+                  bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+            : nullptr;
+  const int ntiles = (p.Tk + kWBK - 1) / kWBK;
+
+  stage_rows_any<kWBQ, kWDK, kWThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
+  stage_rows_any<kWBK, kWDK, kWThreads>(p.vec, sK, kg, p.k_st, 0, p.Tk, D);
+  stage_rows_any<kWBK, kWDK, kWThreads>(p.vec, sV, vg, p.v_st, 0, p.Tk, D);
+  cp_async_commit();
+  for (int r = threadIdx.x; r < kWBQ; r += kWThreads) {
+    sM[r] = -INFINITY;
+    sL[r] = 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's O: columns 64 * warp .. + 63 (8 n8 tiles), 64 rows
+  float o[4][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.f;
+  const int col0 = warp * 64;
+  const int nv8 = min(8, max(0, (D - col0 + 7) / 8));  // this warp's n8 tiles
+  const int srow = (warp >> 1) * 16, skey = (warp & 1) * 16;  // S piece
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int stg = t & 1;
+    if (t + 1 < ntiles) {
+      stage_rows_any<kWBK, kWDK, kWThreads>(p.vec, sK + (stg ^ 1) * kWBK * kWLD,
+                                            kg, p.k_st, (t + 1) * kWBK, p.Tk, D);
+      stage_rows_any<kWBK, kWDK, kWThreads>(p.vec, sV + (stg ^ 1) * kWBK * kWLD,
+                                            vg, p.v_st, (t + 1) * kWBK, p.Tk, D);
+    }
+    cp_async_commit();
+    const int k0 = t * kWBK;
+
+    // S piece: rows srow.., keys skey.. (2 n8 tiles)
+    {
+      float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const __nv_bfloat16* kt = sK + stg * kWBK * kWLD;
+      const uint32_t qa = smem_addr(sQ + (srow + (lane & 15)) * kWLD + (lane >> 4) * 8);
+      const uint32_t ka = smem_addr(kt + (skey + (lane & 7) + (lane >> 4) * 8) * kWLD +
+                                    ((lane >> 3) & 1) * 8);
+#pragma unroll 4
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t a[4], r[4];
+        ldmatrix_x4(a, qa + ks * 32);
+        ldmatrix_x4(r, ka + ks * 32);
+        mma_bf16(sacc[0], a, r);
+        mma_bf16(sacc[1], a, r + 2);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = srow + (lane >> 2) + (e >> 1) * 8;
+          const int kl = skey + j * 8 + (lane & 3) * 2 + (e & 1);
+          float x = sacc[j][e] * p.scale;
+          if (kBias && q0 + row < p.Tq && k0 + kl < p.Tk)
+            x += __bfloat162float(bg[(long long)(q0 + row) * p.bias_sq + k0 + kl]);
+          if (k0 + kl >= p.Tk) x = -INFINITY;
+          sS[row * kWLDS + kl] = x;
+        }
+    }
+    __syncthreads();
+
+    // online softmax: rows 8 * warp .., 4 lanes a row, 8 keys a lane
+    {
+      const int row = warp * 8 + (lane >> 2), c0 = (lane & 3) * 8;
+      float x[8], mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        x[c] = sS[row * kWLDS + c0 + c];
+        mx = fmaxf(mx, x[c]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = sM[row], mn = fmaxf(m_old, mx);
+      const float msafe = mn == -INFINITY ? 0.f : mn;
+      float sum = 0.f;
+      uint32_t pk[4];
+#pragma unroll
+      for (int c = 0; c < 8; c += 2) {
+        const float e0 = kLse ? expf(x[c] - msafe) : __expf(x[c] - msafe);
+        const float e1 = kLse ? expf(x[c + 1] - msafe) : __expf(x[c + 1] - msafe);
+        sum += e0 + e1;
+        pk[c / 2] = pack_bf16(e0, e1);
+      }
+      *reinterpret_cast<uint4*>(sP + row * kWLDP + c0) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((lane & 3) == 0) {
+        const float alpha = kLse ? expf(m_old - msafe) : __expf(m_old - msafe);
+        sAlpha[row] = alpha;
+        sM[row] = mn;
+        sL[row] = sL[row] * alpha + sum;
+      }
+    }
+    __syncthreads();
+
+    // O += P V on this warp's columns
+    if (nv8 > 0) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const float a0 = sAlpha[mi * 16 + (lane >> 2)];
+        const float a1 = sAlpha[mi * 16 + (lane >> 2) + 8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[mi][n][0] *= a0;
+          o[mi][n][1] *= a0;
+          o[mi][n][2] *= a1;
+          o[mi][n][3] *= a1;
+        }
+      }
+      const __nv_bfloat16* vt = sV + stg * kWBK * kWLD;
+#pragma unroll
+      for (int kk = 0; kk < kWBK / 16; ++kk) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+          ldmatrix_x4(a[mi], smem_addr(sP + (mi * 16 + (lane & 15)) * kWLDP +
+                                       kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (2 * np >= nv8) continue;
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, smem_addr(vt + (kk * 16 + (lane & 7) +
+                                               ((lane >> 3) & 1) * 8) * kWLD +
+                                         col0 + (np * 2 + (lane >> 4)) * 8));
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            mma_bf16(o[mi][2 * np], a[mi], r);
+            if (2 * np + 1 < nv8) mma_bf16(o[mi][2 * np + 1], a[mi], r + 2);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = mi * 16 + (lane >> 2) + 8 * r, row = q0 + rl;
+      if (row >= p.Tq) continue;
+      const float l = sL[rl];
+      __nv_bfloat16* orow = og + (long long)row * D;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = col0 + n * 8 + (lane & 3) * 2;
+        if (n >= nv8 || col >= D) continue;
+        const float v0 = o[mi][n][2 * r] / l, v1 = o[mi][n][2 * r + 1] / l;
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          orow[col] = __float2bfloat16(v0);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  if (kLse)
+    for (int r = threadIdx.x; r < kWBQ; r += kWThreads)
+      if (q0 + r < p.Tq)
+        p.lse[(long long)bh * p.Tq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+}
+
+template <bool kBias, bool kLse>
+cudaError_t launch_wide_as(Params p, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<kBias, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.Tq + kWBQ - 1) / kWBQ) * B * p.H;
+  flash_fwd_wide_kernel<kBias, kLse><<<(unsigned)blocks, kWThreads, kWSmem,
+                                       stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wide(Params p, int B, cudaStream_t stream) {
+  if (p.bias)
+    return p.lse ? launch_wide_as<true, true>(p, B, stream)
+                 : launch_wide_as<true, false>(p, B, stream);
+  return p.lse ? launch_wide_as<false, true>(p, B, stream)
+               : launch_wide_as<false, false>(p, B, stream);
+}
+
+inline bool wide_fits() { return max_block_smem() >= kWSmem; }
+
 // Largest (BQ, BK) whose tiles fit the block's shared memory.
 bool pick_tiles(int dp, int esize, int max_smem, int* bq, int* bk) {
   static const int kTiles[][2] = {{64, 64}, {64, 32}, {32, 32}, {16, 32}, {16, 16}};
@@ -252,7 +839,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, bias and the output).
 // bias_mode: 0 = no bias (bias may be null), 1 = one [Tq, Tk] slice,
-// 2 = one per head, 3 = one per (b, h). lse may be null. Returns a
+// 2 = one per head, 3 = one per (b, h). lse may be null. vec: the bytes
+// every row of q, k and v can move in (16, 8 or 4: D, the token strides
+// and the pointers are multiples of it), or 0 for element loads. Returns a
 // cudaError_t (0 on success).
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    const void* bias, float* lse,
@@ -276,16 +865,39 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   p.DP = (D + 15) / 16 * 16;
   p.scale = scale;
   p.vec = vec;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && reg_dk(D, bias != nullptr)) {
+    if (vec != 0 && vec != 4 && vec != 8 && vec != 16)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_reg(p, B, s);
+  }
+  if (dtype == 1 && D <= kWDK && wide_fits()) {
+    if (vec != 0 && vec != 4 && vec != 8 && vec != 16)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wide(p, B, s);
+  }
+  p.vec = vec == 16;  // the shared-memory kernel moves 16 bytes or one element
   const int esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(p.DP, esize, max_block_smem(), &p.bq, &p.bk))
     return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch<__nv_bfloat16>(p, B, s) : launch<float>(p, B, s));
 }
 
 // The tiles and shared memory a launch at head dim D would use; 0 when no
 // tile fits.
 int flash_attn_fwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
+  if (dtype == 1 && reg_dk(D)) {
+    *bq = kRBQ;
+    *bk = kRBK;
+    *smem = reg_smem(reg_dk(D));
+    return 1;
+  }
+  if (dtype == 1 && D <= kWDK && wide_fits()) {
+    *bq = kWBQ;
+    *bk = kWBK;
+    *smem = kWSmem;
+    return 1;
+  }
   const int dp = (D + 15) / 16 * 16, esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(dp, esize, max_block_smem(), bq, bk)) return 0;
   *smem = (int)smem_bytes(*bq, *bk, dp, esize);

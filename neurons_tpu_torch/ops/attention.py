@@ -239,11 +239,14 @@ def _bias_slices(bias: torch.Tensor, b: int, h: int, tq: int, tk: int,
     return b3, mode
 
 
-def _vec(d, esize, strides, tensors) -> int:
-    """1 when every row moves in 16-byte loads."""
-    lanes = 16 // esize
-    return int(d % lanes == 0 and all(s % lanes == 0 for s in strides)
-               and all(t.data_ptr() % 16 == 0 for t in tensors))
+def _granule(d, esize, strides, tensors) -> int:
+    """The bytes every row can move in, 16, 8 or 4 (the row's bytes, the
+    token strides and the pointers all multiples of it), else 0."""
+    for g in (16, 8, 4):
+        if (d * esize % g == 0 and all(s * esize % g == 0 for s in strides)
+                and all(t.data_ptr() % g == 0 for t in tensors)):
+            return g
+    return 0
 
 
 def _kv_strides(t, h):  # multi-query k/v: every head reads head 0
@@ -286,7 +289,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
-    vec = _vec(d, q.element_size(), strides, (q, k, v))
+    vec = _granule(d, q.element_size(), strides, (q, k, v))
     lib = _library("flash_attn_fwd")
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -339,7 +342,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
         dbias = torch.empty(bias3.shape, dtype=torch.float32,
                             device=q.device)
-    vec = _vec(d, q.element_size(), strides, (q, k, v, g))
+    # the backward moves rows 16 bytes at a time or element by element
+    vec = int(_granule(d, q.element_size(), strides, (q, k, v, g)) == 16)
     lib = _library("flash_attn_bwd")
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32, device=q.device)

@@ -20,9 +20,12 @@ backward differentiates the plain composite, recomputed from the saved
 inputs, as the JAX custom VJP does.
 
 The kernel reads the conv weight packed once to [9, Kc, Np] (tap, Cin
-padded to the K tile, Cout padded to the N tile) in x's type; the packed
-copy is cached per parameter and made anew when the parameter changes
-(another tensor, storage or in-place version).
+padded to the K chunk, Cout padded to the N tile, which depends on Cout
+and the type) in x's type; the packed copy is cached per parameter and
+made anew when the parameter changes (another tensor, storage or in-place
+version). The bf16 kernel may split its input channels across blocks
+where the grid is small; the scratch tensor then also holds the f32
+partial sums, reduced in a fixed order.
 """
 
 from __future__ import annotations
@@ -110,7 +113,9 @@ _PACKED: Dict[int, Tuple] = {}
 def packed_weight(conv_weight: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """The conv weight [Cout, Cin, 3, 3] as the kernel reads it, [9, Kc, Np]
-    in `dtype`, zero in the padding; cached until the parameter changes."""
+    in `dtype` (Kc and Np padded to the K chunk and the N tile of
+    `conv_tiles(Cout, dtype)`), zero in the padding; cached until the
+    parameter changes."""
     # an inference tensor keeps no version counter: it is packed anew
     cached = not conv_weight.is_inference()
     key = id(conv_weight)
@@ -120,8 +125,8 @@ def packed_weight(conv_weight: torch.Tensor,
     if cached and hit is not None and hit[0]() is conv_weight \
             and hit[1:4] == state:
         return hit[4]
-    _, bn, bk = conv_tiles()
     cout, cin = conv_weight.shape[:2]
+    _, bn, bk = conv_tiles(cout, dtype)
     kc, npad = -(-cin // bk) * bk, -(-cout // bn) * bn
     with torch.no_grad():
         packed = torch.zeros((9, kc, npad), dtype=dtype,
@@ -162,9 +167,10 @@ def gn_silu_conv_fwd(x: torch.Tensor, gn_weight: torch.Tensor,
     packed = packed_weight(conv_weight, x.dtype)
     lib = _library()
     y = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(lib.gn_silu_conv_scratch_bytes(n, cin, h * w,
-                                                         groups),
-                          dtype=torch.uint8, device=x.device)
+    # the statistics, then (bf16, split over Cin) the f32 partial sums
+    scratch = torch.empty(lib.gn_silu_conv_scratch_bytes(
+        n, cin, h, w, cout, groups, _DTYPE_CODE[x.dtype]),
+        dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gn_silu_conv(
@@ -230,14 +236,27 @@ def norm_silu_conv(norm: nn.Module, conv: nn.Conv2d,
                         norm.num_groups, norm.eps)
 
 
-def conv_tiles() -> Tuple[int, int, int]:
-    """(BM, BN, BK) of the kernel's tiles; the packed weights pad Cin to BK
-    and Cout to BN."""
+def conv_tiles(cout: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(BM, BN, BK) of the kernel's tiles for `cout` output channels in
+    `dtype`: the output pixels a block owns, the N tile (the packed weights
+    pad Cout to it) and the K chunk (they pad Cin to it)."""
     lib = _library()
     bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.gn_silu_conv_tiles(ctypes.byref(bm), ctypes.byref(bn),
-                           ctypes.byref(bk))
+    lib.gn_silu_conv_tiles(cout, _DTYPE_CODE[dtype], ctypes.byref(bm),
+                           ctypes.byref(bn), ctypes.byref(bk))
     return bm.value, bn.value, bk.value
+
+
+def conv_plan(n: int, cin: int, h: int, w: int, cout: int) -> Dict[str, int]:
+    """How the bf16 kernel launches at x [n, cin, h, w] -> cout: the tile
+    (samples, rows, columns of one block), the grid (pixel tiles, Cout
+    tiles, splits over Cin), the N tile and whether halo rows move in
+    16-byte loads."""
+    lib = _library()
+    out = (ctypes.c_int * 8)()
+    lib.gn_silu_conv_plan(n, cin, h, w, cout, out)
+    return dict(zip(("samples", "rows", "cols", "pixel_tiles", "cout_tiles",
+                     "splits", "bn", "vec"), out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,9 +266,11 @@ def _library() -> ctypes.CDLL:
     lib.gn_silu_conv.argtypes = ([ptr] * 7 + [i64] + [i32] * 5
                                  + [ctypes.c_float] + [i32] * 5 + [ptr])
     lib.gn_silu_conv.restype = i32
-    lib.gn_silu_conv_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.gn_silu_conv_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     lib.gn_silu_conv_tiles.restype = None
-    lib.gn_silu_conv_scratch_bytes.argtypes = [i64, i64, i64, i32]
+    lib.gn_silu_conv_plan.argtypes = [i64] + [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.gn_silu_conv_plan.restype = None
+    lib.gn_silu_conv_scratch_bytes.argtypes = [i64] + [i32] * 6
     lib.gn_silu_conv_scratch_bytes.restype = i64
     lib.gn_silu_conv_error_string.argtypes = [i32]
     lib.gn_silu_conv_error_string.restype = ctypes.c_char_p

@@ -70,6 +70,41 @@ def test_kernel_matches_plain(cuda, dtype, shape):
     _check(q, k, v, getattr(torch, dtype), scale=0.11)
 
 
+# every head dim the paths launch (the bf16 register kernel's instances at
+# d <= 128, the shared-memory kernel at 512), ragged Tq/Tk, two kv heads
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 40, 52, 64, 80, 128, 512])
+def test_kernel_at_every_head_dim(cuda, d):
+    g = torch.Generator("cuda").manual_seed(d)
+    q = torch.randn((1, 2, 200, d), generator=g, device="cuda")
+    k, v = (torch.randn((1, 2, 333, d), generator=g, device="cuda")
+            for _ in range(2))
+    _check(q, k, v, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_prior_rows(cuda):
+    # 513 x 514 tokens, d = 52 (104-byte rows: 8-byte copies), multi-query
+    g = torch.Generator("cuda").manual_seed(9)
+    q = torch.randn((2, 4, 513, 52), generator=g, device="cuda")
+    k, v = (torch.randn((2, 1, 514, 52), generator=g, device="cuda")
+            for _ in range(2))
+    _check(q, k, v, torch.bfloat16)
+
+
+# rows that move in 8, 4 or 2 bytes: d = 52 and 50 contiguous, and d = 52
+# read from rows of 53 (an odd token stride: element loads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,row", [(52, 52), (50, 50), (52, 53)])
+def test_kernel_takes_rows_off_16_bytes(cuda, d, row):
+    g = torch.Generator("cuda").manual_seed(10)
+    q, k, v = (torch.randn((2, 3, 150, row), generator=g,
+                           device="cuda")[..., :d] for _ in range(3))
+    assert attn._granule(d, 2, (q.stride(2),), (q,)) == {
+        (52, 52): 8, (50, 50): 4, (52, 53): 0}[(d, row)]
+    _check(q, k, v, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_kernel_takes_strided_head_views(cuda):
     # the UNet's split: [B, T, H*D] viewed as [B, H, T, D], not contiguous
@@ -225,6 +260,18 @@ def test_train_kernels_match_plain(cuda, dtype, shape):
     _check_train(*shape, getattr(torch, dtype))
 
 
+# the bias modes with lse in bf16: one slice, one per head, one per (b, h)
+# at d = 80, and a biased d = 128 (the column-split kernel's launch)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bias_shape", [(80, (150, 140)),
+                                          (80, (3, 150, 140)),
+                                          (80, (2, 3, 150, 140)),
+                                          (128, (3, 150, 140))],
+                         ids=["shared", "per_head", "per_bh", "per_head_d128"])
+def test_forward_bias_modes_with_lse(cuda, d, bias_shape):
+    _check_train(2, 3, 150, 140, d, 3, bias_shape, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_train_kernels_at_the_prior_shape(cuda):
     # the prior's [10, 32, 513, 514, 52] multi-query with its per-head bias
@@ -342,6 +389,40 @@ def test_gn_silu_conv_kernel_matches_plain(cuda, dtype, shape):
     _check_gn_silu_conv(*shape, getattr(torch, dtype))
 
 
+# The bf16 kernel's tiles: every map width of the UNet paths (4 and 8 as
+# whole samples at 32 samples, 16-96 as whole rows), each N tile (Cout = 4,
+# 64 and 320 on the 256-pixel tile, 128 and 640), the head's Cout = 4 at
+# 96x96, Cin off the 32-channel chunk (80) at N = 1 and groups of 16
+CONV_TILE_SHAPES = [(32, 64, 4, 4, 128, 32), (32, 64, 8, 8, 128, 32),
+                    (4, 64, 16, 16, 128, 32), (2, 96, 24, 24, 320, 32),
+                    (2, 64, 32, 32, 64, 32), (1, 64, 48, 48, 640, 32),
+                    (2, 320, 96, 96, 4, 32), (1, 80, 20, 20, 64, 16),
+                    (32, 64, 8, 8, 320, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_TILE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gn_silu_conv_kernel_tiles(cuda, shape):
+    _check_gn_silu_conv(*shape, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_gn_silu_conv_split_is_deterministic(cuda):
+    # the 4x4 level splits its input channels across blocks; the 32x32
+    # level fills the card without; a split call gives the same bits twice
+    assert fc.conv_plan(32, 1280, 4, 4, 1280)["splits"] > 1
+    assert fc.conv_plan(32, 320, 32, 32, 320)["splits"] == 1
+    x, gw, gb, g = _gn_inputs(32, 1280, 4, 4, 0.0, 8)
+    cw = torch.randn((1280, 1280, 3, 3), generator=g, device="cuda") / 107.0
+    cb = 0.1 * torch.randn((1280,), generator=g, device="cuda")
+    args = [t.to(torch.bfloat16) for t in (x, gw, gb, cw, cb)]
+    first = fc.gn_silu_conv_fwd(*args, 32, 1e-5)
+    again = fc.gn_silu_conv_fwd(*args, 32, 1e-5)
+    assert torch.equal(first, again)
+    _check_gn_silu_conv(32, 1280, 4, 4, 1280, 32, torch.bfloat16, seed=8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_gn_silu_conv_kernel_large_mean(cuda, dtype):
@@ -408,6 +489,8 @@ def test_packed_conv_weight_is_cached_until_it_changes(cuda):
     cw.mul_(2.0)  # an in-place update moves the version counter
     p2 = fc.packed_weight(cw, torch.bfloat16)
     assert p2 is not p1
+    _, bn, bk = fc.conv_tiles(8, torch.bfloat16)
+    assert p2.shape == (9, bk, bn)
     assert torch.equal(p2[:, :16, :8].float(),
                        cw.permute(2, 3, 1, 0).reshape(9, 16, 8)
                        .to(torch.bfloat16).float())

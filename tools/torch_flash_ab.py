@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's flash-attention forward of two checkouts on one
-CUDA card, in turns, at every attention shape of the full-width clip (the
-inference launch: bf16, no bias, no log-sum-exp).
+"""Time two checkouts' flash-attention forward (#1/#2/#3) and GroupNorm+
+SiLU+3x3-conv kernel (#8) on one CUDA card, in turns, at every shape the
+main paths launch.
 
-    python3 tools/torch_flash_ab.py OTHER_ROOT
+    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|conv] [--json PATH]
 
 OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
-checkout runs in its own process (it builds its own kernel), in the order
-other, this, this, other; the last lines give, per shape, each process's
-mean ms over 20 launches after a warm-up (chip_smoke.py's `cuda_ms`).
+checkout runs in its own process (it builds its own kernels), in the order
+other, this, this, other. Shapes: the flash forward at every attention
+shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
+stage-2 step's training sites (with lse, and the prior's bias); #8 in bf16
+at every shape of the fused clip. Each shape gets two times, each the mean
+over 20 launches (5 at the largest shapes) after a warm-up: on CUDA events
+around the launches (what a caller waits, the host's launch cost included
+where it exceeds the kernel's), and ("device") the kernels' own time under
+torch.profiler (#8's statistics launches included). The last lines
+give, per shape, each run's ms, and for each kernel the sum of launches x
+ms over a clip (and a step) for each run; with --json the whole record
+also goes to PATH.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -21,39 +31,188 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
+# (site, (B, H, Tq, Tk, D), launches a clip) of the unfused clip's flash
+# forward (inference: no bias, no lse)
+FLASH_CLIP = [
+    ("unet self 48x48", (2, 10, 2304, 2304, 64), 380),
+    ("unet cross 48x48", (2, 10, 2304, 256, 64), 380),
+    ("unet self 24x24", (2, 20, 576, 576, 64), 2280),
+    ("unet cross 24x24", (2, 20, 576, 256, 64), 2280),
+    ("decoder 16x16", (6, 1, 256, 256, 128), 6),
+    ("decoder 32x32", (6, 1, 1024, 1024, 64), 4),
+    ("decoder 64x64", (6, 1, 4096, 4096, 32), 4),
+    ("vae blurry 64x64", (1, 1, 4096, 4096, 512), 6),
+    ("vae keyframe 96x96", (1, 1, 9216, 9216, 512), 1),
+    ("unet3d self 32x32", (32, 8, 1024, 1024, 40), 175),
+    ("unet3d self 16x16", (32, 8, 256, 256, 80), 175),
+    ("vae 16 frames 32x32", (16, 1, 1024, 1024, 512), 2),
+    ("vae keyframe 32x32", (1, 1, 1024, 1024, 512), 1),
+]
 
-def time_here(root: str):
-    """Times of `root`'s kernel, one JSON line on stdout."""
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape, launches a step) of the
+# stage-2 step's flash forward (with lse)
+FLASH_STEP = [
+    ("prior", (10, 32, 513, 514, 52, 1), (32, 513, 514), 6),
+    ("decoder 16x16", (60, 1, 256, 256, 128, 1), None, 12),
+    ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None, 8),
+    ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, 8),
+]
+
+# ((N, Cin, H, W, Cout), launches a fused clip) of #8, 32 groups
+CONV_CLIP = [
+    ((2, 320, 48, 48, 640), 38), ((2, 320, 96, 96, 4), 38),
+    ((2, 320, 96, 96, 320), 266), ((2, 640, 24, 24, 1280), 38),
+    ((2, 640, 48, 48, 640), 228), ((2, 640, 96, 96, 320), 76),
+    ((2, 960, 48, 48, 640), 38), ((2, 960, 96, 96, 320), 38),
+    ((2, 1280, 24, 24, 1280), 380), ((2, 1280, 48, 48, 640), 38),
+    ((2, 1920, 24, 24, 1280), 38), ((2, 1920, 48, 48, 640), 38),
+    ((2, 2560, 24, 24, 1280), 76), ((32, 320, 16, 16, 640), 50),
+    ((32, 320, 32, 32, 320), 275), ((32, 640, 8, 8, 1280), 50),
+    ((32, 640, 16, 16, 640), 225), ((32, 640, 32, 32, 320), 50),
+    ((32, 960, 16, 16, 640), 25), ((32, 960, 32, 32, 320), 25),
+    ((32, 1280, 4, 4, 1280), 475), ((32, 1280, 8, 8, 1280), 225),
+    ((32, 1280, 16, 16, 640), 25), ((32, 1920, 8, 8, 1280), 25),
+    ((32, 1920, 16, 16, 640), 25), ((32, 2560, 4, 4, 1280), 75),
+    ((32, 2560, 8, 8, 1280), 50),
+]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` launches after one warm-up."""
+    import torch
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() per call over `reps` calls after one warm-up:
+    the sum of the kernels' device times under torch.profiler, without the
+    host's gaps between launches (which `cuda_ms` counts where the host
+    is slower than the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
+def time_here(root: str, only: str):
+    """Times of `root`'s kernels, one JSON line on stdout."""
     sys.path.insert(0, root)
     import torch
-    from chip_smoke import FLASH_SHAPES, cuda_ms
     from neurons_tpu_torch.ops import attention as attn
+    from neurons_tpu_torch.ops import fused_conv as fc
 
+    bf16 = torch.bfloat16
     gen = torch.Generator("cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
     out = {}
-    for name, (b, h, tq, tk, d) in FLASH_SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(torch.bfloat16)
-                   for shape in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d)))
-        out[name] = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v), 20)
+    if only in ("all", "flash"):
+        for name, (b, h, tq, tk, d), _ in FLASH_CLIP:
+            q, k, v = rand(b, h, tq, d), rand(b, h, tk, d), rand(b, h, tk, d)
+            reps = 5 if tq * tk > 10_000_000 else 20
+            fn = lambda: attn.flash_attention_fwd(q, k, v)  # noqa: E731
+            out[f"flash {name}"] = cuda_ms(fn, reps)
+            out[f"device flash {name}"] = device_ms(fn, reps)
+        for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_STEP:
+            q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+            bias = rand(*bshape) if bshape else None
+            reps = 5 if b * h * tq * tk > 2e8 else 20
+            fn = lambda: attn.flash_attention_fwd(  # noqa: E731
+                q, k, v, bias=bias, return_lse=True)
+            out[f"flash {name} (train)"] = cuda_ms(fn, reps)
+            out[f"device flash {name} (train)"] = device_ms(fn, reps)
+        del q, k, v
+    if only in ("all", "conv"):
+        for (n, cin, h, w, cout), _ in CONV_CLIP:
+            x = rand(n, cin, h, w)
+            gw, gb = 1.0 + 0.1 * rand(cin), 0.1 * rand(cin)
+            cw = rand(cout, cin, 3, 3) / (9 * cin) ** 0.5
+            cb = 0.1 * rand(cout)
+            fn = lambda: fc.gn_silu_conv_fwd(  # noqa: E731
+                x, gw, gb, cw, cb, 32, 1e-5)
+            out[f"conv {n},{cin},{h},{w}->{cout}"] = cuda_ms(fn, 20)
+            out[f"device conv {n},{cin},{h},{w}->{cout}"] = device_ms(fn, 20)
+        torch.cuda.empty_cache()
     print(json.dumps(out))
+
+
+def totals(times):
+    """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #8)
+    and over a step (flash), from one run's times: event times, and
+    ("device ...") the profiler's device times."""
+    sums = {}
+    for pre in ("", "device "):
+        for name, (_, _, _, _, d), n in FLASH_CLIP:
+            key = pre + ("flash clip d=512" if d > 128
+                         else "flash clip d<=128")
+            sums[key] = sums.get(key, 0.0) + n * times.get(
+                f"{pre}flash {name}", 0.0)
+        for name, _, _, n in FLASH_STEP:
+            sums[pre + "flash step"] = sums.get(pre + "flash step", 0.0) \
+                + n * times.get(f"{pre}flash {name} (train)", 0.0)
+        for (n, cin, h, w, cout), launches in CONV_CLIP:
+            sums[pre + "conv fused clip"] = sums.get(
+                pre + "conv fused clip", 0.0) + launches * times.get(
+                f"{pre}conv {n},{cin},{h},{w}->{cout}", 0.0)
+    return sums
 
 
 def main():
     if sys.argv[1] == "--time":
-        return time_here(sys.argv[2])
-    other = str(Path(sys.argv[1]).resolve())
+        return time_here(sys.argv[2], sys.argv[3])
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other")
+    ap.add_argument("--only", choices=("all", "flash", "conv"),
+                    default="all")
+    ap.add_argument("--json", help="also write the record here")
+    args = ap.parse_args()
+    other = str(Path(args.other).resolve())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
     runs = []
     for label, root in (("other", other), ("this", str(REPO)),
                         ("this", str(REPO)), ("other", other)):
-        res = subprocess.run([sys.executable, __file__, "--time", root],
-                             check=True, capture_output=True, text=True,
-                             cwd=root, timeout=900)
+        res = subprocess.run([sys.executable, __file__, "--time", root,
+                              args.only], capture_output=True, text=True,
+                             cwd=root, timeout=1200)
+        if res.returncode != 0:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
+            raise SystemExit(f"{label} run at {root} failed "
+                             f"(exit {res.returncode})")
         runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
     for name in runs[0][1]:
         cells = "  ".join(f"{label} {times[name]:.4f}"
                           for label, times in runs)
-        print(f"flash A/B {name:20s} ms: {cells}")
+        print(f"A/B {name:41s} ms: {cells}")
+    sums = [(label, totals(times)) for label, times in runs]
+    for key in sums[0][1]:
+        cells = "  ".join(f"{label} {s[key] / 1e3:.4f}" for label, s in sums)
+        print(f"A/B sum of launches x time, {key:25s} s: {cells}")
+    if args.json:
+        out = Path(args.json)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "runs": runs, "sums": sums},
+                                  indent=1))
 
 
 if __name__ == "__main__":
