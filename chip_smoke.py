@@ -31,7 +31,8 @@ Phases, in order:
      lse, dq, dk, dv (and dbias) within 1.5x the plain path's error (plain
      forward, then `flash_attention_bwd_reference` at the kernel's
      precision); library = scaled_dot_product_attention forward (+
-     backward), the float bias as attn_mask;
+     backward, and the backward alone through autograd.grad of one
+     forward), the float bias as attn_mask;
   3. small check, unfused then fused: the tiny stage-3 pipeline (f32,
      attention sites of 256 and 1024 tokens, so the flash kernel runs) and
      the tiny stage-5 `reconstruct_video` (16x16 latents: flash at 256
@@ -477,6 +478,15 @@ def train_kernel_phase():
                                            scale=scale).backward(g)
 
         bwd_lib_ms = cuda_ms(library_fwd_bwd, reps)
+        # the library's backward alone: its forward once, outside the timer
+        lib_in = [x.detach().requires_grad_() for x in (q, kx, vx)]
+        lib_bias = None if bias is None else bias.detach().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=lib_bias,
+                                                 scale=scale)
+        lib_wrt = lib_in + ([] if lib_bias is None else [lib_bias])
+        bwd_lib_only_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_wrt, g, retain_graph=True), reps)
+        del lib_in, lib_bias, lib_out, lib_wrt
         torch.backends.cuda.matmul.allow_tf32 = False
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS
         nbias = 0 if bias is None else bias.numel()
@@ -496,7 +506,8 @@ def train_kernel_phase():
             f"{fwd_lib_ms:.4f} bound_ms {fwd_bound:.4f} ({fwd_by})  bwd "
             f"tiles {bq}x{bk} smem {smem} B kernel_ms {bwd_ms:.4f} plain_ms "
             f"{bwd_plain_ms:.4f} library_ms {bwd_lib_ms:.4f} (fwd+bwd) "
-            f"bound_ms {bwd_bound:.4f} ({bwd_by})  {'OK' if ok else 'FAIL'}")
+            f"library_bwd_ms {bwd_lib_only_ms:.4f} bound_ms {bwd_bound:.4f} "
+            f"({bwd_by})  {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"training kernels disagree at {name} "
                                  f"{tname}: {errs}")
@@ -510,7 +521,8 @@ def train_kernel_phase():
             site=f"{name} (train)",
             max_abs_err=max(errs[n][0] for n in GRADS if n in errs),
             ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
-            bound_ms=bwd_bound, bound_by=bwd_by)
+            library_bwd_ms=bwd_lib_only_ms, bound_ms=bwd_bound,
+            bound_by=bwd_by)
         del q, k, v, g, bias, out, lse, got, kx, vx
         torch.cuda.empty_cache()
     return fwd_records, bwd_records
@@ -1265,6 +1277,13 @@ GN_SILU_SYMBOLS = ("gn_silu_stats", "gn_silu_apply_kernel")
 # (the forward's three kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
 # flash_fwd_kernel; #8's halo, split-reduce and TF32 kernels)
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
+# the backward's passes: flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel
+# and, for the prior's per-head bias, flash_bwd_dbias_reg_kernel (bf16,
+# d <= 128); flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the WMMA
+# kernels of f32 and d > 128)
+FLASH_BWD_SYMBOLS = {"flash backward dk/dv": ("flash_bwd_dkdv_",),
+                     "flash backward dq": ("flash_bwd_dq_",),
+                     "flash backward dbias": ("flash_bwd_dbias_",)}
 PROFILE_KERNELS = {"flash": FLASH_FWD_SYMBOLS,
                    "temporal": ("temporal_fwd_kernel",),
                    "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS,
@@ -1484,8 +1503,7 @@ def train_phase():
     device_profile(prof, time.perf_counter() - t0,
                    f"stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
                    {"flash forward": FLASH_FWD_SYMBOLS,
-                    "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
-                    "flash backward dq": ("flash_bwd_dq_kernel",)})
+                    **FLASH_BWD_SYMBOLS})
     del state, bundle, core0, train0, step
     torch.cuda.empty_cache()
     with configuration(True):
@@ -1555,8 +1573,7 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
                    f"fused stage-2 step (unprofiled steady {steady_ms:.1f} "
                    f"ms)",
                    {"flash forward": FLASH_FWD_SYMBOLS,
-                    "flash backward dk/dv": ("flash_bwd_dkdv_kernel",),
-                    "flash backward dq": ("flash_bwd_dq_kernel",),
+                    **FLASH_BWD_SYMBOLS,
                     "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS})
     del state, bundle, step
     torch.cuda.empty_cache()
@@ -1724,6 +1741,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "library_bwd_ms": rec["library_bwd_ms"],
         })
         groups.append(("flash_attn_bwd", "step", runs["step"]))
     for key, launches in sorted(by_shape["temporal_attn_fwd"].items()):
@@ -1780,7 +1798,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
 def kernel_totals(entries, groups):
     """Per kernel and path, for one clip or one step: launches, and the
     sums of launches x time of the kernel, of its bound and of the library
-    call, in seconds; the rule-2 order reads off kernel_s - bound_s.
+    call (for the flash backward also of the library's backward alone), in
+    seconds; the rule-2 order reads off kernel_s - bound_s.
     `groups` gives each entry's (kernel, path, runs its launches span)."""
     out = {}
     for entry, (kernel, path, runs) in zip(entries, groups):
@@ -1793,6 +1812,9 @@ def kernel_totals(entries, groups):
         t["bound_s"] += n * entry["bound_ms"] / 1e3
         if entry["library_ms"] is not None:
             t["library_s"] += n * entry["library_ms"] / 1e3
+        if "library_bwd_ms" in entry:  # the backward: the library's alone
+            t["library_bwd_s"] = (t.get("library_bwd_s", 0.0)
+                                  + n * entry["library_bwd_ms"] / 1e3)
     return sorted(out.values(), key=lambda t: t["bound_s"] - t["kernel_s"])
 
 
@@ -1884,7 +1906,9 @@ def main():
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
         f"{t['kernel_s']:.4f} bound {t['bound_s']:.4f} library "
-        f"{t['library_s']:.4f}" for t in record["totals"]))
+        f"{t['library_s']:.4f}" + (f" (backward alone {t['library_bwd_s']:.4f})"
+                                   if "library_bwd_s" in t else "")
+        for t in record["totals"]))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

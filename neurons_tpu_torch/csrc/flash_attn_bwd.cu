@@ -6,13 +6,12 @@
 //   neurons_tpu/ops/attention.py:458  _flash_bwd_bias_kernel  (additive bias)
 // which compute the FlashAttention-2 backward from the forward's saved
 // log-sum-exp: with s = q k^T * scale (+ bias) in f32,
-//   p  = exp(s - lse)                 (zero on padded query rows)
+//   p  = exp(s - lse)                 (zero on padded query rows, key columns)
 //   dv = p^T g          (p rounded to the input type first)
 //   dp = g v^T,  ds = p (dp - delta)  (delta = sum_d g * out, from the caller)
 //   dk = (ds*scale)^T q,  dq = (ds*scale) k   (ds*scale rounded to the input type)
 //   dbias = ds, summed over the rows that share a bias slice
-// with f32 accumulation throughout. One source serves both: the bias is a
-// runtime switch.
+// with f32 accumulation throughout. One source serves both.
 //
 // Layout: q, g [B, H, Tq, D]; k, v [B, Hkv, Tk, D] with Hkv in {1, H} (a
 // multi-query k/v row is read through a head stride of 0); lse and delta
@@ -22,34 +21,72 @@
 // (b, h) (the caller sums them over heads for multi-query k/v, in f32, as the
 // JAX package does at :652-656, and casts); dbias [N, Tq, Tk] in f32.
 //
-// Design: two kernels, no atomics, so every sum has one fixed order.
-//  * flash_bwd_dkdv_kernel: one block per (b, h) and tile of BK keys, holding
-//    K, V and the dk, dv accumulators (f32, shared memory) while it loops
-//    over the query tiles: S and dP, then P and dS, then dv += P^T G and
-//    dk += dS^T Q. 4 products a tile pair.
-//  * flash_bwd_dq_kernel: one block per (bias slice, tile of BQ queries). It
-//    loops over the (b, h) rows that share the slice (one row without a
-//    bias or with a per-(b, h) bias; the B rows of a head for a per-head
-//    bias) and, for each, over the key tiles: S and dP, then dS, then
-//    dq += dS K. The block owns its dbias rows, so it adds each row's dS
-//    into them in device memory in f32 without atomics: no [B, H, Tq, Tk]
-//    intermediate (337 MB a layer at the prior's shape) is ever made.
-//    3 products a tile pair: the recompute of S and dP is what a second pass
-//    costs instead of f32 atomics on dq.
-// Ragged Tq and Tk are masked (padded query rows and key columns give p = 0,
-// so they add nothing to any gradient), D is zero-padded to a multiple of 16
-// in shared memory, and only valid rows and columns are written.
+// Two passes and no atomics, so every sum has one fixed order and a rerun
+// gives equal bits: a dK/dV pass over key tiles and a dQ (+ dbias) pass over
+// query tiles. Each recomputes S and dP: 7 products where 5 would do with
+// f32 atomics on dq (9 with a bias slice shared by several rows, whose
+// dbias takes a third pass). Ragged Tq and Tk are masked (p = 0 there, so padded
+// rows and columns add nothing), D is zero-padded in shared memory, and
+// only valid rows and columns are written.
 //
-// What bounds it on an H100: 10*B*H*Tq*Tk*D operations (5 products) against
-// (4*Tq + 4*Tk)*D*esize + 8*Tq bytes a (b, h), plus the bias read and the f32
-// dbias written. At the decoder's [60,1,4096,4096,32] it is operation-bound;
-// at the prior's [10,32,513,514,52] the bias and dbias (Tq*Tk a slice) bring
-// it near the line. This first kernel uses WMMA (mma.sync underneath) with
-// every tile product staged through shared memory, 7 products where 5
-// would do, and no overlap of loads with products; its times stand in
-// PERF.md beside its bound.
+// What bounds it on an H100: 10*B*H*Tq*Tk*D operations (the 5 products of
+// the algorithm) against (3*Tq + 4*Tk)*D*esize + 4*Tq bytes a (b, h), plus
+// the bias read and the f32 dbias written. At 989 TFLOP/s and 3.35 TB/s the
+// stage-2 step's sites are bound by operations (decoder 64x64 0.33 ms
+// against 0.03 ms of bytes, 32x32 0.04, the prior 0.044 against 0.031 ms
+// with its bias and dbias), except the decoder's 16x16 site at d = 128
+// (0.005 ms of operations, 0.008 ms of bytes).
+//
+// Design of the bf16 instances at D <= 128, every launch of the paths
+// (flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel,
+// flash_bwd_dbias_reg_kernel): every product is
+// mma.sync m16n8k16 into f32 registers, and the elementwise steps between
+// products run on the C fragments in place, never through shared memory.
+//  * Pass 1, dK/dV: one block of 4 warps per (b, h) and 64 keys, 16 keys a
+//    warp. K and V are staged once (and, at D <= 64, held in registers as
+//    ldmatrix A fragments). Q, g, lse and delta of each 64-query tile, and
+//    the bias's [64 queries x 64 keys] slice, come through a 2-stage
+//    cp.async ring one tile ahead (16-, 8- or 4-byte copies as the rows
+//    allow, element copies otherwise; zero past Tq, Tk and D). Per 32-query
+//    chunk a warp computes S^T = K Q^T and dP^T = V g^T (keys x queries),
+//    P^T = exp(S^T*scale + bias^T - lse) with the accurate expf and dS^T =
+//    P^T (dP^T - delta); P^T and dS^T*scale are rounded to bf16 in place as
+//    A fragments (the C layout of two n8 tiles is the A layout of one k16
+//    step), and dV += P^T g, dK += (dS^T*scale) Q take g and Q by
+//    ldmatrix.trans from the ring. dK and dV are f32 register accumulators
+//    over the whole query loop, written once. One barrier a tile.
+//  * Pass 2, dQ: one block of 4 warps per (b, h) and 64 queries, 16
+//    queries a warp. Q and g are staged (held at D <= 64), lse and delta
+//    sit in registers, and K, V (and the bias slice) come through the ring.
+//    S and dP, then dS = P (dP - delta) in registers, and dQ += (dS*scale) K
+//    with dS as the A fragment and K by ldmatrix.trans; dQ is an f32
+//    register accumulator written once in the input type. Three products.
+//    Where each (b, h) has its own bias slice, the block writes the
+//    unscaled dS as its rows of dbias.
+//  * Pass 3, dbias of a slice shared by several rows (one slice for all, or
+//    the prior's one per head, shared by the B rows of a head): one block
+//    per slice and [64 x 64] tile, which recomputes S and dP for each row
+//    that shares the slice (its Q, g, K, V, lse and delta through the ring
+//    one row ahead; the bias tile staged once) and sums the unscaled dS in
+//    f32 registers in row order, written once. Two products more, but the
+//    grid fills the card and no partial sum goes through memory: walking
+//    the B rows inside the dQ pass instead (one block per head and query
+//    tile, 288 at the prior's shape, each row's dS added into dbias in
+//    device memory) took 1.25 ms against 0.52 + 0.61 ms for the dQ and
+//    dbias passes here (PERF.md). No [B, H, Tq, Tk] intermediate is made.
+// The head dim is padded to 32, 64, 96 or 128 in shared memory and in the
+// depth of S and dP only; the products over D run its real n8 tiles (52 =
+// 7). At D > 64 the resident tiles are read from shared memory at each use:
+// their fragments, held, would leave no registers for the f32 accumulators.
+//
+// The f32 (TF32) instances, which serve only the small card-vs-CPU checks,
+// and D > 128 (no path launches either) keep the first design
+// (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): WMMA, every tile product
+// staged through shared memory, the dK, dV and dQ accumulators in shared
+// memory, one tile in flight.
 
 #include "flash_common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -74,14 +111,20 @@ struct Params {
   int B, H, Tq, Tk, D, DP;     // DP: D rounded up to 16
   int bq, bk;
   float scale;
-  int vec;                     // 1 when rows move 16 bytes at a time
+  int vec;                     // bytes a row moves in (16, 8, 4; 0: elements);
+                               // the WMMA kernels: 1 for 16 bytes, else 0
+  int bgran;                   // the same for the bias rows
 };
 
-// (b, h) row of q for replica r of bias slice n in the dq kernel: the per-
-// head slice n is shared by rows r*H + n, the single shared slice by all.
+// (b, h) row of q for replica r of bias slice n (the WMMA dq kernel, the
+// dbias kernel): the per-head slice n is shared by rows r*H + n, the single
+// shared slice by all.
 __device__ inline int row_of(int mode, int n, int r, int H) {
   return mode == 1 ? r : (mode == 2 ? r * H + n : n);
 }
+
+// ---------------------------------------------------------------------------
+// f32 (TF32) and D > 128: the first design, WMMA through shared memory
 
 __host__ __device__ inline size_t smem_dkdv(int bq, int bk, int dp, int esize) {
   const int skew = esize == 2 ? 8 : 4;
@@ -380,14 +423,711 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D <= 128: the products in registers, tiles through a cp.async ring
+
+constexpr int kRB = 64;         // rows a block owns (keys, then queries) and
+                                // rows of a ring tile
+constexpr int kRThreads = 128;  // 4 warps of 16 rows
+constexpr int kRC = 32;         // columns of S a warp takes at a time
+constexpr int kBLD = kRB + 8;   // row stride of a bias tile, elements
+static_assert(kRThreads == 2 * kRB, "one lse or delta copy a thread");
+
+template <int DK, bool kBias>  // DK: the head dim padded to 32
+struct RegCfg {
+  static constexpr int LD = DK + 8;        // a 16-byte skew, as the forward's
+  static constexpr int kTile = kRB * LD;   // elements of a [64][LD] tile
+  static constexpr int KS = DK / 16;       // k16 steps of S and dP
+  static constexpr int NO = DK / 8;        // n8 tiles of the D-wide products
+  static constexpr bool kHold = DK <= 64;  // resident fragments in registers
+  static constexpr int kBiasBytes = kBias ? kRB * kBLD * 2 : 0;
+  // a ring stage: two operand tiles (pass 1: Q, g, then lse and delta;
+  // pass 2: K, V), then the bias tile
+  static constexpr int kStage1 = 4 * kTile + 2 * kRB * 4 + kBiasBytes;
+  static constexpr int kStage2 = 4 * kTile + kBiasBytes;
+  // the two resident tiles (pass 1: K, V; pass 2: Q, g) and the ring
+  static constexpr int kSmem1 = 4 * kTile + 2 * kStage1;
+  static constexpr int kSmem2 = 4 * kTile + 2 * kStage2;
+};
+
+// Copy the [64 queries x 64 keys] block at (q0, k0) of one [Tq, Tk] bias
+// slice (row stride sq) into a [64][kBLD] tile; queries past Tq and keys
+// past Tk are zero. kGran as stage_rows; the last copy of a ragged row
+// reads only the bytes left in it.
+template <int kGran>
+__device__ __forceinline__ void stage_bias(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long sq, int q0, int k0,
+                                           int Tq, int Tk) {
+  constexpr int E = kGran ? kGran / 2 : 1, per_row = kRB / E;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kRB * per_row; i += kRThreads) {
+    const int r = i / per_row, c = (i % per_row) * E;
+    const int q = q0 + r, key = k0 + c;
+    const bool ok = q < Tq && key < Tk;
+    if constexpr (kGran == 0) {
+      dst[r * kBLD + c] = ok ? src[(long long)q * sq + key]
+                             : __float2bfloat16(0.f);
+    } else {
+      cp_async<kGran>(smem_addr(dst + r * kBLD + c),
+                      ok ? src + (long long)q * sq + key : src,
+                      ok ? min(kGran, 2 * (Tk - key)) : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_bias_any(int gran, __nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long sq, int q0, int k0,
+                                               int Tq, int Tk) {
+  switch (gran) {
+    case 16: stage_bias<16>(dst, src, sq, q0, k0, Tq, Tk); break;
+    case 8: stage_bias<8>(dst, src, sq, q0, k0, Tq, Tk); break;
+    case 4: stage_bias<4>(dst, src, sq, q0, k0, Tq, Tk); break;
+    default: stage_bias<0>(dst, src, sq, q0, k0, Tq, Tk); break;
+  }
+}
+
+// lse, then delta, of the 64 queries at q0 into dst[0..127] (zero past Tq):
+// one 4-byte copy a thread
+__device__ __forceinline__ void stage_row_stats(float* dst, const float* lse,
+                                                const float* delta, int q0,
+                                                int Tq) {
+  const int i = threadIdx.x % kRB;
+  const float* src = threadIdx.x < kRB ? lse : delta;
+  const bool ok = q0 + i < Tq;
+  cp_async<4>(smem_addr(dst + threadIdx.x), ok ? src + q0 + i : src,
+              ok ? 4 : 0);
+}
+
+// Byte offsets of this lane's ldmatrix row address in a [rows][LD] tile:
+// an A fragment (16 rows x 16 columns), a B fragment pair of two n8 tiles
+// read from [n][k] rows (non-trans), and from [k][n] rows (trans).
+template <int LD>
+struct LaneOffsets {
+  uint32_t a, nt, tr;
+  __device__ explicit LaneOffsets(int lane)
+      : a((uint32_t)(((lane & 15) * LD + (lane >> 4) * 8) * 2)),
+        nt((uint32_t)((((lane & 7) + (lane >> 4) * 8) * LD +
+                       ((lane >> 3) & 1) * 8) * 2)),
+        tr((uint32_t)((((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                       (lane >> 4) * 8) * 2)) {}
+};
+
+// One 16-row x kRC-column block of two scores, c1 = A1 B1^T and c2 =
+// A2 B2^T, over the padded head dim: A1, A2 the warp's resident rows
+// (held fragments, or ldmatrix from a1, a2 at each step), B1, B2 kRC rows
+// of the ring tiles at b1, b2 (non-trans).
+template <int DK, bool kHold>
+__device__ __forceinline__ void two_scores(float (&c1)[kRC / 8][4],
+                                           float (&c2)[kRC / 8][4],
+                                           const uint32_t (*f1)[4],
+                                           const uint32_t (*f2)[4],
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t b1, uint32_t b2) {
+  constexpr int LD = DK + 8;
+#pragma unroll
+  for (int j = 0; j < kRC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DK / 16; ++ks) {
+    uint32_t x1[4], x2[4];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x1[i] = f1[ks][i];
+        x2[i] = f2[ks][i];
+      }
+    } else {
+      ldmatrix_x4(x1, a1 + ks * 32);
+      ldmatrix_x4(x2, a2 + ks * 32);
+    }
+#pragma unroll
+    for (int jp = 0; jp < kRC / 16; ++jp) {
+      const uint32_t off = jp * 16 * LD * 2 + ks * 32;
+      uint32_t r[4];
+      ldmatrix_x4(r, b1 + off);
+      mma_bf16(c1[2 * jp], x1, r);
+      mma_bf16(c1[2 * jp + 1], x1, r + 2);
+      ldmatrix_x4(r, b2 + off);
+      mma_bf16(c2[2 * jp], x2, r);
+      mma_bf16(c2[2 * jp + 1], x2, r + 2);
+    }
+  }
+}
+
+// acc += A B over the real head dim's n8 tiles (nv8 of them): A the
+// 16 x kRC bf16 fragments a[kRC / 16], B kRC rows of a [k][n] tile at b
+// (ldmatrix.trans).
+template <int DK>
+__device__ __forceinline__ void product_d(float (&acc)[DK / 8][4],
+                                          const uint32_t (&a)[kRC / 16][4],
+                                          uint32_t b, int nv8) {
+  constexpr int LD = DK + 8;
+#pragma unroll
+  for (int kk = 0; kk < kRC / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < DK / 16; ++np) {
+      if (2 * np >= nv8) continue;
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b + (kk * 16 * LD + np * 16) * 2);
+      mma_bf16(acc[2 * np], a[kk], r);
+      if (2 * np + 1 < nv8) mma_bf16(acc[2 * np + 1], a[kk], r + 2);
+    }
+}
+
+// Write a warp's 16 x D f32 accumulator (rows row0, row0 + 8 of this lane)
+// to [rows, D] at out as f32 (dk, dv) or bf16 (dq); rows past n are not
+// written.
+template <int DK, typename T>
+__device__ __forceinline__ void write_rows(T* out, const float (&acc)[DK / 8][4],
+                                           int row0, int n, int D, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    T* orow = out + (long long)row * D;
+#pragma unroll
+    for (int t = 0; t < DK / 8; ++t) {
+      const int col = t * 8 + (lane & 3) * 2;
+      if (col >= D) continue;
+      const float v0 = acc[t][2 * r], v1 = acc[t][2 * r + 1];
+      if constexpr (sizeof(T) == 4) {
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+        } else {
+          orow[col] = v0;
+          if (col + 1 < D) orow[col + 1] = v1;
+        }
+      } else {
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          orow[col] = __float2bfloat16(v0);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// Pass 1: dK and dV of 64 keys of one (b, h).
+template <int DK, bool kBias>
+__global__ void __launch_bounds__(kRThreads)
+flash_bwd_dkdv_reg_kernel(Params p) {
+  using C = RegCfg<DK, kBias>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = C::LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + C::kTile;
+  unsigned char* ring = smem + 4 * C::kTile;  // [2][Q, g, lse, delta, bias]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (p.Tk + kRB - 1) / kRB;
+  const int k0 = (blockIdx.x % nk) * kRB;
+  const int bh = blockIdx.x / nk;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const float* lse = p.lse + (long long)bh * p.Tq;
+  const float* delta = p.delta + (long long)bh * p.Tq;
+  const bf16* bg = kBias ? static_cast<const bf16*>(p.bias) +
+                               bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                         : nullptr;
+  const int nq = (p.Tq + kRB - 1) / kRB;
+
+  auto load_tile = [&](int s, int q0) {
+    bf16* dst = reinterpret_cast<bf16*>(ring + s * C::kStage1);
+    stage_rows_any<kRB, DK, kRThreads>(p.vec, dst, qg, p.q_st, q0, p.Tq, D);
+    stage_rows_any<kRB, DK, kRThreads>(p.vec, dst + C::kTile, gg, p.g_st, q0,
+                                       p.Tq, D);
+    stage_row_stats(reinterpret_cast<float*>(dst + 2 * C::kTile), lse, delta,
+                    q0, p.Tq);
+    if constexpr (kBias)
+      stage_bias_any(p.bgran,
+                     reinterpret_cast<bf16*>(ring + s * C::kStage1 +
+                                             4 * C::kTile + 2 * kRB * 4),
+                     bg, p.bias_sq, q0, k0, p.Tq, p.Tk);
+  };
+
+  stage_rows_any<kRB, DK, kRThreads>(p.vec, sK, kg, p.k_st, k0, p.Tk, D);
+  stage_rows_any<kRB, DK, kRThreads>(p.vec, sV, vg, p.v_st, k0, p.Tk, D);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const LaneOffsets<LD> lo(lane);
+  // this warp's 16 keys: rows of K and V, the A operands of S^T and dP^T
+  const uint32_t ka = smem_addr(sK) + warp * 16 * LD * 2 + lo.a;
+  const uint32_t va = smem_addr(sV) + warp * 16 * LD * 2 + lo.a;
+  uint32_t kf[C::kHold ? C::KS : 1][4], vf[C::kHold ? C::KS : 1][4];
+  if constexpr (C::kHold) {
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      ldmatrix_x4(kf[ks], ka + ks * 32);
+      ldmatrix_x4(vf[ks], va + ks * 32);
+    }
+  }
+  float dk[C::NO][4], dv[C::NO][4];
+#pragma unroll
+  for (int t = 0; t < C::NO; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+  const int nv8 = (D + 7) / 8;
+  const int key_l = warp * 16 + (lane >> 2);  // this lane's keys: +0, +8
+  const bool key_ok[2] = {k0 + key_l < p.Tk, k0 + key_l + 8 < p.Tk};
+
+  for (int t = 0; t < nq; ++t) {
+    const int stg = t & 1;
+    if (t + 1 < nq) load_tile(stg ^ 1, (t + 1) * kRB);
+    cp_async_commit();
+    const int q0 = t * kRB;
+    const unsigned char* st = ring + stg * C::kStage1;
+    const uint32_t qs = smem_addr(st), gs = qs + 2 * C::kTile;
+    const float* s_lse = reinterpret_cast<const float*>(st + 4 * C::kTile);
+    const float* s_delta = s_lse + kRB;
+    const bf16* s_bias =
+        reinterpret_cast<const bf16*>(st + 4 * C::kTile + 2 * kRB * 4);
+
+#pragma unroll 1
+    for (int qc = 0; qc < kRB; qc += kRC) {
+      // S^T = K Q^T and dP^T = V g^T: 16 keys x kRC queries
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores<DK, C::kHold>(s, dp, kf, vf, ka, va, qs + qc * LD * 2 + lo.nt,
+                               gs + qc * LD * 2 + lo.nt);
+      // P^T and dS^T*scale, rounded to bf16 as the A fragments of kRC / 16
+      // k16 steps (column pair j of S^T: queries qc + 8j + 2(lane % 4), + 1)
+      uint32_t pa[kRC / 16][4], da[kRC / 16][4];
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j) {
+        const int ql = qc + j * 8 + (lane & 3) * 2;
+        const float2 ls = *reinterpret_cast<const float2*>(s_lse + ql);
+        const float2 dl = *reinterpret_cast<const float2*>(s_delta + ql);
+        const bool q_ok[2] = {q0 + ql < p.Tq, q0 + ql + 1 < p.Tq};
+        float pe[4], de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1, r = e >> 1;
+          float x = s[j][e] * p.scale;
+          if constexpr (kBias)
+            x += __bfloat162float(s_bias[(ql + c) * kBLD + key_l + 8 * r]);
+          const float pv =
+              key_ok[r] && q_ok[c] ? expf(x - (c ? ls.y : ls.x)) : 0.f;
+          pe[e] = pv;
+          de[e] = pv * (dp[j][e] - (c ? dl.y : dl.x)) * p.scale;
+        }
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(pe[0], pe[1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pe[2], pe[3]);
+        da[j >> 1][(j & 1) * 2] = pack_bf16(de[0], de[1]);
+        da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(de[2], de[3]);
+      }
+      // dV += P^T g, dK += (dS^T*scale) Q
+      product_d<DK>(dv, pa, gs + qc * LD * 2 + lo.tr, nv8);
+      product_d<DK>(dk, da, qs + qc * LD * 2 + lo.tr, nv8);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  const long long out = (long long)bh * p.Tk * D;
+  write_rows<DK>(p.dk + out, dk, k0 + key_l, p.Tk, D, lane);
+  write_rows<DK>(p.dv + out, dv, k0 + key_l, p.Tk, D, lane);
+}
+
+// Pass 2: dQ of 64 queries of one (b, h), and with a bias of its own (one
+// slice per (b, h)) the rows of dbias they own.
+template <int DK, bool kBias>
+__global__ void __launch_bounds__(kRThreads)
+flash_bwd_dq_reg_kernel(Params p) {
+  using C = RegCfg<DK, kBias>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = C::LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sG = sQ + C::kTile;
+  unsigned char* ring = smem + 4 * C::kTile;  // [2][K, V, bias]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kRB - 1) / kRB;
+  const int q0 = (blockIdx.x % nq) * kRB;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nk = (p.Tk + kRB - 1) / kRB;
+  const int D = p.D;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const bf16* bg = kBias ? static_cast<const bf16*>(p.bias) +
+                               bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                         : nullptr;
+  // dS is this block's dbias only where each (b, h) has its own slice;
+  // shared slices take theirs from flash_bwd_dbias_reg_kernel
+  float* dbg = kBias && p.bias_mode == 3
+                   ? p.dbias + (long long)bh * p.Tq * p.Tk : nullptr;
+  const bool pairs = (p.Tk & 1) == 0;  // dbias rows start 8-byte aligned
+  const int row_l = warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
+  const int rows[2] = {q0 + row_l, q0 + row_l + 8};
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < p.Tq;
+    lse[r] = ok ? p.lse[(long long)bh * p.Tq + rows[r]] : 0.f;
+    dlt[r] = ok ? p.delta[(long long)bh * p.Tq + rows[r]] : 0.f;
+  }
+
+  auto load_tile = [&](int s, int k0) {
+    bf16* dst = reinterpret_cast<bf16*>(ring + s * C::kStage2);
+    stage_rows_any<kRB, DK, kRThreads>(p.vec, dst, kg, p.k_st, k0, p.Tk, D);
+    stage_rows_any<kRB, DK, kRThreads>(p.vec, dst + C::kTile, vg, p.v_st, k0,
+                                       p.Tk, D);
+    if constexpr (kBias)
+      stage_bias_any(p.bgran, dst + 2 * C::kTile, bg, p.bias_sq, q0, k0, p.Tq,
+                     p.Tk);
+  };
+  stage_rows_any<kRB, DK, kRThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
+  stage_rows_any<kRB, DK, kRThreads>(p.vec, sG, gg, p.g_st, q0, p.Tq, D);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const LaneOffsets<LD> lo(lane);
+  // this warp's 16 queries: rows of Q and g, the A operands of S and dP
+  const uint32_t qa = smem_addr(sQ) + warp * 16 * LD * 2 + lo.a;
+  const uint32_t ga = smem_addr(sG) + warp * 16 * LD * 2 + lo.a;
+  uint32_t qf[C::kHold ? C::KS : 1][4], gf[C::kHold ? C::KS : 1][4];
+  if constexpr (C::kHold) {
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      ldmatrix_x4(qf[ks], qa + ks * 32);
+      ldmatrix_x4(gf[ks], ga + ks * 32);
+    }
+  }
+  float dq[C::NO][4];
+#pragma unroll
+  for (int t = 0; t < C::NO; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
+  const int nv8 = (D + 7) / 8;
+
+  for (int t = 0; t < nk; ++t) {
+    const int stg = t & 1;
+    if (t + 1 < nk) load_tile(stg ^ 1, (t + 1) * kRB);
+    cp_async_commit();
+    const int k0 = t * kRB;
+    const unsigned char* st = ring + stg * C::kStage2;
+    const uint32_t ks_ = smem_addr(st), vs_ = ks_ + 2 * C::kTile;
+    const bf16* s_bias = reinterpret_cast<const bf16*>(st + 4 * C::kTile);
+
+#pragma unroll 1
+    for (int kc = 0; kc < kRB; kc += kRC) {
+      // S = Q K^T and dP = g V^T: 16 queries x kRC keys
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores<DK, C::kHold>(s, dp, qf, gf, qa, ga,
+                               ks_ + kc * LD * 2 + lo.nt,
+                               vs_ + kc * LD * 2 + lo.nt);
+      // dS*scale as bf16 A fragments (column pair j of S: keys k0 + kc +
+      // 8j + 2(lane % 4), + 1); the unscaled dS into an own dbias slice
+      uint32_t da[kRC / 16][4];
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j) {
+        const int kl = kc + j * 8 + (lane & 3) * 2, key = k0 + kl;
+        const bool key_ok[2] = {key < p.Tk, key + 1 < p.Tk};
+        float de[4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float bias2[2] = {0.f, 0.f};
+          if constexpr (kBias) {
+            const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
+                s_bias + (row_l + 8 * r) * kBLD + kl);
+            bias2[0] = __low2float(bb);
+            bias2[1] = __high2float(bb);
+          }
+          const bool row_ok = rows[r] < p.Tq;
+          float ds[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = s[j][2 * r + c] * p.scale + bias2[c];
+            const float pv = row_ok && key_ok[c] ? expf(x - lse[r]) : 0.f;
+            ds[c] = pv * (dp[j][2 * r + c] - dlt[r]);
+            de[2 * r + c] = ds[c] * p.scale;
+          }
+          if (kBias && dbg && row_ok && key_ok[0]) {
+            float* at = dbg + (long long)rows[r] * p.Tk + key;
+            if (key_ok[1] && pairs) {
+              *reinterpret_cast<float2*>(at) = make_float2(ds[0], ds[1]);
+            } else {
+              at[0] = ds[0];
+              if (key_ok[1]) at[1] = ds[1];
+            }
+          }
+        }
+        da[j >> 1][(j & 1) * 2] = pack_bf16(de[0], de[1]);
+        da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(de[2], de[3]);
+      }
+      // dQ += (dS*scale) K
+      product_d<DK>(dq, da, ks_ + kc * LD * 2 + lo.tr, nv8);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  write_rows<DK>(static_cast<bf16*>(p.dq) + (long long)bh * p.Tq * D, dq,
+                 rows[0], p.Tq, D, lane);
+}
+
+// Shared memory of the dbias kernel: the bias tile, then a 2-stage ring of
+// one row's Q, g, K, V tiles, lse and delta.
+template <int DK>
+struct DbiasCfg {
+  static constexpr int kStage = 8 * RegCfg<DK, true>::kTile + 2 * kRB * 4;
+  static constexpr int kSmem = kRB * kBLD * 2 + 2 * kStage;
+};
+
+// Pass 3, a bias slice shared by several (b, h) rows (one for all rows, or
+// one per head): dbias of one [64 queries x 64 keys] tile of slice n, the
+// unscaled dS of each row that shares it summed in f32 registers in row
+// order and written once. Each row's Q, g, K, V tiles, lse and delta come
+// through the 2-stage ring one row ahead; the bias tile is staged once.
+// S and dP are recomputed (2 products): a block per tile, not per slice,
+// fills the card, and no dbias partial goes through memory.
+template <int DK>
+__global__ void __launch_bounds__(kRThreads)
+flash_bwd_dbias_reg_kernel(Params p, int n_rep) {
+  using C = RegCfg<DK, true>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = C::LD;
+  constexpr int kStage = DbiasCfg<DK>::kStage;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sB = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + kRB * kBLD * 2;  // [2][Q, g, K, V, lse, delta]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kRB - 1) / kRB, nk = (p.Tk + kRB - 1) / kRB;
+  const int k0 = (blockIdx.x % nk) * kRB;
+  const int q0 = (blockIdx.x / nk % nq) * kRB;
+  const int n = blockIdx.x / (nk * nq);
+  const int D = p.D;
+
+  auto load_row = [&](int s, int rep) {
+    const int bh = row_of(p.bias_mode, n, rep, p.H);
+    const int b = bh / p.H, h = bh % p.H;
+    bf16* dst = reinterpret_cast<bf16*>(ring + s * kStage);
+    stage_rows_any<kRB, DK, kRThreads>(
+        p.vec, dst, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh,
+        p.q_st, q0, p.Tq, D);
+    stage_rows_any<kRB, DK, kRThreads>(
+        p.vec, dst + C::kTile,
+        static_cast<const bf16*>(p.g) + b * p.g_sb + h * p.g_sh, p.g_st, q0,
+        p.Tq, D);
+    stage_rows_any<kRB, DK, kRThreads>(
+        p.vec, dst + 2 * C::kTile,
+        static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh, p.k_st, k0,
+        p.Tk, D);
+    stage_rows_any<kRB, DK, kRThreads>(
+        p.vec, dst + 3 * C::kTile,
+        static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh, p.v_st, k0,
+        p.Tk, D);
+    stage_row_stats(reinterpret_cast<float*>(dst + 4 * C::kTile),
+                    p.lse + (long long)bh * p.Tq,
+                    p.delta + (long long)bh * p.Tq, q0, p.Tq);
+  };
+  stage_bias_any(p.bgran, sB,
+                 static_cast<const bf16*>(p.bias) + n * p.bias_sn, p.bias_sq,
+                 q0, k0, p.Tq, p.Tk);
+  load_row(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const LaneOffsets<LD> lo(lane);
+  const int row_l = warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
+  const bool row_ok[2] = {q0 + row_l < p.Tq, q0 + row_l + 8 < p.Tq};
+  float bias[kRB / 8][4];  // this lane's bias values, as f32
+  bool key_ok[kRB / 8][2];
+#pragma unroll
+  for (int j = 0; j < kRB / 8; ++j) {
+    const int kl = j * 8 + (lane & 3) * 2;
+    key_ok[j][0] = k0 + kl < p.Tk;
+    key_ok[j][1] = k0 + kl + 1 < p.Tk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
+          sB + (row_l + 8 * r) * kBLD + kl);
+      bias[j][2 * r] = __low2float(bb);
+      bias[j][2 * r + 1] = __high2float(bb);
+    }
+  }
+  float acc[kRB / 8][4];
+#pragma unroll
+  for (int j = 0; j < kRB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll 1
+  for (int rep = 0; rep < n_rep; ++rep) {
+    const int stg = rep & 1;
+    if (rep + 1 < n_rep) load_row(stg ^ 1, rep + 1);
+    cp_async_commit();
+    const unsigned char* st = ring + stg * kStage;
+    const uint32_t qs = smem_addr(st), gs = qs + 2 * C::kTile,
+                   ks_ = qs + 4 * C::kTile, vs_ = qs + 6 * C::kTile;
+    const float* s_lse = reinterpret_cast<const float*>(st + 8 * C::kTile);
+    float lse[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse[r] = s_lse[row_l + 8 * r];
+      dlt[r] = s_lse[kRB + row_l + 8 * r];
+    }
+#pragma unroll
+    for (int kc = 0; kc < kRB; kc += kRC) {
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores<DK, false>(s, dp, nullptr, nullptr,
+                            qs + warp * 16 * LD * 2 + lo.a,
+                            gs + warp * 16 * LD * 2 + lo.a,
+                            ks_ + kc * LD * 2 + lo.nt,
+                            vs_ + kc * LD * 2 + lo.nt);
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jt = kc / 8 + j, r = e >> 1, c = e & 1;
+          const float x = s[j][e] * p.scale + bias[jt][e];
+          const float pv =
+              row_ok[r] && key_ok[jt][c] ? expf(x - lse[r]) : 0.f;
+          acc[jt][e] += pv * (dp[j][e] - dlt[r]);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  float* dbg = p.dbias + (long long)n * p.Tq * p.Tk;
+  const bool pairs = (p.Tk & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    float* drow = dbg + (long long)(q0 + row_l + 8 * r) * p.Tk + k0;
+#pragma unroll
+    for (int j = 0; j < kRB / 8; ++j) {
+      const int kl = j * 8 + (lane & 3) * 2;
+      if (!key_ok[j][0]) continue;
+      if (key_ok[j][1] && pairs) {
+        *reinterpret_cast<float2*>(drow + kl) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      } else {
+        drow[kl] = acc[j][2 * r];
+        if (key_ok[j][1]) drow[kl + 1] = acc[j][2 * r + 1];
+      }
+    }
+  }
+}
+
+// The padded head dim of the register kernels' instance for D, 0 past 128.
+inline int reg_dk(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128 : 0;
+}
+
+// Shared memory of the largest kernel (the biased pass 1 or the dbias
+// kernel) at instance DK.
+template <int DK>
+constexpr int reg_smem_as() {
+  return RegCfg<DK, true>::kSmem1 > DbiasCfg<DK>::kSmem
+             ? RegCfg<DK, true>::kSmem1 : DbiasCfg<DK>::kSmem;
+}
+
+inline int reg_smem(int dk) {
+  switch (dk) {
+    case 32: return reg_smem_as<32>();
+    case 64: return reg_smem_as<64>();
+    case 96: return reg_smem_as<96>();
+    default: return reg_smem_as<128>();
+  }
+}
+
+// The largest of 16, 8 and 4 bytes that the bias rows move in (the
+// pointer, the row stride and, with more than one slice, the slice stride
+// multiples of it), else 0.
+int bias_granule(const void* bias, long long sn, long long sq, int mode) {
+  static const int kGrans[] = {16, 8, 4};
+  for (int g : kGrans) {
+    if (reinterpret_cast<uintptr_t>(bias) % g == 0 && (2 * sq) % g == 0
+        && (mode == 1 || (2 * sn) % g == 0))
+      return g;
+  }
+  return 0;
+}
+
+template <int DK, bool kBias>
+cudaError_t launch_reg_as(Params p, cudaStream_t stream) {
+  using C = RegCfg<DK, kBias>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_reg_kernel<DK, kBias>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_reg_kernel<DK, kBias>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem2);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)p.B * p.H;
+  const long long nk = (p.Tk + kRB - 1) / kRB, nq = (p.Tq + kRB - 1) / kRB;
+  flash_bwd_dkdv_reg_kernel<DK, kBias><<<(unsigned)(bh * nk), kRThreads,
+                                         C::kSmem1, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_reg_kernel<DK, kBias><<<(unsigned)(bh * nq), kRThreads,
+                                       C::kSmem2, stream>>>(p);
+  err = cudaGetLastError();
+  if constexpr (kBias) {
+    if (err != cudaSuccess || p.bias_mode == 3) return err;
+    // a slice shared by all rows (mode 1) or by the B rows of a head (2)
+    const long long slices = p.bias_mode == 1 ? 1 : p.H;
+    constexpr int kSmem3 = DbiasCfg<DK>::kSmem;
+    err = cudaFuncSetAttribute(flash_bwd_dbias_reg_kernel<DK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem3);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dbias_reg_kernel<DK><<<(unsigned)(slices * nq * nk), kRThreads,
+                                     kSmem3, stream>>>(p, (int)(bh / slices));
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+template <int DK>
+cudaError_t launch_reg_dk(Params p, cudaStream_t stream) {
+  return p.bias ? launch_reg_as<DK, true>(p, stream)
+                : launch_reg_as<DK, false>(p, stream);
+}
+
+cudaError_t launch_reg(Params p, cudaStream_t stream) {
+  switch (reg_dk(p.D)) {
+    case 32: return launch_reg_dk<32>(p, stream);
+    case 64: return launch_reg_dk<64>(p, stream);
+    case 96: return launch_reg_dk<96>(p, stream);
+    case 128: return launch_reg_dk<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, bias and dq). bias_mode: 0 =
 // no bias (bias and dbias null), 1 = one [Tq, Tk] slice, 2 = one per head,
-// 3 = one per (b, h). g, lse and delta must not alias the outputs. Returns a
-// cudaError_t (0 on success).
+// 3 = one per (b, h). vec: the bytes every row of q, k, v and g can move in
+// (16, 8 or 4: D, the token strides and the pointers are multiples of it),
+// or 0 for element loads. g, lse and delta must not alias the outputs.
+// bf16 at D <= 128 launches the register kernels, anything else the WMMA
+// ones. Returns a cudaError_t (0 on success).
 int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, const void* bias,
                    void* dq, float* dk, float* dv, float* dbias,
@@ -414,17 +1154,29 @@ int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
   p.DP = (D + 15) / 16 * 16;
   p.scale = scale;
-  p.vec = vec;
+  if (vec != 0 && vec != 4 && vec != 8 && vec != 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && reg_dk(D)) {
+    p.vec = vec;
+    p.bgran = bias ? bias_granule(bias, bias_sn, bias_sq, bias_mode) : 0;
+    return (int)launch_reg(p, s);
+  }
+  p.vec = vec == 16;  // the WMMA kernels move 16 bytes or one element
   const int esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(p.DP, esize, max_block_smem(), &p.bq, &p.bk))
     return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
 }
 
-// The tiles and the larger shared-memory size of the two kernels at head
-// dim D; 0 when no tile fits.
+// The tiles (query rows, keys) and the larger shared-memory size of the two
+// kernels a launch at head dim D would use; 0 when no tile fits.
 int flash_attn_bwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
+  if (dtype == 1 && reg_dk(D)) {
+    *bq = *bk = kRB;
+    *smem = reg_smem(reg_dk(D));
+    return 1;
+  }
   const int dp = (D + 15) / 16 * 16, esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(dp, esize, max_block_smem(), bq, bk)) return 0;
   const size_t a = smem_dkdv(*bq, *bk, dp, esize), b = smem_dq(*bq, *bk, dp, esize);

@@ -245,55 +245,6 @@ struct RegCfg {
   static constexpr int NO = DK / 8;            // n8 tiles of O at most
 };
 
-// Copy ROWS rows of D elements (row `row0` on, of n, row stride st) into a
-// [ROWS][LD] tile with NT threads; rows past n and columns past D (up to
-// DK) are zero. kGran: bytes a cp.async moves (16, 8, 4), or 0 for
-// synchronous element copies. kRolled keeps the copy a loop, which leaves
-// the caller's registers to its products: the inference instances measured
-// faster so (118-164 registers against 195-255 when the compiler unrolls
-// it; d = 512 ran the same either way at fewer registers), while some
-// training instances then spilled a few bytes; those leave the loop to the
-// compiler.
-template <int ROWS, int DK, int NT, int kGran, bool kRolled>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long st, int row0, int n,
-                                           int D) {
-  constexpr int LD = DK + 8;
-  constexpr int E = kGran ? kGran / 2 : 1, per_row = DK / E;
-  auto copy = [&](int i) {
-    const int r = i / per_row, c = (i % per_row) * E;
-    const bool ok = row0 + r < n && c < D;
-    if constexpr (kGran == 0) {
-      dst[r * LD + c] = ok ? src[(long long)(row0 + r) * st + c]
-                           : __float2bfloat16(0.f);
-    } else {
-      cp_async<kGran>(smem_addr(dst + r * LD + c),
-                      ok ? src + (long long)(row0 + r) * st + c : src,
-                      ok ? kGran : 0);
-    }
-  };
-  if constexpr (kRolled) {
-#pragma unroll 1
-    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
-  } else {
-    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
-  }
-}
-
-template <int ROWS, int DK, int NT, bool kRolled = true>
-__device__ __forceinline__ void stage_rows_any(int gran, __nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long st, int row0, int n,
-                                               int D) {
-  switch (gran) {
-    case 16: stage_rows<ROWS, DK, NT, 16, kRolled>(dst, src, st, row0, n, D); break;
-    case 8: stage_rows<ROWS, DK, NT, 8, kRolled>(dst, src, st, row0, n, D); break;
-    case 4: stage_rows<ROWS, DK, NT, 4, kRolled>(dst, src, st, row0, n, D); break;
-    default: stage_rows<ROWS, DK, NT, 0, kRolled>(dst, src, st, row0, n, D); break;
-  }
-}
-
 // The block: 64 query rows of one (b, h), 4 warps of 16 rows. Q's A
 // fragments are loaded once into registers; per 64-key tile a warp computes
 // S = Q K^T into registers (mma.sync m16n8k16, f32), updates the row max

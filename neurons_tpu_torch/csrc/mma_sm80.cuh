@@ -1,9 +1,10 @@
 // Warp-level tensor-core building blocks in inline PTX, shared by the
-// redesigned bf16 kernels (gn_silu_conv.cu, flash_attn_fwd.cu): ldmatrix
-// fragment loads, mma.sync m16n8k16 bf16 with f32 accumulators, and cp.async
-// copies (16, 8 or 4 bytes, zero-filled past the source's valid bytes) with
-// their group commit/wait. These are the sm_80 instructions; sm_90a runs
-// them as they are.
+// redesigned bf16 kernels (gn_silu_conv.cu, flash_attn_fwd.cu,
+// flash_attn_bwd.cu): ldmatrix fragment loads, mma.sync m16n8k16 bf16 with
+// f32 accumulators, and cp.async copies (16, 8 or 4 bytes, zero-filled past
+// the source's valid bytes) with their group commit/wait, and the staging
+// of token rows into skewed [rows][D + 8] tiles. These are the sm_80
+// instructions; sm_90a runs them as they are.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
@@ -89,6 +90,55 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Copy ROWS rows of D elements (row `row0` on, of n, row stride st) into a
+// [ROWS][LD] tile with NT threads; rows past n and columns past D (up to
+// DK) are zero. kGran: bytes a cp.async moves (16, 8, 4), or 0 for
+// synchronous element copies. kRolled keeps the copy a loop, which leaves
+// the caller's registers to its products: the inference instances measured
+// faster so (118-164 registers against 195-255 when the compiler unrolls
+// it; d = 512 ran the same either way at fewer registers), while some
+// training instances then spilled a few bytes; those leave the loop to the
+// compiler.
+template <int ROWS, int DK, int NT, int kGran, bool kRolled>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long st, int row0, int n,
+                                           int D) {
+  constexpr int LD = DK + 8;
+  constexpr int E = kGran ? kGran / 2 : 1, per_row = DK / E;
+  auto copy = [&](int i) {
+    const int r = i / per_row, c = (i % per_row) * E;
+    const bool ok = row0 + r < n && c < D;
+    if constexpr (kGran == 0) {
+      dst[r * LD + c] = ok ? src[(long long)(row0 + r) * st + c]
+                           : __float2bfloat16(0.f);
+    } else {
+      cp_async<kGran>(smem_addr(dst + r * LD + c),
+                      ok ? src + (long long)(row0 + r) * st + c : src,
+                      ok ? kGran : 0);
+    }
+  };
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
+  } else {
+    for (int i = threadIdx.x; i < ROWS * per_row; i += NT) copy(i);
+  }
+}
+
+template <int ROWS, int DK, int NT, bool kRolled = true>
+__device__ __forceinline__ void stage_rows_any(int gran, __nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long st, int row0, int n,
+                                               int D) {
+  switch (gran) {
+    case 16: stage_rows<ROWS, DK, NT, 16, kRolled>(dst, src, st, row0, n, D); break;
+    case 8: stage_rows<ROWS, DK, NT, 8, kRolled>(dst, src, st, row0, n, D); break;
+    case 4: stage_rows<ROWS, DK, NT, 4, kRolled>(dst, src, st, row0, n, D); break;
+    default: stage_rows<ROWS, DK, NT, 0, kRolled>(dst, src, st, row0, n, D); break;
+  }
 }
 
 }  // namespace

@@ -342,8 +342,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
         dbias = torch.empty(bias3.shape, dtype=torch.float32,
                             device=q.device)
-    # the backward moves rows 16 bytes at a time or element by element
-    vec = int(_granule(d, q.element_size(), strides, (q, k, v, g)) == 16)
+    vec = _granule(d, q.element_size(), strides, (q, k, v, g))
     lib = _library("flash_attn_bwd")
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32, device=q.device)

@@ -4,10 +4,14 @@ hand-written CUDA kernel and its plain PyTorch version.
 Counterpart of neurons_tpu/ops/temporal_attention.py. q, k and v come in
 the layout the motion module's projections emit, [(B F), D, C] with C
 innermost (D pixels, C = H * hd); each pixel attends across its F frames,
-head by head. `temporal_attention` takes a CPU tensor to
+head by head. `temporal_attention_fwd` takes a CPU tensor to
 `temporal_attention_reference` and a CUDA tensor to
 csrc/temporal_attn_fwd.cu, which replaces the Pallas kernel
-`_temporal_kernel`. It never falls back.
+`_temporal_kernel`. It never falls back. `temporal_attention`, the
+entry point, runs that forward alone when autograd does not record, and
+otherwise through `TemporalAttentionFn`, the JAX package's custom VJP:
+the kernel forward, and a backward that differentiates the plain version
+recomputed from the saved q, k and v.
 """
 
 from __future__ import annotations
@@ -19,12 +23,13 @@ import torch
 
 from neurons_tpu_torch.ops import cuda_build
 from neurons_tpu_torch.ops.cuda_build import LaunchCounter
+from neurons_tpu_torch.ops.fused_norm import vjp_of_reference
 
 _KERNEL = "temporal_attn_fwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FRAMES = 32  # motion_max_seq_length; the kernel's limit
 
-# incremented by temporal_attention where it launches its kernel, and
+# incremented by temporal_attention_fwd where it launches its kernel, and
 # nowhere else; keyed by (B F, D, C, F, H, dtype)
 TEMPORAL_ATTN_LAUNCHES = LaunchCounter()
 
@@ -65,10 +70,11 @@ def _check_operands(q, k, v, n_frames, heads):
         raise ValueError("q, k and v lie on different devices")
 
 
-def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       n_frames: int, heads: int,
-                       scale: float) -> torch.Tensor:
-    """Per-pixel attention across frames, q/k/v [(B F), D, C] -> same.
+def temporal_attention_fwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, n_frames: int, heads: int,
+                           scale: float) -> torch.Tensor:
+    """Per-pixel attention across frames, q/k/v [(B F), D, C] -> same,
+    outside autograd.
 
     CUDA tensors launch csrc/temporal_attn_fwd.cu (bf16 or f32, contiguous,
     F <= 32, any heads and head dim). CPU tensors compute
@@ -107,6 +113,40 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     TEMPORAL_ATTN_LAUNCHES.add((bf, d, c, n_frames, heads,
                                 str(q.dtype).split(".")[-1]))
     return out
+
+
+class TemporalAttentionFn(torch.autograd.Function):
+    """The JAX package's custom-VJP `temporal_attention`: the forward is
+    `temporal_attention_fwd` (the kernel on a CUDA tensor); the backward
+    differentiates `temporal_attention_reference`, recomputed from the
+    saved q, k and v. Pure, so a checkpointed region may run the forward
+    twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_frames, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_frames, ctx.heads, ctx.scale = n_frames, heads, scale
+        return temporal_attention_fwd(q, k, v, n_frames, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = vjp_of_reference(
+            lambda q, k, v: temporal_attention_reference(
+                q, k, v, ctx.n_frames, ctx.heads, ctx.scale),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return grads + (None, None, None)
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       n_frames: int, heads: int,
+                       scale: float) -> torch.Tensor:
+    """Per-pixel attention across frames, q/k/v [(B F), D, C] -> same: the
+    differentiable `TemporalAttentionFn` when autograd records, else one
+    launch of `temporal_attention_fwd` with nothing saved."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return TemporalAttentionFn.apply(q, k, v, n_frames, heads,
+                                         float(scale))
+    return temporal_attention_fwd(q, k, v, n_frames, heads, scale)
 
 
 def temporal_plan(n_frames: int, head_dim: int, dtype: torch.dtype):

@@ -163,6 +163,39 @@ def test_temporal_kernel_at_a_path_shape(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_temporal_gradient_through_the_kernel(cuda, dtype):
+    # under autograd the entry point launches the kernel once and records
+    # its Function; the gradients (the plain version's VJP, recomputed)
+    # are held to float64 autograd of the reference on the same inputs,
+    # within 1.5x the plain path's error (plain forward and autograd)
+    dt = getattr(torch, dtype)
+    bf, d, c, f, h = 32, 7, 640, 16, 8
+    g = torch.Generator("cuda").manual_seed(11)
+    q, k, v, go = (torch.randn((bf, d, c), generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = (c // h) ** -0.5
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = ta.TEMPORAL_ATTN_LAUNCHES.total
+    out = ta.temporal_attention(*ins, f, h, scale)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, go)
+    assert ta.TEMPORAL_ATTN_LAUNCHES.total == before + 1
+    ins64 = [x.double().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        ta.temporal_attention_reference(*ins64, f, h, scale), ins64,
+        go.double())
+    pins = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain = torch.autograd.grad(
+        ta.temporal_attention_reference(*pins, f, h, scale), pins, go)
+    for name, a, p_, w in zip("qkv", got, plain, want):
+        assert a.dtype == dt and a.shape == q.shape
+        _report(f"temporal grad d{name} {dtype}",
+                (a.double() - w).abs().max().item(),
+                (p_.double() - w).abs().max().item())
+
+
+@pytest.mark.cuda
 def test_temporal_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn((8, 5, 16), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -184,15 +217,21 @@ def test_temporal_kernel_refuses_what_it_does_not_take(cuda):
 # as the JAX package's, or TF32 products for f32) for out, lse, dq, dk, dv
 # and dbias. The backward sums in a fixed order (no atomics), so a rerun
 # gives the same bits.
-def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3):
+def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None):
+    # row: q, k, v and the output gradient are read from token rows of
+    # `row` elements (the first d of each), so the kernels' row copies
+    # take 8-, 4-byte or element loads
     g = torch.Generator("cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+    def rows(*shape):
+        return rand(*shape[:-1], row or d)[..., :d]
+
+    q, k, v = rows(b, h, tq, d), rows(b, hkv, tk, d), rows(b, hkv, tk, d)
     bias = rand(*bias_shape) if bias_shape else None
-    go = rand(b, h, tq, d)
+    go = rows(b, h, tq, d)
     scale = d ** -0.5
     ins = [x.double().requires_grad_() for x in (q, k, v)]
     bias64 = bias.double().requires_grad_() if bias is not None else None
@@ -270,6 +309,27 @@ def test_train_kernels_match_plain(cuda, dtype, shape):
                          ids=["shared", "per_head", "per_bh", "per_head_d128"])
 def test_forward_bias_modes_with_lse(cuda, d, bias_shape):
     _check_train(2, 3, 150, 140, d, 3, bias_shape, torch.bfloat16)
+
+
+# the bf16 backward's register instances (head dims padded to 32, 64, 96,
+# 128) at head dims off them, unbiased and with a per-head bias over
+# multi-query k/v, ragged Tq and Tk
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [False, True], ids=["nobias", "per_head"])
+@pytest.mark.parametrize("d", [16, 40, 80, 96])
+def test_backward_at_every_head_dim(cuda, d, biased):
+    _check_train(2, 3, 150, 190, d, 1 if biased else 3,
+                 (3, 150, 190) if biased else None, torch.bfloat16, seed=d)
+
+
+# rows that move in 8, 4 or 2 bytes (d = 52 and 50 contiguous, d = 52
+# from rows of 53), and an odd Tk, whose bias rows move element by element
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,row,tk", [(52, 52, 140), (50, 50, 140),
+                                      (52, 53, 140), (40, 40, 131)])
+def test_backward_takes_rows_off_16_bytes(cuda, d, row, tk):
+    _check_train(2, 2, 77, tk, d, 1, (2, 77, tk), torch.bfloat16, seed=12,
+                 row=row)
 
 
 @pytest.mark.cuda

@@ -219,6 +219,42 @@ def test_temporal_wrapper_on_cpu_is_plain_and_counts_nothing():
     assert ttemporal.TEMPORAL_ATTN_LAUNCHES.total == before
 
 
+# (B F, D, C, F, H): a shape the Pallas kernel takes (F * H == 128), whose
+# JAX forward runs it in interpret mode, and the tiny config's 4 frames x
+# 2 heads, which JAX computes with its reference
+TEMPORAL_VJP_CASES = {"pallas": (32, 16, 64, 16, 8), "tiny": (8, 5, 12, 4, 2)}
+
+
+@pytest.mark.parametrize("case", sorted(TEMPORAL_VJP_CASES))
+def test_temporal_function_backward_matches_jax_vjp(case):
+    # the port's autograd Function (kernel forward, backward through the
+    # plain version) against jax.vjp of the JAX custom-VJP op; both
+    # differentiate the same f32 reference, so they differ by summation
+    # order only: TEMPORAL_TOL relative to max |JAX| per gradient
+    bf, d, c, f, h = TEMPORAL_VJP_CASES[case]
+    q, k, v, g = _temporal_qkv(13, bf, d, c) + _temporal_qkv(14, bf, d, c)[:1]
+    scale = (c // h) ** -0.5
+    _, vjp = jax.vjp(lambda a, b_, c_: jtemporal.temporal_attention(
+        a, b_, c_, f, h, scale, True), *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    ins = [t(x).requires_grad_() for x in (q, k, v)]
+    out = ttemporal.TemporalAttentionFn.apply(*ins, f, h, scale)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, t(g))
+    for name, a, w in zip("qkv", got, want):
+        assert rel_err(a, w) <= TEMPORAL_TOL, name
+
+
+def test_temporal_entry_point_records_grad_only_when_asked():
+    q, k, v = (t(a) for a in _temporal_qkv(15, 8, 5, 12))
+    assert ttemporal.temporal_attention(q, k, v, 4, 2, 0.3).grad_fn is None
+    q.requires_grad_()
+    out = ttemporal.temporal_attention(q, k, v, 4, 2, 0.3)
+    assert type(out.grad_fn).__name__ == "TemporalAttentionFnBackward"
+    with torch.no_grad():
+        assert ttemporal.temporal_attention(q, k, v, 4, 2, 0.3).grad_fn is None
+
+
 @pytest.mark.parametrize("shapes,f,h", [
     (((8, 4, 6), (8, 4, 6)), 3, 2),      # 8 rows are not whole 3-frame clips
     (((8, 4, 6), (8, 4, 6)), 4, 4),      # 6 channels do not split in 4 heads

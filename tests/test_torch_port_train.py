@@ -164,6 +164,47 @@ def test_plain_backward_matches_pallas_interpret(case):
         assert rel_err(a, w) <= BWD_TOL, name
 
 
+# bf16 on both sides: the per-head multi-query bias, the prior's ragged
+# 513 x 514 rows at d = 52, and the unbiased kernel. Both round g, p and
+# ds*scale to bf16 at the same places, accumulate in f32 and round the
+# outputs to bf16 (dbias to the bias's bf16); they differ only in f32
+# summation order, which can move an output by one bf16 rounding step:
+# BF16_BWD_TOL = 2^-8 relative to max |JAX|, that step at the largest
+# element.
+BF16_BWD_CASES = ("hqk_mq", "ragged_513x514_d52", "nobias")
+BF16_BWD_TOL = 2.0 ** -8
+
+
+@pytest.mark.parametrize("case", BF16_BWD_CASES)
+def test_plain_backward_bf16_matches_pallas_interpret(case):
+    bf16 = torch.bfloat16
+    q, k, v, bias, g = (None if x is None else t(x).to(bf16)
+                        for x in _bwd_inputs(case))
+    scale = q.shape[-1] ** -0.5
+    out, lse = tattn.attention_reference_lse(q, k, v, bias, scale)
+    assert out.dtype == bf16 and lse.dtype == torch.float32
+    # the port's wrapper on CPU tensors computes the plain backward
+    got = tattn.flash_attention_bwd(q, k, v, bias, g, out, lse, scale)
+
+    def j(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    args = [j(x) for x in (q, k, v)]
+    rest = (j(g), j(out), jnp.asarray(lse.numpy()), scale, True)
+    if bias is None:
+        assert k.shape[1] == q.shape[1]
+        want = list(jattn._flash_bwd_pallas(*args, *rest)) + [None]
+    else:
+        want = jattn._flash_bwd_pallas_bias(*args, j(bias), *rest)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None
+            continue
+        assert a.dtype == bf16 and w.dtype == jnp.bfloat16, name
+        assert rel_err(a.float(), np.asarray(w, np.float32)) <= BF16_BWD_TOL, \
+            name
+
+
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_plain_backward_matches_jax_grad(case):
     q, k, v, bias, g = _bwd_inputs(case, seed=3)

@@ -1,30 +1,34 @@
 #!/usr/bin/env python3
-"""Time two checkouts' flash-attention forward (#1/#2/#3) and GroupNorm+
-SiLU+3x3-conv kernel (#8) on one CUDA card, in turns, at every shape the
-main paths launch.
+"""Time two checkouts' flash-attention forward (#1/#2/#3), flash-attention
+backward (#4/#5) and GroupNorm+SiLU+3x3-conv kernel (#8) on one CUDA card,
+in turns, at every shape the main paths launch.
 
-    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|conv] [--json PATH]
+    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|bwd|conv] [--json PATH]
 
 OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
 checkout runs in its own process (it builds its own kernels), in the order
 other, this, this, other. Shapes: the flash forward at every attention
 shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
-stage-2 step's training sites (with lse, and the prior's bias); #8 in bf16
-at every shape of the fused clip. Each shape gets two times, each the mean
-over 20 launches (5 at the largest shapes) after a warm-up: on CUDA events
-around the launches (what a caller waits, the host's launch cost included
-where it exceeds the kernel's), and ("device") the kernels' own time under
-torch.profiler (#8's statistics launches included). The last lines
-give, per shape, each run's ms, and for each kernel the sum of launches x
-ms over a clip (and a step) for each run; with --json the whole record
-also goes to PATH.
+stage-2 step's training sites (with lse, and the prior's bias); the
+backward at the same four step sites (from the forward's out and lse, with
+a random output gradient); #8 in bf16 at every shape of the fused clip.
+Each shape gets two times, each the mean over 20 launches (5 at the
+largest shapes) after a warm-up: on CUDA events around the launches (what
+a caller waits, the host's launch cost included where it exceeds the
+kernel's), and ("device") the kernels' own time under torch.profiler (#8's
+statistics launches and the backward wrapper's own small kernels
+included; for the backward also each of its kernels by name). The last
+lines give, per shape, each run's ms, and for each
+kernel the sum of launches x ms over a clip (and a step) for each run;
+with --json the whole record also goes to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -49,13 +53,14 @@ FLASH_CLIP = [
     ("vae keyframe 32x32", (1, 1, 1024, 1024, 512), 1),
 ]
 
-# (site, (B, H, Tq, Tk, D, kv heads), bias shape, launches a step) of the
-# stage-2 step's flash forward (with lse)
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape, forward launches a step,
+# backward launches a step) of the stage-2 step's flash attention (the
+# forward with lse)
 FLASH_STEP = [
-    ("prior", (10, 32, 513, 514, 52, 1), (32, 513, 514), 6),
-    ("decoder 16x16", (60, 1, 256, 256, 128, 1), None, 12),
-    ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None, 8),
-    ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, 8),
+    ("prior", (10, 32, 513, 514, 52, 1), (32, 513, 514), 6, 6),
+    ("decoder 16x16", (60, 1, 256, 256, 128, 1), None, 12, 6),
+    ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None, 8, 4),
+    ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, 8, 4),
 ]
 
 # ((N, Cin, H, W, Cout), launches a fused clip) of #8, 32 groups
@@ -90,11 +95,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, split: str = ""):
     """Device time of fn() per call over `reps` calls after one warm-up:
     the sum of the kernels' device times under torch.profiler, without the
     host's gaps between launches (which `cuda_ms` counts where the host
-    is slower than the card)."""
+    is slower than the card). With `split`, also {kernel: ms} of the
+    kernels whose names start with it (the name up to its template
+    arguments)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -103,11 +110,18 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / reps
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            m = re.search(r"\b(\w+)(<[^(]*>)?\(", e.key)
+            key = m.group(1) + (m.group(2) or "") if m else e.key
+            per[key] = per.get(key, 0.0) + us / 1e3 / reps
+    total = sum(per.values())
+    if not split:
+        return total
+    return total, {k: v for k, v in per.items() if k.startswith(split)}
 
 
 def time_here(root: str, only: str):
@@ -131,7 +145,7 @@ def time_here(root: str, only: str):
             fn = lambda: attn.flash_attention_fwd(q, k, v)  # noqa: E731
             out[f"flash {name}"] = cuda_ms(fn, reps)
             out[f"device flash {name}"] = device_ms(fn, reps)
-        for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_STEP:
+        for name, (b, h, tq, tk, d, hkv), bshape, _, _ in FLASH_STEP:
             q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
             bias = rand(*bshape) if bshape else None
             reps = 5 if b * h * tq * tk > 2e8 else 20
@@ -140,6 +154,24 @@ def time_here(root: str, only: str):
             out[f"flash {name} (train)"] = cuda_ms(fn, reps)
             out[f"device flash {name} (train)"] = device_ms(fn, reps)
         del q, k, v
+    if only in ("all", "bwd"):
+        for name, (b, h, tq, tk, d, hkv), bshape, _, _ in FLASH_STEP:
+            q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
+            bias = rand(*bshape) if bshape else None
+            g = rand(b, h, tq, d)
+            scale = d ** -0.5
+            o, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                              return_lse=True)
+            reps = 5 if b * h * tq * tk > 2e8 else 20
+            fn = lambda: attn.flash_attention_bwd(  # noqa: E731
+                q, k, v, bias, g, o, lse, scale)
+            out[f"bwd {name}"] = cuda_ms(fn, reps)
+            out[f"device bwd {name}"], kernels = device_ms(fn, reps,
+                                                           "flash_bwd_")
+            for kernel, ms in kernels.items():
+                out[f"device bwd {name}: {kernel}"] = ms
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
     if only in ("all", "conv"):
         for (n, cin, h, w, cout), _ in CONV_CLIP:
             x = rand(n, cin, h, w)
@@ -156,8 +188,8 @@ def time_here(root: str, only: str):
 
 def totals(times):
     """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #8)
-    and over a step (flash), from one run's times: event times, and
-    ("device ...") the profiler's device times."""
+    and over a step (flash forward, flash backward), from one run's times:
+    event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
         for name, (_, _, _, _, d), n in FLASH_CLIP:
@@ -165,9 +197,12 @@ def totals(times):
                          else "flash clip d<=128")
             sums[key] = sums.get(key, 0.0) + n * times.get(
                 f"{pre}flash {name}", 0.0)
-        for name, _, _, n in FLASH_STEP:
+        for name, _, _, n, n_bwd in FLASH_STEP:
             sums[pre + "flash step"] = sums.get(pre + "flash step", 0.0) \
                 + n * times.get(f"{pre}flash {name} (train)", 0.0)
+            sums[pre + "flash bwd step"] = sums.get(
+                pre + "flash bwd step", 0.0) + n_bwd * times.get(
+                f"{pre}bwd {name}", 0.0)
         for (n, cin, h, w, cout), launches in CONV_CLIP:
             sums[pre + "conv fused clip"] = sums.get(
                 pre + "conv fused clip", 0.0) + launches * times.get(
@@ -180,7 +215,7 @@ def main():
         return time_here(sys.argv[2], sys.argv[3])
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("--only", choices=("all", "flash", "conv"),
+    ap.add_argument("--only", choices=("all", "flash", "bwd", "conv"),
                     default="all")
     ap.add_argument("--json", help="also write the record here")
     args = ap.parse_args()
@@ -200,9 +235,11 @@ def main():
             raise SystemExit(f"{label} run at {root} failed "
                              f"(exit {res.returncode})")
         runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
-    for name in runs[0][1]:
-        cells = "  ".join(f"{label} {times[name]:.4f}"
-                          for label, times in runs)
+    # the kernels by name may differ between the checkouts
+    names = list(dict.fromkeys(n for _, times in runs for n in times))
+    for name in names:
+        cells = "  ".join(f"{label} {times[name]:.4f}" if name in times
+                          else f"{label} -" for label, times in runs)
         print(f"A/B {name:41s} ms: {cells}")
     sums = [(label, totals(times)) for label, times in runs]
     for key in sums[0][1]:
