@@ -21,12 +21,13 @@ Phases, in order:
      f32, operands rounded to TF32 as the kernel rounds them). The
      temporal-attention kernel at its four stage-5 shapes in bf16 (and one
      in f32), against the float64 result on the same inputs, by the same
-     1.5x rule. Times: kernel, plain version, one PyTorch library call
-     (scaled_dot_product_attention, a yardstick the port never calls), and
-     the bound max(ops / peak, bytes / 3.35 TB/s). Then the training
-     kernels at every stage-2 shape (the prior's biased multi-query
-     attention, the DecoderVideo's three sizes), in bf16 (and the prior's in
-     f32): the forward with log-sum-exp and the backward, against float64
+     1.5x rule. Times: kernel (by CUDA events and, for the temporal
+     kernel, also its device time: `device_ms`), plain version, one
+     PyTorch library call (scaled_dot_product_attention, a yardstick the
+     port never calls), and the bound max(ops / peak, bytes / 3.35 TB/s).
+     Then the training kernels at every stage-2 shape (the prior's biased
+     multi-query attention, the DecoderVideo's three sizes), in bf16 (and
+     the prior's in f32): the forward with log-sum-exp and the backward, against float64
      autograd of `attention_reference` on the same inputs, each of out,
      lse, dq, dk, dv (and dbias) within 1.5x the plain path's error (plain
      forward, then `flash_attention_bwd_reference` at the kernel's
@@ -73,15 +74,21 @@ Phases, in order:
      one fused step under the profiler;
   6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip and
      the fused step launched, against float64 on the same inputs by the
-     1.5x rule; times: kernel, plain version, the library composite
-     (`F.silu(F.group_norm(...))`, then `F.conv2d` for #8) and the bound.
+     1.5x rule; times: kernel (by events, and its device time, every
+     launch of a call, with calls queued behind a kernel that keeps the
+     card busy while the host enqueues them (`device_ms`): the plain events
+     measure the host's cost per call where it exceeds the device's work),
+     plain version, the library composite (`F.silu(F.group_norm(...))`, then
+     `F.conv2d` for #8) and the bound; #7's launch plan per shape.
 Then one line of per-kernel totals for one clip or one step (launches x
-time summed: kernel, bound, library call), which gives the redesign order
-from one run. The last two lines are the kernels' JSON record (each
-(kernel, shape) of the main paths, those totals, the f32 flash checks with
-their bound and library time, each kernel's registers and spills from
-nvcc's -Xptxas -v log) and the device JSON. Any failure raises and exits
-non-zero; without CUDA the script exits 2 before printing anything.
+time summed: kernel by events and, for #6-#8, by device time, bound,
+library call), which gives the redesign order from one run, and one line
+of the same sums by the Pallas kernel each launch replaces. The last
+two lines are the kernels' JSON record (each (kernel, shape) of the main
+paths, those totals, the f32 flash checks with their bound and library
+time, each kernel's registers and spills from nvcc's -Xptxas -v log) and
+the device JSON. Any failure raises and exits non-zero; without CUDA the
+script exits 2 before printing anything.
 """
 
 from __future__ import annotations
@@ -200,6 +207,37 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() per call: `reps` calls queued behind a kernel
+    that keeps the card busy until the host has enqueued them all, timed
+    by CUDA events around the calls, so the host's cost per call is hidden
+    (every launch of a call and the card's gaps between them counted).
+    Doubles the wait until it outlasts the enqueueing."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wait_s = max(1e-3, 4 * reps * (time.perf_counter() - t0))
+    clock_hz = 2.0e9  # above the H100's top SM clock: the wait only lengthens
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(6):
+        marks[0].record()
+        torch.cuda._sleep(int(wait_s * clock_hz))
+        marks[1].record()
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        marks[2].record()
+        enqueue_ms = 1e3 * (time.perf_counter() - h0)
+        torch.cuda.synchronize()
+        if enqueue_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / reps
+        wait_s *= 2
+    raise AssertionError("device_ms: the host never got ahead of the card")
 
 
 def _bound(ops, nbytes, peak_flops):
@@ -327,6 +365,8 @@ def temporal_phase():
         plain_err = (plain.double() - want).abs().max().item()
         kernel_ms = cuda_ms(lambda: ta.temporal_attention(q, k, v, f, h,
                                                           scale), 20)
+        kernel_dev_ms = device_ms(lambda: ta.temporal_attention(
+            q, k, v, f, h, scale), 20)
         plain_ms = cuda_ms(lambda: ta.temporal_attention_reference(
             q, k, v, f, h, scale), 20)
         # the library yardstick: one attention call on the [b, D, H, F, hd]
@@ -341,12 +381,13 @@ def temporal_phase():
         bound_ms, bound_by = temporal_bound(
             bf, d, c, q.element_size(),
             PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
-        warps, smem = ta.temporal_plan(f, hd, dt)
+        plan = ta.temporal_plan(f, hd, dt)
         ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
         tname = str(dt).split(".")[-1]
         log(f"temporal {name:13s} {tname:8s} [{bf},{d},{c}] F={f} H={h} "
-            f"warps {warps} smem {smem} B  max_abs_err {err:.3e} (plain "
-            f"{plain_err:.3e})  kernel_ms {kernel_ms:.4f} plain_ms "
+            f"route {plan.route}, warps {plan.warps}, smem {plan.smem} B  "
+            f"max_abs_err {err:.3e} (plain {plain_err:.3e})  kernel_ms "
+            f"{kernel_ms:.4f} (device {kernel_dev_ms:.4f}) plain_ms "
             f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
             f"{bound_ms:.4f} ({bound_by})  {'OK' if ok else 'FAIL'}")
         if not ok:
@@ -355,8 +396,9 @@ def temporal_phase():
                                  f"{plain_err:.3e}")
         records[(bf, d, c, f, h, tname)] = dict(
             site=name, max_abs_err=err, plain_err=plain_err, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
+            device_ms=kernel_dev_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            route=plan.route)
         del q, k, v, want, got, plain
     torch.cuda.empty_cache()
     return records
@@ -1270,10 +1312,11 @@ def device_profile(prof, wall: float, what: str, kernels):
         log(f"  {dev_us(e) / 1e3:10.2f} ms {e.count:6d}x  {e.key[:100]}")
 
 
-# {label: kernel symbols} whose share of busy time a profile reports; the
-# GroupNorm statistics kernels carry a prefix of the library that launched
-# them (csrc/gn_common.cuh)
-GN_SILU_SYMBOLS = ("gn_silu_stats", "gn_silu_apply_kernel")
+# {label: kernel symbols} whose share of busy time a profile reports; #7's
+# cluster kernel (one launch) and its two-launch pair (csrc/gn_silu.cu);
+# #8's statistics carry the prefix gn_conv_stats_ (csrc/gn_common.cuh)
+GN_SILU_SYMBOLS = ("gn_silu_cluster_kernel", "gn_silu_stats_kernel",
+                   "gn_silu_apply_kernel")
 # (the forward's three kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
 # flash_fwd_kernel; #8's halo, split-reduce and TF32 kernels)
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
@@ -1285,8 +1328,9 @@ FLASH_BWD_SYMBOLS = {"flash backward dk/dv": ("flash_bwd_dkdv_",),
                      "flash backward dq": ("flash_bwd_dq_",),
                      "flash backward dbias": ("flash_bwd_dbias_",)}
 PROFILE_KERNELS = {"flash": FLASH_FWD_SYMBOLS,
-                   "temporal": ("temporal_fwd_kernel",),
-                   "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS,
+                   "temporal": ("temporal_tc_kernel",
+                                "temporal_fwd_kernel"),
+                   "gn_silu #7": GN_SILU_SYMBOLS,
                    "gn_silu_conv #8 (statistics + conv)": (
                        "gn_conv_stats", "gn_silu_conv_"),
                    "#8 statistics": ("gn_conv_stats",)}
@@ -1609,21 +1653,22 @@ def gn_kernel_phase(shapes7, shapes8):
         gb = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
         return x, gw, gb
 
-    def record(name, key, got, want, plain, ms, plain_ms, library_ms,
-               bound):
+    def record(name, key, got, want, plain, ms, dev_ms, plain_ms,
+               library_ms, bound):
         err = (got.double() - want).abs().max().item()
         plain_err = (plain.double() - want).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
         log(f"{name} {key}  max_abs_err {err:.3e} (plain {plain_err:.3e})"
-            f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-            f"{library_ms:.4f} bound_ms {bound[0]:.4f} ({bound[1]})  "
-            f"{'OK' if ok else 'FAIL'}")
+            f"  kernel_ms {ms:.4f} (device {dev_ms:.4f}) plain_ms "
+            f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+            f"{bound[0]:.4f} ({bound[1]})  {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees at {key}: {err:.3e} > "
                                  f"1.5 x {plain_err:.3e}")
         return dict(max_abs_err=err, plain_err=plain_err, ms=ms,
-                    plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound[0], bound_by=bound[1])
+                    device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound[0],
+                    bound_by=bound[1])
 
     records7, records8 = {}, {}
     for key in sorted(shapes7):
@@ -1636,16 +1681,24 @@ def gn_kernel_phase(shapes7, shapes8):
         torch.cuda.synchronize()
         plain = fn.group_norm_silu_reference(x, gw, gb, groups, 1e-5)
         reps = 5 if x.numel() > 5e7 else 20
-        times = [cuda_ms(f, reps) for f in (
-            lambda: fn.gn_silu_fwd(x, gw, gb, groups, 1e-5),
-            lambda: fn.group_norm_silu_reference(x, gw, gb, groups, 1e-5),
-            lambda: F.silu(F.group_norm(x, groups, gw, gb, 1e-5)))]
+        kernel = lambda: fn.gn_silu_fwd(x, gw, gb, groups, 1e-5)  # noqa: E731
+        times = [cuda_ms(kernel, reps), device_ms(kernel, reps)] + [
+            cuda_ms(f, reps) for f in (
+                lambda: fn.group_norm_silu_reference(x, gw, gb, groups,
+                                                     1e-5),
+                lambda: F.silu(F.group_norm(x, groups, gw, gb, 1e-5)))]
         bound = _bound(GN_OPS_PER_ELEMENT * x.numel(),
                        x.element_size() * (x.numel() + got.numel()
                                            + gw.numel() + gb.numel()),
                        PEAK_F32_FLOPS)
+        hw = x[0, 0].numel()
+        plan = fn.gn_silu_plan(xshape[0], xshape[1], hw, groups, x.dtype,
+                               int(hw % (16 // x.element_size()) == 0),
+                               x.device)
+        log(f"gn_silu {key} plan {plan}")
         records7[key] = record("gn_silu", key, got, want, plain, *times,
                                bound)
+        records7[key]["plan"] = plan._asdict()
         del x, want, got, plain
         torch.cuda.empty_cache()
     for key in sorted(shapes8):
@@ -1663,11 +1716,13 @@ def gn_kernel_phase(shapes7, shapes8):
         got = fc.gn_silu_conv_fwd(*args)
         torch.cuda.synchronize()
         plain = fc.gn_silu_conv_reference(*args)
-        times = [cuda_ms(f, 10) for f in (
-            lambda: fc.gn_silu_conv_fwd(*args),
-            lambda: fc.gn_silu_conv_reference(*args),
-            lambda: F.conv2d(F.silu(F.group_norm(x, groups, gw, gb, 1e-5)),
-                             cw, cb, padding=1))]
+        kernel = lambda: fc.gn_silu_conv_fwd(*args)  # noqa: E731
+        times = [cuda_ms(kernel, 10), device_ms(kernel, 10)] + [
+            cuda_ms(f, 10) for f in (
+                lambda: fc.gn_silu_conv_reference(*args),
+                lambda: F.conv2d(F.silu(F.group_norm(x, groups, gw, gb,
+                                                     1e-5)),
+                                 cw, cb, padding=1))]
         esize = x.element_size()
         bound = _bound(2.0 * n * h * w * cout * 9 * cin,
                        esize * sum(a.numel() for a in (x, gw, gb, cw, cb,
@@ -1758,7 +1813,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "replaces": "neurons_tpu/ops/temporal_attention.py:91",
             "launches": launches,
             "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "route": rec["route"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
@@ -1786,25 +1842,30 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                     "replaces": sources[kernel][1],
                     "launches": launches,
                     "max_abs_err": rec["max_abs_err"],
-                    "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                    "ms": rec["ms"], "device_ms": rec["device_ms"],
+                    "plain_ms": rec["plain_ms"],
                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
                 })
                 groups.append((kernel, path, runs[f"fused {path}"]))
     return {"kernels": entries, "totals": kernel_totals(entries, groups),
+            "totals_by_tpu_kernel": kernel_totals(entries, groups, True),
             "f32_checks": f32_checks, "ptxas": ptxas}
 
 
-def kernel_totals(entries, groups):
-    """Per kernel and path, for one clip or one step: launches, and the
-    sums of launches x time of the kernel, of its bound and of the library
-    call (for the flash backward also of the library's backward alone), in
-    seconds; the rule-2 order reads off kernel_s - bound_s.
+def kernel_totals(entries, groups, by_tpu_kernel=False):
+    """Per kernel (or, with `by_tpu_kernel`, per Pallas kernel it replaces)
+    and path, for one clip or one step: launches, and the sums of launches
+    x time of the kernel (by events, and for #6-#8 also by device time), of
+    its bound and of the library call (for the flash backward also of the
+    library's backward alone), in seconds; the rule-2 order reads off
+    kernel_s - bound_s.
     `groups` gives each entry's (kernel, path, runs its launches span)."""
     out = {}
     for entry, (kernel, path, runs) in zip(entries, groups):
-        t = out.setdefault((kernel, path), dict(
-            kernel=kernel, path=path, launches=0, kernel_s=0.0, bound_s=0.0,
+        name = entry["replaces"] if by_tpu_kernel else kernel
+        t = out.setdefault((name, path), dict(
+            kernel=name, path=path, launches=0, kernel_s=0.0, bound_s=0.0,
             library_s=0.0))
         n = entry["launches"] / runs
         t["launches"] += n
@@ -1812,6 +1873,9 @@ def kernel_totals(entries, groups):
         t["bound_s"] += n * entry["bound_ms"] / 1e3
         if entry["library_ms"] is not None:
             t["library_s"] += n * entry["library_ms"] / 1e3
+        if "device_ms" in entry:  # device time per call
+            t["device_s"] = (t.get("device_s", 0.0)
+                             + n * entry["device_ms"] / 1e3)
         if "library_bwd_ms" in entry:  # the backward: the library's alone
             t["library_bwd_s"] = (t.get("library_bwd_s", 0.0)
                                   + n * entry["library_bwd_ms"] / 1e3)
@@ -1905,10 +1969,17 @@ def main():
                             ptxas, runs)
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
-        f"{t['kernel_s']:.4f} bound {t['bound_s']:.4f} library "
+        f"{t['kernel_s']:.4f}" + (f" (device {t['device_s']:.4f})"
+                                  if "device_s" in t else "")
+        + f" bound {t['bound_s']:.4f} library "
         f"{t['library_s']:.4f}" + (f" (backward alone {t['library_bwd_s']:.4f})"
                                    if "library_bwd_s" in t else "")
         for t in record["totals"]))
+    log("totals by the Pallas kernel replaced (a clip or a step; s): "
+        + " | ".join(f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
+                     f"{t['kernel_s']:.4f} bound {t['bound_s']:.4f} library "
+                     f"{t['library_s']:.4f}"
+                     for t in record["totals_by_tpu_kernel"]))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,15 @@
-// GroupNorm statistics shared by the GroupNorm+SiLU kernel (gn_silu.cu) and
+// GroupNorm helpers shared by the GroupNorm+SiLU kernel (gn_silu.cu) and
 // the GroupNorm+SiLU+3x3-conv kernel (gn_silu_conv.cu), on the port's
 // channels-first layout: x [N, C, HW], in which each (sample n, group g) is
 // one contiguous slab of L = (C / G) * HW elements.
 //
-// Two launches (named <prefix>partial_kernel and <prefix>finalize_kernel):
+// Always: element conversions, the GroupNorm parameters in f32 or bf16,
+// SiLU and a block sum.
+//
+// Where the includer defines GN_STATS_NAME(kernel) (gn_silu_conv.cu), also
+// moments (count, mean, centred M2) with Chan's pairwise combine in f32,
+// and the chunked statistics in two launches (named <prefix>partial_kernel and
+// <prefix>finalize_kernel):
 //   partial_kernel      splits every slab into chunks of kStatChunk elements,
 //                       one block per (slab, chunk), so that even 32 slabs
 //                       (the 768x768 VAE decode at batch 1) fill the card.
@@ -20,11 +26,11 @@
 //                       terms of the affine, y = (x - mean[n, c]) *
 //                       scale[n, c] + shift[n, c], with scale = rstd * gamma
 //                       and shift = beta.
+// The prefix gives these kernels a name of the including library's own, so
+// that a profile credits them to it. gn_silu.cu takes its statistics in its
+// own cluster kernels instead.
 // Each .cu file is compiled on its own into its own library, so everything
-// here has internal linkage. Each includer defines GN_STATS_NAME(kernel),
-// which gives these kernels a prefix of that library's own, so that a
-// profile tells the statistics launches of gn_silu.cu from those of
-// gn_silu_conv.cu.
+// here has internal linkage.
 
 #pragma once
 
@@ -33,15 +39,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#ifndef GN_STATS_NAME
-#error "define GN_STATS_NAME(kernel), the statistics kernels' names, first"
-#endif
-
 namespace {
-
-constexpr int kStatThreads = 256;
-constexpr int kStatPerThread = 16;
-constexpr int kStatChunk = kStatThreads * kStatPerThread;  // elements a block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -82,6 +80,8 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
+#ifdef GN_STATS_NAME
+
 struct Moments {
   float n, mean, m2;
 };
@@ -94,6 +94,10 @@ __device__ __forceinline__ Moments combine(Moments a, Moments b) {
   const float d = b.mean - a.mean, fb = b.n / n;
   return {n, a.mean + d * fb, a.m2 + b.m2 + d * d * a.n * fb};
 }
+
+constexpr int kStatThreads = 256;
+constexpr int kStatPerThread = 16;
+constexpr int kStatChunk = kStatThreads * kStatPerThread;  // elements a block
 
 // part[slab * chunks + chunk] = (count, mean, M2, 0) of one chunk
 template <typename T>
@@ -222,5 +226,7 @@ cudaError_t launch_stats(const T* x, long long N, int C, long long HW, int G,
       *shift);
   return cudaGetLastError();
 }
+
+#endif  // GN_STATS_NAME
 
 }  // namespace

@@ -8,24 +8,48 @@
 // projections emit, [(B F), D, C] with C innermost: for every batch b, pixel d
 // and head h (C = H * hd), out[b, i, d, h, :] = sum_j softmax_j(scale *
 // q[b, i, d, h, :] . k[b, j, d, h, :]) v[b, j, d, h, :] over the F frames.
-// Products, logits, softmax and accumulation are f32; the output is in the
-// input type (bf16 or f32). Nothing is transposed in device memory.
+// Logits, softmax and accumulation are f32; the output is in the input type
+// (bf16 or f32). Nothing is transposed in device memory.
 //
 // What is not carried over: the TPU kernel packs the F x H logits of a pixel
 // into one 128-lane vector row, so it only runs when F * H == 128, F is a
 // power of two and hd % 8 == 0, and it rounds each bf16 q*k product to bf16
 // before its selector matmul. None of that applies here: any F <= 32, any H
-// and any hd run, and every product is formed in f32.
+// and any hd run, and every q*k product is exact in f32.
 //
 // What bounds it on an H100: a 16 x 16 softmax per (pixel, head) is little
 // arithmetic (4 * F * F * hd operations per F * hd * 4 elements moved), so
 // the kernel is bound by the bytes it must move: q, k and v read once and the
 // output written once (about 84 MB at the 32x32 motion-module site in bf16,
-// 25 us at 3.35 TB/s).
+// 25 us at 3.35 TB/s). The first design (the warp route below) reached a
+// quarter of that: each warp copied its slices in with synchronous loads and
+// only then computed, so no copy overlapped any compute, and the products
+// were scalar f32 FMAs fed from shared memory.
 //
-// Design. One warp owns one (b, pixel, head) unit; a block holds up to four
-// warps on consecutive units, so consecutive warps (and blocks) read the
-// neighbouring hd-runs of the same C row. A warp
+// Two routes, chosen per call:
+//
+// Tensor-core route (temporal_tc_kernel: bf16, F <= 16, hd % 8 == 0,
+// hd <= 160, 16-byte aligned rows; every launch of the clip). A persistent
+// block of W warps walks tiles of W consecutive (pixel, head) units, which
+// in this layout are, for each frame, one contiguous run of W * hd
+// elements. Tiles come in through a 2- or 3-stage cp.async ring (16-byte
+// copies), so the loads of the next tiles overlap the compute of this one;
+// W and the stages depend on hd (TcShape). Each
+// unit's q, k and v sit in [16 frames][hd padded to 16, + 8] tiles whose pad
+// rows and columns are zeroed once and never written (the + 8 makes the
+// ldmatrix rows hit distinct banks). One warp a unit:
+//   S = Q K^T with mma.sync m16n8k16 (F = 16 is exactly M; Q by ldmatrix, K
+//   by ldmatrix as the column-major B operand, hd / 16 k-steps); the
+//   softmax on the C fragment in registers (quad shuffles; padded keys get
+//   p = 0); P rounded to bf16 straight from the C layout into the A
+//   fragments (as the JAX kernel and the plain version round the weights
+//   before P V); O = P V with V by ldmatrix.trans; O staged as bf16 in the
+//   unit's q tile and written back as 16-byte row runs (padded query rows
+//   are not written).
+//
+// Warp route (temporal_fwd_kernel: f32, 16 < F <= 32, and rows that are not
+// whole 16-byte units). One warp owns one (b, pixel, head) unit; a block
+// holds up to four warps on consecutive units. A warp
 //   1. stages the F x hd slices of q, k and v in its shared memory (16-byte
 //      loads where hd and C allow, else element by element, both coalesced
 //      along hd), rows padded to an odd number of 16-byte units so that the
@@ -34,19 +58,30 @@
 //      j = g, g + G, ... (G = 32 / F lane groups), reading 16 bytes of q and k
 //      at a time (the k reads are broadcasts across the lanes of a group);
 //   3. takes the softmax of each query row, one lane per row;
-//   4. forms P V, one lane per (row, 16-byte chunk of hd), stages the output
-//      in the q buffer and writes it back along hd as in 1.
-// Warps synchronise only with __syncwarp: no data is shared across warps.
+//   4. forms P V in f32, one lane per (row, 16-byte chunk of hd), stages the
+//      output in the q buffer and writes it back along hd as in 1.
+//
+// Both routes set their launch attributes and read the card's limits once
+// per kernel instance and device, not on every call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+#include <mutex>
+
+#include "mma_sm80.cuh"
+
 namespace {
 
 constexpr int kMaxFrames = 32;
-constexpr int kMaxWarps = 4;
+constexpr int kMaxWarps = 4;   // warp route: units a block
+constexpr int kTcFrames = 16;  // tensor-core route: frames padded to M = 16
+constexpr int kTcMaxHd = 160;
+constexpr int kMaxDevices = 64;
 
 template <typename T>
 struct Vec;
@@ -241,12 +276,367 @@ temporal_fwd_kernel(Params p) {
   }
 }
 
+// ---- tensor-core route -----------------------------------------------------
+
+struct TcParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int units;  // B * D * H; the route takes tensors under 2^31 elements
+  int DH;     // units of one batch row b
+  int DC;     // elements between frames
+  int tiles;  // ceil(units / units a tile)
+  int F;
+  float scale;
+};
+
+template <int HD>
+struct TcShape {
+  static constexpr int HDP = (HD + 15) / 16 * 16;  // k depth of Q K^T
+  static constexpr int LD = HDP + 8;  // odd count of 16-byte units a row
+  static constexpr int TILE = kTcFrames * LD;  // one tensor of a unit
+  // units a tile (one warp each) and copy stages, as measured at the clip's
+  // head dims (PERF.md): at hd 40, 8 units (640-byte runs of each
+  // frame's row) in 2 stages, two blocks an SM; at hd 80, 4 units in 2
+  // stages, three blocks an SM; at hd 160, few tiles a clip level, so 2
+  // units a tile in 3 stages
+  static constexpr int W = HD <= 48 ? 8 : HD <= 96 ? 4 : 2;
+  static constexpr int STAGES = HD <= 96 ? 2 : 3;
+  static constexpr int STAGE = 3 * W * TILE;      // q, k, v of a tile
+  static constexpr int SMEM = STAGES * STAGE * 2;  // bytes
+  static constexpr int CHUNKS = HD / 8;            // 16-byte chunks a row
+  static constexpr int ROW = W * CHUNKS;           // chunks of a frame's run
+  static constexpr int PER = kTcFrames * ROW;      // chunks of one tensor
+  static constexpr int COPIES = (PER + W * 32 - 1) / (W * 32);  // a thread
+  static constexpr int STORES = (kTcFrames * CHUNKS + 31) / 32;  // a lane
+};
+
+// element offset of unit u's frame 0: the (d, h) units of one batch row are
+// consecutive runs of hd elements (d * C + h * hd = (d * H + h) * hd)
+template <int HD>
+__device__ __forceinline__ int unit_base(const TcParams& p, int u) {
+  const int b = u / p.DH;
+  return b * p.F * p.DC + (u - b * p.DH) * HD;
+}
+
+// A thread's share of the copies of one tensor of a tile, the same for q,
+// k and v and for every tile that lies within one batch row, set once:
+// element offsets from the tile's first unit's frame-0 row (-1 where the
+// frame is past F) and into the tensor's W tiles in shared memory.
+template <int HD>
+struct CopyTable {
+  int src[TcShape<HD>::COPIES], dst[TcShape<HD>::COPIES];
+
+  __device__ void init(const TcParams& p) {
+    using S = TcShape<HD>;
+#pragma unroll
+    for (int k = 0; k < S::COPIES; ++k) {
+      const int i = threadIdx.x + k * S::W * 32;
+      const int f = i / S::ROW, w = i % S::ROW / S::CHUNKS,
+                c = i % S::CHUNKS;
+      const bool ok = i < S::PER && f < p.F;
+      src[k] = ok ? f * p.DC + w * HD + c * 8 : -1;
+      dst[k] = w * S::TILE + f * S::LD + c * 8;
+    }
+  }
+};
+
+// q, k, v of the tile's units into `dst` (one stage), 16 bytes a copy,
+// consecutive threads along each frame's run of the tile's units
+template <int HD>
+__device__ __forceinline__ void issue_tile(const TcParams& p,
+                                           const CopyTable<HD>& tab, int tile,
+                                           __nv_bfloat16* dst) {
+  using S = TcShape<HD>;
+  const int u0 = tile * S::W;
+  const int b0 = u0 / p.DH, r0 = u0 - b0 * p.DH;
+  if (r0 + S::W <= p.DH && u0 + S::W <= p.units) {  // the usual tile
+    const int base = b0 * p.F * p.DC + r0 * HD;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const __nv_bfloat16* src = (t == 0 ? p.q : t == 1 ? p.k : p.v) + base;
+      const uint32_t to = smem_addr(dst + t * S::W * S::TILE);
+#pragma unroll
+      for (int k = 0; k < S::COPIES; ++k)
+        if (tab.src[k] >= 0)
+          cp_async<16>(to + 2 * tab.dst[k], src + tab.src[k], 16);
+    }
+    return;
+  }
+  // the last tile, or one that crosses into the next batch row
+  for (int i = threadIdx.x; i < 3 * S::PER; i += S::W * 32) {
+    const int t = i / S::PER, f = i % S::PER / S::ROW,
+              w = i % S::ROW / S::CHUNKS, c = i % S::CHUNKS;
+    if (f >= p.F || u0 + w >= p.units) continue;
+    const __nv_bfloat16* src = t == 0 ? p.q : t == 1 ? p.k : p.v;
+    cp_async<16>(smem_addr(dst + (t * S::W + w) * S::TILE + f * S::LD +
+                           c * 8),
+                 src + unit_base<HD>(p, u0 + w) + f * p.DC + c * 8, 16);
+  }
+}
+
+// One warp: attention of one unit whose q, k, v tiles are sq, sk, sv; O is
+// staged in sq and written to `out` (the unit's frame-0 row).
+template <int HD>
+__device__ __forceinline__ void unit_attention(const TcParams& p,
+                                               __nv_bfloat16* sq,
+                                               const __nv_bfloat16* sk,
+                                               const __nv_bfloat16* sv,
+                                               __nv_bfloat16* out, int lane) {
+  using S = TcShape<HD>;
+  constexpr int LD = S::LD, HDP = S::HDP, NT = HDP / 8;
+  const int g = lane >> 2, t = lane & 3;
+
+  // S = Q K^T: keys 0-7 in s[0], keys 8-15 in s[1]
+  float s[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < HDP; kk += 16) {
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, smem_addr(sq + (lane & 15) * LD + kk + (lane >> 4) * 8));
+    ldmatrix_x4(b, smem_addr(sk + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                             kk + ((lane >> 3) & 1) * 8));
+    mma_bf16(s[0], a, b);
+    mma_bf16(s[1], a, b + 2);
+  }
+
+  // softmax over the keys of rows g (c0, c1) and g + 8 (c2, c3); a row's
+  // keys are spread over the 4 lanes of its quad; padded keys get p = 0
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = n * 8 + 2 * t + (e & 1) < p.F ? s[n][e] * p.scale : -INFINITY;
+  float mx[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                  fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = __expf(s[n][e] - mx[e >> 1]);
+      sum[e >> 1] += s[n][e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    sum[r] = 1.f / sum[r];
+  }
+  // P in bf16, straight from the C layout into the A fragments
+  uint32_t pa[4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    pa[2 * n] = pack_bf16(s[n][0] * sum[0], s[n][1] * sum[0]);
+    pa[2 * n + 1] = pack_bf16(s[n][2] * sum[1], s[n][3] * sum[1]);
+  }
+
+  // O = P V, two n8 tiles of hd a step
+  float o[NT][4] = {};
+#pragma unroll
+  for (int n0 = 0; n0 < HDP; n0 += 16) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, smem_addr(sv + (lane & 15) * LD + n0 +
+                                   (lane >> 4) * 8));
+    mma_bf16(o[n0 / 8], pa, b);
+    mma_bf16(o[n0 / 8 + 1], pa, b + 2);
+  }
+
+  // O as bf16 into the q tile (q was last read above), query rows < F,
+  // then out as 16-byte row runs
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (g < p.F)
+      *reinterpret_cast<uint32_t*>(sq + g * LD + col) =
+          pack_bf16(o[n][0], o[n][1]);
+    if (g + 8 < p.F)
+      *reinterpret_cast<uint32_t*>(sq + (g + 8) * LD + col) =
+          pack_bf16(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < S::STORES; ++k) {
+    const int i = lane + 32 * k, row = i / S::CHUNKS, c = i % S::CHUNKS;
+    if (row < p.F && row < kTcFrames)
+      *reinterpret_cast<uint4*>(out + row * p.DC + c * 8) =
+          *reinterpret_cast<const uint4*>(sq + row * S::LD + c * 8);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TcShape<HD>::W * 32)
+temporal_tc_kernel(TcParams p) {
+  using S = TcShape<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grid = gridDim.x;
+  CopyTable<HD> copies;
+  copies.init(p);
+
+  // zero the pads once: rows of frames F..15 and columns hd..HDP-1 are
+  // never written (there are none at F = 16 and hd % 16 == 0)
+  if (p.F < kTcFrames || HD < S::HDP) {
+    constexpr int ROWS = S::STAGES * 3 * S::W * kTcFrames;
+    for (int i = threadIdx.x; i < ROWS; i += S::W * 32) {
+      uint4* row = reinterpret_cast<uint4*>(smem + i * S::LD);
+      for (int c = i % kTcFrames < p.F ? HD / 8 : 0; c < S::HDP / 8; ++c)
+        row[c] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int st = 0; st < S::STAGES - 1; ++st) {
+    const int tile = blockIdx.x + st * grid;
+    if (tile < p.tiles) issue_tile<HD>(p, copies, tile, smem + st * S::STAGE);
+    cp_async_commit();
+  }
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += grid) {
+    // refill the stage the previous iteration freed
+    const int ahead = tile + (S::STAGES - 1) * grid;
+    if (ahead < p.tiles)
+      issue_tile<HD>(p, copies, ahead,
+                     smem + (stage + S::STAGES - 1) % S::STAGES * S::STAGE);
+    cp_async_commit();
+    cp_async_wait<S::STAGES - 1>();  // this tile's copies have landed
+    __syncthreads();
+    const int u = tile * S::W + warp;
+    if (u < p.units) {
+      __nv_bfloat16* base = smem + stage * S::STAGE + warp * S::TILE;
+      unit_attention<HD>(p, base, base + S::W * S::TILE,
+                         base + 2 * S::W * S::TILE,
+                         p.o + unit_base<HD>(p, u), lane);
+    }
+    __syncthreads();  // the stage is free for the copies of a later tile
+    stage = (stage + 1) % S::STAGES;
+  }
+  cp_async_wait<0>();
+}
+
+// A kernel instance's launch attributes, set once per device.
+struct InstanceCache {
+  std::atomic<bool> ready[kMaxDevices];
+  int value[kMaxDevices];  // blocks an SM x SMs (tensor-core route)
+  std::mutex mutex;
+};
+
+template <typename Init>
+cudaError_t cached(InstanceCache& cache, Init init, int* value) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!cache.ready[dev].load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(cache.mutex);
+    if (!cache.ready[dev].load(std::memory_order_relaxed)) {
+      err = init(dev, &cache.value[dev]);
+      if (err != cudaSuccess) return err;
+      cache.ready[dev].store(true, std::memory_order_release);
+    }
+  }
+  *value = cache.value[dev];
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t launch_tc(TcParams p, cudaStream_t stream) {
+  using S = TcShape<HD>;
+  static InstanceCache cache;
+  int resident = 0;  // blocks the card holds at once
+  cudaError_t err = cached(
+      cache,
+      [](int dev, int* out) {
+        cudaError_t e = cudaFuncSetAttribute(
+            temporal_tc_kernel<HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+        int sms = 0, per_sm = 0;
+        if (e == cudaSuccess)
+          e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (e == cudaSuccess)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, temporal_tc_kernel<HD>, S::W * 32, S::SMEM);
+        if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+        *out = sms * per_sm;
+        return e;
+      },
+      &resident);
+  if (err != cudaSuccess) return err;
+  p.tiles = (p.units + S::W - 1) / S::W;
+  const int grid = std::min(p.tiles, resident);
+  temporal_tc_kernel<HD><<<(unsigned)grid, S::W * 32, S::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_tc(int hd, const TcParams& p, cudaStream_t stream) {
+  if constexpr (HD > kTcMaxHd) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (hd == HD) return launch_tc<HD>(p, stream);
+    return dispatch_tc<HD + 8>(hd, p, stream);
+  }
+}
+
+bool tc_route(int F, int hd, int dtype, int vec) {
+  return dtype == 1 && vec && F <= kTcFrames && hd % 8 == 0 &&
+         hd <= kTcMaxHd;
+}
+
+struct TcPlan {
+  int warps, smem;  // a block; shared-memory bytes a block
+};
+
+template <int HD>
+constexpr TcPlan tc_plan(int hd) {
+  if constexpr (HD > kTcMaxHd) {
+    return {0, 0};
+  } else {
+    return hd == HD ? TcPlan{TcShape<HD>::W, TcShape<HD>::SMEM}
+                    : tc_plan<HD + 8>(hd);
+  }
+}
+
+// ---- warp route ------------------------------------------------------------
+
+int max_block_smem() {
+  static InstanceCache cache;
+  int bytes = 0;
+  if (cached(cache,
+             [](int dev, int* out) {
+               return cudaDeviceGetAttribute(
+                   out, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+             },
+             &bytes) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
 template <typename T, int JPL>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = p.warps * p.warp_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_fwd_kernel<T, JPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static InstanceCache cache;
+  int unused = 0;
+  cudaError_t err = cached(
+      cache,
+      [](int, int* out) {
+        *out = 0;
+        return cudaFuncSetAttribute(temporal_fwd_kernel<T, JPL>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    max_block_smem());
+      },
+      &unused);
   if (err != cudaSuccess) return err;
+  const int smem = p.warps * p.warp_bytes;
   const long long blocks = (p.units + p.warps - 1) / p.warps;
   temporal_fwd_kernel<T, JPL><<<(unsigned)blocks, p.warps * 32, smem, stream>>>(p);
   return cudaGetLastError();
@@ -264,13 +654,6 @@ cudaError_t launch_frames(const Params& p, cudaStream_t stream) {
   if (jpl <= 8) return launch<T, 8>(p, stream);
   if (jpl <= 16) return launch<T, 16>(p, stream);
   return launch<T, 32>(p, stream);
-}
-
-int max_block_smem() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
 }
 
 // Row layout and warps a block for F frames of head dim hd; false when one
@@ -292,33 +675,60 @@ bool plan(int F, int hd, int esize, Params* p) {
 extern "C" {
 
 // q, k, v, o: contiguous [BF, D, C]; BF = B * F. dtype: 0 = float32,
-// 1 = bfloat16. Returns a cudaError_t (0 on success).
+// 1 = bfloat16. vec: hd and C are multiples of 16 / element size and q, k,
+// v, o are 16-byte aligned. Returns a cudaError_t (0 on success).
 int temporal_attn_fwd(const void* q, const void* k, const void* v, void* o,
                       long long BF, long long D, int C, int F, int H,
                       float scale, int dtype, int vec, void* stream) {
   if (BF <= 0 || D <= 0 || C <= 0 || H <= 0 || F <= 0 || F > kMaxFrames ||
       BF % F != 0 || C % H != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const int hd = C / H;
+  const long long units = BF / F * D * H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc_route(F, hd, dtype, vec) && BF * D * C < 0x7fffffffLL) {
+    TcParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.units = (int)units;
+    p.DH = (int)(D * H);
+    p.DC = (int)(D * C);
+    p.F = F;
+    p.scale = scale;
+    return (int)dispatch_tc<8>(hd, p, s);
+  }
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.D = D;
-  p.C = C; p.F = F; p.H = H; p.hd = C / H;
-  p.units = BF / F * D * H;
+  p.C = C; p.F = F; p.H = H; p.hd = hd;
+  p.units = units;
   p.scale = scale;
   p.vec = vec;
   const int esize = dtype == 1 ? 2 : 4;
   if (!plan(F, p.hd, esize, &p)) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch_frames<__nv_bfloat16>(p, s)
                           : launch_frames<float>(p, s));
 }
 
-// The warps a block and the shared memory a launch at (F, hd) would use; 0
-// when it cannot launch.
-int temporal_attn_fwd_plan(int F, int hd, int dtype, int* warps, int* smem) {
+// How a launch at (F, hd, dtype, vec) runs, for tensors under 2^31
+// elements (larger ones take the warp route): route 1 = tensor cores, 0 =
+// warp route; warps a block; shared-memory bytes a block. Returns 0 when it
+// cannot launch.
+int temporal_attn_fwd_plan(int F, int hd, int dtype, int vec, int* route,
+                           int* warps, int* smem) {
   if (F <= 0 || F > kMaxFrames || hd <= 0) return 0;
+  if (tc_route(F, hd, dtype, vec)) {
+    const TcPlan tp = tc_plan<8>(hd);
+    *route = 1;
+    *warps = tp.warps;
+    *smem = tp.smem;
+    return 1;
+  }
   Params p;
   if (!plan(F, hd, dtype == 1 ? 2 : 4, &p)) return 0;
+  *route = 0;
   *warps = p.warps;
   *smem = p.warps * p.warp_bytes;
   return 1;

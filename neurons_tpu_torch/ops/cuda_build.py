@@ -13,6 +13,7 @@ builds at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +46,15 @@ class LaunchCounter:
     def add(self, key):
         self.total += 1
         self.by_shape[key] += 1
+
+
+def on_device(device):
+    """A context that makes `device` current for a launch: nothing when it
+    already is (the usual case, which costs no context switch a call)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def nvcc_path() -> str:

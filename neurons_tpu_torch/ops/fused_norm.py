@@ -8,7 +8,8 @@ input); the result comes back in the input type.
 
 `group_norm_silu` routes as the JAX package does: with
 NEURONS_TPU_FUSED_NORM=1 (read on every call; off by default) through
-`GroupNormSiLUFn`, whose forward is `gn_silu_fwd`, else through the plain
+`GroupNormSiLUFn`, whose forward is `gn_silu_fwd`, when autograd records
+(straight to `gn_silu_fwd` when it does not), else through the plain
 composite `group_norm_silu_reference`. `gn_silu_fwd` takes a CPU tensor to
 the plain version and a CUDA tensor to csrc/gn_silu.cu, which replaces the
 Pallas kernel `_kernel` (neurons_tpu/ops/fused_norm.py:102); it never
@@ -24,6 +25,7 @@ import ctypes
 import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +35,7 @@ from neurons_tpu_torch.ops import cuda_build
 from neurons_tpu_torch.ops.cuda_build import LaunchCounter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 # incremented by gn_silu_fwd where it launches its kernel, and nowhere else;
 # keyed by (N, C, *spatial, groups, dtype)
@@ -106,7 +109,9 @@ def gn_silu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """GroupNorm then SiLU, x [N, C, *spatial] -> same shape and type.
 
     CUDA tensors launch csrc/gn_silu.cu (bf16 or f32 x; weight and bias
-    f32 or bf16). CPU tensors compute `group_norm_silu_reference`."""
+    f32 or bf16): one cluster launch where a slab fits a cluster's shared
+    memory, else statistics then apply (`gn_silu_plan`). CPU tensors
+    compute `group_norm_silu_reference`."""
     check_group_norm_operands("gn_silu", x, weight, bias, groups)
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, weight, bias, groups, eps)
@@ -120,21 +125,56 @@ def gn_silu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     vec = int(hw % lanes == 0 and x.data_ptr() % 16 == 0
               and y.data_ptr() % 16 == 0)
-    scratch = torch.empty(lib.gn_silu_scratch_bytes(n, c, hw, groups),
-                          dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
+    plan = _plan(n, c, hw, groups, _DTYPE_CODE[x.dtype], vec, x.device.index)
+    # the two-launch path's per-slab (mean, 1/std); none on the cluster path
+    scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                           device=x.device) if plan.scratch_bytes else None)
+    with cuda_build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gn_silu(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                          y.data_ptr(), scratch.data_ptr(), n, c, hw, groups,
-                          float(eps), _DTYPE_CODE[x.dtype],
+                          y.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          n, c, hw, groups, float(eps), _DTYPE_CODE[x.dtype],
                           int(weight.dtype == torch.bfloat16), vec, stream)
     if err != 0:
         msg = lib.gn_silu_error_string(err).decode()
         raise RuntimeError(f"gn_silu failed at {tuple(x.shape)}, {groups} "
                            f"groups, {x.dtype}: CUDA error {err} ({msg})")
-    GN_SILU_LAUNCHES.add(tuple(x.shape) + (groups,
-                                           str(x.dtype).split(".")[-1]))
+    GN_SILU_LAUNCHES.add(tuple(x.shape) + (groups, _DTYPE_NAME[x.dtype]))
     return y
+
+
+class GNSiLUPlan(NamedTuple):
+    launches: int       # 1: one cluster kernel; 2: statistics, then apply
+    cluster: int        # blocks a slab's cluster
+    share: int          # elements a block
+    threads: int        # a block
+    scratch_bytes: int  # the two-launch path's per-slab statistics
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n, c, hw, groups, dtype_code, vec, device_index) -> GNSiLUPlan:
+    lib = _library()
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_longlong()]
+    with torch.cuda.device(device_index):
+        err = lib.gn_silu_plan(n, c, hw, groups, dtype_code, vec,
+                               *map(ctypes.byref, out))
+    if err != 0:
+        msg = lib.gn_silu_error_string(err).decode()
+        raise RuntimeError(f"gn_silu cannot launch at [{n}, {c}, {hw}], "
+                           f"{groups} groups: CUDA error {err} ({msg})")
+    return GNSiLUPlan(*(v.value for v in out))
+
+
+def gn_silu_plan(n: int, c: int, hw: int, groups: int, dtype: torch.dtype,
+                 vec: int, device: torch.device) -> GNSiLUPlan:
+    """How csrc/gn_silu.cu launches x [n, c, hw] on `device` (cached per
+    shape: it depends only on the shape and the card)."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _plan(n, c, hw, groups, _DTYPE_CODE[dtype], vec, index)
 
 
 def vjp_of_reference(reference, inputs, needs, g):
@@ -173,11 +213,15 @@ class GroupNormSiLUFn(torch.autograd.Function):
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, groups: int,
                     eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm then SiLU, x [N, C, *spatial]: through the kernel (its
-    autograd Function) with NEURONS_TPU_FUSED_NORM=1, else the plain
-    composite."""
+    """GroupNorm then SiLU, x [N, C, *spatial]: with
+    NEURONS_TPU_FUSED_NORM=1 through the kernel, as its autograd Function
+    when autograd records and as one launch with nothing saved otherwise;
+    else the plain composite."""
     if fused_norm_enabled():
-        return GroupNormSiLUFn.apply(x, weight, bias, groups, float(eps))
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, weight, bias)):
+            return GroupNormSiLUFn.apply(x, weight, bias, groups, float(eps))
+        return gn_silu_fwd(x, weight, bias, groups, eps)
     return group_norm_silu_reference(x, weight, bias, groups, eps)
 
 
@@ -213,8 +257,10 @@ def _library() -> ctypes.CDLL:
     lib.gn_silu.argtypes = ([ptr] * 5 + [i64, i32, i64, i32, ctypes.c_float]
                             + [i32] * 3 + [ptr])
     lib.gn_silu.restype = i32
-    lib.gn_silu_scratch_bytes.argtypes = [i64, i64, i64, i32]
-    lib.gn_silu_scratch_bytes.restype = i64
+    lib.gn_silu_plan.argtypes = ([i64, i32, i64] + [i32] * 3
+                                 + [ctypes.POINTER(i32)] * 4
+                                 + [ctypes.POINTER(i64)])
+    lib.gn_silu_plan.restype = i32
     lib.gn_silu_error_string.argtypes = [i32]
     lib.gn_silu_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,8 +7,11 @@ innermost (D pixels, C = H * hd); each pixel attends across its F frames,
 head by head. `temporal_attention_fwd` takes a CPU tensor to
 `temporal_attention_reference` and a CUDA tensor to
 csrc/temporal_attn_fwd.cu, which replaces the Pallas kernel
-`_temporal_kernel`. It never falls back. `temporal_attention`, the
-entry point, runs that forward alone when autograd does not record, and
+`_temporal_kernel`: its tensor-core route for bf16 with F <= 16 and head
+dims that are whole 16-byte rows (every launch of the clip), its warp
+route for the rest (`temporal_plan` says which). It never falls back.
+`temporal_attention`, the entry point, runs that forward alone when
+autograd does not record, and
 otherwise through `TemporalAttentionFn`, the JAX package's custom VJP:
 the kernel forward, and a backward that differentiates the plain version
 recomputed from the saved q, k and v.
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -77,8 +81,8 @@ def temporal_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     outside autograd.
 
     CUDA tensors launch csrc/temporal_attn_fwd.cu (bf16 or f32, contiguous,
-    F <= 32, any heads and head dim). CPU tensors compute
-    `temporal_attention_reference`."""
+    F <= 32, any heads and head dim; `temporal_plan` gives the route).
+    CPU tensors compute `temporal_attention_reference`."""
     _check_operands(q, k, v, n_frames, heads)
     if q.device.type == "cpu":
         return temporal_attention_reference(q, k, v, n_frames, heads, scale)
@@ -94,12 +98,12 @@ def temporal_attention_fwd(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"temporal_attention takes at most {MAX_FRAMES} "
                          f"frames, got {n_frames}")
     bf, d, c = q.shape
-    lanes = 16 // q.element_size()  # elements in one 16-byte load
-    vec = int((c // heads) % lanes == 0 and c % lanes == 0
-              and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     lib = _library()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    lanes = 16 // q.element_size()  # elements in one 16-byte load
+    vec = int((c // heads) % lanes == 0 and c % lanes == 0
+              and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    with cuda_build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.temporal_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                     out.data_ptr(), bf, d, c, n_frames, heads,
@@ -149,16 +153,28 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return temporal_attention_fwd(q, k, v, n_frames, heads, scale)
 
 
-def temporal_plan(n_frames: int, head_dim: int, dtype: torch.dtype):
-    """(warps a block, shared-memory bytes) of a launch at (F, hd)."""
+class TemporalPlan(NamedTuple):
+    route: str  # "tensor cores" or "warp"
+    warps: int  # a block
+    smem: int   # bytes a block
+
+
+def temporal_plan(n_frames: int, head_dim: int,
+                  dtype: torch.dtype) -> TemporalPlan:
+    """How a launch at (F, hd, dtype) runs, for 16-byte aligned operands
+    (the allocator's) whose hd is a whole number of 16-byte units where
+    it can be."""
     lib = _library()
-    warps, smem = ctypes.c_int(), ctypes.c_int()
+    route, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    vec = int(head_dim % (16 // dtype.itemsize) == 0)
     if not lib.temporal_attn_fwd_plan(n_frames, head_dim, _DTYPE_CODE[dtype],
+                                      vec, ctypes.byref(route),
                                       ctypes.byref(warps),
                                       ctypes.byref(smem)):
         raise ValueError(f"temporal_attn_fwd cannot launch at F={n_frames}, "
                          f"hd={head_dim}")
-    return warps.value, smem.value
+    return TemporalPlan("tensor cores" if route.value else "warp",
+                        warps.value, smem.value)
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,7 +184,7 @@ def _library() -> ctypes.CDLL:
     lib.temporal_attn_fwd.argtypes = ([ptr] * 4 + [i64] * 2 + [i32] * 3
                                       + [ctypes.c_float, i32, i32, ptr])
     lib.temporal_attn_fwd.restype = i32
-    lib.temporal_attn_fwd_plan.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
+    lib.temporal_attn_fwd_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 3
     lib.temporal_attn_fwd_plan.restype = i32
     lib.temporal_attn_error_string.argtypes = [i32]
     lib.temporal_attn_error_string.restype = ctypes.c_char_p

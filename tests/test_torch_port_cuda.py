@@ -13,8 +13,9 @@ does not hang on which precision cuBLAS picks for a TF32-allowed GEMM.
 
 The temporal kernel's oracle: its max error against the float64 result on
 the same (bf16- or f32-valued) inputs is no worse than 1.5x the plain
-version's at that dtype. The GroupNorm+SiLU and GroupNorm+SiLU+conv
-kernels are held the same way; the plain conv on f32 input is
+version's at that dtype, on both routes (tensor cores, warp). The
+GroupNorm+SiLU and GroupNorm+SiLU+conv kernels are held the same way, #7 on
+each of its paths (one cluster launch, statistics then apply); the plain conv on f32 input is
 `gn_silu_conv_reference_tf32` (the kernel multiplies in TF32)."""
 
 import pytest
@@ -160,6 +161,38 @@ def test_temporal_kernel_matches_plain(cuda, dtype, hd, f, h):
 def test_temporal_kernel_at_a_path_shape(cuda):
     # the UNet3D's 16x16 motion modules, CFG batch: [(2 x 16), 256, 640]
     _check_temporal(32, 256, 640, 16, 8, torch.bfloat16)
+
+
+# (F, hd, dtype) -> route: bf16 with F <= 16 and 16-byte head rows takes
+# the tensor cores; f32, F = 24 and hd = 4 keep the warp route
+TEMPORAL_ROUTES = [(16, 8, "bfloat16", "tensor cores"),
+                   (16, 40, "bfloat16", "tensor cores"),
+                   (16, 80, "bfloat16", "tensor cores"),
+                   (16, 160, "bfloat16", "tensor cores"),
+                   (4, 40, "bfloat16", "tensor cores"),
+                   (16, 40, "float32", "warp"),
+                   (24, 40, "bfloat16", "warp"),
+                   (24, 40, "float32", "warp"),
+                   (16, 4, "bfloat16", "warp")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,hd,dtype,route", TEMPORAL_ROUTES, ids=str)
+def test_temporal_routes(cuda, f, hd, dtype, route):
+    # D = 7 pixels and H = 2: tiles of 4 units cross batch rows
+    dt = getattr(torch, dtype)
+    assert ta.temporal_plan(f, hd, dt).route == route
+    _check_temporal(2 * f, 7, 2 * hd, f, 2, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [(32, 1024, 320), (32, 64, 1280),
+                                   (32, 16, 1280)], ids=str)
+def test_temporal_kernel_at_the_other_path_levels(cuda, level):
+    # the UNet3D's 32x32, 8x8 and 4x4 motion modules (CFG batch, 16
+    # frames, 8 heads): many tiles a persistent block, so the copy ring
+    # wraps; the 4x4 level has fewer tiles than resident blocks
+    _check_temporal(*level, 16, 8, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -431,6 +464,57 @@ def test_gn_silu_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_gn_silu_kernel_large_mean(cuda, dtype):
     _check_gn_silu(2, 64, 24, 24, 32, getattr(torch, dtype), mean=100.0)
+
+
+# One shape on each of #7's paths (`gn_silu_plan`): a cluster of one
+# block (many tiny slabs), a cluster of 8 blocks (a small grid spread over
+# more SMs), and the two-launch path (a 4 MB bf16 slab, over what one
+# cluster's shared memory holds)
+GN_PATHS = {"one block": ((32, 1280, 4, 4, 32), 1, 1),
+            "cluster": ((1, 128, 160, 160, 32), 1, 8),
+            "two launches": ((1, 8, 512, 512, 1), 2, None)}
+
+
+def _gn_plan(shape, dtype):
+    n, c, h, w, groups = shape
+    return fn.gn_silu_plan(n, c, h * w, groups, dtype, 1,
+                           torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("path", sorted(GN_PATHS))
+def test_gn_silu_paths(cuda, dtype, path):
+    shape, launches, cluster = GN_PATHS[path]
+    dt = getattr(torch, dtype)
+    plan = _gn_plan(shape, dt)
+    print(f"gn_silu {path} {dtype} {shape}: {plan}")
+    assert plan.launches == launches
+    if cluster is not None:
+        assert plan.cluster == cluster
+    _check_gn_silu(*shape, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(GN_PATHS))
+def test_gn_silu_rerun_gives_equal_bits(cuda, path):
+    # the statistics merge in a fixed order (no atomics) on every path
+    shape, _, _ = GN_PATHS[path]
+    x, gw, gb, _ = _gn_inputs(*shape[:4], 0.0, 9)
+    x = x.to(torch.bfloat16)
+    first = fn.gn_silu_fwd(x, gw, gb, shape[4], 1e-5)
+    again = fn.gn_silu_fwd(x, gw, gb, shape[4], 1e-5)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gn_silu_two_launch_large_mean(cuda, dtype):
+    # the large-mean case on the two-launch path (test_gn_silu_kernel_
+    # large_mean holds the one-launch path)
+    shape = GN_PATHS["two launches"][0]
+    assert _gn_plan(shape, getattr(torch, dtype)).launches == 2
+    _check_gn_silu(*shape, getattr(torch, dtype), mean=100.0)
 
 
 # (N, Cin, H, W, Cout, groups): the UNet head's Cout = 4 at an odd map,

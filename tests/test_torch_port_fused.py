@@ -4,7 +4,8 @@ CPU at tiny shapes.
 Kernels (their plain versions, which the CPU runs):
   * GroupNorm+SiLU: `group_norm_silu_reference` against the JAX composite
     and against the Pallas kernel in interpret mode (`_pallas_gn_silu`),
-    1e-5 * max |JAX|, a large-mean input included;
+    1e-5 * max |JAX|, a large-mean input included; and in bf16 against the
+    Pallas kernel, each element within one bf16 rounding step;
   * GroupNorm+SiLU+3x3 conv: `gn_silu_conv_reference` against the JAX
     composite at the JAX test's own tolerance (atol = rtol = 2e-5) and
     against `_pallas_gn_silu_conv` in interpret mode on well-conditioned
@@ -102,6 +103,33 @@ def test_gn_silu_plain_matches_jax_and_pallas(case):
                                  interpret=True)
     assert rel_err(got, ref) <= 1e-5
     assert rel_err(got, pallas) <= 1e-5
+
+
+@pytest.mark.parametrize("case", GN_CASES, ids=str)
+def test_gn_silu_plain_bf16_matches_pallas(case):
+    # bf16 in both packages: `group_norm_silu_reference` against
+    # `_pallas_gn_silu` in interpret mode. Both take two-pass f32
+    # statistics of the same bf16 input and the affine and SiLU in f32,
+    # then round to bf16, so an element may only land on the other side of
+    # one bf16 rounding step (f32 sums in another order). Tolerance: each
+    # element within one bf16 step of its own magnitude (2^(floor(log2
+    # |y|) - 7)); measured: equal bits at 3 of 4 probe shapes, one step at
+    # 0.01% of the elements at the fourth.
+    n, h, w, c, groups, mean = case
+    x, scale, bias, _ = nhwc_inputs(1, n, h, w, c, mean)
+    jx, js, jb = (jnp.asarray(a, jnp.bfloat16) for a in (x, scale, bias))
+    tx, ts, tb = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in (jx, js, jb))
+    got = tfn.group_norm_silu_reference(tx.permute(0, 3, 1, 2), ts, tb,
+                                        groups, 1e-5)
+    assert got.dtype == torch.bfloat16
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    ref = np.asarray(jfn._pallas_gn_silu(jx, js, jb, groups=groups,
+                                         eps=1e-5, interpret=True)
+                     .astype(jnp.float32))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+                   - 7)
+    assert (np.abs(got - ref) <= step).all()
 
 
 def test_gn_silu_wrapper_on_cpu_is_plain_and_counts_nothing():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time two checkouts' flash-attention forward (#1/#2/#3), flash-attention
-backward (#4/#5) and GroupNorm+SiLU+3x3-conv kernel (#8) on one CUDA card,
-in turns, at every shape the main paths launch.
+backward (#4/#5), temporal attention (#6), GroupNorm+SiLU (#7) and
+GroupNorm+SiLU+3x3-conv kernel (#8) on one CUDA card, in turns, at every
+shape the main paths launch.
 
-    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|bwd|conv] [--json PATH]
+    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|bwd|conv|temporal|gnsilu] [--json PATH]
 
 OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
@@ -12,14 +13,19 @@ other, this, this, other. Shapes: the flash forward at every attention
 shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
 stage-2 step's training sites (with lse, and the prior's bias); the
 backward at the same four step sites (from the forward's out and lse, with
-a random output gradient); #8 in bf16 at every shape of the fused clip.
+a random output gradient); #6 at the clip's four motion-module levels
+(bf16, 16 frames, 8 heads, no autograd); #7 in bf16 (bf16 GroupNorm
+parameters, as the bf16 models hold them) at every shape of the fused clip
+and the fused step; #8 in bf16 at every shape of the fused clip.
 Each shape gets two times, each the mean over 20 launches (5 at the
 largest shapes) after a warm-up: on CUDA events around the launches (what
 a caller waits, the host's launch cost included where it exceeds the
-kernel's), and ("device") the kernels' own time under torch.profiler (#8's
-statistics launches and the backward wrapper's own small kernels
-included; for the backward also each of its kernels by name). The last
-lines give, per shape, each run's ms, and for each
+kernel's), and ("device") on CUDA events around the same launches queued
+behind a kernel that keeps the card busy until the host has enqueued them
+all (every launch of a call and the backward wrapper's own small kernels
+included); for the backward also each of its kernels by name under
+torch.profiler, and for #7 the library composite F.silu(F.group_norm(...))
+by events. The last lines give, per shape, each run's ms, and for each
 kernel the sum of launches x ms over a clip (and a step) for each run;
 with --json the whole record also goes to PATH.
 """
@@ -82,6 +88,37 @@ CONV_CLIP = [
 ]
 
 
+# ((B F), D, C) of #6, 300 launches a clip at each level (F = 16, H = 8)
+TEMPORAL_CLIP = [("motion 32x32", (32, 1024, 320)),
+                 ("motion 16x16", (32, 256, 640)),
+                 ("motion 8x8", (32, 64, 1280)),
+                 ("motion 4x4", (32, 16, 1280))]
+TEMPORAL_LAUNCHES = 300
+
+# (x shape, launches a fused clip, launches a fused step) of #7, 32 groups,
+# as chip_smoke.py's record counts them
+GN_SHAPES = [
+    ((1, 128, 128, 128), 1, 0), ((1, 128, 256, 256), 4, 0),
+    ((1, 128, 512, 512), 36, 0), ((1, 128, 768, 768), 6, 0),
+    ((1, 256, 64, 64), 1, 0), ((1, 256, 128, 128), 3, 0),
+    ((1, 256, 256, 256), 30, 0), ((1, 256, 384, 384), 5, 0),
+    ((1, 256, 512, 512), 6, 0), ((1, 256, 768, 768), 1, 0),
+    ((1, 512, 32, 32), 9, 0), ((1, 512, 64, 64), 63, 0),
+    ((1, 512, 96, 96), 10, 0), ((1, 512, 128, 128), 36, 0),
+    ((1, 512, 192, 192), 6, 0), ((1, 512, 256, 256), 6, 0),
+    ((1, 512, 384, 384), 1, 0), ((6, 32, 64, 64), 8, 0),
+    ((6, 64, 32, 32), 6, 0), ((6, 64, 64, 64), 2, 0),
+    ((6, 128, 16, 16), 16, 0), ((6, 128, 32, 32), 2, 0),
+    ((16, 128, 128, 128), 1, 0), ((16, 128, 256, 256), 10, 0),
+    ((16, 256, 64, 64), 1, 0), ((16, 256, 128, 128), 8, 0),
+    ((16, 256, 256, 256), 1, 0), ((16, 512, 32, 32), 19, 0),
+    ((16, 512, 64, 64), 9, 0), ((16, 512, 128, 128), 1, 0),
+    ((60, 32, 64, 64), 0, 16), ((60, 64, 32, 32), 0, 12),
+    ((60, 64, 64, 64), 0, 4), ((60, 128, 16, 16), 0, 32),
+    ((60, 128, 32, 32), 0, 4),
+]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` launches after one warm-up."""
     import torch
@@ -95,13 +132,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, split: str = ""):
-    """Device time of fn() per call over `reps` calls after one warm-up:
-    the sum of the kernels' device times under torch.profiler, without the
-    host's gaps between launches (which `cuda_ms` counts where the host
-    is slower than the card). With `split`, also {kernel: ms} of the
-    kernels whose names start with it (the name up to its template
-    arguments)."""
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() per call: `reps` calls queued behind a kernel
+    that keeps the card busy until the host has enqueued them all, timed
+    by CUDA events around the calls, so the host's cost per call (which
+    `cuda_ms` counts where the host is slower than the card) is hidden;
+    every launch of a call and the card's gaps between them counted.
+    Doubles the wait until it outlasts the enqueueing."""
+    import time
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wait_s = max(1e-3, 4 * reps * (time.perf_counter() - t0))
+    clock_hz = 2.0e9  # above the H100's top SM clock: the wait only lengthens
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(6):
+        marks[0].record()
+        torch.cuda._sleep(int(wait_s * clock_hz))
+        marks[1].record()
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        marks[2].record()
+        enqueue_ms = 1e3 * (time.perf_counter() - h0)
+        torch.cuda.synchronize()
+        if enqueue_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / reps
+        wait_s *= 2
+    raise SystemExit("device_ms: the host never got ahead of the card")
+
+
+def kernel_ms(fn, reps: int, prefix: str):
+    """{kernel: device ms per call} of the kernels whose names start with
+    `prefix` (the name up to its template arguments), under
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -117,19 +185,20 @@ def device_ms(fn, reps: int, split: str = ""):
                          getattr(e, "self_cuda_time_total", 0))
             m = re.search(r"\b(\w+)(<[^(]*>)?\(", e.key)
             key = m.group(1) + (m.group(2) or "") if m else e.key
-            per[key] = per.get(key, 0.0) + us / 1e3 / reps
-    total = sum(per.values())
-    if not split:
-        return total
-    return total, {k: v for k, v in per.items() if k.startswith(split)}
+            if key.startswith(prefix):
+                per[key] = per.get(key, 0.0) + us / 1e3 / reps
+    return per
 
 
 def time_here(root: str, only: str):
     """Times of `root`'s kernels, one JSON line on stdout."""
     sys.path.insert(0, root)
     import torch
+    import torch.nn.functional as F
     from neurons_tpu_torch.ops import attention as attn
     from neurons_tpu_torch.ops import fused_conv as fc
+    from neurons_tpu_torch.ops import fused_norm as fn_
+    from neurons_tpu_torch.ops import temporal_attention as ta
 
     bf16 = torch.bfloat16
     gen = torch.Generator("cuda").manual_seed(0)
@@ -166,9 +235,8 @@ def time_here(root: str, only: str):
             fn = lambda: attn.flash_attention_bwd(  # noqa: E731
                 q, k, v, bias, g, o, lse, scale)
             out[f"bwd {name}"] = cuda_ms(fn, reps)
-            out[f"device bwd {name}"], kernels = device_ms(fn, reps,
-                                                           "flash_bwd_")
-            for kernel, ms in kernels.items():
+            out[f"device bwd {name}"] = device_ms(fn, reps)
+            for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd {name}: {kernel}"] = ms
         del q, k, v, g, o, lse
         torch.cuda.empty_cache()
@@ -183,12 +251,37 @@ def time_here(root: str, only: str):
             out[f"conv {n},{cin},{h},{w}->{cout}"] = cuda_ms(fn, 20)
             out[f"device conv {n},{cin},{h},{w}->{cout}"] = device_ms(fn, 20)
         torch.cuda.empty_cache()
+    if only in ("all", "temporal"):
+        for name, (bf, d, c) in TEMPORAL_CLIP:
+            q, k, v = rand(bf, d, c), rand(bf, d, c), rand(bf, d, c)
+            scale = (c // 8) ** -0.5
+            fn = lambda: ta.temporal_attention_fwd(  # noqa: E731
+                q, k, v, 16, 8, scale)
+            out[f"temporal {name}"] = cuda_ms(fn, 20)
+            out[f"device temporal {name}"] = device_ms(fn, 20)
+        del q, k, v
+        torch.cuda.empty_cache()
+    if only in ("all", "gnsilu"):
+        for shape, _, _ in GN_SHAPES:
+            x = rand(*shape)
+            gw, gb = 1.0 + 0.1 * rand(shape[1]), 0.1 * rand(shape[1])
+            reps = 5 if x.numel() > 5e7 else 20
+            fn = lambda: fn_.gn_silu_fwd(x, gw, gb, 32, 1e-5)  # noqa: E731
+            key = ",".join(map(str, shape))
+            out[f"gnsilu {key}"] = cuda_ms(fn, reps)
+            out[f"device gnsilu {key}"] = device_ms(fn, reps)
+            # the library composite, a yardstick by events
+            out[f"library gnsilu {key}"] = cuda_ms(
+                lambda: F.silu(F.group_norm(x, 32, gw, gb, 1e-5)), reps)
+            del x
+        torch.cuda.empty_cache()
     print(json.dumps(out))
 
 
 def totals(times):
-    """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #8)
-    and over a step (flash forward, flash backward), from one run's times:
+    """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #6,
+    #7, #8) and over a step (flash forward, flash backward, #7), from one
+    run's times:
     event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
@@ -207,6 +300,16 @@ def totals(times):
             sums[pre + "conv fused clip"] = sums.get(
                 pre + "conv fused clip", 0.0) + launches * times.get(
                 f"{pre}conv {n},{cin},{h},{w}->{cout}", 0.0)
+        for name, _ in TEMPORAL_CLIP:
+            sums[pre + "temporal clip"] = sums.get(
+                pre + "temporal clip", 0.0) + TEMPORAL_LAUNCHES * times.get(
+                f"{pre}temporal {name}", 0.0)
+    for pre in ("", "device ", "library "):
+        for shape, n_clip, n_step in GN_SHAPES:
+            ms = times.get(f"{pre}gnsilu {','.join(map(str, shape))}", 0.0)
+            for path, n in (("fused clip", n_clip), ("fused step", n_step)):
+                key = f"{pre}gnsilu {path}"
+                sums[key] = sums.get(key, 0.0) + n * ms
     return sums
 
 
@@ -215,7 +318,8 @@ def main():
         return time_here(sys.argv[2], sys.argv[3])
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("--only", choices=("all", "flash", "bwd", "conv"),
+    ap.add_argument("--only", choices=("all", "flash", "bwd", "conv",
+                                       "temporal", "gnsilu"),
                     default="all")
     ap.add_argument("--json", help="also write the record here")
     args = ap.parse_args()
@@ -243,6 +347,8 @@ def main():
         print(f"A/B {name:41s} ms: {cells}")
     sums = [(label, totals(times)) for label, times in runs]
     for key in sums[0][1]:
+        if not any(s[key] for _, s in sums):  # a kernel this run left out
+            continue
         cells = "  ".join(f"{label} {s[key] / 1e3:.4f}" for label, s in sums)
         print(f"A/B sum of launches x time, {key:25s} s: {cells}")
     if args.json:
