@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of stages 3 and 5 (inference) and stage 2
-(training) on one CUDA card, in the default configuration and in the
-fused-norm one, and hold its kernels against their plain PyTorch versions.
+"""Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
+paths) and stage 2 (training) on one CUDA card, in the default
+configuration and in the fused-norm one, and hold its kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -15,14 +16,15 @@ Phases, in order:
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA source of the port (one nvcc per source, started together);
   2. kernel phase: the flash-attention kernel at every attention shape of
-     the full-width clip (stage 3 and stage 5), in bf16 (and two shapes in
-     f32), against an f32 reference; its error must be no worse than 1.5x
+     the full-width clip (stage 3 and stage 5, and the fast clip's gated
+     steps at one clip's batch), in bf16 (and two shapes in f32), against
+     an f32 reference; its error must be no worse than 1.5x
      the plain version's at the kernel's precision (bf16 operands; for
      f32, operands rounded to TF32 as the kernel rounds them). The
-     temporal-attention kernel at its four stage-5 shapes in bf16 (and one
-     in f32), against the float64 result on the same inputs, by the same
-     1.5x rule. Times: kernel (by CUDA events and, for the temporal
-     kernel, also its device time: `device_ms`), plain version, one
+     temporal-attention kernel at its four stage-5 shapes and their four
+     gated ones in bf16 (and one in f32), against the float64 result on
+     the same inputs, by the same 1.5x rule. Times: kernel (by CUDA events
+     and its device time: `device_ms`), plain version, one
      PyTorch library call (scaled_dot_product_attention, a yardstick the
      port never calls), and the bound max(ops / peak, bytes / 3.35 TB/s).
      Then the training kernels at every stage-2 shape (the prior's biased
@@ -43,7 +45,13 @@ Phases, in order:
      tokens (the prior's 129 x 130 and the decoder's 256 and 1024 tokens
      take both kernels) on the card against the CPU, the same weights,
      batch, draws and dropout masks: the seven losses and every trainable
-     gradient. Fused, #7 and #8 run on the card under the same gates;
+     gradient. Fused, #7 and #8 run on the card under the same gates.
+     Then, unfused, the small fast check: every fast branch at tiny size,
+     f32, card against CPU under the same 2e-2 gate (`unclip_sample`'s
+     TGATE, TGATE x PAB, PAB, DeepCache and encoder reuse;
+     `reconstruct_video`'s TGATE, TGATE x PAB, PAB and encoder reuse with
+     SparseCtrl, each over 6 steps so that every branch takes its capture
+     and reuse arms; the RGB-condition SparseCtrl; `ddim_inversion`);
   4. slice phase: the full-width clip (`PipelineConfig()`, `GPT2Config()`,
      `CLIPTextConfig.sd15()`) in bf16 with seeded random weights: stage 3
      (`reconstruct_keyframes(enhance=True)`, the blurry-video decode and
@@ -52,11 +60,21 @@ Phases, in order:
      latents, VAE decode) for 2 voxel requests one at a time, unfused and
      then fused on the same models and seeds; the kernels' launch counts
      are zeroed just before and read just after each, #7/#8 held to the
-     count from the code. After each, one more clip under torch.profiler
-     (device activity only), outside the counted run: its wall time and
-     the device's busy time (the sum of kernel and copy times) in the same
-     run, the idle share they give, each kernel's share of busy time, and
-     the top kernels. Then one full-width UNet2D and one UNet3D forward,
+     count from the code, the unfused clip's flash and temporal launches
+     to the count from the step schedule (`sampler_launches`). After each,
+     one more clip under torch.profiler (device activity only), outside
+     the counted run: its wall time and the device's busy time (the sum of
+     kernel and copy times) in the same run, the idle share they give,
+     each kernel's share of busy time, and the top kernels. Between the
+     two, unfused, the fast clips (`fast_phase`): the CLI's "max" preset
+     (TGATE at step 10 with PAB every 2nd gated step, both stages) for 2
+     counted requests and 1 profiled, then one request each of PAB,
+     encoder reuse and DeepCache (bench.py's knobs), each with s/clip by
+     stage, peak memory, its flash and temporal launches held to the
+     count from the step schedule, and its rms deviation from the exact
+     clip's first request on the same draws (for the preset also stage 5
+     alone on the exact stage-3 artifacts). Then one full-width UNet2D and
+     one UNet3D forward,
      fused and unfused in bf16 on the same input against the same forward
      in f32 (the fused error within 1.5x the unfused one);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
@@ -85,7 +103,7 @@ time summed: kernel by events and, for #6-#8, by device time, bound,
 library call), which gives the redesign order from one run, and one line
 of the same sums by the Pallas kernel each launch replaces. The last
 two lines are the kernels' JSON record (each (kernel, shape) of the main
-paths, those totals, the f32 flash checks with their bound and library
+paths, the "max" fast clip's among them, those totals, the f32 flash checks with their bound and library
 time, each kernel's registers and spills from nvcc's -Xptxas -v log) and
 the device JSON. Any failure raises and exits non-zero; without CUDA the
 script exits 2 before printing anything.
@@ -126,6 +144,11 @@ FLASH_SHAPES = [
     ("unet3d self 16x16", (32, 8, 256, 256, 80)),
     ("vae 16 frames 32x32", (16, 1, 1024, 1024, 512)),
     ("vae keyframe 32x32", (1, 1, 1024, 1024, 512)),
+    # the fast clip's gated steps: the CFG batch collapsed to one clip
+    ("unet self 48x48 gated", (1, 10, 2304, 2304, 64)),
+    ("unet self 24x24 gated", (1, 20, 576, 576, 64)),
+    ("unet3d self 32x32 gated", (16, 8, 1024, 1024, 40)),
+    ("unet3d self 16x16 gated", (16, 8, 256, 256, 80)),
 ]
 F32_CHECKS = ["unet cross 48x48", "vae blurry 64x64"]
 
@@ -137,6 +160,11 @@ TEMPORAL_SHAPES = [
     ("motion 16x16", (32, 256, 640)),
     ("motion 8x8", (32, 64, 1280)),
     ("motion 4x4", (32, 16, 1280)),
+    # the fast clip's gated steps (one clip, 16 frames)
+    ("motion 32x32 gated", (16, 1024, 320)),
+    ("motion 16x16 gated", (16, 256, 640)),
+    ("motion 8x8 gated", (16, 64, 1280)),
+    ("motion 4x4 gated", (16, 16, 1280)),
 ]
 TEMPORAL_F32_CHECKS = ["motion 32x32"]
 
@@ -300,6 +328,8 @@ def flash_phase():
         reps = 5 if tq * tk > 10_000_000 else 20
         kernel_ms = cuda_ms(lambda: attn.flash_attention_fwd(qx, kx, vx),
                             reps)
+        kernel_dev_ms = device_ms(
+            lambda: attn.flash_attention_fwd(qx, kx, vx), reps)
         plain_ms = cuda_ms(lambda: attn.attention_reference(qx, kx, vx), reps)
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(qx, kx, vx), reps)
@@ -314,16 +344,17 @@ def flash_phase():
         tname = str(dt).split(".")[-1]
         log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] "
             f"tiles {bq}x{bk} smem {smem} B  max_abs_err {err:.3e} "
-            f"(plain {plain_err:.3e})  kernel_ms {kernel_ms:.4f} "
-            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-            f"bound_ms {bound_ms:.4f} ({bound_by})  {'OK' if ok else 'FAIL'}")
+            f"(plain {plain_err:.3e})  kernel_ms {kernel_ms:.4f} (device "
+            f"{kernel_dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})  "
+            f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees at {name} {tname}: "
                                  f"{err:.3e} > 1.5 x {plain_err:.3e}")
         records[(b, h, tq, tk, d, tname, "")] = dict(
             site=name, max_abs_err=err, plain_err=plain_err, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
+            device_ms=kernel_dev_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, want, got, plain, qx, kx, vx
     torch.cuda.empty_cache()
     return records
@@ -1024,10 +1055,12 @@ class StageTimer:
             h.remove()
 
 
-def clip_request(models, pcfg, classes, g):
+def clip_request(models, pcfg, classes, g, sampler_opts=None,
+                 video_opts=None):
     """One full-width clip: stage 3 (`run_stage3`: keyframes in enhance
     mode, the blurry-video decode, the 256-px artifacts) then stage 5
-    (`run_stage5`), each ending in a synchronize. Returns (stage-3
+    (`run_stage5`), each ending in a synchronize; `sampler_opts` and
+    `video_opts` are the two stages' fast-path options. Returns (stage-3
     artifacts, stage-5 outputs, stage-3 s, stage-5 s on the host clock)."""
     import torch
     from neurons_tpu_torch.pipelines import e2e
@@ -1039,11 +1072,11 @@ def clip_request(models, pcfg, classes, g):
     t0 = time.perf_counter()
     art = e2e.run_stage3(dec, unet, vae, voxel, classes, pcfg.sampler,
                          latent_hw=96, artifact_hw=256, caption_len=60,
-                         generator=g)
+                         generator=g, sampler_opts=sampler_opts)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     vid = e2e.run_stage5(text, unet3d, cn, vae, art, pcfg.sampler,
-                         generator=g)
+                         generator=g, **(video_opts or {}))
     torch.cuda.synchronize()
     return art, vid, t1 - t0, time.perf_counter() - t1
 
@@ -1125,7 +1158,7 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
     caller sets it), the same seeds in either; the kernels' launch counts
     zeroed just before and read just after, #7/#8 held to the count from
     the code. Returns ({kernel: launches by shape}, the request context,
-    the last request's s)."""
+    the last request's s, the first request's (artifacts, video))."""
     import torch
     from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
     from neurons_tpu_torch.ops.temporal_attention import \
@@ -1168,6 +1201,8 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
             raise AssertionError(f"{name} clip: #7/#8 launches {got} differ "
                                  f"from the count from the code {expected}")
         per_request.append(s3 + s5)
+        if r == 0:
+            first = (art, vid)
     by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
     timer.close()
     peak = torch.cuda.max_memory_allocated()
@@ -1181,28 +1216,488 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
             k for k in expected if fused)):
         if totals[kernel] == 0:
             raise AssertionError(f"the {name} clip launched no {kernel}")
-    return by_shape, ctx, per_request[-1]
+    return by_shape, ctx, per_request[-1], first
 
 
 def slice_phase():
     """The full-width clip in both configurations on the same models and
-    seeds: unfused, then fused, each 2 counted requests and 1 profiled;
-    then one UNet2D and one UNet3D forward in both. Returns {fused:
-    {kernel: launches by shape}}."""
+    seeds: unfused, then the fast configurations (unfused), then fused;
+    each clip 2 counted requests and 1 profiled; then one UNet2D and one
+    UNet3D forward in both. Returns ({fused: {kernel: launches by shape}}, the
+    fast phase's {configuration: {kernel: launches by shape}})."""
     import torch
 
     models, pcfg = build_clip()
     by_config = {}
     for fused in (False, True):
         with configuration(fused):
-            by_shape, ctx, steady_s = clip_run(models, pcfg, fused)
+            by_shape, ctx, steady_s, first = clip_run(models, pcfg, fused)
             profile_request(ctx, steady_s, fused)
+            del ctx
+            if not fused:
+                # before the fused clip, whose packed #8 weights stay
+                # cached and would count in the fast clips' peak memory
+                fast_by_config = fast_phase(models, pcfg, by_shape, first)
         by_config[fused] = by_shape
-        del ctx
+        del first
     fused_forward_check(models, pcfg)
     del models
     torch.cuda.empty_cache()
-    return by_config
+    return by_config, fast_by_config
+
+
+# --- the fast paths ----------------------------------------------------------
+
+# the fast configurations of the full-width clip: (stage-3 `unclip_sample`
+# options, stage-5 `reconstruct_video` keywords); "max" is the CLI's preset
+# (config.FAST_PRESETS), the others bench.py's knobs (BENCH_PAB_KF=2,8
+# BENCH_PAB=2,4,8 BENCH_PAB_RANGE=2,23; BENCH_ENC_REUSE=2; BENCH_DEEPCACHE=3)
+FAST_CONFIGS = {
+    "pab": ({"pab": (2, 8), "pab_range": (2, 23)},
+            {"pab": (2, 4, 8), "pab_range": (2, 23)}),
+    "encoder_reuse": ({"encoder_reuse": 2}, {"encoder_reuse": 2}),
+    "deep_cache": ({"deep_cache": 3}, {}),
+}
+FAST_PRESET = "max"
+
+
+def small_fast_check():
+    """Every fast branch at tiny size, f32, on the card against the CPU on
+    the same weights and draws, under the small checks' gates (2e-2 * max
+    |CPU|: the card's attention multiplies in TF32): `unclip_sample`'s
+    TGATE, TGATE x PAB, PAB, DeepCache and encoder reuse over 6 steps at
+    32x32 latents (the flash kernel at the 256-token sites), and
+    `reconstruct_video`'s TGATE, TGATE x PAB, PAB and encoder reuse with
+    SparseCtrl over 6 steps of 4 frames at 16x16 latents (flash and the
+    temporal kernel); the schedules take every branch's capture and reuse
+    arms. Then the RGB-condition SparseCtrl through `reconstruct_video`
+    (3 steps, the keyframe at 128 px) and `ddim_inversion` through the
+    UNet3D (4 steps)."""
+    import copy
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.diffusion.ddim import DDIMScheduler, ddim_inversion
+    from neurons_tpu_torch.models.clip import CLIPTextConfig
+    from neurons_tpu_torch.models.gpt2 import tiny_gpt2_config
+    from neurons_tpu_torch.models.sparse_controlnet import \
+        SparseControlNetModel
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from neurons_tpu_torch.ops.temporal_attention import \
+        TEMPORAL_ATTN_LAUNCHES
+    from neurons_tpu_torch.pipelines import keyframe as kf
+    from neurons_tpu_torch.pipelines.video import reconstruct_video
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = config.tiny_pipeline_config()
+    pcfg = config.replace(pcfg, unet2d=config.replace(pcfg.unet2d,
+                                                      adm_in_channels=1024))
+    g = torch.Generator().manual_seed(SEED)
+    failed = []
+
+    def compare(what, run, names):
+        """run(device) -> outputs on that device; `names` the attributes
+        compared (None: the output itself)."""
+        f0, t0 = FLASH_FWD_LAUNCHES.total, TEMPORAL_ATTN_LAUNCHES.total
+        ref, got = run("cpu"), run("cuda")
+        launches = (FLASH_FWD_LAUNCHES.total - f0,
+                    TEMPORAL_ATTN_LAUNCHES.total - t0)
+        errs = {}
+        for name in names:
+            a = got if name is None else getattr(got, name)
+            r = ref if name is None else getattr(ref, name)
+            a = a.cpu()
+            errs[name or "out"] = ((a - r).abs().max()
+                                   / r.abs().max()).item()
+        ok = all(e <= 2e-2 for e in errs.values()) and launches[0] > 0
+        log(f"small fast check {what}: launches flash {launches[0]}, "
+            f"temporal {launches[1]}; rel err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (<= 2e-2)  {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+        return launches
+
+    # stage 3: unclip_sample
+    lat, b, steps = 32, 1, 6
+    _, unet, vae = build_models((pcfg, tiny_gpt2_config()), "cpu",
+                                torch.float32, 7)
+    nets = {"cpu": (unet, vae), "cuda": tuple(copy.deepcopy(m).to("cuda")
+                                              for m in (unet, vae))}
+    c = pcfg.brain
+    tokens = torch.randn((b, c.clip_seq_dim, c.clip_emb_dim), generator=g)
+    noise = kf.UnclipNoise(torch.randn((b, 4, lat, lat), generator=g),
+                           torch.randn((b, 4, lat, lat), generator=g),
+                           torch.randn((b,), generator=g),
+                           torch.randn(tokens.shape, generator=g))
+    for name, opts in (("tgate", dict(tgate_step=3)),
+                       ("tgate_pab", dict(tgate_step=2, tgate_pab=2)),
+                       ("pab", dict(pab=(2, 4), pab_range=(1, 5))),
+                       ("deep_cache", dict(deep_cache=3)),
+                       ("encoder_reuse", dict(encoder_reuse=3))):
+        compare(f"unclip_sample {name}", lambda dev, opts=opts:
+                kf.unclip_sample(*nets[dev], tokens.to(dev), num_steps=steps,
+                                 latent_hw=lat, noise=noise, **opts), [None])
+
+    # stage 5: reconstruct_video with SparseCtrl
+    f, px = pcfg.sampler.n_video_frames, 32
+    vae = synth_params_(AutoencoderKL(pcfg.vae, device="cpu").eval(), 8)
+    _, unet3d, cn = build_video_models(pcfg, CLIPTextConfig.tiny(), "cpu",
+                                       torch.float32, 7)
+    rgb = synth_params_(SparseControlNetModel(
+        pcfg.unet3d, n_frames=f, conditioning_channels=3,
+        use_simplified_condition_embedding=False, device="cpu").eval(), 9)
+    nets = {"cpu": (unet3d, cn, vae, rgb),
+            "cuda": tuple(copy.deepcopy(m).to("cuda")
+                          for m in (unet3d, cn, vae, rgb))}
+    ctx = pcfg.unet3d.cross_attention_dim
+    blurry = torch.rand((b, 2, 3, px, px), generator=g)
+    keyframe = torch.rand((b, 3, px, px), generator=g)
+    keyframe_rgb = torch.rand((b, 3, 8 * px // 2, 8 * px // 2), generator=g)
+    text = torch.randn((b, 5, ctx), generator=g)
+    uncond = torch.randn((b, 5, ctx), generator=g)
+    vnoise = torch.randn((b, 4, f, px // 2, px // 2), generator=g)
+
+    def video(dev, rgb_cond=False, n=steps, **opts):
+        u3, cnet, v, rcn = nets[dev]
+        return reconstruct_video(
+            u3, rcn if rgb_cond else cnet, v, blurry,
+            keyframe_rgb if rgb_cond else keyframe, text, uncond,
+            num_steps=n, n_frames=f, use_simplified_cond=not rgb_cond,
+            noise=vnoise, device=dev, **opts)
+
+    for name, opts in (("tgate", dict(tgate_step=2)),
+                       ("tgate_pab", dict(tgate_step=2, tgate_pab=2)),
+                       ("pab", dict(pab=(2, 4, 8), pab_range=(2, 5))),
+                       ("encoder_reuse", dict(encoder_reuse=2))):
+        launched = compare(f"reconstruct_video {name}",
+                           lambda dev, opts=opts: video(dev, **opts),
+                           ["latents", "video"])
+        if launched[1] == 0:
+            failed.append(f"reconstruct_video {name}: no temporal launch")
+    compare("reconstruct_video RGB condition",
+            lambda dev: video(dev, rgb_cond=True, n=3), ["latents", "video"])
+    x = torch.randn((b, 4, f, px // 2, px // 2), generator=g)
+
+    def inversion(dev):
+        u3 = nets[dev][0]
+        with torch.inference_mode():
+            return ddim_inversion(
+                DDIMScheduler.create(10, device=dev),
+                lambda xx, tt: u3(xx, tt.float(), text.to(dev)), x.to(dev), 4)
+
+    compare("ddim_inversion", inversion, [None])
+    if failed:
+        raise AssertionError(f"tiny fast paths on the card disagree with "
+                             f"the CPU: {failed}")
+
+
+def attn_site_launches(model, latent, rows, n_levels, up_by_level,
+                       which=("self", "cross", "temporal"),
+                       sites=lambda name: True, context_tokens=0,
+                       dtype="bfloat16"):
+    """({flash key: launches}, {temporal key: launches}) of one forward of
+    `model` (a UNetModel, UNet3DModel or SparseControlNetModel) at `rows`
+    batch rows (B, or B*F folded frames), counted from its attention
+    sites: each transformer site's self-attention (and cross-attention over
+    `context_tokens`) launches the flash kernel once a block where both
+    token counts reach 128, each motion module the temporal kernel once an
+    attention. `which` and `sites` (a test on the site's name) pick the
+    attentions a step runs. A site's resolution is latent / 2^level; the
+    UNet2D names up sites by level, the UNet3D by up block
+    (`up_by_level` False: level = n_levels - 1 - block)."""
+    import collections
+    from neurons_tpu_torch.models.unet2d import SpatialTransformer
+    from neurons_tpu_torch.models.unet3d import MotionModule, Transformer3D
+
+    flash, temporal = collections.Counter(), collections.Counter()
+    for name, mod in model.named_children():
+        if not (isinstance(mod, (SpatialTransformer, Transformer3D,
+                                 MotionModule)) and sites(name)):
+            continue
+        if name.startswith("mid"):
+            level = n_levels - 1
+        else:
+            where, i = name.split("_")[:2]
+            level = (int(i) if where == "down" or up_by_level
+                     else n_levels - 1 - int(i))
+        tokens = (latent >> level) ** 2
+        if isinstance(mod, (SpatialTransformer, Transformer3D)):
+            attn1 = (mod.block_0.attn1 if isinstance(mod, SpatialTransformer)
+                     else mod.block_0_attn1)
+            key = (rows, attn1.heads, tokens)
+            if "self" in which and tokens >= 128:
+                flash[key + (tokens, attn1.dim_head, dtype, "")] += mod.depth
+            if ("cross" in which and tokens >= 128
+                    and context_tokens >= 128):
+                flash[key + (context_tokens, attn1.dim_head, dtype,
+                             "")] += mod.depth
+        elif isinstance(mod, MotionModule) and "temporal" in which:
+            attn = mod.block_0_attn_0
+            temporal[(rows, tokens, mod.proj_in.in_features, mod.n_frames,
+                      attn.heads, dtype)] += mod.num_blocks * mod.n_attn
+    return flash, temporal
+
+
+def sampler_launches(models, pcfg, s3_opts, s5_opts, latents=(96, 32),
+                     batch=1, dtype="bfloat16"):
+    """{"flash_attn_fwd": {key: n}, "temporal_attn_fwd": {key: n}} of one
+    clip's two samplers (the unCLIP UNet over `unclip_steps` at
+    latents[0], the UNet3D and SparseCtrl over `video_steps` at latents[1];
+    `batch` clips; the models' `dtype`), counted
+    from the step schedule the options give, branch for branch as the
+    samplers take them:
+      stage 3, on the CFG batch 2B unless gated: a full (or capture) step
+      runs every self- and cross-attention; TGATE's gated steps the
+      self-attentions at batch B, or under TGATE x PAB only every
+      tgate_pab-th gated step; PAB (i_s, i_x): full steps all, spatial
+      recomputes the self-attentions, reuse steps none; DeepCache's cached
+      steps the level-0 sites, encoder reuse's the mid and up sites;
+      stage 5, on 2B x F rows unless gated: a full step the UNet3D's
+      self- and temporal attentions and SparseCtrl's; TGATE's gated steps
+      the UNet3D's at B x F rows and no SparseCtrl (under TGATE x PAB every
+      tgate_pab-th gated step, none in between); PAB: SparseCtrl every
+      step, the UNet3D all (full, cross reused), self only (cross and
+      temporal reused) or none; encoder reuse's cached steps the UNet3D's
+      mid and up sites and no SparseCtrl.
+    The 77-token text cross-attention of stage 5 is never a flash
+    launch."""
+    import collections
+
+    _, unet, _, _, unet3d, cn = models
+    s = pcfg.sampler
+    flash, temporal = collections.Counter(), collections.Counter()
+
+    def add(counts, times=1):
+        for total, part in zip((flash, temporal), counts):
+            for k, v in part.items():
+                total[k] += v * times
+
+    n2 = len(pcfg.unet2d.channel_mult)
+    ctx = pcfg.brain.clip_seq_dim
+    b2, b1 = 2 * batch, batch  # the CFG batch and a gated one
+
+    def step2(rows, which=("self", "cross"), sites=lambda n: True):
+        return attn_site_launches(unet, latents[0], rows, n2, True, which,
+                                  sites, ctx, dtype)
+
+    n = s.unclip_steps
+    if s3_opts.get("tgate_step", 0) > 0:
+        m = min(max(int(s3_opts["tgate_step"]), 1), n)
+        p = s3_opts.get("tgate_pab", 0)
+        add(step2(b2), m)
+        for j in range(n - m):
+            if p <= 1 or j % p == 0:
+                add(step2(b1, ("self",)))
+    elif s3_opts.get("pab") is not None:
+        i_s, i_x = s3_opts["pab"]
+        lo, hi = s3_opts.get("pab_range") or (0, n)
+        for i in range(n):
+            if i % i_x == 0 or i < lo or i >= hi:
+                add(step2(b2))
+            elif i % i_s == 0:
+                add(step2(b2, ("self",)))
+    elif s3_opts.get("deep_cache", 0) > 1:
+        k = s3_opts["deep_cache"]
+        for i in range(n):
+            add(step2(b2) if i % k == 0 else step2(
+                b2, sites=lambda name: name.split("_")[:2] in (
+                    ["down", "0"], ["up", "0"])))
+    elif s3_opts.get("encoder_reuse", 1) > 1:
+        k = s3_opts["encoder_reuse"]
+        for i in range(n):
+            add(step2(b2) if i % k == 0 else step2(
+                b2, sites=lambda name: not name.startswith("down")))
+    else:
+        add(step2(b2), n)
+
+    n3 = len(pcfg.unet3d.block_out_channels)
+    f = s.n_video_frames
+
+    def step3(rows, which=("self", "temporal"), sites=lambda n: True):
+        return attn_site_launches(unet3d, latents[1], rows, n3, False, which,
+                                  sites, dtype=dtype)
+
+    def control():
+        return attn_site_launches(cn, latents[1], 2 * batch * f, n3, False,
+                                  dtype=dtype)
+
+    n = s.video_steps
+    if s5_opts.get("tgate_step", 0) > 0:
+        m = min(max(int(s5_opts["tgate_step"]), 1), n)
+        p = s5_opts.get("tgate_pab", 0)
+        add(step3(2 * batch * f), m)
+        add(control(), m)
+        for j in range(n - m):
+            if p <= 1 or j % p == 0:
+                add(step3(batch * f))
+    elif s5_opts.get("pab") is not None:
+        i_s, i_t, i_c = s5_opts["pab"]
+        lo, hi = s5_opts.get("pab_range") or (0, n)
+        for i in range(n):
+            add(control())
+            if i % i_c == 0 or i < lo or i >= hi or i % i_t == 0:
+                add(step3(2 * batch * f))
+            elif i % i_s == 0:
+                add(step3(2 * batch * f, ("self",)))
+    elif s5_opts.get("encoder_reuse", 1) > 1:
+        k = s5_opts["encoder_reuse"]
+        for i in range(n):
+            if i % k == 0:
+                add(step3(2 * batch * f))
+                add(control())
+            else:
+                add(step3(2 * batch * f, sites=lambda name: not
+                          name.startswith("down")))
+    else:
+        add(step3(2 * batch * f), n)
+        add(control(), n)
+    return {"flash_attn_fwd": dict(flash), "temporal_attn_fwd": dict(temporal)}
+
+
+def check_launches(name, measured, n_clips, predicted, exact_measured,
+                   exact_clips, exact_predicted):
+    """`measured` {kernel: {key: launches}} of `n_clips` clips against the
+    count from the code: at every shape the samplers launch (those
+    `sampler_launches` gives for this configuration or the exact one),
+    `predicted` x n_clips; at every other shape (the VAE's and the
+    DecoderVideo's, which no sampler option changes), the exact clip's
+    own launches (`exact_measured` over `exact_clips` clips) per clip x
+    n_clips."""
+    problems = []
+    for kernel in predicted:
+        sampler_keys = set(predicted[kernel]) | set(exact_predicted[kernel])
+        keys = sampler_keys | set(measured.get(kernel, {})) | set(
+            exact_measured.get(kernel, {}))
+        for key in sorted(keys, key=str):
+            want = (predicted[kernel].get(key, 0) * n_clips
+                    if key in sampler_keys
+                    else exact_measured[kernel].get(key, 0) // exact_clips
+                    * n_clips)
+            got = measured.get(kernel, {}).get(key, 0)
+            if got != want:
+                problems.append(f"{kernel} {key}: {got} launched, {want} "
+                                f"from the code")
+    per_clip = {k: sum(v.values()) for k, v in predicted.items()}
+    log(f"fast {name}: sampler launches per clip from the schedule "
+        f"{per_clip}; measured launches equal the count from the code: "
+        f"{not problems}")
+    if problems:
+        raise AssertionError(f"fast {name}: launches differ from the count "
+                             f"from the code: {problems[:8]}")
+
+
+def rms_rel(a, b) -> float:
+    """rms(a - b) / rms(b), the JAX README's proxy deviation."""
+    a, b = a.double(), b.double()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def fast_phase(models, pcfg, exact_by_shape, exact_first):
+    """The fast configurations of the full-width clip, unfused, on the
+    exact clip's models and seeds: the "max" preset for 2 requests (the
+    launch counts zeroed just before and read just after, held to the
+    schedule's count; s/clip by stage; peak memory), then one profiled
+    request (wall, busy, idle share); then one request each of PAB,
+    encoder reuse and DeepCache, each held to its count. Every first
+    request replays the exact clip's first request's draws, so its
+    keyframe and video are compared with the exact ones (rms deviation,
+    recorded, not gated); for the preset also stage 5 alone, on the exact
+    clip's stage-3 artifacts. Returns {configuration: {kernel: launches by
+    shape}}."""
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from neurons_tpu_torch.ops.temporal_attention import \
+        TEMPORAL_ATTN_LAUNCHES
+    from neurons_tpu_torch.pipelines import e2e
+
+    counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+                "temporal_attn_fwd": TEMPORAL_ATTN_LAUNCHES}
+    exact_art, exact_vid = exact_first
+    exact_predicted = sampler_launches(models, pcfg, {}, {})
+    check_launches("exact (the unfused clip)", exact_by_shape, CLIP_REQUESTS,
+                   exact_predicted, exact_by_shape, CLIP_REQUESTS,
+                   exact_predicted)
+    configs = {FAST_PRESET: config.fast_options(FAST_PRESET), **FAST_CONFIGS}
+    out = {}
+    for name, (s3_opts, s5_opts) in configs.items():
+        n_requests = CLIP_REQUESTS if name == FAST_PRESET else 1
+        g = torch.Generator("cuda").manual_seed(SEED)
+        classes = torch.randn((pcfg.decoupler.num_classes,
+                               pcfg.decoupler.clip_txt_emb_dim), generator=g,
+                              device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        per_request = []
+        for r in range(n_requests):
+            art, vid, s3, s5 = clip_request(models, pcfg, classes, g,
+                                            s3_opts, s5_opts)
+            failed = [k for k, ok in clip_checks(art, vid).items() if not ok]
+            if failed:
+                raise AssertionError(f"fast {name} outputs fail {failed}")
+            per_request.append((s3, s5))
+            if r == 0:
+                dev_kf = rms_rel(art.outputs.keyframes,
+                                 exact_art.outputs.keyframes)
+                dev_vid = rms_rel(vid.video, exact_vid.video)
+            log(f"fast {name} request {r}: {s3 + s5:.3f} s per clip "
+                f"(stage 3 {s3:.3f} s, stage 5 {s5:.3f} s)")
+        by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(name, by_shape, n_requests, sampler_launches(
+            models, pcfg, s3_opts, s5_opts), exact_by_shape, CLIP_REQUESTS,
+            exact_predicted)
+        check_shapes(f"fast {name}", by_shape)
+        log(f"fast {name} (stage 3 {s3_opts}, stage 5 {s5_opts}): "
+            f"{n_requests} requests, s/clip "
+            f"{[round(a + b, 3) for a, b in per_request]} (stage 3 "
+            f"{[round(a, 3) for a, _ in per_request]}, stage 5 "
+            f"{[round(b, 3) for _, b in per_request]}), launches "
+            f"{ {k: c.total for k, c in counters.items()} }, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; rms deviation "
+            f"from the exact clip: keyframe {dev_kf:.4f}, video (chained) "
+            f"{dev_vid:.4f}")
+        out[name] = by_shape
+        if name != FAST_PRESET:
+            continue
+        # stage 5 alone on the exact clip's stage-3 artifacts
+        g5 = torch.Generator("cuda").manual_seed(SEED + 1)
+        vid5 = {}
+        for label, opts in (("exact", {}), ("fast", s5_opts)):
+            g5.manual_seed(SEED + 1)
+            vid5[label] = e2e.run_stage5(
+                models[3], models[4], models[5], models[2], exact_art,
+                pcfg.sampler, generator=g5, **opts).video
+        log(f"fast {name}: stage 5 alone on the exact stage-3 artifacts, "
+            f"rms deviation {rms_rel(vid5['fast'], vid5['exact']):.4f}")
+        del vid5
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, s3, s5 = clip_request(models, pcfg, classes, g, s3_opts,
+                                        s5_opts)
+        device_profile(prof, s3 + s5,
+                       f"fast {name} clip (stage 3 {s3:.3f} s, stage 5 "
+                       f"{s5:.3f} s; unprofiled steady clip "
+                       f"{sum(per_request[-1]):.3f} s)", PROFILE_KERNELS)
+    return out
+
+
+def check_shapes(what, by_shape):
+    """Every (kernel, shape) a run launched was checked in the kernel
+    phase (FLASH_SHAPES and TEMPORAL_SHAPES, bf16)."""
+    flash = {shape + ("bfloat16", "") for _, shape in FLASH_SHAPES}
+    temporal = {shape + (N_FRAMES, MOTION_HEADS, "bfloat16")
+                for _, shape in TEMPORAL_SHAPES}
+    bad = ([k for k in by_shape["flash_attn_fwd"] if k not in flash]
+           + [k for k in by_shape["temporal_attn_fwd"] if k not in temporal])
+    if bad:
+        raise AssertionError(f"{what} launched shapes the kernel phase did "
+                             f"not check: {bad}")
 
 
 @contextlib.contextmanager
@@ -1740,20 +2235,23 @@ def gn_kernel_phase(shapes7, shapes8):
 
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
                    train_by_shape, gn_records, fused_by_shapes, f32_checks,
-                   ptxas, runs):
+                   ptxas, runs, fast_by_shape):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
-    (the unfused clip's, then stage 2's; for #7 and #8 the fused clip's,
-    then the fused step's); per kernel and path the sums of launches x
-    time (kernel, bound, library); the f32 flash checks; each kernel's
-    registers and spills. `runs`: the clips or steps each path's counts
-    span ("clip", "step", "fused clip", "fused step")."""
+    (the unfused clip's, then stage 2's, then the fast clip's, the "max"
+    preset; for #7 and #8 the fused clip's, then the fused step's); per
+    kernel and path the sums of launches x time (kernel, bound, library);
+    the f32 flash checks; each kernel's registers and spills. `runs`: the
+    clips or steps each path's counts span ("clip", "step", "fast clip",
+    "fused clip", "fused step")."""
     fwd_records = {**flash_records, **train_records[0]}
     entries, groups = [], []
     for path, key, launches in (
             [("clip", k, n) for k, n in sorted(by_shape["flash_attn_fwd"]
                                                 .items())]
             + [("step", k, n) for k, n in sorted(
-                train_by_shape["flash_attn_fwd"].items())]):
+                train_by_shape["flash_attn_fwd"].items())]
+            + [("fast clip", k, n) for k, n in sorted(
+                fast_by_shape["flash_attn_fwd"].items())]):
         b, h, tq, tk, d, dt, variant = key
         rec = fwd_records.get(key)
         if rec is None or dt != "bfloat16":
@@ -1763,7 +2261,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
         whole_kv = tk * 2 <= 4608  # the TPU package's whole-KV regime
         entries.append({
             "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} bf16"
-                     + (f" {variant}]" if variant else "]")),
+                     + (f" {variant}" if variant else "")
+                     + (" fast clip]" if path == "fast clip" else "]")),
             "route": "cuda",
             "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": ("neurons_tpu/ops/attention.py:185"
@@ -1775,6 +2274,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            **({"device_ms": rec["device_ms"]} if "device_ms" in rec
+               else {}),
         })
         groups.append(("flash_attn_fwd", path, runs[path]))
     for key, launches in sorted(train_by_shape["flash_attn_bwd"].items()):
@@ -1799,7 +2300,11 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "library_bwd_ms": rec["library_bwd_ms"],
         })
         groups.append(("flash_attn_bwd", "step", runs["step"]))
-    for key, launches in sorted(by_shape["temporal_attn_fwd"].items()):
+    for path, key, launches in (
+            [("clip", k, n) for k, n in sorted(
+                by_shape["temporal_attn_fwd"].items())]
+            + [("fast clip", k, n) for k, n in sorted(
+                fast_by_shape["temporal_attn_fwd"].items())]):
         bf, d, c, f, h, dt = key
         rec = temporal_records.get(key)
         if rec is None or dt != "bfloat16":
@@ -1807,7 +2312,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                                  f"kernel at {key}, a shape the kernel "
                                  f"phase did not check")
         entries.append({
-            "name": f"temporal_attn_fwd[{bf}x{d}x{c} F{f} H{h} bf16]",
+            "name": (f"temporal_attn_fwd[{bf}x{d}x{c} F{f} H{h} bf16"
+                     + (" fast clip]" if path == "fast clip" else "]")),
             "route": "cuda",
             "source": "neurons_tpu_torch/csrc/temporal_attn_fwd.cu",
             "replaces": "neurons_tpu/ops/temporal_attention.py:91",
@@ -1818,7 +2324,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
-        groups.append(("temporal_attn_fwd", "clip", runs["clip"]))
+        groups.append(("temporal_attn_fwd", path, runs[path]))
     sources = {"gn_silu": ("neurons_tpu_torch/csrc/gn_silu.cu",
                            "neurons_tpu/ops/fused_norm.py:102"),
                "gn_silu_conv": ("neurons_tpu_torch/csrc/gn_silu_conv.cu",
@@ -1856,8 +2362,9 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
 def kernel_totals(entries, groups, by_tpu_kernel=False):
     """Per kernel (or, with `by_tpu_kernel`, per Pallas kernel it replaces)
     and path, for one clip or one step: launches, and the sums of launches
-    x time of the kernel (by events, and for #6-#8 also by device time), of
-    its bound and of the library call (for the flash backward also of the
+    x time of the kernel (by events, and by device time where the kernel
+    phase measured it), of its bound, of its plain version and of the
+    library call (for the flash backward also of the
     library's backward alone), in seconds; the rule-2 order reads off
     kernel_s - bound_s.
     `groups` gives each entry's (kernel, path, runs its launches span)."""
@@ -1866,11 +2373,12 @@ def kernel_totals(entries, groups, by_tpu_kernel=False):
         name = entry["replaces"] if by_tpu_kernel else kernel
         t = out.setdefault((name, path), dict(
             kernel=name, path=path, launches=0, kernel_s=0.0, bound_s=0.0,
-            library_s=0.0))
+            plain_s=0.0, library_s=0.0))
         n = entry["launches"] / runs
         t["launches"] += n
         t["kernel_s"] += n * entry["ms"] / 1e3
         t["bound_s"] += n * entry["bound_ms"] / 1e3
+        t["plain_s"] += n * entry["plain_ms"] / 1e3
         if entry["library_ms"] is not None:
             t["library_s"] += n * entry["library_ms"] / 1e3
         if "device_ms" in entry:  # device time per call
@@ -1948,7 +2456,9 @@ def main():
             small_check(fused)
             small_video_check(fused)
             small_train_check(fused)
-    clip_by_shape = slice_phase()
+    with configuration(False):
+        small_fast_check()
+    clip_by_shape, fast_by_config = slice_phase()
     with configuration(False):
         train_by_shape, fused_train_by_shape = train_phase()
     fused_by_shapes = (("clip", clip_by_shape[True]),
@@ -1962,23 +2472,27 @@ def main():
     stage2_steps = (sum(train_by_shape["flash_attn_fwd"].values())
                     / sum(STEP_LAUNCHES["flash_attn_fwd"].values()))
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
-            "fused clip": CLIP_REQUESTS, "fused step": FIXED_STEPS}
+            "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
+            "fused step": FIXED_STEPS}
     record = kernels_record(flash_records, temporal_records, train_records,
                             clip_by_shape[False], train_by_shape, gn_records,
                             fused_by_shapes, f32_check_records(flash_records),
-                            ptxas, runs)
+                            ptxas, runs, fast_by_config[FAST_PRESET])
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
         f"{t['kernel_s']:.4f}" + (f" (device {t['device_s']:.4f})"
                                   if "device_s" in t else "")
-        + f" bound {t['bound_s']:.4f} library "
+        + f" bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} library "
         f"{t['library_s']:.4f}" + (f" (backward alone {t['library_bwd_s']:.4f})"
                                    if "library_bwd_s" in t else "")
         for t in record["totals"]))
     log("totals by the Pallas kernel replaced (a clip or a step; s): "
         + " | ".join(f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
-                     f"{t['kernel_s']:.4f} bound {t['bound_s']:.4f} library "
-                     f"{t['library_s']:.4f}"
+                     f"{t['kernel_s']:.4f}" + (
+                         f" (device {t['device_s']:.4f})" if "device_s" in t
+                         else "")
+                     + f" bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} "
+                     f"library {t['library_s']:.4f}"
                      for t in record["totals_by_tpu_kernel"]))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 # Voxel counts per CC2017 subject.
 SUBJECT_VOXELS = {1: 13447, 2: 14828, 3: 9114}
@@ -229,3 +229,29 @@ def tiny_pipeline_config() -> PipelineConfig:
         sampler=SamplerConfig(unclip_steps=3, prior_steps=4, video_steps=3,
                               n_video_frames=4),
     )
+
+
+# The named fast presets of the JAX package's CLI (--fast), the measured
+# TGATE x PAB frontier: the stage-specific tgate / tgate_pab expansions
+# for stage 3 ("recon") and stage 5 ("video").
+FAST_PRESETS = {
+    # sub-5% stage-3 deviation, the validated quality bar
+    "quality": {"recon": dict(tgate=33, tgate_pab=2),
+                "video": dict(tgate=10, tgate_pab=2)},
+    "balanced": {"recon": dict(tgate=20, tgate_pab=2),
+                 "video": dict(tgate=10, tgate_pab=2)},
+    "max": {"recon": dict(tgate=10, tgate_pab=2),
+            "video": dict(tgate=10, tgate_pab=2)},
+}
+
+
+def fast_options(preset: Optional[str]) -> Tuple[Dict, Dict]:
+    """A preset name -> (stage 3's `unclip_sample` options, stage 5's
+    `reconstruct_video` keywords); None gives the exact samplers."""
+    if preset is None:
+        return {}, {}
+    p = FAST_PRESETS[preset]
+    return ({"tgate_step": p["recon"]["tgate"],
+             "tgate_pab": p["recon"]["tgate_pab"]},
+            {"tgate_step": p["video"]["tgate"],
+             "tgate_pab": p["video"]["tgate_pab"]})

@@ -3,13 +3,14 @@
 Counterpart of neurons_tpu/diffusion/ddim.py: SD's scaled-linear betas
 (0.00085 -> 0.012), steps_offset 1, no sample clipping, eta 0.
 `create(25)` gives timesteps [961, 921, ..., 1]. The tables are computed in
-float64 numpy and stored as f32 tensors, as in the JAX package. DDIM
-inversion is not ported yet.
+float64 numpy and stored as f32 tensors, as in the JAX package.
+`ddim_inversion` runs the deterministic trajectory backward, clean to
+noised.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
@@ -61,3 +62,26 @@ class DDIMScheduler(NamedTuple):
                      else self.final_alpha_cumprod)
         x0 = (sample - torch.sqrt(1 - abar_t) * eps_pred) / torch.sqrt(abar_t)
         return torch.sqrt(abar_prev) * x0 + torch.sqrt(1 - abar_prev) * eps_pred
+
+
+def ddim_inversion(scheduler: DDIMScheduler,
+                   eps_fn: Callable[[torch.Tensor, torch.Tensor],
+                                    torch.Tensor],
+                   latents: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """DDIM inversion over the first `num_steps` of the ascending
+    timesteps: at each t, with prev_t = t - T // steps,
+    x0 = (x - sqrt(1 - abar_prev) eps) / sqrt(abar_prev) and
+    x <- sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, where eps = eps_fn(x,
+    t [B]). Returns the latent after the last step."""
+    ts = scheduler.timesteps.flip(0).tolist()
+    step_ratio = scheduler.num_train_timesteps // len(ts)
+    x = latents
+    for t in ts[:num_steps]:
+        prev_t = t - step_ratio
+        abar_t = scheduler.alphas_cumprod[t]
+        abar_prev = (scheduler.alphas_cumprod[prev_t] if prev_t >= 0
+                     else scheduler.final_alpha_cumprod)
+        eps = eps_fn(x, torch.full((x.shape[0],), t, device=x.device))
+        x0 = (x - torch.sqrt(1 - abar_prev) * eps) / torch.sqrt(abar_prev)
+        x = torch.sqrt(abar_t) * x0 + torch.sqrt(1 - abar_t) * eps
+    return x

@@ -13,8 +13,13 @@ Every GN -> SiLU -> 3x3 conv pair (both of each ResBlock, and the output
 head) goes through ops.fused_conv.norm_silu_conv: the fused CUDA kernel
 with NEURONS_TPU_FUSED_GNCONV=1, as the JAX ResBlock routes it.
 
-Only the exact path is ported: the TGATE, PAB, DeepCache and
-encoder-reuse hooks of the JAX UNet are later work (ROADMAP.md).
+`UNetModel.forward` carries the JAX UNet's hooks for the fast samplers:
+the encoder cache (`cached` / `return_cache`, encoder reuse), DeepCache
+(`deep_cached` / `return_deep_cache`), and the cross- and self-attention
+residuals by site name (`capture_xattn` / `xattn_cached` for TGATE and PAB,
+`capture_sattn` / `sattn_cached` for PAB). A cached residual replaces its
+whole pre-norm branch (norm2 + attn2, or norm1 + attn1); captures come back
+stacked over a site's depth, [depth, B, T, C].
 """
 
 from __future__ import annotations
@@ -149,7 +154,12 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn(context) -> FF, each pre-norm residual."""
+    """self-attn -> cross-attn(context) -> FF, each pre-norm residual.
+
+    `xattn_cached` replaces the cross-attention residual (norm2 + attn2 is
+    skipped) and `sattn_cached` the self-attention one (norm1 + attn1);
+    `capture` / `capture_sattn` also return that residual, cached or not,
+    in the order (x, xattn, sattn)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
         super().__init__()
@@ -160,15 +170,23 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context, kv=None):
-        x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context, kv=kv) + x
-        return self.ff(self.norm3(x)) + x
+    def forward(self, x, context, kv=None, xattn_cached=None,
+                capture: bool = False, sattn_cached=None,
+                capture_sattn: bool = False):
+        sattn = (sattn_cached if sattn_cached is not None
+                 else self.attn1(self.norm1(x)))
+        x = sattn + x
+        xattn = (xattn_cached if xattn_cached is not None
+                 else self.attn2(self.norm2(x), context, kv=kv))
+        x = xattn + x
+        x = self.ff(self.norm3(x)) + x
+        extras = (xattn,) * capture + (sattn,) * capture_sattn
+        return (x,) + extras if extras else x
 
 
 class SpatialTransformer(nn.Module):
     """GN -> linear proj_in -> depth x BasicTransformerBlock -> proj_out ->
-    residual."""
+    residual. The hooks' caches and captures are stacked over depth."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
                  context_dim: int, groups: int = 32):
@@ -181,14 +199,34 @@ class SpatialTransformer(nn.Module):
                 channels, heads, dim_head, context_dim))
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, context, ctx_kv=None):
+    def forward(self, x, context, ctx_kv=None, xattn_cached=None,
+                capture: bool = False, sattn_cached=None,
+                capture_sattn: bool = False):
         b, c, h, w = x.shape
         t = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))
+        captured, captured_s = [], []
         for i in range(self.depth):
-            kv = None if ctx_kv is None else (ctx_kv[0][i], ctx_kv[1][i])
-            t = getattr(self, f"block_{i}")(t, context, kv=kv)
+            out = getattr(self, f"block_{i}")(
+                t, context,
+                kv=None if ctx_kv is None else (ctx_kv[0][i], ctx_kv[1][i]),
+                xattn_cached=None if xattn_cached is None else xattn_cached[i],
+                capture=capture,
+                sattn_cached=None if sattn_cached is None else sattn_cached[i],
+                capture_sattn=capture_sattn)
+            if capture or capture_sattn:
+                t, *rest = out
+                if capture:
+                    captured.append(rest.pop(0))
+                if capture_sattn:
+                    captured_s.append(rest.pop(0))
+            else:
+                t = out
         t = self.proj_out(t)
-        return t.transpose(1, 2).reshape(b, c, h, w) + x
+        out = t.transpose(1, 2).reshape(b, c, h, w) + x
+        extras = tuple(torch.stack(c) for c, on in
+                       ((captured, capture), (captured_s, capture_sattn))
+                       if on)
+        return (out,) + extras if extras else out
 
 
 class Downsample2D(nn.Module):
@@ -269,7 +307,20 @@ class UNetModel(nn.Module):
             self.out_conv = nn.Conv2d(mc, c.out_channels, 3, padding=1)
         self.to(dtype)
 
-    def forward(self, x, timesteps, context, y=None, ctx_kv=None):
+    def forward(self, x, timesteps, context, y=None, ctx_kv=None,
+                cached=None, return_cache: bool = False,
+                xattn_cached=None, capture_xattn: bool = False,
+                sattn_cached=None, capture_sattn: bool = False,
+                deep_cached=None, return_deep_cache: bool = False):
+        """eps, or (eps, *extras) with the extras asked for in the order
+        encoder cache `(h, skips)`, DeepCache feature, {site: xattn},
+        {site: sattn}.
+
+        `cached` skips the encoder (conv_in and the down blocks) and runs
+        the mid block and decoder on the cached features. `deep_cached`
+        (DeepCache, arXiv 2312.00858) is the feature entering `up_0_res_0`
+        on an earlier full step: such a step runs only conv_in, the level-0
+        down and up blocks and the head."""
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         emb = self.time_embed_0(timestep_embedding(timesteps,
@@ -277,32 +328,63 @@ class UNetModel(nn.Module):
         emb = self.time_embed_2(F.silu(emb))
         if y is not None:
             emb = emb + self.label_emb_2(F.silu(self.label_emb_0(y)))
+        xattn_out, sattn_out = {}, {}
 
         def attn(name, h):
             site = getattr(self, name, None)
             if site is None:
                 return h
-            return site(h, context,
-                        ctx_kv=None if ctx_kv is None else ctx_kv[name])
+            out = site(
+                h, context, ctx_kv=None if ctx_kv is None else ctx_kv[name],
+                xattn_cached=None if xattn_cached is None
+                else xattn_cached[name],
+                capture=capture_xattn,
+                sattn_cached=None if sattn_cached is None
+                else sattn_cached[name],
+                capture_sattn=capture_sattn)
+            if not (capture_xattn or capture_sattn):
+                return out
+            h, *rest = out
+            if capture_xattn:
+                xattn_out[name] = rest.pop(0)
+            if capture_sattn:
+                sattn_out[name] = rest.pop(0)
+            return h
 
-        h = self.conv_in(x)
-        skips = [h]
-        for level in range(len(c.channel_mult)):
-            for i in range(c.num_res_blocks):
-                h = getattr(self, f"down_{level}_res_{i}")(h, emb)
-                h = attn(f"down_{level}_attn_{i}", h)
-                skips.append(h)
-            if level != len(c.channel_mult) - 1:
-                h = getattr(self, f"down_{level}_downsample")(h)
-                skips.append(h)
-        h = self.mid_res_0(h, emb)
-        h = attn("mid_attn", h)
-        h = self.mid_res_1(h, emb)
-        for level in reversed(range(len(c.channel_mult))):
+        deep_only = deep_cached is not None
+        levels = range(1 if deep_only else len(c.channel_mult))
+        if cached is None:
+            h = self.conv_in(x)
+            skips = [h]
+            for level in levels:
+                for i in range(c.num_res_blocks):
+                    h = getattr(self, f"down_{level}_res_{i}")(h, emb)
+                    h = attn(f"down_{level}_attn_{i}", h)
+                    skips.append(h)
+                if level != len(c.channel_mult) - 1 and not deep_only:
+                    h = getattr(self, f"down_{level}_downsample")(h)
+                    skips.append(h)
+        else:
+            h, skips = cached[0], list(cached[1])
+        cache = (h, tuple(skips))
+        if not deep_only:
+            h = self.mid_res_0(h, emb)
+            h = attn("mid_attn", h)
+            h = self.mid_res_1(h, emb)
+        deep_out = None
+        for level in reversed(levels):
             for i in range(c.num_res_blocks + 1):
+                if level == 0 and i == 0:
+                    if deep_only:
+                        h = deep_cached
+                    deep_out = h
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{level}_res_{i}")(h, emb)
                 h = attn(f"up_{level}_attn_{i}", h)
                 if level and i == c.num_res_blocks:
                     h = getattr(self, f"up_{level}_upsample")(h)
-        return norm_silu_conv(self.out_norm, self.out_conv, h)
+        out = norm_silu_conv(self.out_norm, self.out_conv, h)
+        extras = ((cache,) * return_cache + (deep_out,) * return_deep_cache
+                  + (xattn_out,) * capture_xattn
+                  + (sattn_out,) * capture_sattn)
+        return (out,) + extras if extras else out

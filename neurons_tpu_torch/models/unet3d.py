@@ -26,16 +26,21 @@ Both norm/conv pairs of every ResnetBlock3D (SparseCtrl's included) go
 through ops.fused_conv.norm_silu_conv: the fused CUDA kernel with
 NEURONS_TPU_FUSED_GNCONV=1, as the JAX res block routes them.
 
-Only the exact path is ported: no encoder cache, no TGATE/PAB capture or
-cached-attention hooks. The motion
-modules' `Temporal_Cross` attention is never given a context in the JAX
-package, so every attention block here is temporal self-attention.
+`UNet3DModel.forward` carries the JAX UNet3D's hooks for the fast
+samplers: the encoder cache (`cached` / `return_cache`: the down path's
+features before the mid block, for encoder reuse), and the attention
+residuals by site name: cross (`capture_xattn` / `xattn_cached`, TGATE
+and PAB), spatial self (`capture_sattn` / `sattn_cached`) and temporal
+(`capture_tattn` / `tattn_cached`, PAB). A cached residual replaces its
+pre-norm attention branch; a motion module's feed-forward still runs. The
+motion modules' `Temporal_Cross` attention is never given a context in the
+JAX package, so every attention block here is temporal self-attention.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -117,22 +122,34 @@ class MotionModule(nn.Module):
         self.register_buffer("pe", temporal_pos_encoding(max_seq_len, c),
                              persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, tattn_cached=None, capture_tattn: bool = False):
+        """out, or (out, residuals stacked over the attention blocks,
+        [n_attn, (B F), H*W, C]) with `capture_tattn`. `tattn_cached`
+        (that stack) replaces each attention block's residual."""
         bf, c, hh, ww = x.shape
         f, d = self.n_frames, hh * ww
         tokens = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))
         pe = self.pe[:f].to(x.dtype)[None, :, None, :]
+        captured, t_idx = [], 0
         for blk in range(self.num_blocks):
             for ai in range(self.n_attn):
                 name = f"block_{blk}_attn_{ai}"
-                t = getattr(self, f"{name}_norm")(tokens)
-                # pe[frame] added in the folded layout
-                t = (t.reshape(bf // f, f, d, c) + pe).reshape(bf, d, c)
-                tokens = getattr(self, name)(t) + tokens
+                if tattn_cached is not None:
+                    tattn = tattn_cached[t_idx]
+                else:
+                    t = getattr(self, f"{name}_norm")(tokens)
+                    # pe[frame] added in the folded layout
+                    t = (t.reshape(bf // f, f, d, c) + pe).reshape(bf, d, c)
+                    tattn = getattr(self, name)(t)
+                if capture_tattn:
+                    captured.append(tattn)
+                t_idx += 1
+                tokens = tattn + tokens
             t = getattr(self, f"block_{blk}_ff_norm")(tokens)
             tokens = getattr(self, f"block_{blk}_ff")(t) + tokens
         out = self.proj_out(tokens)
-        return out.transpose(1, 2).reshape(bf, c, hh, ww) + x
+        out = out.transpose(1, 2).reshape(bf, c, hh, ww) + x
+        return (out, torch.stack(captured)) if capture_tattn else out
 
 
 class ResnetBlock3D(nn.Module):
@@ -185,22 +202,118 @@ class Transformer3D(nn.Module):
             self.add_module(f"block_{i}_ff", GEGLUFeedForward(c))
         self.proj_out = nn.Linear(c, c)
 
-    def forward(self, x, context):
+    def forward(self, x, context, xattn_cached=None, capture: bool = False,
+                sattn_cached=None, capture_sattn: bool = False):
+        """out, or (out, xattn, sattn) for what is captured, each stacked
+        over depth, [depth, (B F), H*W, C]. A cached residual replaces its
+        branch (the context is unused under `xattn_cached`)."""
         bf, c, hh, ww = x.shape
         tokens = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))
+        captured, captured_s = [], []
         for i in range(self.depth):
             blk = f"block_{i}"
-            t = getattr(self, f"{blk}_norm1")(tokens)
-            tokens = getattr(self, f"{blk}_attn1")(t) + tokens
-            attn2 = getattr(self, f"{blk}_attn2")
-            kv = tuple(lin(context).repeat_interleave(self.n_frames, dim=0)
-                       for lin in (attn2.to_k, attn2.to_v))
-            t = getattr(self, f"{blk}_norm2")(tokens)
-            tokens = attn2(t, kv=kv) + tokens
+            if sattn_cached is not None:
+                sattn = sattn_cached[i]
+            else:
+                t = getattr(self, f"{blk}_norm1")(tokens)
+                sattn = getattr(self, f"{blk}_attn1")(t)
+            captured_s.append(sattn)
+            tokens = sattn + tokens
+            if xattn_cached is not None:
+                xattn = xattn_cached[i]
+            else:
+                attn2 = getattr(self, f"{blk}_attn2")
+                kv = tuple(lin(context).repeat_interleave(self.n_frames,
+                                                          dim=0)
+                           for lin in (attn2.to_k, attn2.to_v))
+                t = getattr(self, f"{blk}_norm2")(tokens)
+                xattn = attn2(t, kv=kv)
+            captured.append(xattn)
+            tokens = xattn + tokens
             t = getattr(self, f"{blk}_norm3")(tokens)
             tokens = getattr(self, f"{blk}_ff")(t) + tokens
         out = self.proj_out(tokens)
-        return out.transpose(1, 2).reshape(bf, c, hh, ww) + x
+        out = out.transpose(1, 2).reshape(bf, c, hh, ww) + x
+        extras = tuple(torch.stack(c) for c, on in
+                       ((captured, capture), (captured_s, capture_sattn))
+                       if on)
+        return (out,) + extras if extras else out
+
+
+def video_cross_attn_sites(cfg: UNet3DConfig):
+    """[(site_name, depth)] of every Transformer3D of `UNet3DModel` in call
+    order."""
+    sites = []
+    for i, btype in enumerate(cfg.down_block_types):
+        if btype.startswith("CrossAttn"):
+            sites += [(f"down_{i}_attn_{j}", 1)
+                      for j in range(cfg.layers_per_block)]
+    sites.append(("mid_attn", 1))
+    for i, btype in enumerate(cfg.up_block_types):
+        if btype.startswith("CrossAttn"):
+            sites += [(f"up_{i}_attn_{j}", 1)
+                      for j in range(cfg.layers_per_block + 1)]
+    return sites
+
+
+def video_motion_sites(cfg: UNet3DConfig) -> List[str]:
+    """Names of every MotionModule of `UNet3DModel` in call order (only at
+    `motion_module_resolutions`)."""
+    sites = []
+    res = 1
+    for i in range(len(cfg.down_block_types)):
+        for j in range(cfg.layers_per_block):
+            if cfg.use_motion_module and res in cfg.motion_module_resolutions:
+                sites.append(f"down_{i}_motion_{j}")
+        if i != len(cfg.down_block_types) - 1:
+            res *= 2
+    for i in range(len(cfg.up_block_types)):
+        for j in range(cfg.layers_per_block + 1):
+            if cfg.use_motion_module and res in cfg.motion_module_resolutions:
+                sites.append(f"up_{i}_motion_{j}")
+        if i != len(cfg.up_block_types) - 1:
+            res //= 2
+    return sites
+
+
+class AttnHooks:
+    """One forward's attention hooks: the cached residuals by site name and
+    kind ("x" cross, "s" spatial self, "t" temporal), which kinds to
+    capture, and the captures by kind and site name."""
+
+    KINDS = ("x", "s", "t")
+
+    def __init__(self, cached=None, capture=()):
+        self.cached = cached or {}
+        self.capture = set(capture)
+        self.out = {k: {} for k in self.capture}
+
+    def attn(self, site: "Transformer3D", name: str, h, context):
+        def cached(kind):
+            c = self.cached.get(kind)
+            return None if c is None else c[name]
+        out = site(h, context, xattn_cached=cached("x"),
+                   capture="x" in self.capture, sattn_cached=cached("s"),
+                   capture_sattn="s" in self.capture)
+        if not ({"x", "s"} & self.capture):
+            return out
+        h, *rest = out
+        for kind in ("x", "s"):
+            if kind in self.capture:
+                self.out[kind][name] = rest.pop(0)
+        return h
+
+    def motion(self, module: "MotionModule", name: str, h):
+        c = self.cached.get("t")
+        out = module(h, tattn_cached=None if c is None else c[name],
+                     capture_tattn="t" in self.capture)
+        if "t" not in self.capture:
+            return out
+        h, self.out["t"][name] = out
+        return h
+
+
+NO_HOOKS = AttnHooks()
 
 
 def fold(x: torch.Tensor) -> torch.Tensor:
@@ -245,12 +358,15 @@ class VideoEncoderMixin:
                 attention_block_types=motion_types,
                 max_seq_len=c.motion_max_seq_length, groups=g))
 
-    def _run_sites(self, where: str, j: int, h, context):
+    def _run_sites(self, where: str, j: int, h, context,
+                   hooks: AttnHooks = NO_HOOKS):
         attn = getattr(self, f"{where}_attn_{j}", None)
         if attn is not None:
-            h = attn(h, context)
+            h = hooks.attn(attn, f"{where}_attn_{j}", h, context)
         motion = getattr(self, f"{where}_motion_{j}", None)
-        return h if motion is None else motion(h)
+        if motion is not None:
+            h = hooks.motion(motion, f"{where}_motion_{j}", h)
+        return h
 
     def _motion_types(self, res: int, types, gate: bool):
         """The motion module's attention types at resolution `res`, or None
@@ -297,21 +413,25 @@ class VideoEncoderMixin:
             temb.to(self.conv_in.weight.dtype))))
         return temb.repeat_interleave(self.n_frames, dim=0)
 
-    def _down(self, h, temb, context):
-        """Down blocks and mid block; returns (h, skips)."""
+    def _down(self, h, temb, context, hooks: AttnHooks = NO_HOOKS):
+        """Down blocks; returns (h, skips), the features before the mid
+        block."""
         c = self.cfg
         skips = [h]
         for i in range(len(c.down_block_types)):
             for j in range(c.layers_per_block):
                 h = getattr(self, f"down_{i}_res_{j}")(h, temb)
-                h = self._run_sites(f"down_{i}", j, h, context)
+                h = self._run_sites(f"down_{i}", j, h, context, hooks)
                 skips.append(h)
             if i != len(c.down_block_types) - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
+        return h, skips
+
+    def _mid(self, h, temb, context, hooks: AttnHooks = NO_HOOKS):
         h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h, context)
-        return self.mid_res_1(h, temb), skips
+        h = hooks.attn(self.mid_attn, "mid_attn", h, context)
+        return self.mid_res_1(h, temb)
 
 
 class UNet3DModel(VideoEncoderMixin, nn.Module):
@@ -349,11 +469,29 @@ class UNet3DModel(VideoEncoderMixin, nn.Module):
         self.to(dtype)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
-                down_block_residuals=None, mid_block_residual=None):
+                down_block_residuals=None, mid_block_residual=None,
+                cached=None, return_cache: bool = False,
+                xattn_cached=None, capture_xattn: bool = False,
+                sattn_cached=None, capture_sattn: bool = False,
+                tattn_cached=None, capture_tattn: bool = False):
+        """eps, or (eps, *extras) with the extras asked for in the order
+        encoder cache `(h, skips)`, {site: xattn}, {site: sattn},
+        {site: tattn}. `cached` skips conv_in and the down blocks; the
+        SparseCtrl residuals are added to the (cached or fresh) skips."""
         c = self.cfg
+        kinds = AttnHooks.KINDS
+        hooks = AttnHooks(
+            dict(zip(kinds, (xattn_cached, sattn_cached, tattn_cached))),
+            [k for k, on in zip(kinds, (capture_xattn, capture_sattn,
+                                        capture_tattn)) if on])
         temb = self._time_embedding(timesteps)
-        h, skips = self._down(self.conv_in(fold(sample)), temb,
-                              encoder_hidden_states)
+        if cached is None:
+            h, skips = self._down(self.conv_in(fold(sample)), temb,
+                                  encoder_hidden_states, hooks)
+        else:
+            h, skips = cached[0], list(cached[1])
+        cache = (h, tuple(skips))
+        h = self._mid(h, temb, encoder_hidden_states, hooks)
         if mid_block_residual is not None:
             h = h + mid_block_residual
         if down_block_residuals is not None:
@@ -362,10 +500,14 @@ class UNet3DModel(VideoEncoderMixin, nn.Module):
             for j in range(c.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{i}_res_{j}")(h, temb)
-                h = self._run_sites(f"up_{i}", j, h, encoder_hidden_states)
+                h = self._run_sites(f"up_{i}", j, h, encoder_hidden_states,
+                                    hooks)
             if i != len(c.up_block_types) - 1:
                 # jax.image.resize "nearest" samples at half-pixel centres
                 h = F.interpolate(h, scale_factor=2, mode="nearest-exact")
                 h = getattr(self, f"up_{i}_upsample")(h)
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return unfold(h, self.n_frames)
+        out = unfold(h, self.n_frames)
+        extras = (cache,) * return_cache + tuple(
+            hooks.out[k] for k in kinds if k in hooks.capture)
+        return (out,) + extras if extras else out

@@ -10,6 +10,11 @@ The port's counterpart of the JAX bench's `stage3` + `stage5` composition
            a zero-padded 77-token row, the text tower on it and on the
            all-zero row (the unconditional prompt), then `reconstruct_video`.
 
+The fast paths pass through as bench.py passes them: one dict of
+`unclip_sample` options for stage 3 (`sampler_opts`) and the
+`reconstruct_video` keywords for stage 5 (`video_opts`);
+`config.fast_options` expands a named preset into both.
+
 The artifact resize is the bench's `jax.image.resize(..., "linear")`,
 which antialiases (a triangle filter stretched by the downsampling factor);
 `F.interpolate(mode="bilinear", antialias=True)` computes the same taps.
@@ -70,13 +75,15 @@ def run_stage3(decoupler: nn.Module, unet: nn.Module, vae: nn.Module,
                caption_len: int = 60,
                generator: Optional[torch.Generator] = None,
                noise: Optional[KeyframeNoise] = None,
+               sampler_opts: Optional[dict] = None,
                device="cuda") -> Stage3Artifacts:
-    """Stage 3 in enhance mode and its artifacts at `artifact_hw` px."""
+    """Stage 3 in enhance mode and its artifacts at `artifact_hw` px;
+    `sampler_opts` are `unclip_sample`'s fast-path options."""
     out = reconstruct_keyframes(
         decoupler, unet, vae, voxel, class_text_embeds=class_text_embeds,
         sampler_cfg=sampler_cfg, latent_hw=latent_hw, enhance=True,
         caption_len=caption_len, generator=generator, noise=noise,
-        device=device)
+        sampler_opts=sampler_opts, device=device)
     blurry = decode_blurry_video(vae, out.blurry_latents,
                                  out.motion_embeds.shape[1])
     return Stage3Artifacts(out, resize_linear(out.keyframes, artifact_hw),
@@ -103,9 +110,10 @@ def run_stage5(text_tower: nn.Module, unet3d: nn.Module,
                sampler_cfg: SamplerConfig = SamplerConfig(),
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               device="cuda") -> VideoPipelineOutputs:
+               device="cuda", **video_opts) -> VideoPipelineOutputs:
     """Stage 5 on stage 3's artifacts: caption embedding, then the DDIM
-    video sampler."""
+    video sampler; `video_opts` are `reconstruct_video`'s fast-path
+    keywords (encoder_reuse, tgate_step, tgate_pab, pab, pab_range)."""
     dev = resolve_device(device)
     _check_device(dev, text_tower=text_tower)
     tc = text_tower.cfg
@@ -119,7 +127,7 @@ def run_stage5(text_tower: nn.Module, unet3d: nn.Module,
         guidance_scale=sampler_cfg.video_cfg_scale,
         low_strength=sampler_cfg.low_strength,
         n_frames=sampler_cfg.n_video_frames, generator=generator,
-        noise=noise, device=dev)
+        noise=noise, device=dev, **video_opts)
 
 
 def reconstruct_clip(decoupler: nn.Module, unet: nn.Module, vae: nn.Module,
@@ -131,14 +139,17 @@ def reconstruct_clip(decoupler: nn.Module, unet: nn.Module, vae: nn.Module,
                      caption_len: int = 60,
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[ClipNoise] = None,
+                     sampler_opts: Optional[dict] = None,
+                     video_opts: Optional[dict] = None,
                      device="cuda") -> ClipOutputs:
     """voxel [B, 1, n_voxels] -> the clip: stage 3 then stage 5, the one
-    VAE serving both. Draws come from `generator` or from `noise`."""
+    VAE serving both. Draws come from `generator` or from `noise`;
+    `sampler_opts` / `video_opts` are the two stages' fast-path options."""
     art = run_stage3(decoupler, unet, vae, voxel, class_text_embeds,
                      sampler_cfg, latent_hw, artifact_hw, caption_len,
                      generator, None if noise is None else noise.keyframe,
-                     device)
+                     sampler_opts, device)
     vid = run_stage5(text_tower, unet3d, controlnet, vae, art, sampler_cfg,
                      generator, None if noise is None else noise.video,
-                     device)
+                     device, **(video_opts or {}))
     return ClipOutputs(art, vid.latents, vid.video)

@@ -11,9 +11,11 @@ Counterpart of neurons_tpu/pipelines/keyframe.py:
        -> keyframe (EulerEDM 38-step CFG unCLIP sampling -> VAE decode)
 
 and `decode_blurry_video`, the blurry-latent VAE decode to pixels that
-stage 3 hands to stage 5. Only the exact sampler is ported (sample_euler
-with the cross-attention K/V hoisted out of the loop); the TGATE, PAB,
-DeepCache and encoder-reuse variants are later work.
+stage 3 hands to stage 5. The unCLIP sampler is exact EulerEDM (the
+cross-attention K/V hoisted out of the loop) or one of the JAX package's
+fast paths, chosen by `unclip_sample`'s options (`sampler_opts` of
+`reconstruct_keyframes`): TGATE with an optional PAB phase inside the gated
+steps, PAB, DeepCache or encoder reuse.
 
 Modules run in their own parameter dtype (bf16 on the card); the sampler
 state, the prior loop and every output stay f32, as in the JAX bench.
@@ -33,7 +35,9 @@ from neurons_tpu_torch import resolve_device
 from neurons_tpu_torch.config import SamplerConfig
 from neurons_tpu_torch.diffusion import prior as prior_lib
 from neurons_tpu_torch.diffusion.denoiser import DiscreteDenoiser
-from neurons_tpu_torch.diffusion.samplers import sample_euler
+from neurons_tpu_torch.diffusion.samplers import (
+    sample_euler, sample_euler_encoder_reuse, sample_euler_pab,
+    sample_euler_tgate)
 from neurons_tpu_torch.diffusion.schedule import sd_sigmas
 from neurons_tpu_torch.models.prior import prior_attn_bias
 from neurons_tpu_torch.models.unet2d import (precompute_context_kv,
@@ -87,18 +91,51 @@ class KeyframeNoise(NamedTuple):
     unclip: UnclipNoise
 
 
+def check_fast_options(tgate_step: int = 0, tgate_pab: int = 0,
+                       pab=None, encoder_reuse: int = 1,
+                       deep_cache: int = 0):
+    """The JAX package's exclusivity rules of the fast paths."""
+    if tgate_step > 0 and encoder_reuse > 1:
+        raise ValueError("tgate_step and encoder_reuse>1 are mutually "
+                         "exclusive")
+    if pab is not None and (tgate_step > 0 or encoder_reuse > 1):
+        raise ValueError("pab is exclusive with tgate/encoder_reuse")
+    if tgate_pab > 0 and tgate_step <= 0:
+        raise ValueError("tgate_pab requires tgate_step > 0")
+    if deep_cache > 1 and (tgate_step > 0 or encoder_reuse > 1
+                           or pab is not None):
+        raise ValueError("deep_cache is exclusive with "
+                         "tgate/encoder_reuse/pab")
+
+
 @torch.inference_mode()
 def unclip_sample(unet: nn.Module, vae: nn.Module, clip_tokens: torch.Tensor,
                   num_steps: int = 38, cfg_scale: float = 5.0,
                   offset_noise_level: float = 0.04, latent_hw: int = 96,
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[UnclipNoise] = None) -> torch.Tensor:
+                  noise: Optional[UnclipNoise] = None,
+                  encoder_reuse: int = 1, tgate_step: int = 0,
+                  tgate_pab: int = 0, pab: Optional[tuple] = None,
+                  pab_range: Optional[tuple] = None,
+                  deep_cache: int = 0) -> torch.Tensor:
     """unclip_recon, batched: clip_tokens [B, 256, 1664] -> images NCHW in
     [0, 1]. x0 = z + noise * sigma_0 (the sampler's prepare step cancels
     the reference's divide by sqrt(1 + sigma_0^2)). Each cross-attention
     site's K/V projection of the CFG-doubled context is hoisted out of the
     loop (exact); latents are unscaled by the UNet config's
-    `scale_factor` before the VAE decode."""
+    `scale_factor` before the VAE decode.
+
+    Fast paths (at most one, as `check_fast_options` rules; the defaults
+    give the exact sampler):
+      * tgate_step > 0: TGATE. The step before `tgate_step` caches each
+        site's cross-attention residual, averaged over the uncond and cond
+        halves; later steps run the UNet on batch B with those residuals.
+        tgate_pab > 1 also caches the self-attention residuals on every
+        tgate_pab-th gated step and reuses them in between;
+      * pab = (i_s, i_x): PAB over the CFG batch, within `pab_range`;
+      * deep_cache > 1: DeepCache, the full UNet every deep_cache-th step;
+      * encoder_reuse > 1: the encoder every encoder_reuse-th step."""
+    check_fast_options(tgate_step, tgate_pab, pab, encoder_reuse, deep_cache)
     device = clip_tokens.device
     b = clip_tokens.shape[0]
     shape = (b, 4, latent_hw, latent_hw)
@@ -119,18 +156,92 @@ def unclip_sample(unet: nn.Module, vae: nn.Module, clip_tokens: torch.Tensor,
     ctx2 = torch.cat([uc, clip_tokens.float()]).to(udt)
     vec2 = torch.cat([vector, vector]).to(udt)
     kv2 = precompute_context_kv(unet, ctx2)
+    ctx1, vec1 = clip_tokens.to(udt), vector.to(udt)
 
-    def denoise(xs, s):
-        x2, s2 = torch.cat([xs, xs]), torch.cat([s, s])
-        idx = denoiser.sigma_to_idx(s2)
+    def run(xs, s, ctx, vec, **kw):
+        """(D(xs, s) from the UNet's eps, the UNet's extras); xs is the
+        CFG-doubled batch when `ctx` is."""
+        idx = denoiser.sigma_to_idx(s)
         c_skip, c_out, c_in, _ = denoiser.scaling(
             denoiser.sigmas[idx].reshape(-1, 1, 1, 1))
-        out = unet((x2 * c_in).to(udt), idx.float(), ctx2, vec2,
-                   ctx_kv=kv2).float()
-        d_u, d_c = (out * c_out + x2 * c_skip).chunk(2)
-        return d_u + cfg_scale * (d_c - d_u)
+        out = unet((xs * c_in).to(udt), idx.float(), ctx, vec, **kw)
+        out, extras = (out[0], out[1:]) if isinstance(out, tuple) else (
+            out, ())
+        return out.float() * c_out + xs * c_skip, extras
 
-    samples_z = sample_euler(denoise, x, sigmas, prepare=False)
+    def cfg(xs, s, **kw):
+        """CFG over the doubled batch: (denoised, the UNet's extras)."""
+        d, extras = run(torch.cat([xs, xs]), torch.cat([s, s]), ctx2, vec2,
+                        ctx_kv=kv2, **kw)
+        d_u, d_c = d.chunk(2)
+        return d_u + cfg_scale * (d_c - d_u), extras
+
+    def denoise_full(xs, s):
+        return cfg(xs, s)[0]
+
+    if tgate_step > 0:
+        def denoise_capture(xs, s):
+            d, (xattn,) = cfg(xs, s, capture_xattn=True)
+            # [depth, 2B, T, C] -> the mean of the two halves
+            return d, {k: 0.5 * (a[:, :b] + a[:, b:])
+                       for k, a in xattn.items()}
+
+        def denoise_gated(xs, s, cache):
+            return run(xs, s, ctx1, vec1, xattn_cached=cache)[0]
+
+        def denoise_gated_capture(xs, s, cache):
+            d, (sattn,) = run(xs, s, ctx1, vec1, xattn_cached=cache,
+                              capture_sattn=True)
+            return d, sattn
+
+        def denoise_gated_reuse(xs, s, cache, sattn):
+            return run(xs, s, ctx1, vec1, xattn_cached=cache,
+                       sattn_cached=sattn)[0]
+
+        samples_z = sample_euler_tgate(
+            denoise_full, denoise_capture, denoise_gated, x, sigmas,
+            tgate_step, prepare=False,
+            denoise_gated_capture=denoise_gated_capture,
+            denoise_gated_reuse=denoise_gated_reuse,
+            gated_interval=tgate_pab)
+    elif pab is not None:
+        def denoise_pab(xs, s, caches, use_x, use_s):
+            xattn, sattn = caches
+            kw = ({"xattn_cached": xattn} if use_x
+                  else {"capture_xattn": True})
+            kw.update({"sattn_cached": sattn} if use_s
+                      else {"capture_sattn": True})
+            d, extras = cfg(xs, s, **kw)
+            extras = list(extras)
+            return d, (xattn if use_x else extras.pop(0),
+                       sattn if use_s else extras.pop(0))
+
+        samples_z = sample_euler_pab(denoise_pab, x, sigmas, pab,
+                                     pab_range=pab_range, prepare=False)
+    elif deep_cache > 1:
+        def denoise_full_deep(xs, s):
+            d, (deep,) = cfg(xs, s, return_deep_cache=True)
+            return d, deep
+
+        def denoise_deep_cached(xs, s, deep):
+            return cfg(xs, s, deep_cached=deep)[0]
+
+        samples_z = sample_euler_encoder_reuse(
+            denoise_full_deep, denoise_deep_cached, x, sigmas, deep_cache,
+            prepare=False)
+    elif encoder_reuse > 1:
+        def denoise_full_cache(xs, s):
+            d, (cache,) = cfg(xs, s, return_cache=True)
+            return d, cache
+
+        def denoise_cached(xs, s, cache):
+            return cfg(xs, s, cached=cache)[0]
+
+        samples_z = sample_euler_encoder_reuse(
+            denoise_full_cache, denoise_cached, x, sigmas, encoder_reuse,
+            prepare=False)
+    else:
+        samples_z = sample_euler(denoise_full, x, sigmas, prepare=False)
     # one sample at a time: the 768x768 decoder activations are large
     vdt = _dtype(vae)
     samples_x = torch.cat([vae.decode((zi[None] / unet.cfg.scale_factor)
@@ -159,13 +270,15 @@ def reconstruct_keyframes(
     mask_latent_hw: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[KeyframeNoise] = None,
+    sampler_opts: Optional[dict] = None,
     device="cuda",
 ) -> KeyframeOutputs:
     """Full stage-3 forward for one batch of voxels [B, 1, n_voxels].
     `decoupler` is a NeuronsDecoupler, `unet` a UNetModel, `vae` an
     AutoencoderKL, all on `device`; `class_text_embeds` is the [51, 1280]
-    class-name CLIP table (enhance mode). The blurry latents come back
-    divided by the VAE config's `scaling_factor`."""
+    class-name CLIP table (enhance mode). `sampler_opts` are the fast-path
+    options of `unclip_sample`. The blurry latents come back divided by the
+    VAE config's `scaling_factor`."""
     dev = resolve_device(device)
     _check_device(dev, decoupler=decoupler, unet=unet, vae=vae)
     if enhance and class_text_embeds is None:
@@ -244,7 +357,8 @@ def reconstruct_keyframes(
         cfg_scale=sampler_cfg.unclip_cfg_scale,
         offset_noise_level=sampler_cfg.offset_noise_level,
         latent_hw=latent_hw, generator=generator,
-        noise=None if noise is None else noise.unclip)
+        noise=None if noise is None else noise.unclip,
+        **(sampler_opts or {}))
 
     return KeyframeOutputs(prior_tokens=prior_out, motion_embeds=motion,
                            keyframes=keyframes,
