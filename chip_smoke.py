@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
-paths) and stage 2 (training) on one CUDA card, in the default
-configuration and in the fused-norm one, and hold its kernels against
-their plain PyTorch versions.
+paths) and stages 1 and 2 (training, checkpoints and resume) on one CUDA
+card, in the default configuration and in the fused-norm one, and hold its
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,9 @@ Phases, in order:
      CUDA source of the port (one nvcc per source, started together);
   2. kernel phase: the flash-attention kernel at every attention shape of
      the full-width clip (stage 3 and stage 5, and the fast clip's gated
-     steps at one clip's batch), in bf16 (and two shapes in f32), against
-     an f32 reference; its error must be no worse than 1.5x
+     steps at one clip's batch), in bf16 (and two shapes in f32), and at
+     the stage-2 seg panels' three DecoderVideo shapes (24 rows) in f32,
+     against an f32 reference; its error must be no worse than 1.5x
      the plain version's at the kernel's precision (bf16 operands; for
      f32, operands rounded to TF32 as the kernel rounds them). The
      temporal-attention kernel at its four stage-5 shapes and their four
@@ -81,15 +82,37 @@ Phases, in order:
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
      schedule, the core held in bf16) with seeded random weights and random
      batches at the real tables' shapes: a short `training/loop.py:
-     run_stage2` (one epoch of 2 steps; the kernels' launch counts zeroed
-     just before and read just after), then 1 warm-up and 3 timed steps of
+     run_stage2` (one epoch of 2 steps with its checkpoints and seg panel:
+     `ckpt_dir`, `last_save_every=1`, `image_log_every=1`; the kernels'
+     launch counts zeroed just before and read just after; each tag's
+     bytes and save seconds; the tags overlaid by `load_decoupler_params`
+     onto a fresh ensemble, equal to the trained state bitwise), then 1
+     warm-up and 3 timed steps of
      `make_stage2_train_step` on one fixed batch and draws (ms/step, peak
      memory, launches per step against the count predicted from the code,
      the loss falling, the core bitwise unchanged, the trainable weights
      moved), then one more step under torch.profiler; then the same fixed
      steps fused (#7 launches per step against the count from the code,
      the first step's losses within 2e-2 of the unfused first step's) and
-     one fused step under the profiler;
+     one fused step under the profiler. Then stage 1 at full width
+     (`PipelineConfig().brain`, `TrainConfig()`: batch 10, bf16 autocast):
+     1 warm-up and 3 timed steps of `make_stage1_train_step` on a fixed
+     batch and draws (ms/step, peak memory, the loss falling, clipproj
+     bitwise unchanged, every other tensor with a nonzero gradient
+     moved), one profiled step
+     (AdamW's and the GEMMs' shares of busy time), the eval step over
+     100 rows and the background writer's device snapshot of the full
+     state; then the checkpoint phase, every tag in a directory of the
+     checkout that is deleted afterwards (its disk's free bytes printed
+     first): `run_stage1` at full width over 2 epochs of 2 steps,
+     preempted after the first and resumed (each tag's bytes and save
+     seconds, copy and write apart; the resume's peak device memory above
+     the live state, at most the largest tensor; each full-width tag
+     written once, which keeps the run's disk under 45 GiB); the same
+     preempted run against an uninterrupted one at
+     a reduced width (hidden 256, 16 CLIP tokens), equal bits; and the
+     tiny chain, card against CPU: stage 1 ->
+     `load_stage1_core` -> stage 2 -> `load_decoupler_params` -> stage 3;
   6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip and
      the fused step launched, against float64 on the same inputs by the
      1.5x rule; times: kernel (by events, and its device time, every
@@ -151,6 +174,15 @@ FLASH_SHAPES = [
     ("unet3d self 16x16 gated", (16, 8, 256, 256, 80)),
 ]
 F32_CHECKS = ["unet cross 48x48", "vae blurry 64x64"]
+# the stage-2 seg panels' launches (`make_stage2_seg_panel_fn`, min(4, B) =
+# 4 clips of 6 frames, f32 as the JAX package's panel runs, no grad): the
+# DecoderVideo's three sizes at 24 rows; the prior's biased forward takes
+# the plain version without autograd
+PANEL_SHAPES = [
+    ("decoder 16x16 panel", (24, 1, 256, 256, 128)),
+    ("decoder 32x32 panel", (24, 1, 1024, 1024, 64)),
+    ("decoder 64x64 panel", (24, 1, 4096, 4096, 32)),
+]
 
 # ((B F), D, C) of every temporal-attention launch of the full-width clip:
 # 16 frames, 8 heads, the CFG batch of one clip
@@ -304,6 +336,7 @@ def flash_phase():
     checks = [(name, shape, torch.bfloat16) for name, shape in FLASH_SHAPES]
     checks += [(name, shape, torch.float32) for name, shape in FLASH_SHAPES
                if name in F32_CHECKS]
+    checks += [(name, shape, torch.float32) for name, shape in PANEL_SHAPES]
     for name, (b, h, tq, tk, d), dt in checks:
         q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
         k = torch.randn((b, h, tk, d), generator=gen, device="cuda")
@@ -834,7 +867,7 @@ def train_step_in_f64():
     from torch.func import functional_call
     from neurons_tpu_torch.training import train_decoupler as td
 
-    caller = td._module_caller
+    caller = td.module_caller
 
     def cast(x):
         return (x.double() if torch.is_tensor(x) and x.is_floating_point()
@@ -854,11 +887,11 @@ def train_step_in_f64():
 
         return call
 
-    td._module_caller = f64_caller
+    td.module_caller = f64_caller
     try:
         yield
     finally:
-        td._module_caller = caller
+        td.module_caller = caller
 
 
 def small_train_check(fused: bool = False):
@@ -1928,9 +1961,11 @@ def table_shaped_builder(pcfg, vocab, seed):
 
 def train_phase():
     """Stage 2 at full width, unfused: a short `run_stage2` (the counted
-    run), then the fixed-batch timed steps and one profiled step; then the
-    same steps fused (`fused_train_steps`). Returns ({kernel: launches by
-    shape} of the counted run, the same of the fused steps)."""
+    run) with its checkpoints and seg panel, its tags overlaid onto a fresh
+    ensemble by `load_decoupler_params` (equal bits), then the fixed-batch
+    timed steps and one profiled step; then the same steps fused
+    (`fused_train_steps`). Returns ({kernel: launches by shape} of the
+    counted run, the same of the fused steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch import config
@@ -1938,8 +1973,10 @@ def train_phase():
     from neurons_tpu_torch.models.gpt2 import GPT2Config
     from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
                                                  FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.models.neurons import NeuronsDecoupler
     from neurons_tpu_torch.training import loop
     from neurons_tpu_torch.training import train_decoupler as td
+    from neurons_tpu_torch.utils import checkpoint as ckpt
 
     pcfg, gcfg = config.PipelineConfig(), GPT2Config()
     counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
@@ -1952,32 +1989,49 @@ def train_phase():
         n_frames=pcfg.decoupler.n_frames, img=224,
         txt_dim=pcfg.decoupler.clip_txt_emb_dim,
         n_classes=pcfg.decoupler.num_classes, seed=SEED)
-    records = []
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
-    state = loop.run_stage2(pcfg.brain, pcfg.prior, pcfg.decoupler, tcfg,
-                            gcfg, split,
-                            table_shaped_builder(pcfg, gcfg.vocab_size, SEED),
-                            log_every=1, logger=lambda m, s: records.append(m),
-                            bf16_frozen_core=True)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
-    totals = {k: c.total for k, c in counters.items()}
-    log(f"train run_stage2: 1 epoch of {state.step} steps at full width in "
-        f"{run_s:.1f} s (model build included); launches {totals}; epoch "
-        f"means " + " ".join(f"{k.split('/')[-1]} {v:.4f}"
-                             for k, v in records[-1].items()
-                             if k.startswith("train/")))
-    if any(v == 0 for v in totals.values()):
-        raise AssertionError(f"run_stage2 launched no training kernel: "
-                             f"{totals}")
-    if not all(torch.isfinite(torch.tensor(v)) for k, v in records[-1].items()
-               if k.startswith("train/")):
-        raise AssertionError("run_stage2 gave a non-finite epoch mean")
-    del state
-    torch.cuda.empty_cache()
+    rec = Recorder()
+    with ckpt_tmpdir("stage-2 tags") as ckdir:
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state = loop.run_stage2(
+            pcfg.brain, pcfg.prior, pcfg.decoupler, tcfg, gcfg, split,
+            table_shaped_builder(pcfg, gcfg.vocab_size, SEED), ckpt_dir=ckdir,
+            log_every=1, logger=rec, bf16_frozen_core=True,
+            last_save_every=1, image_log_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+        totals = {k: c.total for k, c in counters.items()}
+        records = rec.rows
+        log(f"train run_stage2: 1 epoch of {state.step} steps at full width "
+            f"in {run_s:.1f} s (model build, saves and the seg panel "
+            f"included); launches {totals}; epoch means " + " ".join(
+                f"{k.split('/')[-1]} {v:.4f}" for k, v in records[-1].items()
+                if k.startswith("train/")))
+        log_saves("run_stage2")
+        if any(v == 0 for v in totals.values()):
+            raise AssertionError(f"run_stage2 launched no training kernel: "
+                                 f"{totals}")
+        if not all(torch.isfinite(torch.tensor(v))
+                   for k, v in records[-1].items() if k.startswith("train/")):
+            raise AssertionError("run_stage2 gave a non-finite epoch mean")
+        check_panels(rec.images, 1, 4 * pcfg.decoupler.n_frames)
+        # the tags overlaid onto a fresh ensemble give the trained state
+        fresh = NeuronsDecoupler(pcfg.brain, pcfg.prior, pcfg.decoupler, gcfg)
+        t0 = time.perf_counter()
+        ckpt.load_decoupler_params(ckdir, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(p.to(state.params[n].dtype), state.params[n])
+                   for n, p in fresh.named_parameters())
+        log(f"train load_decoupler_params: {len(state.params)} tensors in "
+            f"{load_s:.1f} s, equal to the trained state bitwise: {same}")
+        if not same:
+            raise AssertionError("the stage-2 tags do not give back the "
+                                 "trained state")
+        del state, fresh
+        torch.cuda.empty_cache()
 
     # fixed batch and draws: 1 warm-up step, 3 timed steps
     tcfg = pcfg.train
@@ -2119,6 +2173,435 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
     return {k: dict(v) for k, v in by_shape.items()}
 
 
+class Recorder:
+    """MetricLogger's interface (log_metrics, log_images), recording."""
+
+    def __init__(self):
+        self.rows, self.images = [], []
+
+    def log_metrics(self, metrics, step=None):
+        self.rows.append(dict(metrics))
+
+    def log_images(self, images, step=None):
+        self.images.append(images)
+
+
+@contextlib.contextmanager
+def ckpt_tmpdir(what: str):
+    """A checkpoint directory in the checkout (git-ignored `_ckpt_*`),
+    removed afterwards; logs the disk's free bytes first."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="_ckpt_", dir=REPO)
+    log(f"checkpoints ({what}) under {Path(d).name}: "
+        f"{shutil.disk_usage(d).free} bytes free on its disk")
+    try:
+        yield d
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def log_saves(what: str):
+    """Each tag's last save since the previous call: bytes, and seconds of
+    the device-to-host copy and of the write (torch.save, fsync, rename)."""
+    from neurons_tpu_torch.utils import checkpoint as ckpt
+    for tag, st in ckpt.LAST_SAVE_STATS.items():
+        log(f"  save {what}: {tag} {st['bytes']} bytes, copy "
+            f"{st['copy_s']:.2f} s, write {st['write_s']:.2f} s "
+            f"({st['bytes'] / max(st['write_s'], 1e-9) / 1e9:.2f} GB/s)")
+    ckpt.LAST_SAVE_STATS.clear()
+
+
+def check_panels(images, n_epochs, rows):
+    """The seg panels of a stage-2 run: one pair an epoch, `rows` masks
+    each, predicted in (0, 1) and finite, the ground truth binary."""
+    import numpy as np
+    ok = len(images) == n_epochs and all(
+        im["seg_pred"].shape == im["seg_gt"].shape
+        and im["seg_pred"].shape[0] == rows
+        and np.isfinite(im["seg_pred"]).all()
+        and ((im["seg_pred"] >= 0) & (im["seg_pred"] <= 1)).all()
+        and set(np.unique(im["seg_gt"])) <= {0.0, 1.0} for im in images)
+    log(f"  seg panels: {len(images)} logged, "
+        f"{[tuple(im['seg_pred'].shape) for im in images]}: {ok}")
+    if not ok:
+        raise AssertionError("the seg panels fail their checks")
+
+
+def stage1_batch(bcfg, b, gen):
+    """Random stage-1 inputs at the real tables' shapes, on the card:
+    voxels [B, 1, V], CLIP image targets [B, 256, 1664], caption
+    embeddings [B, 1280]."""
+    import torch
+    return (torch.randn((b, 1, bcfg.voxel_counts[0]), generator=gen,
+                        device="cuda"),
+            torch.randn((b, bcfg.clip_seq_dim, bcfg.clip_emb_dim),
+                        generator=gen, device="cuda"),
+            torch.randn((b, bcfg.clip_txt_emb_dim), generator=gen,
+                        device="cuda"))
+
+
+def stage1_phase():
+    """Stage 1 at full width (`PipelineConfig().brain`, `TrainConfig()`:
+    batch 10, bf16 autocast, the cycle schedule), seeded random weights and
+    random inputs at the real tables' shapes: 1 warm-up and 3 timed steps
+    of `make_stage1_train_step` on one fixed batch and draws (ms/step, peak
+    memory, the loss falling, clipproj bitwise unchanged, every other
+    tensor with a nonzero gradient moved), one step under torch.profiler,
+    the eval step over 100 test rows, and the background writer's device
+    snapshot of the full state (its time and device memory)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.training import train_brain as tb
+    from neurons_tpu_torch.utils import checkpoint as ckpt
+
+    pcfg = config.PipelineConfig()
+    bcfg, tcfg = pcfg.brain, pcfg.train
+    spe = tcfg.num_train_samples // tcfg.batch_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, schedule = tb.init_stage1(bcfg, tcfg, spe, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_train = sum(p.numel() for n, p in state.params.items()
+                  if not tb.FROZEN(n))
+    n_frozen = sum(p.numel() for n, p in state.params.items()
+                   if tb.FROZEN(n))
+    voxel, target, text = stage1_batch(bcfg, tcfg.batch_size,
+                                       torch.Generator("cuda").manual_seed(SEED))
+    draws = tb.draw_stage1(bcfg, voxel, torch.Generator().manual_seed(SEED))
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in state.params.items()}
+    step = tb.make_stage1_train_step(model, schedule, tcfg)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(FIXED_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws, voxel, target, text)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    steady_ms = 1e3 * sum(times[1:]) / (FIXED_STEPS - 1)
+    frozen_same = all(torch.equal(p.detach().cpu(), before[n])
+                      for n, p in state.params.items() if tb.FROZEN(n))
+    unmoved = {n for n, p in state.params.items() if not tb.FROZEN(n)
+               and torch.equal(p.detach().cpu(), before[n])}
+    # with seq_len 1 each block's mix2 LayerNorm normalises one element (its
+    # output is its bias): its scale, and the mix1 path feeding it, get
+    # gradients that vanish in exact arithmetic
+    no_grad = {n for n, p in state.params.items() if not tb.FROZEN(n)
+               and not bool(p.grad.any())}
+    del before
+    log(f"stage1 steps: {n_train / 1e9:.3f} B trainable f32 parameters, "
+        f"{n_frozen / 1e6:.2f} M frozen (clipproj); init {init_s:.1f} s; "
+        f"ms/step {[round(1e3 * t, 1) for t in times]} (steady "
+        f"{steady_ms:.1f}); state (parameters and moments) "
+        f"{state_bytes / 2**30:.2f} GiB, max_memory_allocated over the steps "
+        f"{peak / 2**30:.2f} GiB; loss {[round(x, 4) for x in losses]}; "
+        f"clipproj bitwise unchanged {frozen_same}; "
+        f"{len(state.params) - len(unmoved) - 1} of "
+        f"{len(state.params) - 1} trainable tensors moved; did not move "
+        f"{sorted(unmoved)}, of which with a zero gradient {sorted(no_grad)}")
+    if not (losses[-1] < losses[0] and frozen_same and unmoved <= no_grad):
+        raise AssertionError("the full-width stage-1 steps fail their checks")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, draws, voxel, target, text)
+        torch.cuda.synchronize()
+    device_profile(prof, time.perf_counter() - t0,
+                   f"stage-1 step (unprofiled steady {steady_ms:.1f} ms)",
+                   STAGE1_PROFILE)
+    # the epoch eval's step over 100 test rows (a retrieval batch)
+    ev_in = stage1_batch(bcfg, 100, torch.Generator("cuda").manual_seed(1))
+    eval_fn = tb.make_stage1_eval_step(model)
+    eval_fn(state.params, *ev_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = eval_fn(state.params, *ev_in)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    ev = {k: float(v) for k, v in ev.items()}
+    ok = all(0 <= v <= 5 and v == v for v in ev.values())
+    log(f"stage1 eval step over 100 rows: {eval_ms:.1f} ms; {ev}: {ok}")
+    if not ok:
+        raise AssertionError("the stage-1 eval step fails its checks")
+    del eval_fn, voxel, target, text, ev_in
+    torch.cuda.empty_cache()
+    # the background writer's device snapshot of the full state (a second
+    # copy of the payload beside it; `AsyncCkptWriter.submit` takes it, then
+    # writes): its time and memory; the checkpoint phase writes a
+    # `brain_model` through the writer
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    snap = ckpt.AsyncCkptWriter._snapshot(
+        {"params": state.params, "opt_state": state.optimizer.state_dict()})
+    torch.cuda.synchronize()
+    snap_s = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - base
+    log(f"stage1 background-writer snapshot of brain_model_last's payload: "
+        f"{snap_s:.3f} s, {extra / 2**30:.2f} GiB on the card above the "
+        f"state ({base / 2**30:.2f} GiB)")
+    del snap, state, model, step
+    torch.cuda.empty_cache()
+
+
+# {label: kernel symbols} of the stage-1 step's profile: torch's AdamW
+# (foreach) runs in multi_tensor_apply kernels; cuBLAS's GEMMs (nvjet_*,
+# cutlass_*)
+STAGE1_PROFILE = {"AdamW (multi_tensor_apply)": ("multi_tensor_apply",),
+                  "GEMM": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass")}
+
+
+def stage1_tables(bcfg, n, seed):
+    """A split of `n` random clips and its CLIP table [n, 6, seq, emb]
+    (numpy, from `seed`), at the config's widths."""
+    import numpy as np
+    from neurons_tpu_torch.data import cc2017
+    split = cc2017.synthetic_split(n=n, n_voxels=bcfg.voxel_counts[0],
+                                   n_frames=6, img=8,
+                                   txt_dim=bcfg.clip_txt_emb_dim, seed=seed)
+    table = np.random.default_rng(seed).standard_normal(
+        (n, 6, bcfg.clip_seq_dim, bcfg.clip_emb_dim), np.float32)
+    return split, table
+
+
+def stage1_checkpoints():
+    """`run_stage1` at full width over 2 epochs of 2 steps: preempted after
+    the first (`stop_after_epochs=1`; its `brain_model` written through the
+    background writer), then resumed to the end. Logs each tag's bytes and
+    save seconds and the resume's peak device memory above the live state
+    (at most the largest tensor). To keep the run's disk under 45 GiB (a
+    replace of a 23.3 GB `brain_model_last` holds two beside `brain_model`:
+    54 GB), the full-width phase writes each tag once (31.1 GB): the test
+    split is one row, whose eval metric is 3.0 at every epoch, so the
+    resumed run writes no second `brain_model`, and the resumed run skips
+    its final `brain_model_last` (`ckpt_saving`; the reduced-width runs and
+    the tiny chain write theirs). Then, at a reduced width (hidden 256, 16
+    CLIP tokens; the voxel and CLIP widths kept), the same preempted run
+    against an uninterrupted one over 3 epochs: the last epoch's mean loss
+    and every parameter equal."""
+    import gc
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.training import loop
+
+    pcfg = config.PipelineConfig()
+    bcfg = pcfg.brain
+    tcfg = config.replace(pcfg.train, num_epochs=2)
+    train, table = stage1_tables(bcfg, 2 * tcfg.batch_size, SEED)
+    test, test_table = stage1_tables(bcfg, 1, SEED + 1)
+    largest = bcfg.hidden_dim * bcfg.out_dim * 4   # backbone_linear.weight
+    with ckpt_tmpdir("stage-1 tags, full width") as d:
+        t0 = time.perf_counter()
+        state = loop.run_stage1(bcfg, tcfg, train, test, table, test_table,
+                                ckpt_dir=d, log_every=1, logger=Recorder(),
+                                stop_after_epochs=1, async_saves=True)
+        torch.cuda.synchronize()
+        log(f"stage1 run_stage1 (preempted after epoch 0): "
+            f"{time.perf_counter() - t0:.1f} s, {state.step} steps")
+        log_saves("run_stage1, preempted (brain_model in the background)")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = Recorder()
+        state = loop.run_stage1(
+            bcfg, config.replace(tcfg, ckpt_saving=False), train, test,
+            table, test_table, ckpt_dir=d, log_every=1, logger=rec,
+            resume=True)
+        torch.cuda.synchronize()
+        rs = dict(loop.LAST_RESTORE_STATS)
+        log(f"stage1 run_stage1 (resumed): {time.perf_counter() - t0:.1f} s, "
+            f"{state.step} steps; restore copied {rs['copied_bytes']} bytes "
+            f"in place, device peak above the live state "
+            f"{rs['device_peak_extra_bytes']} bytes (largest tensor "
+            f"{largest}); epoch {rec.rows[-1]}")
+        from neurons_tpu_torch.utils import checkpoint as ckpt
+        wrote = sorted(ckpt.LAST_SAVE_STATS)
+        if not (state.step == 4 and rs["device_peak_extra_bytes"] <= largest
+                and rs["peak_extra_bytes"] == 0 and not wrote):
+            raise AssertionError(f"the full-width resume fails its checks: "
+                                 f"{rs}, wrote {wrote}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    small = config.replace(bcfg, hidden_dim=256, clip_seq_dim=16)
+    train, table = stage1_tables(small, 2 * tcfg.batch_size, SEED)
+    test, test_table = stage1_tables(small, tcfg.batch_size, SEED + 1)
+    tcfg = config.replace(tcfg, num_epochs=3)
+    with ckpt_tmpdir("stage-1 tags, reduced width") as d:
+        full, cut = Recorder(), Recorder()
+        a = loop.run_stage1(small, tcfg, train, test, table, test_table,
+                            ckpt_dir=d + "/a", logger=full)
+        loop.run_stage1(small, tcfg, train, test, table, test_table,
+                        ckpt_dir=d + "/b", logger=cut, stop_after_epochs=1)
+        b = loop.run_stage1(small, tcfg, train, test, table, test_table,
+                            ckpt_dir=d + "/b", logger=cut, resume=True)
+        same = all(torch.equal(p, b.params[n]) for n, p in a.params.items())
+        la, lb = full.rows[-1]["train/mean_loss"], cut.rows[-1]["train/mean_loss"]
+        log(f"stage1 resume at reduced width (hidden 256, 16 CLIP tokens, 3 "
+            f"epochs of 2 steps, preempted after 1): last-epoch mean loss "
+            f"{lb!r} resumed, {la!r} uninterrupted; parameters equal "
+            f"bitwise {same}")
+        log_saves("reduced width")
+        if not (same and la == lb and a.step == b.step == 6):
+            raise AssertionError("a resumed stage-1 run differs from an "
+                                 "uninterrupted one")
+        del a, b
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def weights_drawn_on_cpu():
+    """The trainers' seeded random weights (`synth_params_`) drawn on the
+    CPU and copied to the model's device: a generator on the card draws
+    other numbers than one on the CPU, so without it the card's tiny runs
+    would start from other weights than the CPU's."""
+    import copy
+
+    import torch
+    from neurons_tpu_torch.training import train_brain as tb
+    from neurons_tpu_torch.training import train_decoupler as td
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    def on_cpu(module, seed=0):
+        cpu = synth_params_(copy.deepcopy(module).to("cpu"), seed)
+        with torch.no_grad():
+            for p, q in zip(module.parameters(), cpu.parameters()):
+                p.copy_(q)
+        return module
+
+    old = tb.synth_params_, td.synth_params_
+    tb.synth_params_ = td.synth_params_ = on_cpu
+    try:
+        yield
+    finally:
+        tb.synth_params_, td.synth_params_ = old
+
+
+def chained_tiny_check():
+    """The tiny chain on the card against the CPU, f32: `run_stage1` (2
+    epochs, checkpointed) -> `load_stage1_core` -> `run_stage2(core_params=
+    ...)` (2 epochs, `last_save_every=1`, the seg panels) ->
+    `load_decoupler_params` onto stage 3's ensemble -> `run_stage3`. The
+    same weights, batches and draws on both (the initial weights and the
+    stage-2 draws made on the CPU here); the overlaid ensemble equals each
+    run's trained state
+    bitwise. Card against CPU: training's epoch means within 1e-2 relative
+    (Adam's first steps can turn an element whose gradient is rounding
+    noise either way), stage 3's keyframes within 5e-2 of max |CPU| and its
+    prior tokens within 1e-2 (the small check's 2e-2 and 1e-3 for equal
+    weights, widened for the trained weights' differences)."""
+    import copy
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.data import cc2017
+    from neurons_tpu_torch.diffusion.prior import PriorDiffusion, PriorNoise
+    from neurons_tpu_torch.models.decoder_video import DecoderDropout
+    from neurons_tpu_torch.diffusion.prior import PriorDraws
+    from neurons_tpu_torch.models.gpt2 import tiny_gpt2_config
+    from neurons_tpu_torch.pipelines import e2e
+    from neurons_tpu_torch.pipelines import keyframe as kf
+    from neurons_tpu_torch.training import loop
+    from neurons_tpu_torch.training import train_decoupler as td
+    from neurons_tpu_torch.utils import checkpoint as ckpt
+    from neurons_tpu_torch.utils.prng import epoch_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pcfg = config.tiny_pipeline_config()
+    pcfg = config.replace(pcfg, unet2d=config.replace(pcfg.unet2d,
+                                                      adm_in_channels=1024))
+    gcfg = tiny_gpt2_config()
+    c, dcfg = pcfg.brain, pcfg.decoupler
+    tcfg = config.replace(pcfg.train, num_epochs=2, bf16_autocast=False)
+    kw = dict(seq=c.clip_seq_dim, emb=c.clip_emb_dim,
+              txt_dim=c.clip_txt_emb_dim, n_frames=dcfg.n_frames,
+              n_classes=dcfg.num_classes)
+    train, table, aux = cc2017.structured_synthetic_split(
+        16, c.voxel_counts[0], **kw)
+    test, test_table, _ = cc2017.structured_synthetic_split(
+        8, c.voxel_counts[0], seed=1, train=False, **kw)
+    diffusion = PriorDiffusion.create(pcfg.prior.timesteps,
+                                      pcfg.prior.cond_drop_prob, device="cpu")
+    lat, b = 32, 2
+    g = torch.Generator().manual_seed(SEED)
+    tok = (b, c.clip_seq_dim, c.clip_emb_dim)
+    noise = kf.KeyframeNoise(
+        PriorNoise(torch.randn(tok, generator=g),
+                   [torch.randn(tok, generator=g)
+                    for _ in range(pcfg.sampler.prior_steps)]),
+        kf.UnclipNoise(torch.randn((b, 4, lat, lat), generator=g),
+                       torch.randn((b, 4, lat, lat), generator=g),
+                       torch.randn((b,), generator=g),
+                       torch.randn(tok, generator=g)))
+    voxel = torch.randn((b, 1, c.voxel_counts[0]), generator=g)
+    classes = torch.randn((dcfg.num_classes, dcfg.clip_txt_emb_dim),
+                          generator=g)
+    cpu_models = build_models((pcfg, gcfg), "cpu", torch.float32, 7)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        def draws(epoch, it, batch):
+            shape = {"clip_vision_target": batch["clip_vision_target"].cpu()}
+            d = td.draw_stage2(diffusion, shape, dcfg,
+                               epoch_generator(tcfg.seed, epoch, it))
+            return td.Stage2Draws(
+                PriorDraws(*(x.to(dev) for x in d.prior)),
+                DecoderDropout(*(x.to(dev) for x in d.dropout)))
+
+        with ckpt_tmpdir(f"tiny chain, {dev}") as d, weights_drawn_on_cpu():
+            r1, r2 = Recorder(), Recorder()
+            loop.run_stage1(c, tcfg, train, test, table, test_table,
+                            ckpt_dir=d, logger=r1, device=dev)
+            s2 = loop.run_stage2(
+                c, pcfg.prior, dcfg, tcfg, gcfg, train,
+                loop.structured_stage2_batch_builder(table, aux, train, dcfg,
+                                                     gcfg.vocab_size),
+                core_params=ckpt.load_stage1_core(d), ckpt_dir=d, logger=r2,
+                last_save_every=1, draws=draws, device=dev)
+            models = [copy.deepcopy(m).to(dev) for m in cpu_models]
+            ckpt.load_decoupler_params(d, models[0])
+            same = all(torch.equal(p, s2.params[n])
+                       for n, p in models[0].named_parameters())
+            check_panels(r2.images, 2, 4 * dcfg.n_frames)
+            art = e2e.run_stage3(*models, voxel, classes,
+                                 sampler_cfg=pcfg.sampler, latent_hw=lat,
+                                 artifact_hw=64, caption_len=8, noise=noise,
+                                 device=dev)
+            ckpt.LAST_SAVE_STATS.clear()
+        if not same:
+            raise AssertionError(f"the tiny chain's tags ({dev}) do not give "
+                                 f"back the trained state")
+        outs[dev] = ([r["train/mean_loss"] for r in r1.rows + r2.rows],
+                     art.outputs.keyframes.cpu(),
+                     art.outputs.prior_tokens.cpu(), art.keyframe.cpu())
+    (l_cpu, k_cpu, p_cpu, a_cpu), (l_gpu, k_gpu, p_gpu, a_gpu) = (
+        outs["cpu"], outs["cuda"])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    kf_err = ((k_gpu - k_cpu).abs().max() / k_cpu.abs().max()).item()
+    prior_err = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
+    ok = (loss_err <= 1e-2 and kf_err <= 5e-2 and prior_err <= 1e-2
+          and bool(torch.isfinite(a_gpu).all()) and a_gpu.shape == a_cpu.shape)
+    log(f"tiny chain card vs CPU: stage 1 and 2 epoch means "
+        f"{[round(x, 5) for x in l_gpu]} vs {[round(x, 5) for x in l_cpu]} "
+        f"(largest rel diff {loss_err:.3e} <= 1e-2), tags overlaid bitwise on "
+        f"both, stage-3 keyframes rel err {kf_err:.3e} (<= 5e-2), prior "
+        f"tokens {prior_err:.3e} (<= 1e-2), artifact {tuple(a_gpu.shape)}: "
+        f"{ok}")
+    if not ok:
+        raise AssertionError("the tiny chain on the card disagrees with the "
+                             "CPU")
+
+
 # f32 operations an element of GroupNorm+SiLU takes on the CUDA cores:
 # statistics 5 (sum, centred sum and square), the affine 3, SiLU 4
 GN_OPS_PER_ELEMENT = 12
@@ -2254,13 +2737,15 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                 fast_by_shape["flash_attn_fwd"].items())]):
         b, h, tq, tk, d, dt, variant = key
         rec = fwd_records.get(key)
-        if rec is None or dt != "bfloat16":
+        # bf16 everywhere but the seg panels (f32, on the step's path)
+        if rec is None or (dt != "bfloat16" and "panel" not in rec["site"]):
             raise AssertionError(f"the main path launched the flash kernel "
                                  f"at {key}, a shape the kernel phase did "
                                  f"not check")
         whole_kv = tk * 2 <= 4608  # the TPU package's whole-KV regime
         entries.append({
-            "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} bf16"
+            "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} "
+                     + ("bf16" if dt == "bfloat16" else "f32 seg panel")
                      + (f" {variant}" if variant else "")
                      + (" fast clip]" if path == "fast clip" else "]")),
             "route": "cuda",
@@ -2398,7 +2883,7 @@ def f32_check_records(flash_records):
                  bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
                  library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"])
             for (b, h, tq, tk, d, dt, _), rec in sorted(flash_records.items())
-            if dt == "float32"]
+            if dt == "float32" and "panel" not in rec["site"]]
 
 
 def ptxas_summary(name):
@@ -2461,6 +2946,9 @@ def main():
     clip_by_shape, fast_by_config = slice_phase()
     with configuration(False):
         train_by_shape, fused_train_by_shape = train_phase()
+        stage1_phase()
+        stage1_checkpoints()
+        chained_tiny_check()
     fused_by_shapes = (("clip", clip_by_shape[True]),
                        ("step", fused_train_by_shape))
     gn_records = gn_kernel_phase(
@@ -2469,8 +2957,9 @@ def main():
     log(f"total {time.perf_counter() - t_start:.1f} s")
     # the clips and steps the counted runs span: 2 requests a
     # configuration, run_stage2's steps, the 4 fixed fused steps
-    stage2_steps = (sum(train_by_shape["flash_attn_fwd"].values())
-                    / sum(STEP_LAUNCHES["flash_attn_fwd"].values()))
+    # (from the backward's launches: the seg panel adds forwards only)
+    stage2_steps = (sum(train_by_shape["flash_attn_bwd"].values())
+                    / sum(STEP_LAUNCHES["flash_attn_bwd"].values()))
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
             "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
             "fused step": FIXED_STEPS}

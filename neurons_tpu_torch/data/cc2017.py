@@ -2,9 +2,10 @@
 iterator.
 
 Counterpart of neurons_tpu/data/cc2017.py (numpy only): the split's field
-contract, random splits for tests and benches, and shuffled fixed-size
-batches carrying each sample's dataset index (precomputed-table lookups
-address rows by it). Loading the released tensors (`load_split`) is not
+contract, random splits for tests and benches (`synthetic_split`, and
+`structured_synthetic_split`, whose targets are learnable), and shuffled
+fixed-size batches carrying each sample's dataset index (precomputed-table
+lookups address rows by it). Loading the released tensors (`load_split`) is not
 ported yet.
 
 Train tensors (lengths as the released dataset):
@@ -67,6 +68,57 @@ def synthetic_split(n: int = 16, n_voxels: int = 120, n_frames: int = N_FRAMES,
         key_obj_cls=g.integers(0, n_classes, size=(n,)).astype(np.int32)
         if train else None,
     )
+
+
+def structured_synthetic_split(n: int, n_voxels: int, *, seq: int = 16,
+                               emb: int = 32, txt_dim: int = 24,
+                               n_frames: int = N_FRAMES, img: int = 32,
+                               n_classes: int = 51, latent_dim: int = 32,
+                               vae_hw: int = 8, repeats: int = 2,
+                               gen_seed: int = 7, seed: int = 0,
+                               train: bool = True):
+    """Learnable synthetic data for convergence runs: every modality is a
+    fixed linear readout of a shared per-clip latent, so stage-1 retrieval
+    and the stage-2 losses genuinely improve with training (unlike
+    `synthetic_split`, whose targets are uncorrelated noise). The readout
+    matrices are drawn from `gen_seed` and shared between train and test
+    splits; the per-clip latents from `seed`.
+
+    Returns (split, clip_targets [n, n_frames, seq, emb],
+    aux dict with 'vae_latents' [n, n_frames, 4, vae_hw, vae_hw] and
+    'class_text_embeds' [n_classes, txt_dim])."""
+    gg = np.random.default_rng(gen_seed)
+    k = latent_dim
+    A = (gg.normal(size=(k, n_voxels)) / np.sqrt(k)).astype(np.float32)
+    B = (gg.normal(size=(k, seq * emb)) / np.sqrt(k)).astype(np.float32)
+    C = (gg.normal(size=(k, txt_dim)) / np.sqrt(k)).astype(np.float32)
+    D = (gg.normal(size=(k, n_frames * 4 * vae_hw * vae_hw)) / np.sqrt(k)
+         ).astype(np.float32)
+    class_table = gg.normal(size=(n_classes, txt_dim)).astype(np.float32)
+
+    g = np.random.default_rng(seed)
+    z = g.normal(size=(n, k)).astype(np.float32)
+    n_rep = repeats if train else 1
+    voxel = (z @ A)[:, None] + 0.1 * g.normal(
+        size=(n, n_rep, n_voxels)).astype(np.float32)
+    base = (z @ B).reshape(n, 1, seq, emb)
+    # per-frame jitter: frames share the clip's semantic content
+    clip_targets = (base + 0.05 * g.normal(
+        size=(n, n_frames, seq, emb))).astype(np.float32)
+    split = CC2017Split(
+        voxel=voxel.astype(np.float32),
+        images=g.uniform(size=(n, n_frames, 3, img, img)).astype(np.float32),
+        text_emb=(z @ C).astype(np.float32),
+        clip_tokens=g.integers(1, 100, size=(n, MAX_TOKENS)).astype(np.int64),
+        cls_label=(g.uniform(size=(n, n_classes)) < 0.2).astype(np.float32),
+        key_obj_masks=(g.uniform(size=(n, n_frames, img, img)) < 0.3
+                       ).astype(np.float32) if train else None,
+        key_obj_cls=g.integers(0, n_classes, size=(n,)).astype(np.int32)
+        if train else None,
+    )
+    aux = {"vae_latents": (z @ D).reshape(n, n_frames, 4, vae_hw, vae_hw),
+           "class_text_embeds": class_table}
+    return split, clip_targets, aux
 
 
 def batches(split: CC2017Split, batch_size: int, seed: int = 0,

@@ -1,7 +1,8 @@
 """Brain-decoding models: voxel -> CLIP-bigG image-token embeddings.
 
-Counterpart of neurons_tpu/models/brain.py (inference path; dropout is
-the identity there and is left out here):
+Counterpart of neurons_tpu/models/brain.py, inference and training
+forward (the mixer MLPs' dropout after the GELU, with explicit keep masks,
+`MixerDropout`):
 
   RidgeRegression      — per-subject voxel adapter
   BrainBackbone        — MLP-Mixer + token-grid projector
@@ -15,13 +16,14 @@ GELUs are exact (erf), as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from neurons_tpu_torch.config import BrainModelConfig
+from neurons_tpu_torch.models.decoder_video import dropout
 
 FLAX_LN_EPS = 1e-6
 
@@ -39,14 +41,43 @@ class RidgeRegression(nn.Module):
         return getattr(self, f"subj{subj_idx}")(x)
 
 
+class MixerDropout(NamedTuple):
+    """Keep masks (bool) of the mixer MLPs' dropout, one per block: `mix1`
+    [B, seq_len, hidden_dim] and `mix2` [B, hidden_dim, seq_len], rate
+    BrainModelConfig.dropout."""
+
+    mix1: Tuple[torch.Tensor, ...]
+    mix2: Tuple[torch.Tensor, ...]
+
+
+def draw_mixer_dropout(cfg: BrainModelConfig, b: int,
+                       generator: torch.Generator) -> MixerDropout:
+    """Keep masks for a batch of `b`, on the generator's device: each
+    element kept with probability 1 - cfg.dropout."""
+
+    def keep(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device) < 1 - cfg.dropout
+
+    mix1 = tuple(keep(b, cfg.seq_len, cfg.hidden_dim)
+                 for _ in range(cfg.n_blocks))
+    mix2 = tuple(keep(b, cfg.hidden_dim, cfg.seq_len)
+                 for _ in range(cfg.n_blocks))
+    return MixerDropout(mix1, mix2)
+
+
 class _MixerMLP(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
         self.Dense_0 = nn.Linear(in_dim, dim)
         self.Dense_1 = nn.Linear(dim, dim)
 
-    def forward(self, x):
-        return self.Dense_1(F.gelu(self.Dense_0(x)))
+    def forward(self, x, keep: Optional[torch.Tensor] = None,
+                rate: float = 0.0):
+        h = F.gelu(self.Dense_0(x))
+        if keep is not None:
+            h = dropout(h, keep.to(h.device), rate)
+        return self.Dense_1(h)
 
 
 class _Projector(nn.Module):
@@ -87,16 +118,25 @@ class BrainBackbone(nn.Module):
         self.clip_proj = _Projector(c.clip_emb_dim, c.clip_emb_dim,
                                     c.clip_emb_dim)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                dropout_masks: Optional[MixerDropout] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`dropout_masks` applies the training dropout; None runs the
+        inference forward."""
         c = self.cfg
+        d = dropout_masks
         residual1 = x
         residual2 = x.transpose(1, 2)
         for i in range(c.n_blocks):
-            h = getattr(self, f"mix1_mlp_{i}")(getattr(self, f"mix1_ln_{i}")(x))
+            h = getattr(self, f"mix1_mlp_{i}")(
+                getattr(self, f"mix1_ln_{i}")(x),
+                None if d is None else d.mix1[i], c.dropout)
             x = h + residual1
             residual1 = x
             x = x.transpose(1, 2)
-            h = getattr(self, f"mix2_mlp_{i}")(getattr(self, f"mix2_ln_{i}")(x))
+            h = getattr(self, f"mix2_mlp_{i}")(
+                getattr(self, f"mix2_ln_{i}")(x),
+                None if d is None else d.mix2[i], c.dropout)
             x = h + residual2
             residual2 = x
             x = x.transpose(1, 2)

@@ -17,7 +17,8 @@ from neurons_tpu_torch import resolve_device
 from neurons_tpu_torch.config import (BrainModelConfig, DecouplerConfig,
                                       PriorConfig)
 from neurons_tpu_torch.models.brain import (BrainBackbone, CLIPProj,
-                                            MotionProj, MultiLabelClassifier,
+                                            MixerDropout, MotionProj,
+                                            MultiLabelClassifier,
                                             RidgeRegression)
 from neurons_tpu_torch.models.decoder_video import (DecoderDropout,
                                                     TextDrivenDecoder)
@@ -34,9 +35,18 @@ class NeuronsCore(nn.Module):
         self.backbone = BrainBackbone(cfg)
         self.clipproj = CLIPProj(cfg.clip_emb_dim, cfg.clip_txt_emb_dim)
 
-    def forward(self, voxel: torch.Tensor, subj_idx: int = 0):
-        """-> (voxels_embed, clip_vision_embeds, clip_text_embeds)."""
-        voxels_embed, clip_vision = self.backbone(self.ridge(voxel, subj_idx))
+    def forward(self, voxel: torch.Tensor, subj_idx: int = 0,
+                deterministic: bool = True,
+                dropout_masks: Optional[MixerDropout] = None):
+        """-> (voxels_embed, clip_vision_embeds, clip_text_embeds).
+        `deterministic=False` applies the training dropout with the given
+        `dropout_masks` (`draw_mixer_dropout`)."""
+        if not deterministic and dropout_masks is None:
+            raise ValueError("training dropout needs its keep masks "
+                             "(draw_mixer_dropout)")
+        voxels_embed, clip_vision = self.backbone(
+            self.ridge(voxel, subj_idx),
+            None if deterministic else dropout_masks)
         return voxels_embed, clip_vision, self.clipproj(clip_vision)
 
 

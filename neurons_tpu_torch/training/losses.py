@@ -1,19 +1,73 @@
-"""Stage-2 loss terms, plain PyTorch.
+"""Loss terms and retrieval metrics of stages 1 and 2, plain PyTorch.
 
-Counterpart of neurons_tpu/training/losses.py (the functions stage 2
-calls): bidirectional InfoNCE without mixup (`mixco_nce`; the mixup
-itself belongs to stage 1), SoftCLIP, Dice on sigmoid logits, multi-label
-BCE, token cross-entropy with ignore index and label smoothing, L1, the
-cosine-annealed temperature and L2 normalisation. Every reduction is a
-mean over all elements, as in the JAX package.
+Counterpart of neurons_tpu/training/losses.py: BiMixCo voxel mixup
+(`mixco`) and bidirectional InfoNCE with its soft targets (`mixco_nce`),
+SoftCLIP, Dice on sigmoid logits, multi-label BCE, token cross-entropy
+with ignore index and label smoothing, L1, the cosine-annealed
+temperature, L2 normalisation, the retrieval metrics of the stage-1 eval
+and the NaN guard. Every reduction is a mean over all elements, as in the
+JAX package. Random draws are explicit: `mixco` takes them as tensors
+(`MixcoState`) or from a torch.Generator.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+
+class MixcoState(NamedTuple):
+    """Mixup bookkeeping produced by `mixco`, consumed by `mixco_nce`."""
+
+    perm: torch.Tensor    # [B] int64 permutation
+    betas: torch.Tensor   # [B] mixing coefficients (1 where not mixed)
+    select: torch.Tensor  # [B] bool, which rows were mixed
+
+
+def draw_mixco(b: int, generator: torch.Generator, beta: float = 0.15,
+               s_thresh: float = 0.5) -> MixcoState:
+    """Raw mixup draws on the generator's device: a permutation, Beta(beta,
+    beta) coefficients (drawn in float64 as a ratio of gammas, cast to f32)
+    and the rows to mix (uniform <= s_thresh)."""
+    device = generator.device
+    perm = torch.randperm(b, generator=generator, device=device)
+    alpha = torch.full((2, b), beta, dtype=torch.float64, device=device)
+    g = torch._standard_gamma(alpha, generator=generator)
+    betas = (g[0] / (g[0] + g[1])).float()
+    select = torch.rand((b,), generator=generator, device=device) <= s_thresh
+    return MixcoState(perm, betas, select)
+
+
+def mixco(voxels: torch.Tensor,
+          draws: Union[MixcoState, torch.Generator], beta: float = 0.15,
+          s_thresh: float = 0.5) -> Tuple[torch.Tensor, MixcoState]:
+    """BiMixCo voxel mixup: each selected row i becomes
+    beta_i * v_i + (1 - beta_i) * v_perm(i); unselected rows keep
+    beta_i = 1. `draws` holds the raw draws (`draw_mixco`) or is a
+    generator to draw them from. Returns the mixed voxels and the state
+    with the effective betas."""
+    if isinstance(draws, torch.Generator):
+        draws = draw_mixco(voxels.shape[0], draws, beta, s_thresh)
+    perm, select = draws.perm.to(voxels.device), draws.select.to(voxels.device)
+    betas = torch.where(select, draws.betas.to(voxels.device),
+                        1.0).to(voxels.dtype)
+    bshape = (-1,) + (1,) * (voxels.dim() - 1)
+    mixed = (voxels * betas.reshape(bshape)
+             + voxels[perm] * (1 - betas).reshape(bshape))
+    return mixed, MixcoState(perm, betas, select)
+
+
+def _mix_probs(state: MixcoState) -> torch.Tensor:
+    """Soft target matrix: probs[i, i] = beta_i, probs[i, perm[i]] =
+    1 - beta_i. Where perm[i] == i the second write overwrites the
+    diagonal with 1 - beta_i, as the reference's scatter does."""
+    b = state.betas.shape[0]
+    probs = torch.diag(state.betas)
+    probs[torch.arange(b, device=probs.device), state.perm] = 1.0 - state.betas
+    return probs
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -22,10 +76,19 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def mixco_nce(preds: torch.Tensor, targs: torch.Tensor, temp: float = 0.1,
+              state: Optional[MixcoState] = None,
               bidirectional: bool = True) -> torch.Tensor:
-    """Bidirectional InfoNCE with the diagonal as targets; rows are expected
-    L2-normalised."""
+    """Bidirectional InfoNCE, rows expected L2-normalised: against the
+    mixup soft targets of `state`, or with the diagonal as targets."""
     brain_clip = (preds @ targs.T) / temp
+    if state is not None:
+        probs = _mix_probs(state)
+        loss = -(F.log_softmax(brain_clip, dim=-1) * probs).sum(-1).mean()
+        if bidirectional:
+            loss2 = -(F.log_softmax(brain_clip.T, dim=-1)
+                      * probs.T).sum(-1).mean()
+            loss = (loss + loss2) / 2
+        return loss
     labels = torch.arange(brain_clip.shape[0], device=preds.device)
     loss = _xent(brain_clip, labels)
     if bidirectional:
@@ -93,3 +156,43 @@ def cosine_anneal(start: float, end: float, steps: int) -> torch.Tensor:
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=eps)
+
+
+def batchwise_cosine_similarity(z: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Pairwise cosine similarities, transposed as the reference returns
+    them (sim[j, i] = cos(z_i, b_j))."""
+    z = z.reshape(z.shape[0], -1)
+    b = b.reshape(b.shape[0], -1)
+    zn = torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    bn = torch.linalg.vector_norm(b, dim=1, keepdim=True)
+    return ((z @ b.T) / (zn @ bn.T)).T
+
+
+def topk_accuracy(similarities: torch.Tensor, labels: torch.Tensor,
+                  k: int = 5) -> torch.Tensor:
+    """The per-rank hit fractions summed over the top-k ranks, as the JAX
+    package (and the reference) count them. Ranks come from a stable
+    ascending argsort read from the end, as jnp.argsort orders them: of
+    tied similarities the later column ranks first."""
+    k = min(k, similarities.shape[0])
+    order = torch.argsort(similarities, dim=1, stable=True)
+    hits = torch.zeros((), device=similarities.device)
+    for i in range(k):
+        hits = hits + (order[:, -(i + 1)] == labels).float().mean()
+    return hits
+
+
+def check_loss(loss: torch.Tensor, name: str = "loss") -> torch.Tensor:
+    """NaN guard: prints when `loss` is not finite and returns it
+    unchanged (a host sync)."""
+    if not bool(torch.isfinite(loss).all()):
+        print(f"!! non-finite {name}: {loss}")
+    return loss
+
+
+def count_params(params) -> int:
+    """Total parameter count of a module or of a {name: tensor} dict."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    return sum(p.numel() for p in params.values())

@@ -14,9 +14,12 @@ and step counts differ):
            ... epochs (warm restarts)
 
 The optimizer is torch.optim.AdamW over the trainable parameters only (the
-frozen stage-1 core never enters it: the port's form of optax's
-set_to_zero mask); its defaults (betas 0.9/0.999, eps 1e-8 outside the
-square root, bias correction, decoupled weight decay) are optax.adamw's.
+frozen stage-1 core of stage 2 and the frozen `clipproj` of stage 1 never
+enter it: the port's form of optax's set_to_zero mask, `freeze_by_prefix`);
+its defaults (betas 0.9/0.999, eps 1e-8 outside the square root, bias
+correction, decoupled weight decay) are optax.adamw's. Its state (step
+count and both moments) is created with it, as optax's init creates it,
+so a resume copies a checkpoint into it in place.
 `optimizer_step` sets the learning rate from the schedule at each step and
 clips by the global norm with optax's formula (no epsilon, unlike
 torch.nn.utils.clip_grad_norm_).
@@ -25,7 +28,7 @@ torch.nn.utils.clip_grad_norm_).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -116,7 +119,24 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor],
     schedule = make_lr_schedule(cfg, steps_per_epoch)
     opt = torch.optim.AdamW(list(params), lr=schedule(0), betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=cfg.weight_decay)
+    for group in opt.param_groups:  # AdamW's own lazy init, done now
+        for p in group["params"]:
+            opt.state[p] = {"step": torch.tensor(0.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
     return opt, schedule
+
+
+def freeze_by_prefix(prefixes: Sequence[str]) -> Callable[[str], bool]:
+    """A predicate on dotted parameter names, true where one of the name's
+    components is in `prefixes` (("clipproj",) freezes `clipproj.proj`,
+    not `backbone.clip_proj.*`), as the JAX package's mask matches path
+    components."""
+
+    def frozen(name: str) -> bool:
+        return any(p in name.split(".") for p in prefixes)
+
+    return frozen
 
 
 @torch.no_grad()

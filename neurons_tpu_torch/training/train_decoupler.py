@@ -38,7 +38,6 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from neurons_tpu_torch import resolve_device
@@ -52,6 +51,7 @@ from neurons_tpu_torch.models.gpt2 import GPT2Config
 from neurons_tpu_torch.models.neurons import NeuronsDecoupler
 from neurons_tpu_torch.training import losses
 from neurons_tpu_torch.training.curriculum import get_loss_weights
+from neurons_tpu_torch.training.train_brain import TrainState, module_caller
 from neurons_tpu_torch.training.optimizers import (Schedule, make_optimizer,
                                                    optimizer_step)
 from neurons_tpu_torch.utils.synth_init import synth_params_
@@ -65,15 +65,6 @@ class Stage2Bundle(NamedTuple):
     model: NeuronsDecoupler     # the module; its parameters are the masters
     diffusion: PriorDiffusion
     schedule: Schedule
-
-
-class TrainState(NamedTuple):
-    """`params` are the model's own parameters by name (the optimizer
-    updates the trainable ones in place); `step` counts updates from 0."""
-
-    params: Dict[str, torch.Tensor]
-    optimizer: torch.optim.Optimizer
-    step: int
 
 
 class Stage2Draws(NamedTuple):
@@ -129,30 +120,6 @@ def draw_stage2(diffusion: PriorDiffusion, batch: Dict[str, torch.Tensor],
         b * dcfg.n_frames, n, b, dcfg.clip_txt_emb_dim, generator, device))
 
 
-def _module_caller(model: NeuronsDecoupler, params: Dict[str, torch.Tensor],
-                   bf16: bool):
-    """`call(submodule, *args, **kw)`: the submodule with the call's weights
-    (bf16 copies of the masters under autocast, else f32), floating args
-    cast to the call's type, floating outputs back to f32."""
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    weights = {n: p.to(dtype) for n, p in params.items()}
-
-    def cast(x, to):
-        return x.to(to) if torch.is_tensor(x) and x.is_floating_point() else x
-
-    def call(sub: str, *args, **kw):
-        prefix = sub + "."
-        sub_weights = {n[len(prefix):]: w for n, w in weights.items()
-                       if n.startswith(prefix)}
-        out = functional_call(model.get_submodule(sub), sub_weights,
-                              tuple(cast(a, dtype) for a in args), kw)
-        if isinstance(out, tuple):
-            return tuple(cast(o, torch.float32) for o in out)
-        return cast(out, torch.float32)
-
-    return call
-
-
 def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
                 draws: Stage2Draws, batch: Dict[str, torch.Tensor],
                 soft_temp: float, weights: torch.Tensor, tcfg: TrainConfig,
@@ -160,7 +127,7 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The weighted stage-2 loss and its metrics (each term, the total and
     the caption token accuracy)."""
-    call = _module_caller(bundle.model, params, tcfg.bf16_autocast)
+    call = module_caller(bundle.model, params, tcfg.bf16_autocast)
     voxel = batch["voxel"]
     b, f = voxel.shape[0], dcfg.n_frames
 
@@ -239,6 +206,47 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
                **{k: v.detach() for k, v in zip(LOSS_TERMS, terms)},
                "train_acc_text_gen": acc_text.detach()}
     return loss, metrics
+
+
+def make_stage2_seg_panel_fn(bundle: Stage2Bundle, dcfg: DecouplerConfig):
+    """`panel(params, draws, batch)` -> (pred, gt), each [(B F), h, w]: the
+    seg head's masks through a sigmoid beside the ground-truth masks
+    resized to them (nearest, half-pixel centres), from the same one-step
+    prior x0 the seg head trains on, without dropout or autocast (the
+    JAX package's panel applies the f32 tree). `draws` are the prior's
+    `PriorDraws` or a generator to draw them from. Runs under no_grad, on
+    the weights' device, through the port's attention wrappers."""
+    model = bundle.model
+
+    @torch.no_grad()
+    def panel(params: Dict[str, torch.Tensor],
+              draws: Union[PriorDraws, torch.Generator],
+              batch: Dict[str, torch.Tensor]):
+        call = module_caller(model, params, False)
+        voxel = batch["voxel"]
+        b, f = voxel.shape[0], dcfg.n_frames
+        _, clip_vision, _ = call("core", voxel)
+        target = batch["clip_vision_target"]
+        if isinstance(draws, torch.Generator):
+            draws = draw_prior(bundle.diffusion, tuple(target.shape), draws,
+                               target.device)
+
+        def net(image_embed, times, brain_embed, **kw):
+            return call("prior_net", image_embed, times, brain_embed, **kw)
+
+        _, prior_out = p_losses(bundle.diffusion, net, target, clip_vision,
+                                draws=draws)
+        motion = call("motion_proj", prior_out)
+        flat = motion.reshape(b * f, motion.shape[2], motion.shape[3])
+        seg = call("text_seg_dec", flat, batch["key_obj_text_embed"],
+                   time=b * f)
+        pred = torch.sigmoid(seg.float())               # [(B F), 1, h, w]
+        masks = batch["key_obj_masks"]
+        gt = F.interpolate(masks.reshape(b * f, 1, *masks.shape[-2:]).float(),
+                           size=tuple(pred.shape[-2:]), mode="nearest-exact")
+        return pred[:, 0], gt[:, 0]
+
+    return panel
 
 
 def make_stage2_train_step(bundle: Stage2Bundle, tcfg: TrainConfig,

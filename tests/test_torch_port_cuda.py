@@ -639,3 +639,97 @@ def test_packed_conv_weight_is_cached_until_it_changes(cuda):
                        cw.permute(2, 3, 1, 0).reshape(9, 16, 8)
                        .to(torch.bfloat16).float())
     assert not p2[:, 16:].any() and not p2[:, :, 8:].any()
+
+
+# ------------------------------------------------ stage 1 and resume ----
+
+def _tiny_stage1(device, seed=0):
+    """A tiny f32 stage-1 state on `device`, the weights drawn on the CPU
+    (the same on either device)."""
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.training import train_brain as tb
+    bcfg = config.BrainModelConfig(hidden_dim=64, n_blocks=2, clip_seq_dim=8,
+                                   clip_emb_dim=32, clip_txt_emb_dim=16,
+                                   subjects=(3,))
+    tcfg = config.TrainConfig(batch_size=4, num_epochs=2, max_lr=1e-3,
+                              bf16_autocast=False)
+    _, cpu_state, _ = tb.init_stage1(bcfg, tcfg, 2, seed=seed, device="cpu")
+    core, state, schedule = tb.init_stage1(bcfg, tcfg, 2, device=device)
+    with torch.no_grad():
+        for n, p in state.params.items():
+            p.copy_(cpu_state.params[n])
+    return bcfg, tcfg, core, state, schedule
+
+
+@pytest.mark.cuda
+def test_stage1_step_card_against_cpu(cuda):
+    """One f32 stage-1 step with the same weights, batch and draws on the
+    card and on the CPU: the loss terms within 1e-4 relative, and each
+    updated tensor within 1e-3 x lr of the CPU's where the gradient is well
+    above rounding noise (the rest, and the tensors whose gradients vanish,
+    within Adam's bound); clipproj bitwise unchanged on both."""
+    from neurons_tpu_torch.training import train_brain as tb
+    runs = {}
+    for device in ("cpu", "cuda"):
+        bcfg, tcfg, core, state, schedule = _tiny_stage1(device)
+        gen = torch.Generator().manual_seed(1)
+        voxel = torch.randn(4, 1, bcfg.voxel_counts[0], generator=gen)
+        target = torch.randn(4, 8, 32, generator=gen)
+        text = torch.randn(4, 16, generator=gen)
+        draws = tb.draw_stage1(bcfg, voxel, torch.Generator().manual_seed(2))
+        old = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+        state, metrics = tb.make_stage1_train_step(core, schedule, tcfg)(
+            state, draws, voxel.to(device), target.to(device),
+            text.to(device))
+        runs[device] = (old, {n: p.detach().cpu() for n, p in
+                              state.params.items()},
+                        {n: p.grad.cpu() for n, p in state.params.items()
+                         if p.grad is not None}, metrics, schedule(0))
+    old, cpu, cgrad, cm, lr = runs["cpu"]
+    _, card, _, gm, _ = runs["cuda"]
+    for k, v in cm.items():
+        assert abs(float(gm[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    for n, p in cpu.items():
+        if n.startswith("clipproj."):
+            assert torch.equal(card[n], old[n]) and torch.equal(p, old[n])
+            continue
+        d = ((card[n] - old[n]) - (p - old[n])).abs()
+        assert d.max() <= 2 * lr * (1 + 1e-3), n  # Adam's bound, both ways
+        # with seq_len 1 the mix1 path and the mix2 LayerNorm scales get
+        # gradients that vanish in exact arithmetic: rounding noise on
+        # either device, which Adam's first step turns into +-lr
+        if ".mix1_" in n or ".mix2_ln_" in n:
+            continue
+        gr = cgrad[n].abs()
+        sharp = gr >= max(1e-2 * gr.max(), 1e-6)
+        if sharp.any():  # (the mix2 MLPs' gradients are exact zeros)
+            assert d[sharp].max() <= 1e-3 * lr, n
+
+
+@pytest.mark.cuda
+def test_stage1_resume_on_the_card(cuda, tmp_path):
+    """Save a stepped state, restore it into a fresh one on the card: equal
+    bits, copied in place, and the allocator's peak during the restore at
+    most one tensor above the live state."""
+    from neurons_tpu_torch.training import loop
+    from neurons_tpu_torch.training import train_brain as tb
+    from neurons_tpu_torch.utils import checkpoint as ckpt
+    bcfg, tcfg, core, state, schedule = _tiny_stage1("cuda")
+    state = tb.make_stage1_train_step(core, schedule, tcfg)(
+        state, torch.Generator().manual_seed(0),
+        torch.randn(4, 1, bcfg.voxel_counts[0], device="cuda"),
+        torch.randn(4, 8, 32, device="cuda"),
+        torch.randn(4, 16, device="cuda"))[0]
+    ckpt.save_ckpt(str(tmp_path), "brain_model_last", params=state.params,
+                   opt_state=state.optimizer.state_dict(), step=state.step,
+                   epoch=0)
+    _, _, _, fresh, _ = _tiny_stage1("cuda", seed=5)
+    new, start, _ = loop._restore_state(str(tmp_path), "brain_model_last",
+                                        fresh)
+    assert (new.step, start) == (1, 1)
+    for n, p in new.params.items():
+        assert torch.equal(p, state.params[n]), n
+    stats = loop.LAST_RESTORE_STATS
+    largest = max(p.numel() * 4 for p in state.params.values())
+    assert stats["peak_extra_bytes"] == 0
+    assert 0 <= stats["device_peak_extra_bytes"] <= largest, stats

@@ -614,9 +614,16 @@ def test_run_stage2_short_run():
     builder = tloop.synthetic_stage2_batch_builder(cfg.brain, cfg.decoupler,
                                                    g.vocab_size)
     records = []
+
+    class Logger:  # MetricLogger's interface
+        def log_metrics(self, metrics, step=None):
+            records.append((metrics, step))
+
+        def log_images(self, images, step=None):
+            pass
+
     state = tloop.run_stage2(cfg.brain, cfg.prior, cfg.decoupler, cfg.train,
-                             g, split, builder,
-                             logger=lambda m, s: records.append((m, s)),
+                             g, split, builder, logger=Logger(),
                              bf16_frozen_core=True, device="cpu")
     spe = 16 // cfg.train.batch_size
     assert state.step == cfg.train.num_epochs * spe
