@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
-paths) and stages 1 and 2 (training, checkpoints and resume) on one CUDA
+paths), stages 4 and 6 (captions and the metric suite, through the port's
+CLI) and stages 1 and 2 (training, checkpoints and resume) on one CUDA
 card, in the default configuration and in the fused-norm one, and hold its
 kernels against their plain PyTorch versions.
 
@@ -19,9 +20,12 @@ Phases, in order:
      the full-width clip (stage 3 and stage 5, and the fast clip's gated
      steps at one clip's batch), in bf16 (and two shapes in f32), and at
      the stage-2 seg panels' three DecoderVideo shapes (24 rows) in f32,
-     against an f32 reference; its error must be no worse than 1.5x
-     the plain version's at the kernel's precision (bf16 operands; for
-     f32, operands rounded to TF32 as the kernel rounds them). The
+     at stage 4's BLIP-2 vision shape (bf16, heads of 88, 257 tokens) and
+     stage 6's three classifier shapes (f32: ViT-B's 197 tokens,
+     VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), against an f32
+     reference; its error must be no worse than 1.5x the plain version's
+     at the kernel's precision (bf16 operands; for f32, operands rounded
+     to TF32 as the kernel rounds them). The
      temporal-attention kernel at its four stage-5 shapes and their four
      gated ones in bf16 (and one in f32), against the float64 result on
      the same inputs, by the same 1.5x rule. Times: kernel (by CUDA events
@@ -52,7 +56,13 @@ Phases, in order:
      TGATE, TGATE x PAB, PAB, DeepCache and encoder reuse;
      `reconstruct_video`'s TGATE, TGATE x PAB, PAB and encoder reuse with
      SparseCtrl, each over 6 steps so that every branch takes its capture
-     and reuse arms; the RGB-condition SparseCtrl; `ddim_inversion`);
+     and reuse arms; the RGB-condition SparseCtrl; `ddim_inversion`).
+     Then a reduced BLIP-2 (257 vision tokens at heads of 88, so the flash
+     kernel runs; a 2-layer Q-Former and OPT) card against CPU, f32: the
+     cached greedy decode equal to `generate_nocache` on each and across
+     the two, the logits within 2e-2 * max; and the ViT-B, VideoMAE and
+     CLIP ViT-L towers at their real token counts and reduced width, their
+     outputs within 2e-2 * max;
   4. slice phase: the full-width clip (`PipelineConfig()`, `GPT2Config()`,
      `CLIPTextConfig.sd15()`) in bf16 with seeded random weights: stage 3
      (`reconstruct_keyframes(enhance=True)`, the blurry-video decode and
@@ -78,6 +88,15 @@ Phases, in order:
      one UNet3D forward,
      fused and unfused in bf16 on the same input against the same forward
      in f32 (the fused error within 1.5x the unfused one);
+  4b. stage 4 and stage 6 at full width through `neurons_tpu_torch.cli`
+     (`stage46_phase`): 16 stage-3 keyframe artifacts (the clip's and
+     synthetic ones), `caption --synthetic` (`Blip2Config()`, bf16, batch
+     8, 30 tokens; s a batch, peak memory, flash launches 39 a batch); 4
+     stage-5 GIFs from the clip's video through the native codec (built
+     into `neurons_tpu_torch/_build/`, nothing written into `native/`),
+     then `eval` with pixel metrics only and with the three full-width
+     classifiers written as HF state dicts (s a scored clip, peak memory,
+     flash launches 360 a clip, the report's ranges);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
      schedule, the core held in bf16) with seeded random weights and random
@@ -182,6 +201,16 @@ PANEL_SHAPES = [
     ("decoder 16x16 panel", (24, 1, 256, 256, 128)),
     ("decoder 32x32 panel", (24, 1, 1024, 1024, 64)),
     ("decoder 64x64 panel", (24, 1, 4096, 4096, 32)),
+]
+
+# stage 4's launches (the BLIP-2 vision tower, bf16, the CLI's batch of 8
+# keyframes) and stage 6's (the metric classifiers, f32): every
+# flash-attention launch of a caption batch and of a scored clip
+CAPTION_SHAPES = [("blip2 vision 16x16+cls", (8, 16, 257, 257, 88))]
+METRIC_SHAPES = [
+    ("vit-b frame", (1, 12, 197, 197, 64)),
+    ("videomae 6 frames", (1, 12, 588, 588, 64)),
+    ("clip vit-l 6 frames", (6, 16, 257, 257, 64)),
 ]
 
 # ((B F), D, C) of every temporal-attention launch of the full-width clip:
@@ -337,6 +366,8 @@ def flash_phase():
     checks += [(name, shape, torch.float32) for name, shape in FLASH_SHAPES
                if name in F32_CHECKS]
     checks += [(name, shape, torch.float32) for name, shape in PANEL_SHAPES]
+    checks += [(name, shape, torch.bfloat16) for name, shape in CAPTION_SHAPES]
+    checks += [(name, shape, torch.float32) for name, shape in METRIC_SHAPES]
     for name, (b, h, tq, tk, d), dt in checks:
         q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
         k = torch.randn((b, h, tk, d), generator=gen, device="cuda")
@@ -1257,7 +1288,8 @@ def slice_phase():
     seeds: unfused, then the fast configurations (unfused), then fused;
     each clip 2 counted requests and 1 profiled; then one UNet2D and one
     UNet3D forward in both. Returns ({fused: {kernel: launches by shape}}, the
-    fast phase's {configuration: {kernel: launches by shape}})."""
+    fast phase's {configuration: {kernel: launches by shape}}, the first
+    unfused clip's keyframe artifact and video on the host)."""
     import torch
 
     models, pcfg = build_clip()
@@ -1271,12 +1303,14 @@ def slice_phase():
                 # before the fused clip, whose packed #8 weights stay
                 # cached and would count in the fast clips' peak memory
                 fast_by_config = fast_phase(models, pcfg, by_shape, first)
+                sample = (first[0].keyframe.float().cpu(),
+                          first[1].video.float().cpu())
         by_config[fused] = by_shape
         del first
     fused_forward_check(models, pcfg)
     del models
     torch.cuda.empty_cache()
-    return by_config, fast_by_config
+    return by_config, fast_by_config, sample
 
 
 # --- the fast paths ----------------------------------------------------------
@@ -2716,12 +2750,440 @@ def gn_kernel_phase(shapes7, shapes8):
     return records7, records8
 
 
+# --- stages 4 and 6 -----------------------------------------------------------
+
+CAPTION_KEYFRAMES = 16   # stage-3 keyframes captioned: 2 batches of 8
+SCORED_CLIPS = 4         # stage-5 GIFs scored by stage 6
+
+
+def reduced_blip2_config():
+    """BLIP-2 at its real vision token count and head dim (224 / 14 -> 257
+    tokens, heads of 88: 2 heads, width 176, 2 layers), so the flash
+    forward runs, with a 2-layer Q-Former and a 2-layer narrow OPT."""
+    from neurons_tpu_torch.models import blip2
+    return blip2.Blip2Config(
+        vision=blip2.Blip2VisionConfig(hidden_size=176, layers=2, heads=2,
+                                       intermediate_size=352),
+        qformer=blip2.Blip2QFormerConfig(hidden_size=64, layers=2, heads=4,
+                                         intermediate_size=128,
+                                         num_query_tokens=8),
+        opt=blip2.OPTConfig(hidden_size=64, layers=2, heads=4, ffn_dim=128,
+                            vocab_size=1000, max_position_embeddings=64,
+                            eos_token_id=999))
+
+
+def card_and_cpu(build, seed):
+    """The same seeded weights (drawn on the CPU) in an f32 module on the
+    CPU and a copy on the card."""
+    import copy
+
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+    cpu = synth_params_(build("cpu"), seed).eval()
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def small_caption_check():
+    """The reduced BLIP-2 (`reduced_blip2_config`) on the card against the
+    CPU, f32: the cached greedy decode equal to `generate_nocache` on
+    each, the tokens equal across the two, and the teacher-forced logits
+    over the prefix and those tokens within 2e-2 * max |CPU| (the vision
+    tower's attention multiplies in TF32 on the card)."""
+    import torch
+    from neurons_tpu_torch.models.blip2 import Blip2Captioner
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_blip2_config()
+    cpu, gpu = card_and_cpu(lambda dev: Blip2Captioner(cfg, device=dev), 21)
+    x = torch.randn((2, 3, 224, 224), generator=torch.Generator()
+                    .manual_seed(SEED))
+    toks, logits = {}, {}
+    before = FLASH_FWD_LAUNCHES.total
+    with torch.inference_mode():
+        for dev, m in (("cpu", cpu), ("cuda", gpu)):
+            xd = x.to(dev)
+            toks[dev] = (m.generate(xd, max_len=12).cpu(),
+                         m.generate_nocache(xd, max_len=12).cpu())
+            logits[dev] = m(xd, toks["cpu"][0].to(dev)).float().cpu()
+    launched = FLASH_FWD_LAUNCHES.total - before
+    same = [torch.equal(toks["cpu"][0], t) for t in
+            (toks["cpu"][1], toks["cuda"][0], toks["cuda"][1])]
+    ref = logits["cpu"]
+    err = ((logits["cuda"] - ref).abs().max() / ref.abs().max()).item()
+    # the card's 3 prefixes (2 generate paths, 1 forward) x 2 vision layers
+    want = 3 * cfg.vision.layers
+    log(f"small caption check: flash launches {launched} (expected {want}), "
+        f"tokens {toks['cpu'][0].tolist()}, nocache/card/card-nocache "
+        f"equal {same}, logits rel err {err:.3e} (<= 2e-2)")
+    if not (launched == want and all(same) and err <= 2e-2):
+        raise AssertionError("the reduced BLIP-2 on the card disagrees with "
+                             "the CPU")
+
+
+def small_classifier_check():
+    """The three metric towers at their real token counts and reduced
+    width (2 layers, 2 heads of 64), f32, card against CPU: ViT-B's 197
+    tokens, VideoMAE's 588 over 6 frames, CLIP ViT-L/14's 257 for 6
+    frames; logits and embeddings within 2e-2 * max |CPU|."""
+    import torch
+    from neurons_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+    from neurons_tpu_torch.models.vit import ViTClassifier, ViTConfig
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    narrow = dict(width=128, layers=2, heads=2)
+    towers = [
+        ("vit-b", lambda d: ViTClassifier(
+            ViTConfig.vit_base_224()._replace(**narrow), device=d),
+         (1, 3, 224, 224), 197),
+        ("videomae", lambda d: ViTClassifier(
+            ViTConfig.videomae_kinetics(6)._replace(**narrow), device=d),
+         (1, 6, 3, 224, 224), 588),
+        ("clip vit-l", lambda d: CLIPVisionTower(
+            CLIPVisionConfig.vit_l14()._replace(output_dim=64, **narrow),
+            device=d), (6, 3, 224, 224), 257)]
+    g = torch.Generator().manual_seed(SEED)
+    for i, (name, build, shape, tokens) in enumerate(towers):
+        cpu, gpu = card_and_cpu(build, 30 + i)
+        x = torch.randn(shape, generator=g)
+        before = dict(FLASH_FWD_LAUNCHES.by_shape)
+        with torch.inference_mode():
+            ref = cpu(x)
+            got = gpu(x.to("cuda"))
+        ref, got = (r if torch.is_tensor(r) else r[0] for r in (ref, got))
+        err = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        launched = {k: n - before.get(k, 0) for k, n in
+                    FLASH_FWD_LAUNCHES.by_shape.items()
+                    if n != before.get(k, 0)}
+        log(f"small classifier check {name}: out {tuple(ref.shape)}, "
+            f"flash launches {launched}, rel err {err:.3e} (<= 2e-2)")
+        if not (list(launched) and all(k[2] == tokens for k in launched)
+                and sum(launched.values()) == 2 and err <= 2e-2):
+            raise AssertionError(f"the reduced {name} on the card disagrees "
+                                 f"with the CPU")
+
+
+def hf_vit_state_dict(m, prefix="vit"):
+    """A ViTClassifier's weights under HF ViTForImageClassification's (or,
+    with prefix "videomae", VideoMAEForVideoClassification's) names."""
+    sd = {}
+    c = m.cfg
+    if prefix == "vit":
+        sd["vit.embeddings.patch_embeddings.projection.weight"] = \
+            m.patch_embed.weight
+        sd["vit.embeddings.cls_token"] = m.cls_token
+        sd["vit.embeddings.position_embeddings"] = m.pos_embed[None]
+        sd["vit.layernorm.weight"] = m.ln_post.weight
+        sd["vit.layernorm.bias"] = m.ln_post.bias
+    else:  # the tubelet Dense [d, (ts ph pw ch)] back to the Conv3d
+        p, ts = c.patch_size, c.tubelet_size
+        sd["videomae.embeddings.patch_embeddings.projection.weight"] = \
+            m.patch_embed.weight.reshape(c.width, ts, p, p, 3).permute(
+                0, 4, 1, 2, 3)
+        sd["fc_norm.weight"] = m.ln_post.weight
+        sd["fc_norm.bias"] = m.ln_post.bias
+    sd[f"{prefix}.embeddings.patch_embeddings.projection.bias"] = \
+        m.patch_embed.bias
+    sd["classifier.weight"] = m.head.weight
+    sd["classifier.bias"] = m.head.bias
+    for i in range(c.layers):
+        blk, q = getattr(m, f"block_{i}"), f"{prefix}.encoder.layer.{i}"
+        for ours, theirs in (("ln_1", "layernorm_before"),
+                             ("ln_2", "layernorm_after"),
+                             ("attn_out", "attention.output.dense"),
+                             ("mlp_fc", "intermediate.dense"),
+                             ("mlp_proj", "output.dense")):
+            sd[f"{q}.{theirs}.weight"] = getattr(blk, ours).weight
+            sd[f"{q}.{theirs}.bias"] = getattr(blk, ours).bias
+        for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+            sd[f"{q}.attention.attention.{theirs}.weight"] = \
+                getattr(blk, ours).weight
+            if prefix == "vit":
+                sd[f"{q}.attention.attention.{theirs}.bias"] = \
+                    getattr(blk, ours).bias
+        if prefix == "videomae":  # biasless q/k/v, a q and a v bias
+            sd[f"{q}.attention.attention.q_bias"] = blk.q.bias
+            sd[f"{q}.attention.attention.v_bias"] = blk.v.bias
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def hf_clip_state_dict(m):
+    """A CLIPVisionTower's weights under HF CLIPVisionModelWithProjection's
+    names."""
+    v = "vision_model"
+    sd = {f"{v}.embeddings.patch_embedding.weight": m.patch_embed.weight,
+          f"{v}.embeddings.class_embedding": m.class_embedding,
+          f"{v}.embeddings.position_embedding.weight":
+              m.positional_embedding,
+          f"{v}.pre_layrnorm.weight": m.ln_pre.weight,
+          f"{v}.pre_layrnorm.bias": m.ln_pre.bias,
+          f"{v}.post_layernorm.weight": m.ln_post.weight,
+          f"{v}.post_layernorm.bias": m.ln_post.bias,
+          "visual_projection.weight": m.proj.T}
+    for i in range(m.cfg.layers):
+        blk, q = getattr(m, f"resblock_{i}"), f"{v}.encoder.layers.{i}"
+        for name, w, b in zip(("q_proj", "k_proj", "v_proj"),
+                              blk.in_proj.weight.chunk(3),
+                              blk.in_proj.bias.chunk(3)):
+            sd[f"{q}.self_attn.{name}.weight"] = w
+            sd[f"{q}.self_attn.{name}.bias"] = b
+        for ours, theirs in (("out_proj", "self_attn.out_proj"),
+                             ("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+                             ("mlp_fc", "mlp.fc1"), ("mlp_proj", "mlp.fc2")):
+            sd[f"{q}.{theirs}.weight"] = getattr(blk, ours).weight
+            sd[f"{q}.{theirs}.bias"] = getattr(blk, ours).bias
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def write_metric_weights(weights_dir: Path, num_frames: int,
+                         device="cuda"):
+    """The three metric classifiers at full width (ViT-B/16, VideoMAE-B
+    over `num_frames` frames, CLIP ViT-L/14) with `synth_params_` weights
+    drawn on `device`, written as HF state dicts under the file names
+    `build_metric_classifiers` reads. Returns their parameter count."""
+    import torch
+    from neurons_tpu_torch.evaluation.runner import WEIGHT_FILES
+    from neurons_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+    from neurons_tpu_torch.models.vit import ViTClassifier, ViTConfig
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    files = dict(WEIGHT_FILES)
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    n = 0
+    for i, (name, build, export) in enumerate((
+            ("vit", lambda: ViTClassifier(ViTConfig.vit_base_224(),
+                                          device=device),
+             hf_vit_state_dict),
+            ("videomae", lambda: ViTClassifier(
+                ViTConfig.videomae_kinetics(num_frames), device=device),
+             lambda m: hf_vit_state_dict(m, "videomae")),
+            ("clip", lambda: CLIPVisionTower(CLIPVisionConfig.vit_l14(),
+                                             device=device),
+             hf_clip_state_dict))):
+        m = synth_params_(build(), SEED + 40 + i)
+        n += sum(p.numel() for p in m.parameters())
+        torch.save(export(m), weights_dir / files[name])
+        del m
+    return n
+
+
+def scored_clip_launches(num_frames: int) -> dict:
+    """Flash launches a scored clip, counted from `run_metrics`: the frame
+    metrics run the ViT-B on every frame for both n-way settings, once on
+    the prediction (probabilities) and once on the ground truth (logits);
+    the video metrics run VideoMAE the same way on the whole clip; CLIP-pcc
+    runs the CLIP tower once on the prediction's frames. One launch a
+    layer."""
+    from neurons_tpu_torch.models.clip import CLIPVisionConfig
+    from neurons_tpu_torch.models.vit import ViTConfig
+    n_way_settings, sides = 2, 2
+    vit = ViTConfig.vit_base_224()
+    mae = ViTConfig.videomae_kinetics(num_frames)
+    clip = CLIPVisionConfig.vit_l14()
+    return {
+        (1, vit.heads, 197, 197, 64, "float32", ""):
+            num_frames * n_way_settings * sides * vit.layers,
+        (1, mae.heads, 588, 588, 64, "float32", ""):
+            n_way_settings * sides * mae.layers,
+        (num_frames, clip.heads, 257, 257, 64, "float32", ""): clip.layers}
+
+
+def profile_stage46(vdir: str, weights: Path, num_frames: int):
+    """One caption batch (`Blip2Config()` built as the CLI builds it, bf16,
+    8 images, 30 tokens, after one warm-up batch) and one `run_metrics` of
+    the scored clips (the three classifiers as `build_metric_classifiers`
+    imports them) under torch.profiler, device activity only: wall time
+    and device busy time from the same run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch.evaluation.runner import (build_metric_classifiers,
+                                                     run_metrics)
+    from neurons_tpu_torch.models.blip2 import Blip2Captioner, Blip2Config
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    model = Blip2Captioner(Blip2Config(), device="meta",
+                           dtype=torch.bfloat16).to_empty(device="cuda")
+    synth_params_(model, SEED).eval()
+    x = torch.randn((8, 3, 224, 224), device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        model.generate(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.generate(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    device_profile(prof, wall, "caption batch (8 images, 30 tokens)",
+                   {"flash": FLASH_FWD_SYMBOLS})
+    del model
+    torch.cuda.empty_cache()
+    classifiers = build_metric_classifiers(str(weights), num_frames)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_metrics(vdir, classifiers, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_profile(prof, wall, f"stage 6 over {SCORED_CLIPS} scored clips",
+                   {"flash": FLASH_FWD_SYMBOLS})
+
+
+def stage46_phase(sample):
+    """Stage 4 then stage 6 at full width through the port's CLI.
+
+    Stage 4: `save_stage3_artifacts` for 16 keyframes at 256 px (the clip
+    phase's keyframe and 15 synthetic ones), then `cli.main(["caption",
+    "--synthetic", ...])`: `Blip2Config()` in bf16 with `synth_params_`
+    weights drawn on the card, batch 8, 30 tokens; s a batch in the steady
+    state (the CLI's stage line), peak memory, flash launches held to 39
+    (the vision tower's layers) a batch, the caption artifact checked.
+    Stage 6: 4 GIFs written by `save_video_grid`, each the clip phase's
+    video (frames 4:, every other one: 6 frames) beside a synthetic ground
+    truth, then `cli.main(["eval", ...])` twice: pixel metrics only (no
+    weights), then with the three full-width classifiers written as HF
+    state dicts (`write_metric_weights`), so that `build_metric_classifiers`
+    imports and runs them on the card; s a scored clip, peak memory, flash
+    launches held to `scored_clip_launches`. Then a caption batch and the
+    scored clips once more under the profiler (`profile_stage46`). Returns
+    {path: launches by shape} and the runs each path spans."""
+    import os
+
+    import numpy as np
+    import torch
+    from neurons_tpu_torch import cli, native_io
+    from neurons_tpu_torch.models.blip2 import Blip2Config
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from neurons_tpu_torch.pipelines import io
+
+    keyframe, video = sample
+    native_dir = REPO / "native"
+    native_before = sorted(os.listdir(native_dir))
+    rng = np.random.default_rng(SEED)
+    by_path = {}
+    with ckpt_tmpdir("stages 4 and 6: artifacts, GIFs, weights") as d:
+        root = Path(d)
+        exp = ["--exp_dir", str(root), "--exp", "smoke", "--subj", "1",
+               "--seed", str(SEED)]
+        st3 = io.stage3_dir(str(root), "smoke", 1, False)
+        n = CAPTION_KEYFRAMES
+        recons = np.concatenate([keyframe.numpy(), rng.uniform(
+            size=(n - 1, 3, 256, 256)).astype(np.float32)])
+        io.save_stage3_artifacts(
+            st3, 1, all_recons=recons,
+            all_gts=rng.uniform(size=(n, 3, 224, 224)).astype(np.float32),
+            captions=[f"keyframe {i}" for i in range(n)],
+            blurry_videos=rng.uniform(size=(n, 6, 3, 224, 224)).astype(
+                np.float32))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        FLASH_FWD_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        cli.main(["caption", "--synthetic", *exp])
+        wall = time.perf_counter() - t0
+        batches = -(-n // 8)
+        layers = Blip2Config().vision.layers
+        peak = torch.cuda.max_memory_allocated()
+        stats = cli._STAGE_STATS["4"]
+        by_path["caption batch"] = dict(FLASH_FWD_LAUNCHES.by_shape)
+        caps = io.load_captions(st3, "blip")
+        ids = [[int(i) for i in c.removeprefix("ids:").split(",")]
+               for c in caps]
+        log(f"stage 4 (caption, Blip2Config() bf16, batch 8, 30 tokens): "
+            f"{n} keyframes in {wall:.3f} s (setup {stats['setup_s']} s, "
+            f"first batch {stats['first_batch_s']} s), "
+            f"{8 * stats['steady_s_per_clip']:.3f} s a caption batch in the "
+            f"steady state, max_memory_allocated {peak / 2**30:.2f} GiB, "
+            f"flash launches {FLASH_FWD_LAUNCHES.total} (expected "
+            f"{layers} a batch x {batches}), first caption {caps[0][:60]}...")
+        vocab = Blip2Config().opt.vocab_size
+        if not (FLASH_FWD_LAUNCHES.total == layers * batches
+                and set(by_path["caption batch"]) == {
+                    (8, 16, 257, 257, 88, "bfloat16", "")}
+                and len(caps) == n
+                and all(len(r) == 30 and r[0] == 2 and
+                        all(0 <= t < vocab for t in r) for r in ids)):
+            raise AssertionError("stage 4 on the card: wrong launches or "
+                                 "captions")
+        if not (native_io.available()
+                and native_io.library_path().parent
+                == REPO / "neurons_tpu_torch" / "_build"):
+            raise AssertionError("the native GIF codec did not build into "
+                                 "neurons_tpu_torch/_build")
+
+        frames = video[:, 4:][:, ::2].numpy()          # [1, 6, 3, 256, 256]
+        vdir = io.video_dir(str(root), "smoke", 1, "motion")
+        t0 = time.perf_counter()
+        for i in range(SCORED_CLIPS):
+            gt = rng.uniform(size=frames.shape).astype(np.float32)
+            io.save_video_grid(np.concatenate([gt, frames], -1),
+                               os.path.join(vdir, io.gif_artifact_name(
+                                   i, caps[i])))
+        log(f"stage 5 GIFs: {SCORED_CLIPS} written by the native codec in "
+            f"{time.perf_counter() - t0:.3f} s")
+        out = os.path.join(io.exp_dir(str(root), "smoke", 1),
+                           "metrics_motion.json")
+        nf = frames.shape[1]
+        reports = {}
+        for what, weights in (("pixel metrics", root / "no_weights"),
+                              ("three classifiers", root / "weights")):
+            if what == "three classifiers":
+                t0 = time.perf_counter()
+                n_params = write_metric_weights(weights, nf)
+                log(f"stage 6 classifiers: {n_params / 1e9:.3f} B params "
+                    f"(f32) written as HF state dicts in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            FLASH_FWD_LAUNCHES.reset()
+            t0 = time.perf_counter()
+            cli.main(["eval", "--weights_dir", str(weights), *exp])
+            wall = time.perf_counter() - t0
+            stats = cli._STAGE_STATS["6"]
+            with open(out) as f:
+                reports[what] = json.load(f)
+            launches = dict(FLASH_FWD_LAUNCHES.by_shape)
+            log(f"stage 6 (eval, {what}): {SCORED_CLIPS} clips in "
+                f"{wall:.3f} s (setup {stats['setup_s']} s), "
+                f"{stats['s_per_clip']:.3f} s a scored clip, "
+                f"max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+                f"launches {launches}, report {reports[what]}")
+            if what == "pixel metrics":
+                if launches:
+                    raise AssertionError("pixel metrics launched the flash "
+                                         "kernel")
+                continue
+            want = {k: v * SCORED_CLIPS
+                    for k, v in scored_clip_launches(nf).items()}
+            if launches != want:
+                raise AssertionError(f"stage 6 launches {launches} differ "
+                                     f"from the count from the code {want}")
+            by_path["scored clip"] = launches
+            profile_stage46(vdir, weights, nf)
+        rep = reports["three classifiers"]
+        keys = {"clip_pcc", "clip_pcc_std", "video_2way", "video_50way",
+                "frame_2way", "frame_50way", "ssim", "psnr"}
+        if not (set(rep) == keys and set(reports["pixel metrics"])
+                == {"ssim", "psnr"}
+                and all(np.isfinite(v) for v in rep.values())
+                and all(0 <= rep[k] <= 1 for k in keys
+                        if "way" in k)
+                and -1 <= rep["ssim"] <= 1 and -1 <= rep["clip_pcc"] <= 1
+                and rep["ssim"] == reports["pixel metrics"]["ssim"]
+                and rep["psnr"] == reports["pixel metrics"]["psnr"]):
+            raise AssertionError(f"stage 6 report out of range: {reports}")
+    if sorted(os.listdir(native_dir)) != native_before:
+        raise AssertionError("something was written into native/")
+    return by_path, {"caption batch": batches, "scored clip": SCORED_CLIPS}
+
+
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
                    train_by_shape, gn_records, fused_by_shapes, f32_checks,
-                   ptxas, runs, fast_by_shape):
+                   ptxas, runs, fast_by_shape, stage46_by_path):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
     (the unfused clip's, then stage 2's, then the fast clip's, the "max"
-    preset; for #7 and #8 the fused clip's, then the fused step's); per
+    preset, then stage 4's caption batch and stage 6's scored clip; for #7
+    and #8 the fused clip's, then the fused step's); per
     kernel and path the sums of launches x time (kernel, bound, library);
     the f32 flash checks; each kernel's registers and spills. `runs`: the
     clips or steps each path's counts span ("clip", "step", "fast clip",
@@ -2763,6 +3225,29 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                else {}),
         })
         groups.append(("flash_attn_fwd", path, runs[path]))
+    for path, shapes in stage46_by_path.items():
+        for key, launches in sorted(shapes.items()):
+            b, h, tq, tk, d, dt, variant = key
+            rec = fwd_records.get(key)
+            if rec is None:
+                raise AssertionError(f"the {path} launched the flash kernel "
+                                     f"at {key}, a shape the kernel phase "
+                                     f"did not check")
+            entries.append({
+                "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} "
+                         + ("bf16" if dt == "bfloat16" else "f32")
+                         + f" {path}]"),
+                "route": "cuda",
+                "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
+                "replaces": "neurons_tpu/ops/attention.py:137",  # whole KV
+                "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "device_ms": rec["device_ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+            })
+            groups.append(("flash_attn_fwd", path, runs[path]))
     for key, launches in sorted(train_by_shape["flash_attn_bwd"].items()):
         b, h, tq, tk, d, dt, variant = key
         rec = train_records[1].get(key)
@@ -2883,7 +3368,7 @@ def f32_check_records(flash_records):
                  bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
                  library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"])
             for (b, h, tq, tk, d, dt, _), rec in sorted(flash_records.items())
-            if dt == "float32" and "panel" not in rec["site"]]
+            if dt == "float32" and rec["site"] in F32_CHECKS]
 
 
 def ptxas_summary(name):
@@ -2943,7 +3428,12 @@ def main():
             small_train_check(fused)
     with configuration(False):
         small_fast_check()
-    clip_by_shape, fast_by_config = slice_phase()
+        small_caption_check()
+        small_classifier_check()
+    clip_by_shape, fast_by_config, sample = slice_phase()
+    with configuration(False):
+        stage46_by_path, stage46_runs = stage46_phase(sample)
+    del sample
     with configuration(False):
         train_by_shape, fused_train_by_shape = train_phase()
         stage1_phase()
@@ -2962,11 +3452,12 @@ def main():
                     / sum(STEP_LAUNCHES["flash_attn_bwd"].values()))
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
             "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
-            "fused step": FIXED_STEPS}
+            "fused step": FIXED_STEPS, **stage46_runs}
     record = kernels_record(flash_records, temporal_records, train_records,
                             clip_by_shape[False], train_by_shape, gn_records,
                             fused_by_shapes, f32_check_records(flash_records),
-                            ptxas, runs, fast_by_config[FAST_PRESET])
+                            ptxas, runs, fast_by_config[FAST_PRESET],
+                            stage46_by_path)
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
         f"{t['kernel_s']:.4f}" + (f" (device {t['device_s']:.4f})"

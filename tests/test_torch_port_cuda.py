@@ -733,3 +733,47 @@ def test_stage1_resume_on_the_card(cuda, tmp_path):
     largest = max(p.numel() * 4 for p in state.params.values())
     assert stats["peak_extra_bytes"] == 0
     assert 0 <= stats["device_peak_extra_bytes"] <= largest, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(257, 257), (200, 333)])
+def test_kernel_at_head_dim_88_from_fused_qkv(cuda, tq, tk):
+    # BLIP-2's vision tower: 16 heads of 88 (the d = 96 instance with 8
+    # padded columns) split from one fused qkv projection, so q, k and v
+    # are strided views with a token stride of 3 x 1408
+    g = torch.Generator("cuda").manual_seed(88)
+    b, h, d = 2, 16, 88
+    qkv = torch.randn((b, max(tq, tk), 3 * h * d), generator=g, device="cuda")
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = q[:, :tq].reshape(b, tq, h, d).transpose(1, 2)
+    k, v = (y[:, :tk].reshape(b, tk, h, d).transpose(1, 2) for y in (k, v))
+    assert q.stride(2) == 3 * h * d and not k.is_contiguous()
+    assert attn._granule(d, 2, (q.stride(2), k.stride(2)), (q, k, v)) == 16
+    _check(q, k, v, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t", [(1, 12, 197), (1, 12, 588), (6, 16, 257)])
+def test_f32_route_at_the_metric_shapes(cuda, b, h, t):
+    # stage 6 in f32: ViT-B a frame, VideoMAE over 6 frames, CLIP ViT-L
+    g = torch.Generator("cuda").manual_seed(t)
+    q, k, v = (torch.randn((b, h, t, 64), generator=g, device="cuda")
+               for _ in range(3))
+    _check(q, k, v, torch.float32)
+
+
+@pytest.mark.cuda
+def test_native_gif_codec_builds_into_the_package(cuda):
+    import numpy as np
+
+    from neurons_tpu_torch import native_io
+
+    assert native_io.available()
+    assert native_io.library_path().exists()
+    assert native_io.library_path().parent == native_io.BUILD_DIR
+    rng = np.random.default_rng(0)
+    frames = np.repeat(rng.integers(0, 256, (6, 16, 24, 1), dtype=np.uint8)
+                       // 64 * 64, 3, axis=-1)
+    data = native_io.encode_gif(frames)
+    assert data[:6] == b"GIF89a"
+    assert np.array_equal(native_io.decode_gif(data), frames)

@@ -401,8 +401,14 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.interop.from_jax\n"
             "import neurons_tpu_torch.utils.synth_init\n"
             "import neurons_tpu_torch.training.loop\n"
+            "import neurons_tpu_torch.cli\n"
+            "import neurons_tpu_torch.models.blip2\n"
+            "import neurons_tpu_torch.evaluation.runner\n"
+            "import neurons_tpu_torch.pipelines.io\n"
+            "import neurons_tpu_torch.interop.torch_import\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'neurons_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'neurons_tpu', 'transformers', "
+            "'imageio')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
