@@ -97,6 +97,25 @@ Phases, in order:
      then `eval` with pixel metrics only and with the three full-width
      classifiers written as HF state dicts (s a scored clip, peak memory,
      flash launches 360 a clip, the report's ranges);
+  4c. the CLI (`cli_phase`): a CC2017 root of 2 test clips at full voxel
+     count and the reference's weight files at full width
+     (`write_cc2017_root`, `write_reference_weights`: seeded modules
+     through the exporters of `interop/torch_export.py`, about 29 GB in
+     a git-ignored directory, removed after), then `cli.main(["pipeline",
+     "35e6", "--n_test", "2", ...])` from them (stage 3 from the unclip6
+     checkpoint and the released ensemble, stage 5 from the SD-1.5 base,
+     motion module, LoRA and SparseCtrl with the captions through the
+     SD-1.5 text encoder, stage e, stage 6 with the classifiers): each
+     bundle's load seconds, bytes and host RSS, s/clip of stages 3 and 5
+     beside the library path's, peak memory by stage, every flash and
+     temporal launch held to `cli_launches`; stage 6 again with
+     `--platform cpu` on the same GIFs (SSIM and PSNR within 1e-5, the
+     other keys' differences logged with the classifiers' argsorts); and
+     `pipeline 12345e6 --tiny --synthetic` on the card against the CPU
+     (keyframes and videos within 2e-2, captions and stage-e class
+     predictions equal). Every shape the CLI launched that no earlier
+     check covered is then held by the same 1.5x rule
+     (`cli_kernel_checks`);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
      schedule, the core held in bf16) with seeded random weights and random
@@ -155,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -353,21 +373,27 @@ def attention_bwd_bound(b, h, tq, tk, d, esize, peak_flops, hkv, bias_elems):
     return _bound(10.0 * b * h * tq * tk * d, nbytes, peak_flops)
 
 
-def flash_phase():
-    """Flash kernel vs plain version at every shape of the clip. Returns
-    {shape: record}."""
+def flash_phase(checks=None):
+    """Flash kernel vs plain version at every shape of the clip (or at
+    `checks`, [(site, (B, H, Tq, Tk, D), dtype)]). Returns {shape:
+    record}."""
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import attention as attn
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     records = {}
-    checks = [(name, shape, torch.bfloat16) for name, shape in FLASH_SHAPES]
-    checks += [(name, shape, torch.float32) for name, shape in FLASH_SHAPES
-               if name in F32_CHECKS]
-    checks += [(name, shape, torch.float32) for name, shape in PANEL_SHAPES]
-    checks += [(name, shape, torch.bfloat16) for name, shape in CAPTION_SHAPES]
-    checks += [(name, shape, torch.float32) for name, shape in METRIC_SHAPES]
+    if checks is None:
+        checks = [(name, shape, torch.bfloat16)
+                  for name, shape in FLASH_SHAPES]
+        checks += [(name, shape, torch.float32) for name, shape
+                   in FLASH_SHAPES if name in F32_CHECKS]
+        checks += [(name, shape, torch.float32)
+                   for name, shape in PANEL_SHAPES]
+        checks += [(name, shape, torch.bfloat16)
+                   for name, shape in CAPTION_SHAPES]
+        checks += [(name, shape, torch.float32)
+                   for name, shape in METRIC_SHAPES]
     for name, (b, h, tq, tk, d), dt in checks:
         q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
         k = torch.randn((b, h, tk, d), generator=gen, device="cuda")
@@ -432,22 +458,24 @@ def temporal_bound(bf, d, c, esize, peak_flops):
                                        else "bytes")
 
 
-def temporal_phase():
-    """Temporal kernel vs plain version at every shape of the clip, both
-    against the float64 result on the same inputs. Returns {shape:
-    record}."""
+def temporal_phase(checks=None):
+    """Temporal kernel vs plain version at every shape of the clip (or at
+    `checks`, [(site, ((B F), D, C, F, H), dtype)]), both against the
+    float64 result on the same inputs. Returns {shape: record}."""
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import temporal_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    f, h = N_FRAMES, MOTION_HEADS
     gen = torch.Generator("cuda").manual_seed(SEED)
     records = {}
-    checks = [(name, shape, torch.bfloat16) for name, shape in TEMPORAL_SHAPES]
-    checks += [(name, shape, torch.float32) for name, shape
-               in TEMPORAL_SHAPES if name in TEMPORAL_F32_CHECKS]
-    for name, (bf, d, c), dt in checks:
+    if checks is None:
+        checks = [(name, shape + (N_FRAMES, MOTION_HEADS), torch.bfloat16)
+                  for name, shape in TEMPORAL_SHAPES]
+        checks += [(name, shape + (N_FRAMES, MOTION_HEADS), torch.float32)
+                   for name, shape in TEMPORAL_SHAPES
+                   if name in TEMPORAL_F32_CHECKS]
+    for name, (bf, d, c, f, h), dt in checks:
         hd, scale = c // h, (c // h) ** -0.5
         q, k, v = (torch.randn((bf, d, c), generator=gen, device="cuda")
                    .to(dt) for _ in range(3))
@@ -540,18 +568,20 @@ def oracle_f64(q, k, v, bias, g, scale):
     return want
 
 
-def train_kernel_phase():
+def train_kernel_phase(checks=None):
     """The training kernels (forward with lse, backward) vs their plain
-    versions at every stage-2 shape. Returns {(B, H, Tq, Tk, D, dtype,
-    variant): record} for the forward and for the backward."""
+    versions at every stage-2 shape (or at `checks`, [(site, (B, H, Tq, Tk,
+    D, kv heads), bias shape or None, dtype)]). Returns {(B, H, Tq, Tk, D,
+    dtype, variant): record} for the forward and for the backward."""
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import attention as attn
 
     fwd_records, bwd_records = {}, {}
-    checks = [(n, s, bs, torch.bfloat16) for n, s, bs in TRAIN_SHAPES]
-    checks += [(n, s, bs, torch.float32) for n, s, bs in TRAIN_SHAPES
-               if n in TRAIN_F32_CHECKS]
+    if checks is None:
+        checks = [(n, s, bs, torch.bfloat16) for n, s, bs in TRAIN_SHAPES]
+        checks += [(n, s, bs, torch.float32) for n, s, bs in TRAIN_SHAPES
+                   if n in TRAIN_F32_CHECKS]
     for name, (b, h, tq, tk, d, hkv), bshape, dt in checks:
         gen = torch.Generator("cuda").manual_seed(SEED)
 
@@ -1217,6 +1247,9 @@ def clip_gn_launches(models, pcfg, fused: bool):
                              * s.video_steps)}
 
 
+LIBRARY_STAGE_S: dict = {}  # the unfused clip's last request: s a stage
+
+
 def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
     """`n_requests` full-width clips one at a time in one configuration (the
     caller sets it), the same seeds in either; the kernels' launch counts
@@ -1265,6 +1298,8 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
             raise AssertionError(f"{name} clip: #7/#8 launches {got} differ "
                                  f"from the count from the code {expected}")
         per_request.append(s3 + s5)
+        if not fused:
+            LIBRARY_STAGE_S.update({"3": s3, "5": s5})
         if r == 0:
             first = (art, vid)
     by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
@@ -1510,7 +1545,7 @@ def attn_site_launches(model, latent, rows, n_levels, up_by_level,
 
 
 def sampler_launches(models, pcfg, s3_opts, s5_opts, latents=(96, 32),
-                     batch=1, dtype="bfloat16"):
+                     batch=1, dtype="bfloat16", stages="35"):
     """{"flash_attn_fwd": {key: n}, "temporal_attn_fwd": {key: n}} of one
     clip's two samplers (the unCLIP UNet over `unclip_steps` at
     latents[0], the UNet3D and SparseCtrl over `video_steps` at latents[1];
@@ -1531,7 +1566,7 @@ def sampler_launches(models, pcfg, s3_opts, s5_opts, latents=(96, 32),
       temporal reused) or none; encoder reuse's cached steps the UNet3D's
       mid and up sites and no SparseCtrl.
     The 77-token text cross-attention of stage 5 is never a flash
-    launch."""
+    launch. `stages` picks the samplers counted ("3", "5" or both)."""
     import collections
 
     _, unet, _, _, unet3d, cn = models
@@ -1551,8 +1586,10 @@ def sampler_launches(models, pcfg, s3_opts, s5_opts, latents=(96, 32),
         return attn_site_launches(unet, latents[0], rows, n2, True, which,
                                   sites, ctx, dtype)
 
-    n = s.unclip_steps
-    if s3_opts.get("tgate_step", 0) > 0:
+    n = s.unclip_steps if "3" in stages else 0
+    if not n:
+        pass
+    elif s3_opts.get("tgate_step", 0) > 0:
         m = min(max(int(s3_opts["tgate_step"]), 1), n)
         p = s3_opts.get("tgate_pab", 0)
         add(step2(b2), m)
@@ -1592,8 +1629,10 @@ def sampler_launches(models, pcfg, s3_opts, s5_opts, latents=(96, 32),
         return attn_site_launches(cn, latents[1], 2 * batch * f, n3, False,
                                   dtype=dtype)
 
-    n = s.video_steps
-    if s5_opts.get("tgate_step", 0) > 0:
+    n = s.video_steps if "5" in stages else 0
+    if not n:
+        pass
+    elif s5_opts.get("tgate_step", 0) > 0:
         m = min(max(int(s5_opts["tgate_step"]), 1), n)
         p = s5_opts.get("tgate_pab", 0)
         add(step3(2 * batch * f), m)
@@ -2494,34 +2533,6 @@ def stage1_checkpoints():
         torch.cuda.empty_cache()
 
 
-@contextlib.contextmanager
-def weights_drawn_on_cpu():
-    """The trainers' seeded random weights (`synth_params_`) drawn on the
-    CPU and copied to the model's device: a generator on the card draws
-    other numbers than one on the CPU, so without it the card's tiny runs
-    would start from other weights than the CPU's."""
-    import copy
-
-    import torch
-    from neurons_tpu_torch.training import train_brain as tb
-    from neurons_tpu_torch.training import train_decoupler as td
-    from neurons_tpu_torch.utils.synth_init import synth_params_
-
-    def on_cpu(module, seed=0):
-        cpu = synth_params_(copy.deepcopy(module).to("cpu"), seed)
-        with torch.no_grad():
-            for p, q in zip(module.parameters(), cpu.parameters()):
-                p.copy_(q)
-        return module
-
-    old = tb.synth_params_, td.synth_params_
-    tb.synth_params_ = td.synth_params_ = on_cpu
-    try:
-        yield
-    finally:
-        tb.synth_params_, td.synth_params_ = old
-
-
 def chained_tiny_check():
     """The tiny chain on the card against the CPU, f32: `run_stage1` (2
     epochs, checkpointed) -> `load_stage1_core` -> `run_stage2(core_params=
@@ -2540,16 +2551,12 @@ def chained_tiny_check():
     import torch
     from neurons_tpu_torch import config
     from neurons_tpu_torch.data import cc2017
-    from neurons_tpu_torch.diffusion.prior import PriorDiffusion, PriorNoise
-    from neurons_tpu_torch.models.decoder_video import DecoderDropout
-    from neurons_tpu_torch.diffusion.prior import PriorDraws
+    from neurons_tpu_torch.diffusion.prior import PriorNoise
     from neurons_tpu_torch.models.gpt2 import tiny_gpt2_config
     from neurons_tpu_torch.pipelines import e2e
     from neurons_tpu_torch.pipelines import keyframe as kf
     from neurons_tpu_torch.training import loop
-    from neurons_tpu_torch.training import train_decoupler as td
     from neurons_tpu_torch.utils import checkpoint as ckpt
-    from neurons_tpu_torch.utils.prng import epoch_generator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     pcfg = config.tiny_pipeline_config()
@@ -2565,8 +2572,6 @@ def chained_tiny_check():
         16, c.voxel_counts[0], **kw)
     test, test_table, _ = cc2017.structured_synthetic_split(
         8, c.voxel_counts[0], seed=1, train=False, **kw)
-    diffusion = PriorDiffusion.create(pcfg.prior.timesteps,
-                                      pcfg.prior.cond_drop_prob, device="cpu")
     lat, b = 32, 2
     g = torch.Generator().manual_seed(SEED)
     tok = (b, c.clip_seq_dim, c.clip_emb_dim)
@@ -2584,24 +2589,17 @@ def chained_tiny_check():
     cpu_models = build_models((pcfg, gcfg), "cpu", torch.float32, 7)
     outs = {}
     for dev in ("cpu", "cuda"):
-        def draws(epoch, it, batch):
-            shape = {"clip_vision_target": batch["clip_vision_target"].cpu()}
-            d = td.draw_stage2(diffusion, shape, dcfg,
-                               epoch_generator(tcfg.seed, epoch, it))
-            return td.Stage2Draws(
-                PriorDraws(*(x.to(dev) for x in d.prior)),
-                DecoderDropout(*(x.to(dev) for x in d.dropout)))
-
-        with ckpt_tmpdir(f"tiny chain, {dev}") as d, weights_drawn_on_cpu():
+        with ckpt_tmpdir(f"tiny chain, {dev}") as d:
             r1, r2 = Recorder(), Recorder()
             loop.run_stage1(c, tcfg, train, test, table, test_table,
-                            ckpt_dir=d, logger=r1, device=dev)
+                            ckpt_dir=d, logger=r1, host_draws=True,
+                            device=dev)
             s2 = loop.run_stage2(
                 c, pcfg.prior, dcfg, tcfg, gcfg, train,
                 loop.structured_stage2_batch_builder(table, aux, train, dcfg,
                                                      gcfg.vocab_size),
                 core_params=ckpt.load_stage1_core(d), ckpt_dir=d, logger=r2,
-                last_save_every=1, draws=draws, device=dev)
+                last_save_every=1, host_draws=True, device=dev)
             models = [copy.deepcopy(m).to(dev) for m in cpu_models]
             ckpt.load_decoupler_params(d, models[0])
             same = all(torch.equal(p, s2.params[n])
@@ -3177,9 +3175,631 @@ def stage46_phase(sample):
     return by_path, {"caption batch": batches, "scored clip": SCORED_CLIPS}
 
 
+# --- the CLI: stages 3, 5, e and 6 at full width, the tiny chain ------------
+
+CLI_CLIPS = 2       # test clips of the full-width `pipeline 35e6`
+CLI_FRAMES = 6      # frames of a stage-5 GIF (16 -> 4:, every other one)
+# a small CLIP BPE merges table (the first line is the format's header)
+BPE_MERGES = ["#version: 0.2", "t o", "to k", "tok e", "toke n", "token s",
+              "a n</w>", "i n</w>", "t h", "th e</w>", "s c", "sc e",
+              "sce n", "scen e</w>"]
+
+
+def write_cc2017_root(root: Path, n: int, rng, txt_dim: int = 1280):
+    """The CC2017 test split of subject 1 at its real widths (13447 voxels,
+    three repeats, 6 frames of 224 px) in the layout `load_split` reads,
+    with its captions, qwen annotation, test key-object masks and info,
+    the class-name table `class_text_embeds.npy`, and a BPE merges file.
+    Returns the merges file's path."""
+    import numpy as np
+    import torch
+    from neurons_tpu_torch.config import SUBJECT_VOXELS
+    from neurons_tpu_torch.data.categories import CLS_DICT
+
+    (root / "qwen_annotation").mkdir(parents=True)
+    (root / "masks").mkdir()
+
+    def save(x, name):
+        torch.save(torch.from_numpy(np.ascontiguousarray(x)), root / name)
+
+    save(rng.standard_normal((n, 3, SUBJECT_VOXELS[1]), dtype=np.float32),
+         "subj01_test_fmri.pt")
+    save(rng.uniform(size=(n, 6, 3, 224, 224)).astype(np.float32),
+         "GT_test_3fps.pt")
+    save(rng.standard_normal((n, txt_dim), dtype=np.float32),
+         "GT_test_caption_emb.pt")
+    torch.save([f"a {CLS_DICT[i]} in the scene" for i in range(n)],
+               root / "GT_test_caption.pt")
+    with open(root / "qwen_annotation" /
+              "qwen_test_caption_tag_category_id.json", "w") as f:
+        json.dump([{"category_id": [i, (i + 3) % 51]} for i in range(n)], f)
+    save((rng.uniform(size=(n, 6, 224, 224)) < 0.3).astype(np.float32),
+         "masks/key_objects_masks_qwen_test.pt")
+    with open(root / "masks" / "key_objects_info_qwen_test.json", "w") as f:
+        json.dump({str(i): {"category": CLS_DICT[i + 1]} for i in range(n)},
+                  f)
+    np.save(root / "class_text_embeds.npy",
+            rng.standard_normal((51, txt_dim), dtype=np.float32))
+    merges = root / "bpe_simple_vocab.txt"
+    merges.write_text("\n".join(BPE_MERGES) + "\n")
+    return merges
+
+
+def full_width_configs() -> dict:
+    """The configurations the CLI runs at full width: stage 3's, stage 5's
+    (16 frames) and the ensemble's."""
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.models.clip import CLIPTextConfig
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+
+    pcfg = config.PipelineConfig()
+    return dict(unet2d=pcfg.unet2d, vae=pcfg.vae, unet3d=pcfg.unet3d,
+                n_frames=16, brain=pcfg.brain, prior=pcfg.prior,
+                decoupler=pcfg.decoupler, gpt2=GPT2Config(),
+                text=CLIPTextConfig.sd15())
+
+
+def write_reference_weights(weights: Path, cfgs=None, device="cuda",
+                            classifiers: bool = True) -> dict:
+    """The reference's weight files at full width, from modules with
+    seeded random weights (`synth_params_`, every head non-zero) drawn on
+    the card, through the exporters of `interop/torch_export.py` (the
+    importers inverted): the unclip6 Lightning checkpoint (live UNet
+    weights in bf16, their EMA shadows and the VAE in f32), the SD-1.5
+    base as fp16 safetensors (LDM UNet, VAE, text encoder), the motion
+    module and SparseCtrl in fp16, a rank-32 LoRA over every spatial
+    attention projection, the NEURONS ensemble in f32 and the three
+    classifiers of stage 6 (`classifiers`). `cfgs` are the widths
+    (`full_width_configs()` by default). Returns {file: (bytes,
+    seconds)}."""
+    import re
+
+    import torch
+    from neurons_tpu_torch.interop import convert_ldm
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.models.clip import CLIPTextTower
+    from neurons_tpu_torch.models.neurons import NeuronsDecoupler
+    from neurons_tpu_torch.models.sparse_controlnet import \
+        SparseControlNetModel
+    from neurons_tpu_torch.models.unet2d import UNetModel
+    from neurons_tpu_torch.models.unet3d import UNet3DModel
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    weights.mkdir(parents=True, exist_ok=True)
+    c = cfgs or full_width_configs()
+    out = {}
+
+    def tree_of(build, seed):
+        m = synth_params_(build(device=device), seed)
+        tree = tex.jax_tree(m)
+        del m
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return tree
+
+    def prefixed(prefix, sd):
+        return {prefix + k: v for k, v in sd.items()}
+
+    def saved(name, write):
+        t0 = time.perf_counter()
+        write(str(weights / name))
+        out[name] = (os.path.getsize(weights / name),
+                     time.perf_counter() - t0)
+        log(f"cli: wrote {name}: {out[name][0] / 1e9:.3f} GB in "
+            f"{out[name][1]:.1f} s")
+
+    ucfg, vcfg, u3 = c["unet2d"], c["vae"], c["unet3d"]
+    ldm = prefixed("model.diffusion_model.", tex.ldm_unet_state_dict(
+        tree_of(lambda **kw: UNetModel(ucfg, **kw), SEED + 50), ucfg))
+    sd = {k: -v for k, v in tex.to_torch(ldm, torch.bfloat16).items()}
+    sd.update(tex.to_torch(tex.ema_state_dict(ldm)))
+    del ldm
+    sd.update(tex.to_torch(prefixed("first_stage_model.",
+                                    tex.ldm_vae_state_dict(tree_of(
+                                        lambda **kw: AutoencoderKL(vcfg, **kw),
+                                        SEED + 51), vcfg))))
+    saved("unclip6_epoch0_step110000.ckpt", lambda p: torch.save(
+        {"state_dict": sd, "epoch": 0, "global_step": 110000}, p))
+    del sd
+
+    tree = tree_of(lambda **kw: UNet3DModel(u3, n_frames=c["n_frames"],
+                                            **kw), SEED + 52)
+    base = prefixed("model.diffusion_model.",
+                    tex.ldm_unet3d_state_dict(tree, u3))
+    mm = tex.motion_module_state_dict(tree, u3)
+    del tree
+    diffusers = convert_ldm.convert_ldm_unet_to_diffusers(
+        {k[len("model.diffusion_model."):]: v for k, v in base.items()})
+    keys = sorted(k for k in diffusers if re.search(
+        r"attentions\.\d+\.transformer_blocks\.0\.attn[12]\."
+        r"(to_q|to_k|to_v|to_out\.0)\.weight$", k))
+    lora = tex.lora_state_dict(keys, {k: diffusers[k].shape for k in keys},
+                               rank=32, seed=SEED + 53)
+    del diffusers
+    base.update(prefixed("first_stage_model.", tex.ldm_vae_state_dict(
+        tree_of(lambda **kw: AutoencoderKL(vcfg, **kw), SEED + 54), vcfg)))
+    ccfg = c["text"]
+    text = tree_of(lambda **kw: CLIPTextTower(ccfg, **kw), SEED + 55)
+    text.pop("text_projection")  # SD's text encoder has none
+    base.update(prefixed("cond_stage_model.transformer.",
+                         tex.hf_clip_text_state_dict(text, ccfg.layers)))
+    saved("realisticVisionV60B1_v51VAE.safetensors",
+          lambda p: tex.write_safetensors(
+              p, tex.to_torch(base, torch.float16), {"format": "pt"}))
+    del base
+    saved("v3_sd15_mm.ckpt", lambda p: torch.save(
+        tex.to_torch(mm, torch.float16), p))
+    del mm
+    saved("v3_sd15_adapter.ckpt", lambda p: torch.save(
+        tex.to_torch(lora), p))
+    cn = tex.sparse_controlnet_state_dict(tree_of(
+        lambda **kw: SparseControlNetModel(u3, n_frames=c["n_frames"], **kw),
+        SEED + 56), u3)
+    saved("v3_sd15_sparsectrl_rgb.ckpt", lambda p: torch.save(
+        tex.to_torch(cn, torch.float16), p))
+    del cn
+    b, pr, gcfg = c["brain"], c["prior"], c["gpt2"]
+    ens = tex.neurons_ensemble_state_dict(
+        tree_of(lambda **kw: NeuronsDecoupler(b, pr, c["decoupler"], gcfg,
+                                              **kw), SEED + 57),
+        n_blocks=b.n_blocks, prior_depth=pr.depth, gpt2_layers=gcfg.n_layer)
+    saved("brain_model_prior_last.pth", lambda p: torch.save(
+        {"model_state_dict": tex.to_torch(ens), "epoch": 149}, p))
+    del ens
+    if classifiers:
+        t0 = time.perf_counter()
+        n = write_metric_weights(weights, CLI_FRAMES, device)
+        log(f"cli: wrote the stage-6 classifiers ({n / 1e9:.3f} B params) "
+            f"in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def decoder_video_launches(dec_video, rows: int, base: int, dtype: str):
+    """Flash launches of one DecoderVideo forward at `rows` rows, counted
+    from its structure: every spatial attention (single head, d = the
+    block's channels) at its block's side (`base` in the mid block and
+    the first up block, doubled by each upsample); the temporal attention
+    runs over `rows` frames, a flash launch only from 128."""
+    import collections
+    from neurons_tpu_torch.models.decoder_video import _SpatialTemporalAttn
+
+    out = collections.Counter()
+    blocks = [(dec_video.mid_block, base)] + [
+        (getattr(dec_video, f"up_block_{i}"), base << i)
+        for i in range(dec_video.n_up)]
+    for block, side in blocks:
+        for m in block.children():
+            if isinstance(m, _SpatialTemporalAttn):
+                c = m.attn.to_q.in_features
+                t = side * side
+                if t >= 128:
+                    out[(rows, 1, t, t, c, dtype, "")] += 1
+                if rows >= 128:
+                    out[(t, 1, rows, rows, c, dtype, "")] += 1
+    return out
+
+
+def cli_launches(n_clips: int):
+    """Flash and temporal launches of `pipeline 35e6 --n_test n_clips` at
+    full width with the classifiers present, counted from the code:
+      stage 3 (one batch of n_clips, bf16): the unCLIP sampler at that
+      batch (`sampler_launches`), the VAE decoder's mid attention once a
+      keyframe (96 x 96 latents) and once a blurry frame (64 x 64), the
+      DecoderVideo once over n_clips x 6 rows;
+      stage 5 (batch 1 a clip, bf16): the UNet3D and SparseCtrl sampler,
+      the VAE encoder on the 16 interpolated frames and on the keyframe,
+      the decoder on the 16 frames (32 x 32 latents);
+      stage e (f32): the DecoderVideo once over n_clips x 6 rows;
+      stage 6 (f32): `scored_clip_launches` a clip."""
+    import collections
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.models.neurons import NeuronsDecoupler
+    from neurons_tpu_torch.models.sparse_controlnet import \
+        SparseControlNetModel
+    from neurons_tpu_torch.models.unet2d import UNetModel
+    from neurons_tpu_torch.models.unet3d import UNet3DModel
+
+    pcfg = config.PipelineConfig()
+    with torch.device("meta"):
+        dec = NeuronsDecoupler(pcfg.brain, pcfg.prior, pcfg.decoupler,
+                               GPT2Config(), device="meta")
+        unet = UNetModel(pcfg.unet2d, device="meta")
+        unet3d = UNet3DModel(pcfg.unet3d, n_frames=16, device="meta")
+        cn = SparseControlNetModel(pcfg.unet3d, n_frames=16, device="meta")
+    models = (dec, unet, None, None, unet3d, cn)
+    flash, temporal = collections.Counter(), collections.Counter()
+    s3 = sampler_launches(models, pcfg, {}, {}, batch=n_clips, stages="3")
+    s5 = sampler_launches(models, pcfg, {}, {}, batch=1, stages="5")
+    flash.update(s3["flash_attn_fwd"])
+    for k, v in s5["flash_attn_fwd"].items():
+        flash[k] += v * n_clips
+    for k, v in s5["temporal_attn_fwd"].items():
+        temporal[k] += v * n_clips
+    rows = n_clips * pcfg.decoupler.n_frames
+    vae = lambda b, side: (b, 1, side * side, side * side, 512,  # noqa
+                           "bfloat16", "")
+    flash[vae(1, 96)] += n_clips
+    flash[vae(1, 64)] += rows
+    flash.update(decoder_video_launches(dec.text_seg_dec.video_decoder, rows,
+                                        16, "bfloat16"))
+    flash[vae(16, 32)] += 2 * n_clips
+    flash[vae(1, 32)] += n_clips
+    flash.update(decoder_video_launches(dec.text_seg_dec.video_decoder, rows,
+                                        16, "float32"))
+    for k, v in scored_clip_launches(CLI_FRAMES).items():
+        flash[k] += v * n_clips
+    return {"flash_attn_fwd": dict(flash), "temporal_attn_fwd":
+            dict(temporal)}
+
+
+class _RecordGrids:
+    """`pipelines/io.save_video_grid` wrapped to keep a copy of each grid
+    (ground truth beside the video, f32, before the GIF's quantisation)."""
+
+    def __enter__(self):
+        from neurons_tpu_torch.pipelines import io
+        self.io, self.original, self.grids = io, io.save_video_grid, {}
+
+        def record(videos, path, *a, **kw):
+            self.grids[os.path.basename(path)] = videos.copy()
+            return self.original(videos, path, *a, **kw)
+
+        io.save_video_grid = record
+        return self
+
+    def __exit__(self, *exc):
+        self.io.save_video_grid = self.original
+
+
+def cli_counters():
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.ops.temporal_attention import \
+        TEMPORAL_ATTN_LAUNCHES
+    return {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+            "flash_attn_bwd": FLASH_BWD_LAUNCHES,
+            "temporal_attn_fwd": TEMPORAL_ATTN_LAUNCHES, **gn_counters()}
+
+
+def run_cli(argv, what: str):
+    """`cli.main(argv)` with every launch counter zeroed just before and
+    read just after; returns ({kernel: {key: launches}}, the pipeline's
+    per-stage rows, wall seconds)."""
+    import tempfile
+
+    import torch
+    from neurons_tpu_torch import cli
+
+    counters = cli_counters()
+    fd, report = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    os.environ["NEURONS_TPU_PIPELINE_REPORT"] = report
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    finally:
+        del os.environ["NEURONS_TPU_PIPELINE_REPORT"]
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    with open(report) as f:
+        rows = json.load(f)
+    os.remove(report)
+    log(f"cli {what}: {wall:.1f} s, launches "
+        f"{ {k: sum(v.values()) for k, v in launches.items()} }")
+    for r in rows:
+        log(f"cli {what} stage {r['stage']}: {json.dumps(r)}")
+    return launches, rows, wall
+
+
+def check_cli_outputs(exp: str, n: int, hw: int, frames: int,
+                      blurry_frames: int, what: str, n_gifs=None):
+    """Stage 3's artifacts (names, shapes, ranges), the GIFs stage 6 reads,
+    and the metric report of one `pipeline` run; returns the report."""
+    import numpy as np
+    from neurons_tpu_torch.pipelines import io
+
+    st3 = io.stage3_dir(exp, "exp1", 1, False)
+    art = io.load_stage3_artifacts(st3, 1)
+    rec, blur = art["all_recons"], art["blurry_videos"]
+    caps = io.load_captions(st3, "self")
+    vdir = io.video_dir(exp, "exp1", 1, "motion")
+    gifs = sorted(f for f in os.listdir(vdir) if f.endswith(".gif"))
+    frames_ok = all(io.load_gif(os.path.join(vdir, g)).shape[0] == frames
+                    for g in gifs)
+    with open(os.path.join(io.exp_dir(exp, "exp1", 1),
+                           "metrics_motion.json")) as f:
+        report = json.load(f)
+    checks = {
+        f"recons [{n},3,{hw},{hw}]": rec.shape == (n, 3, hw, hw),
+        f"blurry [{n},{blurry_frames},3,...]": blur.shape[:3] == (
+            n, blurry_frames, 3),
+        "artifacts finite": bool(np.isfinite(rec).all()
+                                 and np.isfinite(blur).all()),
+        "artifacts in [0,1] to 1e-6": bool(
+            rec.min() >= -1e-6 and rec.max() <= 1 + 1e-6
+            and blur.min() >= -1e-6 and blur.max() <= 1 + 1e-6),
+        "captions": len(caps) == n and all(
+            c.startswith("tokens:") for c in caps),
+        f"{n_gifs or n} GIFs of {frames} frames": (
+            len(gifs) == (n_gifs or n) and frames_ok),
+        "GIF names": all(g.split("-", 1)[0].isdigit() for g in gifs),
+        "report finite": all(np.isfinite(v) for v in report.values()),
+    }
+    log(f"cli {what} outputs: {checks}; report {report}; GIFs {gifs}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli {what}: outputs fail {failed}")
+    return report, art
+
+
+def compare_reports(card: dict, cpu: dict, what: str) -> dict:
+    """Stage 6's report on the card against the CPU's on the same GIFs:
+    SSIM and PSNR within 1e-5 (relative); every other key logged with its
+    difference (an n-way accuracy or CLIP-pcc that differs is not a
+    failure here: ROADMAP queue 3 records it). Returns the differences."""
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"{what}: report keys differ: {sorted(card)} vs "
+                             f"{sorted(cpu)}")
+    diffs = {k: card[k] - cpu[k] for k in card}
+    bad = [k for k in ("ssim", "psnr")
+           if abs(diffs[k]) > 1e-5 * max(1.0, abs(cpu[k]))]
+    log(f"{what}: card {card}; CPU {cpu}; card - CPU {diffs}; SSIM/PSNR "
+        f"within 1e-5: {not bad}")
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ beyond 1e-5")
+    return diffs
+
+
+def explain_nway_differences(vdir: str, weights: str):
+    """Where an n-way accuracy or CLIP-pcc differs between the card and
+    the CPU: the classifiers' outputs on the same frames on both (ViT-B
+    logits of every ground-truth and predicted frame, VideoMAE logits of
+    every clip, CLIP embeddings), their largest difference, and on how
+    many rows the top-1 class and the full argsort differ (a tie or near
+    tie that the card's TF32 attention reorders)."""
+    import numpy as np
+    from neurons_tpu_torch.evaluation.runner import (build_metric_classifiers,
+                                                     load_gif_dir)
+
+    gts, preds = load_gif_dir(vdir)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cls = build_metric_classifiers(weights, CLI_FRAMES, device=dev)
+        frames = [f for clip in (*gts, *preds) for f in clip]
+        outs[dev] = {
+            "frame logits": np.stack([cls.img_logits_fn(f) for f in frames]),
+            "video logits": np.stack([cls.video_logits_fn(c)
+                                      for c in (*gts, *preds)]),
+            "clip embeddings": np.concatenate([cls.clip_embed_fn(c)
+                                               for c in preds])}
+    for name in outs["cpu"]:
+        a, b = outs["cuda"][name], outs["cpu"][name]
+        msg = f"n-way difference, {name}: max |card - CPU| " \
+              f"{np.abs(a - b).max():.3e} of max {np.abs(b).max():.3e}"
+        if "logits" in name:
+            msg += (f", top-1 differs on {int((a.argmax(-1) != b.argmax(-1)).sum())}"
+                    f" of {len(a)} rows, argsort on "
+                    f"{int((np.argsort(a, -1) != np.argsort(b, -1)).any(-1).sum())}")
+        log(msg)
+
+
+def cli_phase():
+    """The port's CLI on the card.
+
+    1. Full width: a CC2017 root of 2 test clips (`write_cc2017_root`) and
+       the reference's weight files (`write_reference_weights`), then
+       `pipeline 35e6 --n_test 2` from them: stage 3 from the unclip6
+       checkpoint and the reference ensemble (bf16, batch 2), stage 5 from
+       the SD-1.5 base, motion module, LoRA and SparseCtrl with the
+       captions through the SD-1.5 text encoder (the non-synthetic
+       branch), stage e (f32) and stage 6 with the three classifiers.
+       Each bundle's load seconds, bytes and host peak RSS; s/clip of
+       stages 3 and 5 beside the library path's (the clip phase); each
+       stage's peak device memory; every flash and temporal launch held
+       to `cli_launches` (no GN launch: unfused); the artifacts, GIFs and
+       report checked.
+    2. Stage 6 again on the same GIFs with `--platform cpu`: SSIM and PSNR
+       within 1e-5 of the card's; the other keys' differences logged.
+    3. `pipeline 12345e6 --tiny --synthetic --num_epochs 1` on the card and
+       with `--platform cpu` (weights and stage-2 draws made on the CPU for
+       both): stage-3 keyframes and stage-5 videos within 2e-2 of max
+       |CPU|, equal caption tokens, equal stage-e class predictions, the
+       same report keys.
+    Files live in a git-ignored directory of the checkout, removed after.
+    Returns ({path: {kernel: launches by shape}}, {path: runs})."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from neurons_tpu_torch.data import clip_tokenizer
+    from neurons_tpu_torch.pipelines import io
+
+    rng = np.random.default_rng(SEED)
+    by_path = {}
+    with ckpt_tmpdir("cli: dataset, reference weights, EXP") as d:
+        d = Path(d)
+        root, weights, exp = d / "cc2017", d / "weights", d / "EXP"
+        merges = write_cc2017_root(root, CLI_CLIPS, rng)
+        t0 = time.perf_counter()
+        files = write_reference_weights(weights)
+        total = sum(b for b, _ in files.values())
+        log(f"cli: reference weight files {total / 1e9:.3f} GB in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{shutil.disk_usage(d).free} bytes free")
+        old_bpe = os.environ.get("CLIP_BPE_PATH")
+        os.environ["CLIP_BPE_PATH"] = str(merges)
+        clip_tokenizer._tokenizer = None
+        common = ["--root_dir", str(root), "--weights_dir", str(weights),
+                  "--exp_dir", str(exp), "--seed", str(SEED)]
+        try:
+            with configuration(False):
+                torch.cuda.empty_cache()
+                launches, rows, wall = run_cli(
+                    ["pipeline", "35e6", "--n_test", str(CLI_CLIPS),
+                     *common], "pipeline 35e6 (full width)")
+        finally:
+            clip_tokenizer._tokenizer = None
+            if old_bpe is None:
+                del os.environ["CLIP_BPE_PATH"]
+            else:
+                os.environ["CLIP_BPE_PATH"] = old_bpe
+        from neurons_tpu_torch import cli
+        for name, st in cli._LOAD_STATS.items():
+            log(f"cli load {name}: {st['seconds']:.3f} s, "
+                f"{st['bytes'] / 1e9:.3f} GB, host RSS "
+                f"{st['rss_before_bytes'] / 2**30:.2f} GiB before, peak "
+                f"{st['peak_rss_bytes'] / 2**30:.2f} GiB")
+        by_stage = {r["stage"]: r for r in rows}
+        for s in ("3", "5"):
+            log(f"cli stage {s}: steady {by_stage[s]['steady_s_per_clip']} "
+                f"s/clip through the CLI (setup "
+                f"{by_stage[s].get('setup_s')} s) vs "
+                f"{LIBRARY_STAGE_S.get(s, float('nan')):.3f} s/clip on the "
+                f"library path (the clip phase's stage {s})")
+        log("cli peak device memory by stage (GiB): " + ", ".join(
+            f"{r['stage']} {r.get('peak_device_gib')}" for r in rows)
+            + f"; wall {wall:.1f} s")
+        want = cli_launches(CLI_CLIPS)
+        problems = []
+        for kernel in ("flash_attn_fwd", "temporal_attn_fwd"):
+            got = launches[kernel]
+            for key in sorted(set(got) | set(want[kernel]), key=str):
+                if got.get(key, 0) != want[kernel].get(key, 0):
+                    problems.append(f"{kernel} {key}: {got.get(key, 0)} "
+                                    f"launched, {want[kernel].get(key, 0)} "
+                                    f"from the code")
+        extra = [k for k in ("flash_attn_bwd", "gn_silu", "gn_silu_conv")
+                 if launches[k]]
+        log(f"cli launches equal the count from the code: "
+            f"{not problems and not extra}")
+        if problems or extra:
+            raise AssertionError(f"cli launches differ from the count from "
+                                 f"the code: {problems[:8]} {extra}")
+        by_path["cli pipeline 35e6"] = launches
+        report_card, _ = check_cli_outputs(str(exp), CLI_CLIPS, 256,
+                                           CLI_FRAMES, 6, "full width")
+        e = by_stage["e"]
+        log(f"cli stage e: dice {e['dice']:.4f} accuracy "
+            f"{e['cls_accuracy']:.4f} precision {e['cls_precision']:.4f} "
+            f"recall {e['cls_recall']:.4f} in {e['s']} s")
+
+        # 2. stage 6 on the CPU over the same GIFs
+        t0 = time.perf_counter()
+        cli.main(["eval", "--platform", "cpu", *common])
+        log(f"cli eval on the CPU: {time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(io.exp_dir(str(exp), "exp1", 1),
+                               "metrics_motion.json")) as f:
+            report_cpu = json.load(f)
+        diffs = compare_reports(report_card, report_cpu,
+                                "stage 6 full width card vs CPU")
+        if any(diffs[k] for k in diffs if k not in ("ssim", "psnr")):
+            explain_nway_differences(
+                io.video_dir(str(exp), "exp1", 1, "motion"), str(weights))
+        shutil.rmtree(weights)
+        log(f"cli: weights removed; {shutil.disk_usage(d).free} bytes free")
+
+        # 3. the tiny chain 12345e6, card against CPU
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            tiny = ["pipeline", "12345e6", "--tiny", "--synthetic",
+                    "--num_epochs", "1", "--platform", dev, "--exp_dir",
+                    str(d / f"tiny_{dev}"), "--weights_dir",
+                    str(d / "no_weights"), "--root_dir", str(d / "no_root"),
+                    "--seed", str(SEED)]
+            with configuration(False), _RecordGrids() as grids:
+                launches, rows, _ = run_cli(tiny, f"tiny 12345e6 {dev}")
+            if dev == "cuda":
+                by_path["cli tiny 12345e6"] = launches
+                for k in ("flash_attn_fwd", "flash_attn_bwd",
+                          "temporal_attn_fwd"):
+                    if not launches[k]:
+                        raise AssertionError(f"the tiny chain launched no "
+                                             f"{k} on the card")
+            # stage 5 takes the first 2 of stage 3's 4 clips under --tiny
+            rep, art = check_cli_outputs(str(d / f"tiny_{dev}"), 4, 16, 4,
+                                         2, f"tiny {dev}", n_gifs=2)
+            outs[dev] = (art, dict(grids.grids), rep,
+                         next(r for r in rows if r["stage"] == "e"))
+        (a_gpu, g_gpu, r_gpu, e_gpu), (a_cpu, g_cpu, r_cpu, e_cpu) = (
+            outs["cuda"], outs["cpu"])
+
+        def rel(x, y):
+            return float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+
+        kf_err = rel(a_gpu["all_recons"], a_cpu["all_recons"])
+        vid = [rel(g_gpu[k], g_cpu[k]) for k in sorted(g_cpu)]
+        ok = (kf_err <= 2e-2 and sorted(g_gpu) == sorted(g_cpu)
+              and max(vid) <= 2e-2
+              and a_gpu["captions"] == a_cpu["captions"]
+              and e_gpu["cls_pred"] == e_cpu["cls_pred"]
+              and sorted(r_gpu) == sorted(r_cpu))
+        log(f"cli tiny 12345e6 card vs CPU: keyframes rel err {kf_err:.3e}, "
+            f"videos {[f'{v:.3e}' for v in vid]} (<= 2e-2), captions equal "
+            f"{a_gpu['captions'] == a_cpu['captions']}, stage-e class "
+            f"predictions equal {e_gpu['cls_pred'] == e_cpu['cls_pred']}, "
+            f"dice {e_gpu['dice']:.6f} vs {e_cpu['dice']:.6f}, report keys "
+            f"{sorted(r_gpu)}: {ok}")
+        if not ok:
+            raise AssertionError("the tiny CLI chain on the card disagrees "
+                                 "with the CPU")
+    return by_path, {"cli pipeline 35e6": CLI_CLIPS, "cli tiny 12345e6": 1}
+
+
+def cli_kernel_checks(by_path, flash_records, temporal_records,
+                      train_records):
+    """Every shape the CLI runs launched that the kernel phases did not
+    check, held to the same rule now (the flash forward, the forward with
+    lse, the backward and the temporal kernel): the records gain them."""
+    import torch
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    flash, temporal, train = [], [], {}
+    for path, launches in by_path.items():
+        for key in launches["flash_attn_fwd"]:
+            b, h, tq, tk, d, dt, variant = key
+            if variant == "" and key not in flash_records:
+                flash.append((f"{path} {b}x{tq}", (b, h, tq, tk, d),
+                              dts[dt]))
+            elif variant and key not in train_records[0]:
+                train[key[:6] + ("bias" in variant,)] = path
+        for key in launches["flash_attn_bwd"]:
+            b, h, tq, tk, d, dt, variant = key
+            if key not in train_records[1]:
+                train[key[:6] + (variant == "bias",)] = path
+        for key in launches["temporal_attn_fwd"]:
+            if key not in temporal_records:
+                bf, d, c, f, h, dt = key
+                temporal.append((f"{path} {bf}x{d}", (bf, d, c, f, h),
+                                 dts[dt]))
+    # the port's training sites: a bias is the prior's per-head bias over
+    # multi-query k/v (one kv head); without one, kv heads = heads
+    train_checks = [(f"{path} {b}x{tq}", (b, h, tq, tk, d, 1 if bias else h),
+                     (h, tq, tk) if bias else None, dts[dt])
+                    for (b, h, tq, tk, d, dt, bias), path
+                    in sorted(train.items(), key=str)]
+    log(f"cli kernel checks: {len(flash)} flash, {len(temporal)} temporal, "
+        f"{len(train_checks)} training shapes the kernel phases had not "
+        f"checked")
+    if flash:
+        flash_records.update(flash_phase(flash))
+    if temporal:
+        temporal_records.update(temporal_phase(temporal))
+    if train_checks:
+        fwd, bwd = train_kernel_phase(train_checks)
+        train_records[0].update(fwd)
+        train_records[1].update(bwd)
+
+
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
                    train_by_shape, gn_records, fused_by_shapes, f32_checks,
-                   ptxas, runs, fast_by_shape, stage46_by_path):
+                   ptxas, runs, fast_by_shape, stage46_by_path,
+                   cli_by_path):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
     (the unfused clip's, then stage 2's, then the fast clip's, the "max"
     preset, then stage 4's caption batch and stage 6's scored clip; for #7
@@ -3248,6 +3868,78 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                 "library_ms": rec["library_ms"],
             })
             groups.append(("flash_attn_fwd", path, runs[path]))
+    for path, kernels in cli_by_path.items():
+        for key, launches in sorted(kernels["flash_attn_fwd"].items()):
+            b, h, tq, tk, d, dt, variant = key
+            rec = fwd_records.get(key)
+            if rec is None:
+                raise AssertionError(f"the {path} launched the flash kernel "
+                                     f"at {key}, a shape no check held")
+            entries.append({
+                "name": (f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} "
+                         + ("bf16" if dt == "bfloat16" else "f32")
+                         + (f" {variant}" if variant else "") + f" {path}]"),
+                "route": "cuda",
+                "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
+                "replaces": ("neurons_tpu/ops/attention.py:185"
+                             if "bias" in variant else
+                             "neurons_tpu/ops/attention.py:137"
+                             if tk * 2 <= 4608 else
+                             "neurons_tpu/ops/attention.py:226"),
+                "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+                **({"device_ms": rec["device_ms"]} if "device_ms" in rec
+                   else {}),
+            })
+            groups.append(("flash_attn_fwd", path, runs[path]))
+        for key, launches in sorted(kernels["flash_attn_bwd"].items()):
+            b, h, tq, tk, d, dt, variant = key
+            rec = train_records[1].get(key)
+            if rec is None:
+                raise AssertionError(f"the {path} launched the flash "
+                                     f"backward at {key}, a shape no check "
+                                     f"held")
+            entries.append({
+                "name": (f"flash_attn_bwd[{b}x{h}x{tq}x{tk}x{d} "
+                         + ("bf16" if dt == "bfloat16" else "f32")
+                         + (f" {variant}" if variant else "") + f" {path}]"),
+                "route": "cuda",
+                "source": "neurons_tpu_torch/csrc/flash_attn_bwd.cu",
+                "replaces": ("neurons_tpu/ops/attention.py:458" if variant
+                             else "neurons_tpu/ops/attention.py:276"),
+                "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+                "library_bwd_ms": rec["library_bwd_ms"],
+            })
+            groups.append(("flash_attn_bwd", path, runs[path]))
+        for key, launches in sorted(kernels["temporal_attn_fwd"].items()):
+            bf, d, c, f, h, dt = key
+            rec = temporal_records.get(key)
+            if rec is None:
+                raise AssertionError(f"the {path} launched the temporal "
+                                     f"kernel at {key}, a shape no check "
+                                     f"held")
+            entries.append({
+                "name": (f"temporal_attn_fwd[{bf}x{d}x{c} F{f} H{h} "
+                         + ("bf16" if dt == "bfloat16" else "f32")
+                         + f" {path}]"),
+                "route": "cuda",
+                "source": "neurons_tpu_torch/csrc/temporal_attn_fwd.cu",
+                "replaces": "neurons_tpu/ops/temporal_attention.py:91",
+                "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "device_ms": rec["device_ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+            })
+            groups.append(("temporal_attn_fwd", path, runs[path]))
     for key, launches in sorted(train_by_shape["flash_attn_bwd"].items()):
         b, h, tq, tk, d, dt, variant = key
         rec = train_records[1].get(key)
@@ -3434,6 +4126,7 @@ def main():
     with configuration(False):
         stage46_by_path, stage46_runs = stage46_phase(sample)
     del sample
+    cli_by_path, cli_runs = cli_phase()
     with configuration(False):
         train_by_shape, fused_train_by_shape = train_phase()
         stage1_phase()
@@ -3444,6 +4137,8 @@ def main():
     gn_records = gn_kernel_phase(
         *({k for _, shapes in fused_by_shapes for k in shapes[kernel]}
           for kernel in ("gn_silu", "gn_silu_conv")))
+    cli_kernel_checks(cli_by_path, flash_records, temporal_records,
+                      train_records)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     # the clips and steps the counted runs span: 2 requests a
     # configuration, run_stage2's steps, the 4 fixed fused steps
@@ -3452,12 +4147,12 @@ def main():
                     / sum(STEP_LAUNCHES["flash_attn_bwd"].values()))
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
             "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
-            "fused step": FIXED_STEPS, **stage46_runs}
+            "fused step": FIXED_STEPS, **stage46_runs, **cli_runs}
     record = kernels_record(flash_records, temporal_records, train_records,
                             clip_by_shape[False], train_by_shape, gn_records,
                             fused_by_shapes, f32_check_records(flash_records),
                             ptxas, runs, fast_by_config[FAST_PRESET],
-                            stage46_by_path)
+                            stage46_by_path, cli_by_path)
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
         f"{t['kernel_s']:.4f}" + (f" (device {t['device_s']:.4f})"

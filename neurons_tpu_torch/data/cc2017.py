@@ -5,8 +5,8 @@ Counterpart of neurons_tpu/data/cc2017.py (numpy only): the split's field
 contract, random splits for tests and benches (`synthetic_split`, and
 `structured_synthetic_split`, whose targets are learnable), and shuffled
 fixed-size batches carrying each sample's dataset index (precomputed-table
-lookups address rows by it). Loading the released tensors (`load_split`) is not
-ported yet.
+lookups address rows by it), and the loader of the released tensors
+(`load_split`, with the caption tokens and the multi-hot class labels).
 
 Train tensors (lengths as the released dataset):
   voxel         [4320, 2, n_voxels]   two fMRI repeats
@@ -21,6 +21,8 @@ Train tensors (lengths as the released dataset):
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
@@ -48,6 +50,81 @@ class CC2017Split:
     @property
     def n_voxels(self) -> int:
         return self.voxel.shape[-1]
+
+
+def load_split(root_dir: str, subj: int, train: bool) -> CC2017Split:
+    """Load the released CC2017 tensors of one subject and split. torch
+    reads the .pt files (weights only); everything becomes numpy. The
+    test split's voxels are the mean over the repeats; its key-object
+    masks (`masks/key_objects_masks_qwen_test.pt`, which stage e scores
+    against) are optional, the train split's are not."""
+    import torch
+
+    tag = "train" if train else "test"
+
+    def _load(name):
+        return torch.load(os.path.join(root_dir, name), map_location="cpu",
+                          weights_only=True)
+
+    voxel = _load(f"subj0{subj}_{tag}_fmri.pt").float().numpy()
+    if not train:
+        voxel = voxel.mean(axis=1, keepdims=True)
+    images = _load(f"GT_{tag}_3fps.pt").numpy()
+    text_emb = _load(f"GT_{tag}_caption_emb.pt").float().numpy()
+
+    with open(os.path.join(root_dir, "qwen_annotation",
+                           f"qwen_{tag}_caption_tag_category_id.json")) as f:
+        cls_json = json.load(f)
+    cls_label = np.stack([_multi_hot(c["category_id"]) for c in cls_json])
+
+    kw = {}
+    if train:
+        mask_name, info_name = ("key_objects_masks_train.pt",
+                                "key_objects_info_train.json")
+    else:
+        mask_name, info_name = ("key_objects_masks_qwen_test.pt",
+                                "key_objects_info_qwen_test.json")
+    mask_path = os.path.join(root_dir, "masks", mask_name)
+    if train or os.path.exists(mask_path):
+        masks = _load(os.path.join("masks", mask_name))
+        masks = (masks.numpy() > 0).astype(np.float32)
+        with open(os.path.join(root_dir, "masks", info_name)) as f:
+            info = json.load(f)
+        from neurons_tpu_torch.data.categories import CLS_DICT
+        name_to_id = {v: k for k, v in CLS_DICT.items()}
+        key_cls = np.array([name_to_id.get(info[str(i)]["category"], 0)
+                            for i in range(len(info))], np.int32)
+        kw = dict(key_obj_masks=masks, key_obj_cls=key_cls)
+
+    tokens = tokenize_captions(root_dir, tag)
+    return CC2017Split(voxel=voxel, images=images, text_emb=text_emb,
+                       clip_tokens=tokens, cls_label=cls_label, **kw)
+
+
+def tokenize_captions(root_dir: str, tag: str) -> Optional[np.ndarray]:
+    """CLIP-BPE tokens of the raw captions `GT_{tag}_caption.pt`, cut or
+    zero-padded to 60; None when the file is absent. The captions are a
+    pickled list or array of strings, read as the JAX package reads them
+    (`weights_only=False`)."""
+    path = os.path.join(root_dir, f"GT_{tag}_caption.pt")
+    if not os.path.exists(path):
+        return None
+    import torch
+    caps = torch.load(path, map_location="cpu", weights_only=False)
+    from neurons_tpu_torch.data.clip_tokenizer import tokenize
+    toks = tokenize(list(np.asarray(caps).reshape(-1)), context_length=77)
+    out = np.zeros((len(toks), MAX_TOKENS), np.int64)
+    for i, t in enumerate(toks):
+        t = t[:MAX_TOKENS]
+        out[i, :len(t)] = t
+    return out
+
+
+def _multi_hot(ids, n_classes: int = 51) -> np.ndarray:
+    v = np.zeros((n_classes,), np.float32)
+    ids = np.atleast_1d(np.asarray(ids)).astype(int)
+    v[ids[(ids >= 0) & (ids < n_classes)]] = 1.0
+    return v
 
 
 def synthetic_split(n: int = 16, n_voxels: int = 120, n_frames: int = N_FRAMES,

@@ -17,7 +17,7 @@ or a shape that differs raises.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -38,12 +38,11 @@ def _target(module: nn.Module, key: str, arr: np.ndarray):
     return key, arr
 
 
-def load_jax_params(module: nn.Module, params: Mapping) -> None:
-    """Fill every parameter of `module` from `params`, the flax "params"
-    tree as nested dicts of numpy arrays."""
-    expected = {id(p): name for name, p in module.named_parameters()}
-    filled = set()
-    unused = []
+def _walk(module: nn.Module, params: Mapping, unused: list):
+    """Yield (port parameter name, parameter, array in the port's layout)
+    for every leaf of `params` that names a parameter of `module`; leaves
+    that name none go to `unused`. Shapes must agree."""
+    names = {id(p): n for n, p in module.named_parameters()}
 
     def walk(mod: nn.Module, tree: Mapping, prefix: str):
         for key, val in tree.items():
@@ -53,7 +52,7 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
                 if child is None:
                     unused.append(path + "/...")
                 else:
-                    walk(child, val, path + "/")
+                    yield from walk(child, val, path + "/")
                 continue
             arr = np.asarray(val)
             if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
@@ -68,13 +67,38 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
                 raise ValueError(f"{path}: JAX shape {jax_shape} (as "
                                  f"{tuple(arr.shape)} in the port's layout) "
                                  f"!= port shape {tuple(param.shape)}")
-            with torch.no_grad():
-                param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-            filled.add(id(param))
+            yield names[id(param)], param, arr
 
-    walk(module, params, "")
+    yield from walk(module, params, "")
+
+
+def load_jax_params(module: nn.Module, params: Mapping,
+                    strict: bool = True) -> int:
+    """Fill the parameters of `module` from `params`, the flax "params"
+    tree as nested dicts of numpy arrays (each cast to the parameter's
+    dtype on its device). Strict: every parameter filled and every leaf
+    used, else this raises; `strict=False` is the JAX package's
+    `restore_into` layering (parameters the tree lacks keep their values,
+    leaves the module lacks are dropped). Returns how many were filled."""
+    expected = {id(p): name for name, p in module.named_parameters()}
+    filled = set()
+    unused: list = []
+    for _, param, arr in _walk(module, params, unused):
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        filled.add(id(param))
     missing = sorted(name for pid, name in expected.items()
                      if pid not in filled)
-    if missing or unused:
+    if strict and (missing or unused):
         raise ValueError(f"load_jax_params: port parameters left unfilled "
                          f"{missing}; JAX leaves left unused {unused}")
+    return len(filled)
+
+
+def jax_named_tensors(module: nn.Module, params: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """{port parameter name: CPU f32 tensor} of the leaves of `params`
+    that name a parameter of `module` (which may live on the meta
+    device): a partial flax tree as an overlay of the port's names."""
+    return {name: torch.from_numpy(np.ascontiguousarray(arr))
+            for name, _, arr in _walk(module, params, [])}

@@ -1,13 +1,24 @@
 """HF PyTorch checkpoints -> the port's modules, through the flax tree.
 
 Counterpart of the importers of neurons_tpu/interop/torch_import.py that
-stages 4 and 6 call, copied so that each returns the same nested numpy
-tree and the same list of unused source keys as its JAX twin:
+stages 1-6 call, copied so that each returns the same nested numpy tree and
+the same list of unused source keys as its JAX twin:
 
   * HF CLIPVisionModel(WithProjection)        -> models.clip.CLIPVisionTower
   * HF ViTForImageClassification              -> models.vit.ViTClassifier
   * HF VideoMAEForVideoClassification         -> models.vit.ViTClassifier
   * HF Blip2ForConditionalGeneration (OPT)    -> models.blip2.Blip2Captioner
+  * HF GPT-2                                  -> models.gpt2.TextDecoder
+  * HF CLIPTextModel (SD-1.5's text encoder)  -> models.clip.CLIPTextTower
+  * diffusers / LDM AutoencoderKL             -> models.vae.AutoencoderKL
+  * LDM/sgm UNet (the unclip6 checkpoint)     -> models.unet2d.UNetModel
+  * diffusers SD-1.5 UNet + AnimateDiff
+    motion modules                            -> models.unet3d.UNet3DModel
+  * AnimateDiff SparseCtrl                    -> models.sparse_controlnet
+  * the reference's NEURONS ensemble, stage-1
+    core, MindEye2 backbone, coco clipproj    -> models.neurons
+plus the helpers of the loaders (`strip_prefix`, `ldm_apply_ema`,
+`filter_motion_module`, `merge_lora`).
 
 `interop/from_jax.py:load_jax_params` then fills the port module from the
 tree; `load_torch_checkpoint` does both steps. Conventions: torch Linear
@@ -280,3 +291,778 @@ def import_blip2(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
         }
     p["lm"] = lm
     return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers: sub-model selection, 1x1 convs as linears, LoRA, EMA
+# ---------------------------------------------------------------------------
+
+def strip_prefix(state_dict: Dict, prefix: str) -> Dict:
+    """Select the sub-model of a Lightning checkpoint (e.g.
+    'model.diffusion_model.' or 'first_stage_model.' of the unclip6 ckpt,
+    reference recon_keyframe_neurons.py:257-259)."""
+    return {k[len(prefix):]: v for k, v in state_dict.items()
+            if k.startswith(prefix)}
+
+
+def _maybe_1x1(w: np.ndarray) -> np.ndarray:
+    """A torch 1x1 Conv2d weight [out, in, 1, 1] used as a linear ->
+    flax Dense kernel [in, out]."""
+    if w.ndim == 4:
+        w = w.squeeze(-1).squeeze(-1)
+    return w.T
+
+
+def _lin_or_1x1(sd, key) -> Dict[str, np.ndarray]:
+    out = {"kernel": _maybe_1x1(t2j(sd[f"{key}.weight"]))}
+    if f"{key}.bias" in sd:
+        out["bias"] = t2j(sd[f"{key}.bias"])
+    return out
+
+def merge_lora(weight: np.ndarray, up: np.ndarray, down: np.ndarray,
+               alpha: float = 0.75) -> np.ndarray:
+    """W += alpha * up @ down (reference convert_lora...py:50-120). Handles
+    conv LoRA by squeezing the trailing 1x1 dims."""
+    if up.ndim == 4:
+        up = up.squeeze(-1).squeeze(-1)
+        down = down.squeeze(-1).squeeze(-1)
+        delta = (up @ down)[:, :, None, None]
+    else:
+        delta = up @ down
+    return weight + alpha * delta
+
+
+def ldm_apply_ema(state_dict: Dict) -> Tuple[Dict, int]:
+    """Swap LitEma shadow weights into the live UNet params — the
+    inference-time effect of the reference's `ema_scope()` (reference
+    sgm/modules/ema.py:41-60 stores each param 'a.b.c' of `self.model`
+    under 'model_ema.' + 'abc', dots stripped; utils.py:307 enters the
+    scope around unclip sampling). Returns (new state dict, n swapped)."""
+    ema = {k[len("model_ema."):]: v for k, v in state_dict.items()
+           if k.startswith("model_ema.")
+           and k not in ("model_ema.num_updates", "model_ema.decay")}
+    out = dict(state_dict)
+    swapped = 0
+    for k in state_dict:
+        if not k.startswith("model."):
+            continue
+        mangled = k[len("model."):].replace(".", "")
+        if mangled in ema:
+            out[k] = ema[mangled]
+            swapped += 1
+    return out, swapped
+
+
+def filter_motion_module(state_dict: Dict) -> Dict:
+    """reference animatediff/utils/util.py:106-122: keep only
+    'motion_modules.' entries and drop the recomputed positional buffer."""
+    return {k: v for k, v in state_dict.items()
+            if "motion_modules." in k and "pos_encoder.pe" not in k}
+
+
+# ---------------------------------------------------------------------------
+# HF GPT-2 -> models.gpt2.TextDecoder
+# ---------------------------------------------------------------------------
+
+def import_gpt2(state_dict: Dict, n_layer: int) -> Tuple[Dict, List[str]]:
+    """HF GPT2LMHeadModel state dict -> TextDecoder params subtree
+    {wte, lm: {wpe, h_i: {...}, ln_f}}. GPT-2 Conv1D weights are stored
+    [in, out] (no transpose)."""
+    sd = _Tracker({k.replace("transformer.", ""): v
+                   for k, v in state_dict.items()
+                   if not k.startswith("lm_head")})
+    params: Dict[str, Any] = {
+        "wte": t2j(sd["wte.weight"]),
+        "lm": {"wpe": t2j(sd["wpe.weight"]),
+               "ln_f": norm(sd, "ln_f")},
+    }
+    for i in range(n_layer):
+        p = f"h.{i}"
+        params["lm"][f"h_{i}"] = {
+            "ln_1": norm(sd, f"{p}.ln_1"),
+            "c_attn": {"kernel": t2j(sd[f"{p}.attn.c_attn.weight"]),
+                       "bias": t2j(sd[f"{p}.attn.c_attn.bias"])},
+            "c_proj": {"kernel": t2j(sd[f"{p}.attn.c_proj.weight"]),
+                       "bias": t2j(sd[f"{p}.attn.c_proj.bias"])},
+            "ln_2": norm(sd, f"{p}.ln_2"),
+            "mlp_fc": {"kernel": t2j(sd[f"{p}.mlp.c_fc.weight"]),
+                       "bias": t2j(sd[f"{p}.mlp.c_fc.bias"])},
+            "mlp_proj": {"kernel": t2j(sd[f"{p}.mlp.c_proj.weight"]),
+                         "bias": t2j(sd[f"{p}.mlp.c_proj.bias"])},
+        }
+    unused = [k for k in sd.unused() if not k.endswith("attn.bias")
+              and not k.endswith("attn.masked_bias")]
+    return params, unused
+
+
+# ---------------------------------------------------------------------------
+# HF CLIP text (SD-1.5's text encoder) -> models.clip.CLIPTextTower
+# ---------------------------------------------------------------------------
+
+def import_hf_clip_text(state_dict: Dict, layers: int
+                        ) -> Tuple[Dict, List[str]]:
+    """HF CLIPTextModel (SD-1.5's `cond_stage_model.transformer`, openai/
+    clip-vit-large-patch14 layout) -> CLIPTextTower params."""
+    sd = _Tracker({k.replace("text_model.", ""): v
+                   for k, v in state_dict.items()
+                   if "position_ids" not in k})
+    params: Dict[str, Any] = {
+        "token_embedding": t2j(sd["embeddings.token_embedding.weight"]),
+        "positional_embedding": t2j(
+            sd["embeddings.position_embedding.weight"]),
+        "ln_final": norm(sd, "final_layer_norm"),
+    }
+    if "text_projection.weight" in sd:
+        params["text_projection"] = t2j(sd["text_projection.weight"]).T
+    for i in range(layers):
+        p = f"encoder.layers.{i}"
+        qw = t2j(sd[f"{p}.self_attn.q_proj.weight"])
+        kw = t2j(sd[f"{p}.self_attn.k_proj.weight"])
+        vw = t2j(sd[f"{p}.self_attn.v_proj.weight"])
+        qb = t2j(sd[f"{p}.self_attn.q_proj.bias"])
+        kb = t2j(sd[f"{p}.self_attn.k_proj.bias"])
+        vb = t2j(sd[f"{p}.self_attn.v_proj.bias"])
+        params[f"resblock_{i}"] = {
+            "ln_1": norm(sd, f"{p}.layer_norm1"),
+            "in_proj": {"kernel": np.concatenate([qw, kw, vw], 0).T,
+                        "bias": np.concatenate([qb, kb, vb], 0)},
+            "out_proj": linear(sd, f"{p}.self_attn.out_proj"),
+            "ln_2": norm(sd, f"{p}.layer_norm2"),
+            "mlp_fc": linear(sd, f"{p}.mlp.fc1"),
+            "mlp_proj": linear(sd, f"{p}.mlp.fc2"),
+        }
+    return params, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# diffusers AutoencoderKL -> models.vae.AutoencoderKL
+# ---------------------------------------------------------------------------
+
+def import_diffusers_vae(state_dict: Dict, num_blocks: int,
+                         layers_per_block: int = 2
+                         ) -> Tuple[Dict, List[str]]:
+    sd = _Tracker(dict(state_dict))
+    p: Dict[str, Any] = {
+        "quant_conv": conv(sd, "quant_conv"),
+        "post_quant_conv": conv(sd, "post_quant_conv"),
+        "encoder": {"conv_in": conv(sd, "encoder.conv_in"),
+                    "norm_out": norm(sd, "encoder.conv_norm_out"),
+                    "conv_out": conv(sd, "encoder.conv_out")},
+        "decoder": {"conv_in": conv(sd, "decoder.conv_in"),
+                    "norm_out": norm(sd, "decoder.conv_norm_out"),
+                    "conv_out": conv(sd, "decoder.conv_out")},
+    }
+
+    def resnet(prefix):
+        r = {"norm1": norm(sd, f"{prefix}.norm1"),
+             "conv1": conv(sd, f"{prefix}.conv1"),
+             "norm2": norm(sd, f"{prefix}.norm2"),
+             "conv2": conv(sd, f"{prefix}.conv2")}
+        if f"{prefix}.conv_shortcut.weight" in sd:
+            r["nin_shortcut"] = conv(sd, f"{prefix}.conv_shortcut")
+        return r
+
+    def attn(prefix):
+        return {"norm": norm(sd, f"{prefix}.group_norm"),
+                "q": linear(sd, f"{prefix}.to_q"),
+                "k": linear(sd, f"{prefix}.to_k"),
+                "v": linear(sd, f"{prefix}.to_v"),
+                "proj_out": linear(sd, f"{prefix}.to_out.0")}
+
+    for i in range(num_blocks):
+        for j in range(layers_per_block):
+            p["encoder"][f"down_{i}_block_{j}"] = resnet(
+                f"encoder.down_blocks.{i}.resnets.{j}")
+        if f"encoder.down_blocks.{i}.downsamplers.0.conv.weight" in sd:
+            p["encoder"][f"down_{i}_downsample"] = {
+                "conv": conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv")}
+        for j in range(layers_per_block + 1):
+            key = f"decoder.up_blocks.{i}.resnets.{j}"
+            if f"{key}.norm1.weight" in sd:
+                p["decoder"][f"up_{i}_block_{j}"] = resnet(key)
+        if f"decoder.up_blocks.{i}.upsamplers.0.conv.weight" in sd:
+            p["decoder"][f"up_{i}_upsample"] = {
+                "conv": conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv")}
+
+    for tower in ("encoder", "decoder"):
+        p[tower]["mid_block_1"] = resnet(f"{tower}.mid_block.resnets.0")
+        p[tower]["mid_block_2"] = resnet(f"{tower}.mid_block.resnets.1")
+        p[tower]["mid_attn"] = attn(f"{tower}.mid_block.attentions.0")
+    return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# LDM/sgm UNet (unclip6 Lightning ckpt) -> models.unet2d.UNetModel
+# ---------------------------------------------------------------------------
+
+def _ldm_resblock(sd, p: str) -> Dict[str, Any]:
+    """OpenAI-UNet ResBlock (reference openaimodel.py:210-356):
+    in_layers(GN,SiLU,conv) / emb_layers(SiLU,linear) / out_layers
+    (GN,SiLU,drop,conv) / skip_connection."""
+    r = {"in_norm": norm(sd, f"{p}.in_layers.0"),
+         "in_conv": conv(sd, f"{p}.in_layers.2"),
+         "emb_proj": linear(sd, f"{p}.emb_layers.1"),
+         "out_norm": norm(sd, f"{p}.out_layers.0"),
+         "out_conv": conv(sd, f"{p}.out_layers.3")}
+    if f"{p}.skip_connection.weight" in sd:
+        r["skip_conv"] = conv(sd, f"{p}.skip_connection")
+    return r
+
+
+def _ldm_transformer(sd, p: str, depth: int) -> Dict[str, Any]:
+    """sgm SpatialTransformer (reference attention.py:619-759); proj_in/
+    proj_out are Linear under use_linear_in_transformer, else 1x1 conv."""
+    t: Dict[str, Any] = {"norm": norm(sd, f"{p}.norm"),
+                         "proj_in": _lin_or_1x1(sd, f"{p}.proj_in"),
+                         "proj_out": _lin_or_1x1(sd, f"{p}.proj_out")}
+    for d in range(depth):
+        q = f"{p}.transformer_blocks.{d}"
+        t[f"block_{d}"] = {
+            "norm1": norm(sd, f"{q}.norm1"),
+            "attn1": {"to_q": linear(sd, f"{q}.attn1.to_q"),
+                      "to_k": linear(sd, f"{q}.attn1.to_k"),
+                      "to_v": linear(sd, f"{q}.attn1.to_v"),
+                      "to_out": linear(sd, f"{q}.attn1.to_out.0")},
+            "norm2": norm(sd, f"{q}.norm2"),
+            "attn2": {"to_q": linear(sd, f"{q}.attn2.to_q"),
+                      "to_k": linear(sd, f"{q}.attn2.to_k"),
+                      "to_v": linear(sd, f"{q}.attn2.to_v"),
+                      "to_out": linear(sd, f"{q}.attn2.to_out.0")},
+            "norm3": norm(sd, f"{q}.norm3"),
+            "ff": {"proj_in": linear(sd, f"{q}.ff.net.0.proj"),
+                   "proj_out": linear(sd, f"{q}.ff.net.2")},
+        }
+    return t
+
+
+def import_ldm_unet(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
+    """LDM/sgm `model.diffusion_model` state dict -> UNetModel params.
+
+    cfg is a config.UNet2DConfig; the input/output block
+    indexing follows reference openaimodel.py:526-699 (input_blocks),
+    :707-784 (output_blocks)."""
+    sd = _Tracker(dict(state_dict))
+    levels = len(cfg.channel_mult)
+    nres = cfg.num_res_blocks
+    p: Dict[str, Any] = {
+        "time_embed_0": linear(sd, "time_embed.0"),
+        "time_embed_2": linear(sd, "time_embed.2"),
+        "conv_in": conv(sd, "input_blocks.0.0"),
+        "out_norm": norm(sd, "out.0"),
+        "out_conv": conv(sd, "out.2"),
+        "mid_res_0": _ldm_resblock(sd, "middle_block.0"),
+        "mid_attn": _ldm_transformer(sd, "middle_block.1",
+                                     cfg.transformer_depth[-1]),
+        "mid_res_1": _ldm_resblock(sd, "middle_block.2"),
+    }
+    if "label_emb.0.0.weight" in sd:  # num_classes='sequential' (adm)
+        p["label_emb_0"] = linear(sd, "label_emb.0.0")
+        p["label_emb_2"] = linear(sd, "label_emb.0.2")
+
+    idx, ds = 1, 1
+    for level in range(levels):
+        for i in range(nres):
+            p[f"down_{level}_res_{i}"] = _ldm_resblock(
+                sd, f"input_blocks.{idx}.0")
+            if ds in cfg.attention_resolutions:
+                p[f"down_{level}_attn_{i}"] = _ldm_transformer(
+                    sd, f"input_blocks.{idx}.1",
+                    cfg.transformer_depth[level])
+            idx += 1
+        if level != levels - 1:
+            p[f"down_{level}_downsample"] = {
+                "op": conv(sd, f"input_blocks.{idx}.0.op")}
+            idx += 1
+            ds *= 2
+
+    idx = 0
+    for level in reversed(range(levels)):
+        for i in range(nres + 1):
+            p[f"up_{level}_res_{i}"] = _ldm_resblock(
+                sd, f"output_blocks.{idx}.0")
+            sub = 1
+            if ds in cfg.attention_resolutions:
+                p[f"up_{level}_attn_{i}"] = _ldm_transformer(
+                    sd, f"output_blocks.{idx}.1",
+                    cfg.transformer_depth[level])
+                sub = 2
+            if level and i == nres:
+                p[f"up_{level}_upsample"] = {
+                    "conv": conv(sd, f"output_blocks.{idx}.{sub}.conv")}
+                ds //= 2
+            idx += 1
+    return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# LDM VAE (sgm AutoencoderKL / `first_stage_model`) -> models.vae
+# ---------------------------------------------------------------------------
+
+def import_ldm_vae(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
+    """sgm/LDM AutoencoderKL layout (reference sgm/modules/
+    diffusionmodules/model.py Encoder/Decoder; `first_stage_model.` of the
+    unclip6 ckpt). Differs from diffusers: down.{i}.block.{j}, mid.block_1/
+    attn_1/block_2, decoder.up INDEXED IN REVERSE application order, and
+    1x1-conv attention projections."""
+    sd = _Tracker(dict(state_dict))
+    nres = len(cfg.block_out_channels)
+
+    def resnet(prefix):
+        r = {"norm1": norm(sd, f"{prefix}.norm1"),
+             "conv1": conv(sd, f"{prefix}.conv1"),
+             "norm2": norm(sd, f"{prefix}.norm2"),
+             "conv2": conv(sd, f"{prefix}.conv2")}
+        if f"{prefix}.nin_shortcut.weight" in sd:
+            r["nin_shortcut"] = conv(sd, f"{prefix}.nin_shortcut")
+        return r
+
+    def attn(prefix):
+        return {"norm": norm(sd, f"{prefix}.norm"),
+                "q": _lin_or_1x1(sd, f"{prefix}.q"),
+                "k": _lin_or_1x1(sd, f"{prefix}.k"),
+                "v": _lin_or_1x1(sd, f"{prefix}.v"),
+                "proj_out": _lin_or_1x1(sd, f"{prefix}.proj_out")}
+
+    p: Dict[str, Any] = {
+        "quant_conv": conv(sd, "quant_conv"),
+        "post_quant_conv": conv(sd, "post_quant_conv"),
+        "encoder": {"conv_in": conv(sd, "encoder.conv_in"),
+                    "norm_out": norm(sd, "encoder.norm_out"),
+                    "conv_out": conv(sd, "encoder.conv_out"),
+                    "mid_block_1": resnet("encoder.mid.block_1"),
+                    "mid_attn": attn("encoder.mid.attn_1"),
+                    "mid_block_2": resnet("encoder.mid.block_2")},
+        "decoder": {"conv_in": conv(sd, "decoder.conv_in"),
+                    "norm_out": norm(sd, "decoder.norm_out"),
+                    "conv_out": conv(sd, "decoder.conv_out"),
+                    "mid_block_1": resnet("decoder.mid.block_1"),
+                    "mid_attn": attn("decoder.mid.attn_1"),
+                    "mid_block_2": resnet("decoder.mid.block_2")},
+    }
+    for i in range(nres):
+        for j in range(cfg.layers_per_block):
+            p["encoder"][f"down_{i}_block_{j}"] = resnet(
+                f"encoder.down.{i}.block.{j}")
+        if f"encoder.down.{i}.downsample.conv.weight" in sd:
+            p["encoder"][f"down_{i}_downsample"] = {
+                "conv": conv(sd, f"encoder.down.{i}.downsample.conv")}
+        # decoder.up is built with insert(0, ...) — up.{nres-1} runs first
+        # (reference model.py Decoder), our up_{i} runs in order.
+        src = nres - 1 - i
+        for j in range(cfg.layers_per_block + 1):
+            p["decoder"][f"up_{i}_block_{j}"] = resnet(
+                f"decoder.up.{src}.block.{j}")
+        if f"decoder.up.{src}.upsample.conv.weight" in sd:
+            p["decoder"][f"up_{i}_upsample"] = {
+                "conv": conv(sd, f"decoder.up.{src}.upsample.conv")}
+    return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# diffusers SD-1.5 UNet + AnimateDiff motion modules -> models.unet3d
+# ---------------------------------------------------------------------------
+
+def _diffusers_resnet(sd, p: str) -> Dict[str, Any]:
+    r = {"norm1": norm(sd, f"{p}.norm1"),
+         "conv1": conv(sd, f"{p}.conv1"),
+         "time_emb_proj": linear(sd, f"{p}.time_emb_proj"),
+         "norm2": norm(sd, f"{p}.norm2"),
+         "conv2": conv(sd, f"{p}.conv2")}
+    if f"{p}.conv_shortcut.weight" in sd:
+        r["conv_shortcut"] = conv(sd, f"{p}.conv_shortcut")
+    return r
+
+
+def _diffusers_transformer(sd, p: str) -> Dict[str, Any]:
+    """diffusers Transformer2DModel depth-1 (SD-1.5: 1x1-conv proj_in/out)
+    -> our Transformer3D flat naming (block_0_*)."""
+    q = f"{p}.transformer_blocks.0"
+    return {
+        "norm": norm(sd, f"{p}.norm"),
+        "proj_in": _lin_or_1x1(sd, f"{p}.proj_in"),
+        "proj_out": _lin_or_1x1(sd, f"{p}.proj_out"),
+        "block_0_norm1": norm(sd, f"{q}.norm1"),
+        "block_0_attn1": {"to_q": linear(sd, f"{q}.attn1.to_q"),
+                          "to_k": linear(sd, f"{q}.attn1.to_k"),
+                          "to_v": linear(sd, f"{q}.attn1.to_v"),
+                          "to_out": linear(sd, f"{q}.attn1.to_out.0")},
+        "block_0_norm2": norm(sd, f"{q}.norm2"),
+        "block_0_attn2": {"to_q": linear(sd, f"{q}.attn2.to_q"),
+                          "to_k": linear(sd, f"{q}.attn2.to_k"),
+                          "to_v": linear(sd, f"{q}.attn2.to_v"),
+                          "to_out": linear(sd, f"{q}.attn2.to_out.0")},
+        "block_0_norm3": norm(sd, f"{q}.norm3"),
+        "block_0_ff": {"proj_in": linear(sd, f"{q}.ff.net.0.proj"),
+                       "proj_out": linear(sd, f"{q}.ff.net.2")},
+    }
+
+
+def import_animatediff_unet3d(state_dict: Dict, cfg
+                              ) -> Tuple[Dict, List[str]]:
+    """diffusers SD-1.5 UNet2DConditionModel state dict -> UNet3DModel
+    params (the reference `from_pretrained_2d` path, unet.py:478-572 —
+    2D convs apply per-frame in the folded [(B F), H, W, C] layout, so
+    weights transfer unchanged). Motion-module params are NOT in this
+    checkpoint; merge them afterwards with import_motion_modules."""
+    sd = _Tracker(dict(state_dict))
+    p: Dict[str, Any] = {
+        "conv_in": conv(sd, "conv_in"),
+        "time_emb_1": linear(sd, "time_embedding.linear_1"),
+        "time_emb_2": linear(sd, "time_embedding.linear_2"),
+        "conv_norm_out": norm(sd, "conv_norm_out"),
+        "conv_out": conv(sd, "conv_out"),
+        "mid_res_0": _diffusers_resnet(sd, "mid_block.resnets.0"),
+        "mid_attn": _diffusers_transformer(sd, "mid_block.attentions.0"),
+        "mid_res_1": _diffusers_resnet(sd, "mid_block.resnets.1"),
+    }
+    for i, btype in enumerate(cfg.down_block_types):
+        is_cross = btype.startswith("CrossAttn")
+        for j in range(cfg.layers_per_block):
+            p[f"down_{i}_res_{j}"] = _diffusers_resnet(
+                sd, f"down_blocks.{i}.resnets.{j}")
+            if is_cross:
+                p[f"down_{i}_attn_{j}"] = _diffusers_transformer(
+                    sd, f"down_blocks.{i}.attentions.{j}")
+        if f"down_blocks.{i}.downsamplers.0.conv.weight" in sd:
+            p[f"down_{i}_downsample"] = conv(
+                sd, f"down_blocks.{i}.downsamplers.0.conv")
+    for i, btype in enumerate(cfg.up_block_types):
+        is_cross = btype.startswith("CrossAttn")
+        for j in range(cfg.layers_per_block + 1):
+            p[f"up_{i}_res_{j}"] = _diffusers_resnet(
+                sd, f"up_blocks.{i}.resnets.{j}")
+            if is_cross:
+                p[f"up_{i}_attn_{j}"] = _diffusers_transformer(
+                    sd, f"up_blocks.{i}.attentions.{j}")
+        if f"up_blocks.{i}.upsamplers.0.conv.weight" in sd:
+            p[f"up_{i}_upsample"] = conv(
+                sd, f"up_blocks.{i}.upsamplers.0.conv")
+    return p, sd.unused()
+
+
+def _motion_module(sd, p: str, num_blocks: int, num_attn: int
+                   ) -> Dict[str, Any]:
+    """AnimateDiff TemporalTransformer3DModel (reference motion_module.py:
+    173-222) -> our MotionModule flat naming. pos_encoder.pe buffers are
+    recomputed, not imported (reference util.py:106-122 drops them)."""
+    t = f"{p}.temporal_transformer"
+    m: Dict[str, Any] = {"norm": norm(sd, f"{t}.norm"),
+                         "proj_in": linear(sd, f"{t}.proj_in"),
+                         "proj_out": linear(sd, f"{t}.proj_out")}
+    for b in range(num_blocks):
+        q = f"{t}.transformer_blocks.{b}"
+        for a in range(num_attn):
+            m[f"block_{b}_attn_{a}_norm"] = norm(sd, f"{q}.norms.{a}")
+            m[f"block_{b}_attn_{a}"] = {
+                "to_q": linear(sd, f"{q}.attention_blocks.{a}.to_q"),
+                "to_k": linear(sd, f"{q}.attention_blocks.{a}.to_k"),
+                "to_v": linear(sd, f"{q}.attention_blocks.{a}.to_v"),
+                "to_out": linear(sd, f"{q}.attention_blocks.{a}.to_out.0")}
+        m[f"block_{b}_ff_norm"] = norm(sd, f"{q}.ff_norm")
+        m[f"block_{b}_ff"] = {"proj_in": linear(sd, f"{q}.ff.net.0.proj"),
+                              "proj_out": linear(sd, f"{q}.ff.net.2")}
+    return m
+
+
+def import_motion_modules(state_dict: Dict, cfg, params: Dict
+                          ) -> Tuple[Dict, List[str]]:
+    """AnimateDiff motion-module ckpt (already passed through
+    filter_motion_module) merged INTO unet3d params in place of the
+    randomly-initialised motion submodules."""
+    sd = _Tracker(dict(state_dict))
+    nb = cfg.motion_num_transformer_block
+    na = len(cfg.motion_attention_block_types)
+    for i in range(len(cfg.down_block_types)):
+        for j in range(cfg.layers_per_block):
+            key = f"down_blocks.{i}.motion_modules.{j}"
+            if f"{key}.temporal_transformer.norm.weight" in sd:
+                params[f"down_{i}_motion_{j}"] = _motion_module(
+                    sd, key, nb, na)
+    for i in range(len(cfg.up_block_types)):
+        for j in range(cfg.layers_per_block + 1):
+            key = f"up_blocks.{i}.motion_modules.{j}"
+            if f"{key}.temporal_transformer.norm.weight" in sd:
+                params[f"up_{i}_motion_{j}"] = _motion_module(
+                    sd, key, nb, na)
+    if "mid_block.motion_modules.0.temporal_transformer.norm.weight" in sd:
+        params["mid_motion_0"] = _motion_module(
+            sd, "mid_block.motion_modules.0", nb, na)
+    return params, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# AnimateDiff SparseCtrl ckpt -> models.sparse_controlnet
+# ---------------------------------------------------------------------------
+
+def import_sparse_controlnet(state_dict: Dict, cfg,
+                             motion_attention_blocks: int = 1
+                             ) -> Tuple[Dict, List[str]]:
+    """AnimateDiff SparseControlNetModel state dict (reference
+    animatediff/models/sparse_controlnet.py:85-315; v3_sd15_sparsectrl
+    ckpts) -> SparseControlNetModel params. Handles both the simplified
+    (single zero conv, latent conditioning) and full conv-stack condition
+    embeddings; mid-block motion modules, absent from our mid (matching
+    v3 configs), surface in the unused report."""
+    sd = _Tracker(dict(state_dict))
+    nb = cfg.motion_num_transformer_block
+    p: Dict[str, Any] = {
+        "conv_in": conv(sd, "conv_in"),
+        "time_emb_1": linear(sd, "time_embedding.linear_1"),
+        "time_emb_2": linear(sd, "time_embedding.linear_2"),
+        "mid_res_0": _diffusers_resnet(sd, "mid_block.resnets.0"),
+        "mid_attn": _diffusers_transformer(sd, "mid_block.attentions.0"),
+        "mid_res_1": _diffusers_resnet(sd, "mid_block.resnets.1"),
+        "controlnet_mid": conv(sd, "controlnet_mid_block"),
+    }
+    if "controlnet_cond_embedding.weight" in sd:  # simplified (zero conv)
+        p["cond_embedding"] = conv(sd, "controlnet_cond_embedding")
+    else:
+        p["cond_in"] = conv(sd, "controlnet_cond_embedding.conv_in")
+        p["cond_out"] = conv(sd, "controlnet_cond_embedding.conv_out")
+        i = 0
+        while f"controlnet_cond_embedding.blocks.{2 * i}.weight" in sd:
+            p[f"cond_b{i}a"] = conv(
+                sd, f"controlnet_cond_embedding.blocks.{2 * i}")
+            p[f"cond_b{i}b"] = conv(
+                sd, f"controlnet_cond_embedding.blocks.{2 * i + 1}")
+            i += 1
+    k = 0
+    while f"controlnet_down_blocks.{k}.weight" in sd:
+        p[f"controlnet_down_{k}"] = conv(sd, f"controlnet_down_blocks.{k}")
+        k += 1
+    for i, btype in enumerate(cfg.down_block_types):
+        is_cross = btype.startswith("CrossAttn")
+        for j in range(cfg.layers_per_block):
+            p[f"down_{i}_res_{j}"] = _diffusers_resnet(
+                sd, f"down_blocks.{i}.resnets.{j}")
+            if is_cross:
+                p[f"down_{i}_attn_{j}"] = _diffusers_transformer(
+                    sd, f"down_blocks.{i}.attentions.{j}")
+            key = f"down_blocks.{i}.motion_modules.{j}"
+            if f"{key}.temporal_transformer.norm.weight" in sd:
+                p[f"down_{i}_motion_{j}"] = _motion_module(
+                    sd, key, nb, motion_attention_blocks)
+        if f"down_blocks.{i}.downsamplers.0.conv.weight" in sd:
+            p[f"down_{i}_downsample"] = conv(
+                sd, f"down_blocks.{i}.downsamplers.0.conv")
+    return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# Reference NEURONS ensemble ckpt (brain_model[_prior].pth) -> NeuronsDecoupler
+# ---------------------------------------------------------------------------
+
+def _gain(sd, key) -> Dict[str, np.ndarray]:
+    """dalle2 gain-only LayerNorm parameter `g` (any stored shape)."""
+    return {"g": t2j(sd[f"{key}.g"]).reshape(-1)}
+
+
+def _mixer_backbone(sd, n_blocks: int) -> Dict[str, Any]:
+    """reference BrainModel (BrainModel_neurons.py:227-305): mixer_blocks
+    are Sequential(LayerNorm, Sequential(Linear, GELU, Dropout, Linear));
+    clip_proj is the 4-linear projector (indices 0,2,3,5,6,8)."""
+    p: Dict[str, Any] = {
+        "backbone_linear": linear(sd, "backbone.backbone_linear"),
+        "clip_proj": {
+            "LayerNorm_0": norm(sd, "backbone.clip_proj.0"),
+            "Dense_0": linear(sd, "backbone.clip_proj.2"),
+            "LayerNorm_1": norm(sd, "backbone.clip_proj.3"),
+            "Dense_1": linear(sd, "backbone.clip_proj.5"),
+            "LayerNorm_2": norm(sd, "backbone.clip_proj.6"),
+            "Dense_2": linear(sd, "backbone.clip_proj.8"),
+        },
+    }
+    for i in range(n_blocks):
+        for blk, ours in (("mixer_blocks1", "mix1"), ("mixer_blocks2",
+                                                      "mix2")):
+            p[f"{ours}_ln_{i}"] = norm(sd, f"backbone.{blk}.{i}.0")
+            p[f"{ours}_mlp_{i}"] = {
+                "Dense_0": linear(sd, f"backbone.{blk}.{i}.1.0"),
+                "Dense_1": linear(sd, f"backbone.{blk}.{i}.1.3"),
+            }
+    return p
+
+
+def _dalle2_prior_net(sd, depth: int,
+                      prefix: str = "diffusion_prior.net.") -> Dict[str, Any]:
+    """dalle2-pytorch DiffusionPriorNetwork layout (the reference vendors
+    its usage, BrainModel_neurons.py:484-686): continuous-time Sequential
+    (SinusoidalPosEmb, MLP(depth 2)) embedder, FlaggedCausalTransformer of
+    [Attention(multi-query, null_kv), FeedForward(SwiGLU)] pairs."""
+    ct = prefix + "causal_transformer."
+    tr: Dict[str, Any] = {
+        "rel_pos_bias": {"rel_bias": t2j(
+            sd[ct + "rel_pos_bias.relative_attention_bias.weight"])},
+        "norm_out": _gain(sd, ct + "norm"),
+        "project_out": linear(sd, ct + "project_out"),
+    }
+    for i in range(depth):
+        a = ct + f"layers.{i}.0"
+        tr[f"attn_{i}"] = {
+            "norm": _gain(sd, f"{a}.norm"),
+            "null_kv": t2j(sd[f"{a}.null_kv"]),
+            "to_q": linear(sd, f"{a}.to_q"),
+            "to_kv": linear(sd, f"{a}.to_kv"),
+            "to_out": {"kernel": t2j(sd[f"{a}.to_out.0.weight"]).T},
+            "out_norm": _gain(sd, f"{a}.to_out.1"),
+        }
+        f = ct + f"layers.{i}.1"
+        tr[f"ff_{i}"] = {
+            "norm": _gain(sd, f"{f}.0"),
+            "proj_in": linear(sd, f"{f}.1"),
+            "proj_out": linear(sd, f"{f}.5"),
+        }
+    return {
+        "null_brain_embeds": t2j(sd[prefix + "null_brain_embeds"]),
+        "null_image_embed": t2j(sd[prefix + "null_image_embed"]),
+        "learned_query": t2j(sd[prefix + "learned_query"]),
+        "time_mlp": {
+            "Dense_0": linear(sd, prefix + "to_time_embeds.0.1.net.0.0"),
+            "Dense_1": linear(sd, prefix + "to_time_embeds.0.1.net.1.0"),
+            "Dense_2": linear(sd, prefix + "to_time_embeds.0.1.net.2"),
+        },
+        "transformer": tr,
+    }
+
+
+def _decoder_video(sd, prefix: str, n_up: int, layers_per_block: int
+                   ) -> Dict[str, Any]:
+    """reference model_variants/video_decoder.py DecoderVideo: diffusers
+    resnets/attentions + temporal attentions with learned blend scalars."""
+
+    def resnet(key):
+        r = {"norm1": norm(sd, f"{key}.norm1"),
+             "conv1": conv(sd, f"{key}.conv1"),
+             "norm2": norm(sd, f"{key}.norm2"),
+             "conv2": conv(sd, f"{key}.conv2")}
+        if f"{key}.conv_shortcut.weight" in sd:
+            r["conv_shortcut"] = conv(sd, f"{key}.conv_shortcut")
+        return r
+
+    def attn(key):
+        return {"group_norm": norm(sd, f"{key}.group_norm"),
+                "to_q": linear(sd, f"{key}.to_q"),
+                "to_k": linear(sd, f"{key}.to_k"),
+                "to_v": linear(sd, f"{key}.to_v"),
+                "to_out": linear(sd, f"{key}.to_out.0")}
+
+    p: Dict[str, Any] = {
+        "conv_in": conv(sd, f"{prefix}.conv_in"),
+        "conv_norm_out": norm(sd, f"{prefix}.conv_norm_out"),
+        "mid_block": {
+            "resnet_0": resnet(f"{prefix}.mid_block.resnets.0"),
+            "st_attn_0": {
+                "attn": attn(f"{prefix}.mid_block.attentions.0"),
+                "temp_attn": attn(f"{prefix}.mid_block.temp_attentions.0"),
+                "blend_weight": t2j(sd[f"{prefix}.mid_block.weights.0"]),
+            },
+            "resnet_1": resnet(f"{prefix}.mid_block.resnets.1"),
+        },
+    }
+    for i in range(n_up):
+        blk: Dict[str, Any] = {}
+        for j in range(layers_per_block + 1):
+            blk[f"resnet_{j}"] = resnet(f"{prefix}.up_blocks.{i}.resnets.{j}")
+            blk[f"st_attn_{j}"] = {
+                "attn": attn(f"{prefix}.up_blocks.{i}.attentions.{j}"),
+                "temp_attn": attn(
+                    f"{prefix}.up_blocks.{i}.temp_attentions.{j}"),
+                "blend_weight": t2j(
+                    sd[f"{prefix}.up_blocks.{i}.weights.{j}"]),
+            }
+        if f"{prefix}.up_blocks.{i}.upsamplers.0.conv.weight" in sd:
+            blk["upsample"] = {
+                "conv": conv(sd, f"{prefix}.up_blocks.{i}.upsamplers.0.conv")}
+        p[f"up_block_{i}"] = blk
+    return p
+
+
+def _neurons_core(sd, n_blocks: int) -> Dict[str, Any]:
+    """backbone + per-subject ridge + clipproj (the NeuronsCore subtree,
+    reference Neurons container members, BrainModel_neurons.py:204-226)."""
+    core: Dict[str, Any] = {"backbone": _mixer_backbone(sd, n_blocks)}
+    ridge: Dict[str, Any] = {}
+    i = 0
+    while f"ridge.linears.{i}.weight" in sd:
+        ridge[f"subj{i}"] = linear(sd, f"ridge.linears.{i}")
+        i += 1
+    core["ridge"] = ridge
+    core["clipproj"] = {"proj": t2j(sd["clipproj.proj"])}
+    return core
+
+
+def import_neurons_core(state_dict: Dict, n_blocks: int = 4
+                        ) -> Tuple[Dict, List[str]]:
+    """Stage-1 `brain_model.pth` model_state_dict (backbone/ridge/clipproj
+    only) -> NeuronsCore params — the strict=False overlay the reference
+    applies before stage-2 training (train_neurons.py:219-221)."""
+    sd = _Tracker(dict(state_dict))
+    return _neurons_core(sd, n_blocks), sd.unused()
+
+
+def import_mindeye_backbone(state_dict: Dict, n_blocks: int = 4
+                            ) -> Tuple[Dict, List[str]]:
+    """MindEye2 `last.pth` model_state_dict -> shared mixer-backbone
+    overlay (reference train_neurons.py:208-216: strict=False load of the
+    MindEye2 checkpoint to warm-start convergence, after which `ridge` and
+    `clipproj` are re-initialised fresh — so ONLY backbone.* survives)."""
+    sd = _Tracker(dict(state_dict))
+    return {"backbone": _mixer_backbone(sd, n_blocks)}, sd.unused()
+
+
+def import_coco_clipproj(state_dict: Dict) -> Tuple[Dict, List[str]]:
+    """`coco_tokens_avg_proj.pth` -> CLIPProj params (reference
+    train_neurons.py:240-241: the frozen 1664->1280 image-token ->
+    caption-embedding projector, loaded from root_dir for BOTH stages
+    and kept requires_grad_(False) throughout)."""
+    sd = _Tracker(dict(state_dict))
+    return {"proj": t2j(sd["proj"])}, sd.unused()
+
+
+def import_neurons_ensemble(state_dict: Dict, n_blocks: int = 4,
+                            prior_depth: int = 6, gpt2_layers: int = 12,
+                            decoder_up_blocks: int = 3,
+                            decoder_layers_per_block: int = 1
+                            ) -> Tuple[Dict, List[str]]:
+    """Reference `brain_model_prior[_last].pth` model_state_dict (the
+    Neurons container ensemble, reference train_neurons.py:48-61,148-226)
+    -> NeuronsDecoupler params, so OUR inference stages run with the
+    REFERENCE's released trained weights. Noise-scheduler buffers under
+    diffusion_prior.* (betas etc.) are recomputed, not imported."""
+    sd = _Tracker({k: v for k, v in state_dict.items()
+                   if not (k.startswith("diffusion_prior.")
+                           and ".net." not in k)})
+    p: Dict[str, Any] = {"core": _neurons_core(sd, n_blocks)}
+    p["prior_net"] = _dalle2_prior_net(sd, prior_depth)
+    p["motion_proj"] = {"motion_proj": linear(sd, "motion_proj.motion_proj")}
+    p["classifier"] = {
+        "vision_proj_channel": linear(sd, "classifier.vision_proj_channel"),
+        "classifier": linear(sd, "classifier.classifier")}
+
+    tsd: Dict[str, Any] = {
+        "q": linear(sd, "text_seg_dec.q"),
+        "k": linear(sd, "text_seg_dec.k"),
+        "v": linear(sd, "text_seg_dec.v"),
+        "out": linear(sd, "text_seg_dec.out"),
+        "norm": norm(sd, "text_seg_dec.norm"),
+        "maps_0": conv(sd, "text_seg_dec.maps_projector.0"),
+        "maps_gn_0": norm(sd, "text_seg_dec.maps_projector.1"),
+        "maps_1": conv(sd, "text_seg_dec.maps_projector.3"),
+        "maps_gn_1": norm(sd, "text_seg_dec.maps_projector.4"),
+        "maps_2": conv(sd, "text_seg_dec.maps_projector.6"),
+        "video_decoder": _decoder_video(sd, "text_seg_dec.video_decoder",
+                                        decoder_up_blocks,
+                                        decoder_layers_per_block),
+        "seg_head": conv(sd, "text_seg_dec.seg_head"),
+        "recon_head": conv(sd, "text_seg_dec.recon_head"),
+    }
+    p["text_seg_dec"] = tsd
+
+    gpt2_sd = {k[len("text_dec.decoder."):]: sd[k] for k in list(sd.keys())
+               if k.startswith("text_dec.decoder.")}
+    gpt2_params, gpt2_unused = import_gpt2(gpt2_sd, gpt2_layers)
+    gpt2_params["clip_project"] = linear(sd, "text_dec.clip_project.model.0")
+    p["text_dec"] = gpt2_params
+    # re-prefix the GPT-2 sub-importer's unused keys into the report
+    unused = sd.unused() + [f"text_dec.decoder.{k}" for k in gpt2_unused]
+    return p, sorted(unused)

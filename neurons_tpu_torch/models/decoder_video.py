@@ -259,9 +259,11 @@ class TextDrivenDecoder(nn.Module):
     def forward(self, vision_feat, text_feat: Optional[torch.Tensor] = None,
                 time: int = 1, is_seg: bool = True,
                 deterministic: bool = True,
-                dropout_masks: Optional[DecoderDropout] = None):
+                dropout_masks: Optional[DecoderDropout] = None,
+                return_all: bool = False):
         """`deterministic=False` applies the training dropout with the
-        given `dropout_masks`."""
+        given `dropout_masks`; `return_all` gives (seg, recon) from one
+        decode."""
         if not deterministic and dropout_masks is None:
             raise ValueError("training dropout needs its keep masks "
                              "(draw_decoder_dropout)")
@@ -292,4 +294,6 @@ class TextDrivenDecoder(nn.Module):
             x = dropout(x, masks.maps, MAPS_DROPOUT)
         x = self.norm(x)
         x = self.video_decoder(x, time)
+        if return_all:
+            return self.seg_head(x), self.recon_head(x)
         return self.seg_head(x) if is_seg else self.recon_head(x)

@@ -98,10 +98,12 @@ class NeuronsDecoupler(nn.Module):
 
     def seg_decode(self, vision_tokens, text_embed, time: int,
                    is_seg: bool = True, deterministic: bool = True,
-                   dropout_masks: Optional[DecoderDropout] = None):
+                   dropout_masks: Optional[DecoderDropout] = None,
+                   return_all: bool = False):
         return self.text_seg_dec(vision_tokens, text_embed, time=time,
                                  is_seg=is_seg, deterministic=deterministic,
-                                 dropout_masks=dropout_masks)
+                                 dropout_masks=dropout_masks,
+                                 return_all=return_all)
 
     def caption_logits(self, clip_features, tokens):
         return self.text_dec(clip_features, tokens)

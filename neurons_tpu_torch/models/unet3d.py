@@ -122,6 +122,12 @@ class MotionModule(nn.Module):
         self.register_buffer("pe", temporal_pos_encoding(max_seq_len, c),
                              persistent=False)
 
+    def init_buffers(self) -> None:
+        """Recompute `pe` where it lives (a module built on the meta device
+        and materialised with `to_empty` holds uninitialised buffers)."""
+        self.pe = temporal_pos_encoding(*self.pe.shape, device=self.pe.device
+                                        ).to(self.pe.dtype)
+
     def forward(self, x, tattn_cached=None, capture_tattn: bool = False):
         """out, or (out, residuals stacked over the attention blocks,
         [n_attn, (B F), H*W, C]) with `capture_tattn`. `tattn_cached`

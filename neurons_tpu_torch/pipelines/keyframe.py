@@ -91,6 +91,26 @@ class KeyframeNoise(NamedTuple):
     unclip: UnclipNoise
 
 
+def draw_keyframe_noise(batch: int, tokens: int, width: int,
+                        prior_steps: int, latent_hw: int,
+                        generator: torch.Generator) -> KeyframeNoise:
+    """Every draw of `reconstruct_keyframes` for `batch` voxels, on the
+    generator's device: the prior's initial sample and its noise at each of
+    `prior_steps` steps ([batch, tokens, width] each), then unCLIP's z and
+    noise [batch, 4, latent_hw, latent_hw], offset [batch] and the
+    unconditional tokens."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device)
+
+    tok = (batch, tokens, width)
+    lat = (batch, 4, latent_hw, latent_hw)
+    prior = prior_lib.PriorNoise(normal(*tok),
+                                 [normal(*tok) for _ in range(prior_steps)])
+    return KeyframeNoise(prior, UnclipNoise(normal(*lat), normal(*lat),
+                                            normal(batch), normal(*tok)))
+
+
 def check_fast_options(tgate_step: int = 0, tgate_pab: int = 0,
                        pab=None, encoder_reuse: int = 1,
                        deep_cache: int = 0):

@@ -36,6 +36,8 @@ from neurons_tpu_torch import resolve_device
 from neurons_tpu_torch.config import (BrainModelConfig, DecouplerConfig,
                                       PriorConfig, TrainConfig)
 from neurons_tpu_torch.data import cc2017
+from neurons_tpu_torch.diffusion import prior as prior_lib
+from neurons_tpu_torch.models.decoder_video import DecoderDropout
 from neurons_tpu_torch.training import losses, train_brain, train_decoupler
 from neurons_tpu_torch.training.train_decoupler import is_core
 from neurons_tpu_torch.utils import checkpoint as ckpt_lib
@@ -228,6 +230,7 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
                async_saves: bool = False,
                best_save_every: int = 1,
                draws: Optional[DrawFn] = None,
+               host_draws: bool = False,
                device="cuda") -> train_brain.TrainState:
     """Stage-1 training of the core.
 
@@ -247,7 +250,9 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
     `async_saves=True` writes the mid-run saves in the background
     (`AsyncCkptWriter`, a device copy of the payload).
     `draws(epoch, it, batch)` gives a step's draws; by default they come
-    from the CPU generator of (tcfg.seed, epoch, it), dropout on.
+    from the CPU generator of (tcfg.seed, epoch, it), dropout on;
+    `host_draws=True` draws the initial weights on the CPU too, so the
+    card starts where the CPU starts.
     `logger` has MetricLogger's `log_metrics`; by default a MetricLogger
     under `ckpt_dir`."""
     device = resolve_device(device)
@@ -255,7 +260,8 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
         logger = MetricLogger(log_dir=ckpt_dir)
     steps_per_epoch = max(len(train_split) // tcfg.batch_size, 1)
     model, state, schedule = train_brain.init_stage1(
-        bcfg, tcfg, steps_per_epoch, seed=tcfg.seed, device=device)
+        bcfg, tcfg, steps_per_epoch, seed=tcfg.seed, device=device,
+        host_draws=host_draws)
     if warm_start_params is not None:
         with torch.no_grad():
             for name, value in warm_start_params.items():
@@ -428,14 +434,16 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
                async_saves: bool = False,
                best_save_every: int = 1,
                draws: Optional[DrawFn] = None,
+               host_draws: bool = False,
                device="cuda") -> train_decoupler.TrainState:
     """Stage-2 training. `batch_builder(batch, epoch)` assembles the
     precomputed-table fields (numpy) for a raw batch of `train_split`;
     `core_params` is stage 1's core (`load_stage1_core`). Weights come
     from `tcfg.seed`; `draws(epoch, it, batch)` gives a step's draws, by
     default `draw_stage2` from the device generator of (tcfg.seed, epoch,
-    it). `bf16_frozen_core=True` holds the forward-only core in bf16
-    (after any resume restore).
+    it); `host_draws=True` draws them and the initial weights on the CPU
+    generator instead, so the card draws what the CPU draws. `bf16_frozen_core=True` holds the
+    forward-only core in bf16 (after any resume restore).
 
     With `ckpt_dir`: the one-time `brain_model_core` artifact (the frozen
     core, in its training type) before the first epoch; `brain_model_prior`
@@ -453,14 +461,26 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
     steps_per_epoch = max(len(train_split) // tcfg.batch_size, 1)
     bundle, state = train_decoupler.init_stage2(
         bcfg, pcfg, dcfg, tcfg, gpt2_cfg, steps_per_epoch, seed=tcfg.seed,
-        core_params=core_params, device=device)
+        core_params=core_params, device=device, host_draws=host_draws)
     step_fn = train_decoupler.make_stage2_train_step(bundle, tcfg, dcfg,
                                                      steps_per_epoch)
     mixup_epochs = int(tcfg.mixup_pct * tcfg.num_epochs)
     soft_temps = losses.cosine_anneal(
         tcfg.soft_temp_start, tcfg.soft_temp_end,
         max(tcfg.num_epochs - mixup_epochs, 1)).tolist()
-    if draws is None:
+    if draws is None and host_draws:
+        host_diffusion = prior_lib.PriorDiffusion.create(
+            pcfg.timesteps, pcfg.cond_drop_prob, device="cpu")
+
+        def draws(epoch, it, batch):
+            shape = {"clip_vision_target": batch["clip_vision_target"].cpu()}
+            d = train_decoupler.draw_stage2(
+                host_diffusion, shape, dcfg,
+                epoch_generator(tcfg.seed, epoch, it))
+            return train_decoupler.Stage2Draws(
+                prior_lib.PriorDraws(*(x.to(device) for x in d.prior)),
+                DecoderDropout(*(x.to(device) for x in d.dropout)))
+    elif draws is None:
         def draws(epoch, it, batch):
             return train_decoupler.draw_stage2(
                 bundle.diffusion, batch, dcfg,
@@ -648,6 +668,43 @@ def structured_stage2_batch_builder(clip_targets: np.ndarray, aux: Dict,
                             ).astype(np.int32),
             "vae_latents": np.asarray(aux["vae_latents"][idx, :f],
                                       np.float32),
+        }
+
+    return build
+
+
+def table_stage2_batch_builder(root_dir: str, dcfg: DecouplerConfig,
+                               gpt2_vocab: int,
+                               caption_token_len: int = 60) -> Callable:
+    """Real-data batch builder over the precomputed frozen-encoder tables
+    under `root_dir` (`clip_targets_train.npy` [N, F, 256, 1664] and
+    `vae_latents_train.npy` [N, F, 4, h, w], memory-mapped, and
+    `class_text_embeds.npy` [51, 1280]), rows addressed by the batch's
+    dataset 'index'."""
+    import os
+
+    clip_t = np.load(os.path.join(root_dir, "clip_targets_train.npy"),
+                     mmap_mode="r")
+    vae_t = np.load(os.path.join(root_dir, "vae_latents_train.npy"),
+                    mmap_mode="r")
+    class_emb = np.load(os.path.join(root_dir, "class_text_embeds.npy"))
+
+    def build(batch: Dict, epoch: int) -> Dict:
+        f = dcfg.n_frames
+        idx = batch["index"]
+        video = np.asarray(clip_t[idx, :f], np.float32)
+        key_cls = batch["key_obj_cls"].astype(np.int64)
+        return {
+            "voxel": batch["voxel"][:, :1].astype(np.float32),
+            "clip_vision_target": video[:, min(2, f - 1)],
+            "clip_video_target": video,
+            "text_emb": batch["text_emb"].astype(np.float32),
+            "key_obj_text_embed": class_emb[key_cls].astype(np.float32),
+            "key_obj_masks": batch["key_obj_masks"][:, :f].astype(np.float32),
+            "cls_label": batch["cls_label"].astype(np.float32),
+            "clip_tokens": (batch["clip_tokens"][:, :caption_token_len]
+                            % gpt2_vocab).astype(np.int32),
+            "vae_latents": np.asarray(vae_t[idx, :f], np.float32),
         }
 
     return build

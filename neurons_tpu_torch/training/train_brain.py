@@ -80,13 +80,15 @@ def module_caller(model: torch.nn.Module, params: Dict[str, torch.Tensor],
 
 
 def init_stage1(cfg: BrainModelConfig, tcfg: TrainConfig,
-                steps_per_epoch: int, seed: int = 0, device="cuda"
+                steps_per_epoch: int, seed: int = 0, device="cuda",
+                host_draws: bool = False
                 ) -> Tuple[NeuronsCore, TrainState, Schedule]:
-    """The f32 core with seeded random weights (`synth_params_`), AdamW
-    over all of it but `clipproj` (frozen), and the LR schedule."""
+    """The f32 core with seeded random weights (`synth_params_`, drawn on
+    the CPU with `host_draws`), AdamW over all of it but `clipproj`
+    (frozen), and the LR schedule."""
     with torch.device(resolve_device(device)):
         model = NeuronsCore(cfg)
-    synth_params_(model, seed)
+    synth_params_(model, seed, host=host_draws)
     params = dict(model.named_parameters())
     for n, p in params.items():
         p.requires_grad_(not FROZEN(n))

@@ -83,13 +83,15 @@ def init_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
                 dcfg: DecouplerConfig, tcfg: TrainConfig,
                 gpt2_cfg: GPT2Config, steps_per_epoch: int, seed: int = 0,
                 core_params: Optional[Dict[str, torch.Tensor]] = None,
-                device="cuda") -> Tuple[Stage2Bundle, TrainState]:
-    """The f32 ensemble with seeded random weights (`synth_params_`), the
+                device="cuda", host_draws: bool = False
+                ) -> Tuple[Stage2Bundle, TrainState]:
+    """The f32 ensemble with seeded random weights (`synth_params_`, drawn
+    on the CPU with `host_draws`), the
     stage-1 core overlaid from `core_params` (a core state dict; names it
     does not hold keep their fresh values, unknown names are ignored, as
     the JAX package's restore_into) and frozen, and AdamW over the rest."""
     model = NeuronsDecoupler(bcfg, pcfg, dcfg, gpt2_cfg, device=device)
-    synth_params_(model, seed)
+    synth_params_(model, seed, host=host_draws)
     if core_params is not None:
         own = dict(model.core.named_parameters())
         with torch.no_grad():

@@ -23,3 +23,10 @@ def epoch_generator(seed: int, epoch: int, step: int = 0,
                     device="cpu") -> torch.Generator:
     """A generator on `device` seeded with step_seed(seed, epoch, step)."""
     return torch.Generator(device).manual_seed(step_seed(seed, epoch, step))
+
+
+def stage_generator(seed: int, stage: str, start: int) -> torch.Generator:
+    """The CPU generator of one generation batch: seeded from (seed, the
+    stage's character, the batch's first clip), so the card and the CPU,
+    and any batch size, draw the same noise for the same clip range."""
+    return epoch_generator(seed, ord(stage), start)

@@ -8,6 +8,10 @@ uniform at a lecun-normal-like scale (std 1/sqrt(fan_in)), biases zero,
 learned queries, tables) uniform at std 1/sqrt(fan_in) of their
 [..., in, out] layout. Zero-initialised heads get random weights too, so
 no output is trivially zero.
+
+With `host=True` the numbers are drawn on the CPU and copied to the
+parameters' device, so a module on the card gets the weights the same
+module on the CPU gets (a generator on the card draws other numbers).
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from torch import nn
 
 
 @torch.no_grad()
-def synth_params_(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Overwrite every parameter of `module` in place; returns it."""
+def synth_params_(module: nn.Module, seed: int = 0,
+                  host: bool = False) -> nn.Module:
+    """Overwrite every parameter of `module` in place (drawn on the CPU
+    with `host`); returns it."""
     gens = {}
     for mod_name, mod in module.named_modules():
         for name, p in mod.named_parameters(recurse=False):
@@ -34,11 +40,12 @@ def synth_params_(module: nn.Module, seed: int = 0) -> nn.Module:
                 fan_in = p[0].numel()
             else:
                 fan_in = math.prod(p.shape[:-1])
-            gen = gens.get(p.device)
+            where = torch.device("cpu") if host else p.device
+            gen = gens.get(where)
             if gen is None:
-                gen = gens[p.device] = torch.Generator(p.device)
+                gen = gens[where] = torch.Generator(where)
                 gen.manual_seed(seed)
             a = math.sqrt(3.0 / max(1, fan_in))
-            p.copy_(torch.rand(p.shape, generator=gen, device=p.device,
+            p.copy_(torch.rand(p.shape, generator=gen, device=where,
                                dtype=p.dtype).mul_(2 * a).sub_(a))
     return module

@@ -406,9 +406,22 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.evaluation.runner\n"
             "import neurons_tpu_torch.pipelines.io\n"
             "import neurons_tpu_torch.interop.torch_import\n"
+            "import neurons_tpu_torch.interop.convert_ldm\n"
+            "import neurons_tpu_torch.interop.torch_export as tex\n"
+            "import neurons_tpu_torch.interop.load_weights as lw\n"
+            "import neurons_tpu_torch.pipelines.decoupled_eval\n"
+            "import neurons_tpu_torch.ops.resize\n"
+            "import neurons_tpu_torch.data.cc2017\n"
+            "import neurons_tpu_torch.data.categories\n"
+            "import neurons_tpu_torch.data.clip_tokenizer\n"
+            "import os, tempfile, torch\n"
+            "p = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
+            "tex.write_safetensors(p, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
+            "assert torch.equal(lw.read_safetensors(p)['w'], "
+            "torch.ones(2, dtype=torch.bfloat16))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'neurons_tpu', 'transformers', "
-            "'imageio')]\n"
+            "'imageio', 'safetensors')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
