@@ -22,7 +22,10 @@ Phases, in order:
      the stage-2 seg panels' three DecoderVideo shapes (24 rows) in f32,
      at stage 4's BLIP-2 vision shape (bf16, heads of 88, 257 tokens) and
      stage 6's three classifier shapes (f32: ViT-B's 197 tokens,
-     VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), against an f32
+     VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), each with the kernel
+     it routes to (f32 up to d = 128: the TF32 register kernel, whose
+     instances' registers and spills, 0 bytes required, are logged after
+     the build), against an f32
      reference; its error must be no worse than 1.5x the plain version's
      at the kernel's precision (bf16 operands; for f32, operands rounded
      to TF32 as the kernel rounds them). The
@@ -161,10 +164,13 @@ Phases, in order:
      `F.conv2d` for #8) and the bound; #7's launch plan per shape.
 Then one line of per-kernel totals for one clip or one step (launches x
 time summed: kernel by events and, for #6-#8, by device time, bound,
-library call), which gives the redesign order from one run, and one line
+library call), which gives the redesign order from one run, one line of
+the f32 route's (the flash forward on f32) over a scored clip, a seg
+panel and the CLI's stage e a clip, and one line
 of the same sums by the Pallas kernel each launch replaces. The last
 two lines are the kernels' JSON record (each (kernel, shape) of the main
-paths, the "max" fast clip's among them, those totals, the f32 flash checks with their bound and library
+paths, the "max" fast clip's among them, those totals, the f32 route's,
+the f32 flash checks with their bound and library
 time, each kernel's registers and spills from nvcc's -Xptxas -v log) and
 the device JSON. Any failure raises and exits non-zero; without CUDA the
 script exits 2 before printing anything.
@@ -428,11 +434,12 @@ def flash_phase(checks=None):
             b, h, tq, tk, d, qx.element_size(),
             PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS)
         bq, bk, smem = attn.flash_tiles(d, dt)
+        route = attn.flash_route(d, dt)
         # the kernel's error <= 1.5x the plain version's at its precision,
         # as in tests/test_torch_port_cuda.py
         ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
         tname = str(dt).split(".")[-1]
-        log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] "
+        log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] {route} "
             f"tiles {bq}x{bk} smem {smem} B  max_abs_err {err:.3e} "
             f"(plain {plain_err:.3e})  kernel_ms {kernel_ms:.4f} (device "
             f"{kernel_dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
@@ -444,7 +451,8 @@ def flash_phase(checks=None):
         records[(b, h, tq, tk, d, tname, "")] = dict(
             site=name, max_abs_err=err, plain_err=plain_err, ms=kernel_ms,
             device_ms=kernel_dev_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            route=route)
         del q, k, v, want, got, plain, qx, kx, vx
     torch.cuda.empty_cache()
     return records
@@ -1918,8 +1926,9 @@ def device_profile(prof, wall: float, what: str, kernels):
 # #8's statistics carry the prefix gn_conv_stats_ (csrc/gn_common.cuh)
 GN_SILU_SYMBOLS = ("gn_silu_cluster_kernel", "gn_silu_stats_kernel",
                    "gn_silu_apply_kernel")
-# (the forward's three kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
-# flash_fwd_kernel; #8's halo, split-reduce and TF32 kernels)
+# (the forward's four kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
+# flash_fwd_tf32_kernel, flash_fwd_kernel; #8's halo, split-reduce and TF32
+# kernels)
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
 # the backward's passes: flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel
 # and, for the prior's per-head bias, flash_bwd_dbias_reg_kernel (bf16,
@@ -4053,14 +4062,65 @@ def kernel_totals(entries, groups, by_tpu_kernel=False):
 
 
 def f32_check_records(flash_records):
-    """The f32 (TF32) flash checks: not on a main path, recorded with their
-    bound and library time."""
+    """The f32 flash checks at two of the clip's shapes (F32_CHECKS: the
+    UNet's cross-attention on the TF32 register kernel, the VAE's d = 512
+    on the first design), which no main path launches in f32, recorded
+    with their bound and library time. The f32 route's main-path launches
+    (stage 6, stage e, the seg panels) are entries of the kernels list and
+    of `f32_route_totals`."""
     return [dict(name=f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} float32]",
                  site=rec["site"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                  bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
                  library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"])
             for (b, h, tq, tk, d, dt, _), rec in sorted(flash_records.items())
             if dt == "float32" and rec["site"] in F32_CHECKS]
+
+
+def f32_route_totals(fwd_records, paths):
+    """The flash forward's f32 route (the TF32 register kernel at d <= 128)
+    over its paths, for one unit of each: `paths` is [(path, {shape key:
+    launches}, units the launches span)]. Per path: launches and the sums
+    of launches x time of the kernel (by events and by device time), of its
+    bound, of its plain version and of the library call, in seconds."""
+    out = []
+    for path, launches, units in paths:
+        t = dict(path=path, launches=0.0, kernel_s=0.0, device_s=0.0,
+                 bound_s=0.0, plain_s=0.0, library_s=0.0, routes=set())
+        for key, n in launches.items():
+            rec = fwd_records[key]
+            n = n / units
+            t["launches"] += n
+            for k, ms in (("kernel_s", "ms"), ("device_s", "device_ms"),
+                          ("bound_s", "bound_ms"), ("plain_s", "plain_ms"),
+                          ("library_s", "library_ms")):
+                t[k] += n * rec[ms] / 1e3
+            t["routes"].add(rec["route"])
+        t["routes"] = sorted(t["routes"])
+        out.append(t)
+    return out
+
+
+def tf32_instances(ptxas):
+    """The TF32 register kernel's instances in the -Xptxas -v summary, by
+    (padded head dim, bias, lse); raises if one spills."""
+    import re
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_fwd_tf32_kernelILi(\d+)ELb([01])ELb([01])E",
+                      f["function"])
+        if m:
+            out.append(dict(dk=int(m.group(1)), bias=m.group(2) == "1",
+                            lse=m.group(3) == "1", registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    for i in sorted(out, key=lambda i: (i["dk"], i["bias"], i["lse"])):
+        log(f"  tf32 instance d {i['dk']} bias {i['bias']} lse {i['lse']}: "
+            f"{i['registers']} registers, spill stores {i['spill_stores']} "
+            f"B, loads {i['spill_loads']} B")
+    if len(out) != 12 or any(i["spill_stores"] or i["spill_loads"]
+                             for i in out):
+        raise AssertionError(f"the TF32 register kernel's instances: {out}")
+    return out
 
 
 def ptxas_summary(name):
@@ -4108,6 +4168,7 @@ def main():
         log(f"  ptxas {f['source']}: {f['function']} {f['registers']} "
             f"registers, spill stores {f.get('spill_stores', 0)} B, loads "
             f"{f.get('spill_loads', 0)} B")
+    tf32_instances(ptxas)
     del libs
 
     flash_records = flash_phase()
@@ -4161,6 +4222,28 @@ def main():
         f"{t['library_s']:.4f}" + (f" (backward alone {t['library_bwd_s']:.4f})"
                                    if "library_bwd_s" in t else "")
         for t in record["totals"]))
+    # the f32 route: a scored clip, the run's one seg panel (one stage-2
+    # epoch), the CLI's stage e a clip (its f32 launches but stage 6's)
+    cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
+    stage6 = scored_clip_launches(CLI_FRAMES)
+    record["f32_route"] = f32_route_totals(
+        flash_records,
+        [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
+         ("seg panel", {k: n for k, n in train_by_shape["flash_attn_fwd"]
+                        .items() if k[5] == "float32"}, 1),
+         ("cli stage e", {k: n for k, n in cli_fwd.items()
+                          if k[5] == "float32" and k not in stage6},
+          runs["cli pipeline 35e6"])])
+    log("f32 route (the flash forward on f32; s of launches x time): "
+        + " | ".join(f"{t['path']} x{t['launches']:g} {t['routes']}: kernel "
+                     f"{t['kernel_s']:.4f} (device {t['device_s']:.4f}) "
+                     f"bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} "
+                     f"library {t['library_s']:.4f}"
+                     for t in record["f32_route"]))
+    if any(t["routes"] != ["flash_fwd_tf32_kernel"]
+           for t in record["f32_route"]):
+        raise AssertionError("an f32 path launched the flash forward off "
+                             "the TF32 register kernel")
     log("totals by the Pallas kernel replaced (a clip or a step; s): "
         + " | ".join(f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
                      f"{t['kernel_s']:.4f}" + (

@@ -21,8 +21,8 @@
 // k/v are read through a head stride of 0, never broadcast in memory), any
 // strides over batch, head and token, unit stride over D. The output is a
 // contiguous [B, H, Tq, D]. Ragged Tq and Tk are masked in the kernel and D is
-// zero-padded to a multiple of 16 in shared memory, so no padded copy of any
-// operand is made in device memory.
+// zero-padded in shared memory (to the instance's head dim), so no padded
+// copy of any operand is made in device memory.
 //
 // Design of the bf16 instances at D <= 128 (flash_fwd_reg_kernel), every
 // inference and training site of the paths: one block of 4 warps owns one
@@ -48,17 +48,40 @@
 // softmax), with the row rescale; K/V tiles come in by cp.async one tile
 // ahead. Three barriers a tile.
 //
-// The f32 (TF32) instances, which serve only the small card-vs-CPU checks,
-// and any D past 512 keep the first design (flash_fwd_kernel): one block of
-// 4 warps per (b, h) and query tile, WMMA products, S, P and the f32 O
-// accumulator in shared memory, BQ x BK the largest pair whose tiles fit
-// the 227 KB a block may use.
+// The f32 instances at D <= 128 (flash_fwd_tf32_kernel) multiply in TF32,
+// every operand rounded to nearest (cvt.rna: Q, K, the probabilities P and
+// V) with f32 accumulation, as `attention_reference_tf32` does. They carry
+// stage 6 (ViT-B, VideoMAE and CLIP ViT-L at d = 64: [1,12,197,197],
+// [1,12,588,588] and [6,16,257,257], 360 launches a scored clip), stage e
+// and the stage-2 seg panels (the DecoderVideo at d = 128, 64 and 32 over
+// 256, 1024 and 4096 tokens) and the f32 training checks (the prior's
+// biased multi-query lse forward at d = 52). The design is the bf16
+// register kernel's on m16n8k8: 4 warps of 16 query rows, Q rounded once
+// and held as A fragments, K and V in a 2-stage cp.async ring (one barrier
+// a tile) and rounded there once a tile, S, P and O in registers. P's C fragment is not the TF32 A
+// layout, so the P V product sums over keys in a permuted order (A's k
+// index t is key 2t, t + 4 is key 2t + 1; mma_sm80.cuh): P goes from S's
+// registers into A without a shuffle, and V's B fragments are scalar reads
+// of rows 2t and 2t + 1. Key tiles are 64 keys, 32 at d = 128, where Q
+// (64 registers) and O (64) leave room for no more of S; D is padded to
+// 32, 64 or 128 (the f32 head dims launched) in shared memory only.
+// The first design (flash_fwd_kernel: one block of 4 warps per (b, h) and
+// query tile, WMMA products, S, P and the f32 O accumulator in shared
+// memory, BQ x BK the largest pair whose tiles fit the 227 KB a block may
+// use) is the route by shape for f32 past D = 128 (the card checks of the
+// VAE's d = 512 site) and for any D past 512.
 //
 // What bounds it on an H100: at the clip's shapes attention does 4 Tq Tk D
 // operations against (2 Tq + 2 Tk) D esize bytes, so all but the short
-// cross-attention sites are bound by operations (989 TFLOP/s bf16 dense
-// against 3.35 TB/s). mma.sync reaches a part of the wgmma peak; the
-// measured times stand in PERF.md.
+// cross-attention sites are bound by operations (989 TFLOP/s bf16 dense,
+// 495 TF32, against 3.35 TB/s). At stage 6's f32 shapes the bound is a
+// microsecond or two a launch, under a launch's own cost; grids of 48-480
+// blocks fill at most a few waves of 132 SMs, so each block's serial walk
+// over its key tiles sets the time, and the ring, the registers and one
+// barrier a tile shorten that walk. Every warp reads all of a K and V tile
+// from shared memory (the bytes of one m16n8k8 B fragment feed 16 rows),
+// which bounds the f32 products as it does the bf16 ones. mma.sync reaches
+// a part of the wgmma peak; the measured times stand in PERF.md.
 
 #include "flash_common.cuh"
 #include "mma_sm80.cuh"
@@ -504,6 +527,286 @@ cudaError_t launch_reg(Params p, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// f32 (TF32) at D <= 128: S, P and O in registers, K/V pipelined
+
+constexpr int kTBQ = 64;         // query rows a block
+constexpr int kTThreads = 128;   // 4 warps, 16 query rows each
+
+template <int DK>  // the head dim padded to 8 (QK depth): 32, 64 or 128
+struct Tf32Cfg {
+  // keys a tile: 64, or 32 at DK = 128, where Q's fragments (64 registers)
+  // and O (64) leave S room for 32 keys only
+  static constexpr int BK = DK <= 64 ? 64 : 32;
+  // row stride in floats, 4 x an odd number: the K fragments' ldmatrix
+  // phases (8 rows of 16 bytes) and the V fragments' scalar reads (rows 2t,
+  // column g) each hit 32 distinct banks
+  static constexpr int LD = DK + 4;
+  // K/V tiles in flight: two ahead of the one in use, so a tile's copy has
+  // two tiles' products to arrive in (the grids are a wave or less, so a
+  // block's walk over its tiles sets the time); 2 blocks an SM at DK >= 64
+  static constexpr int kStages = 3;
+  static constexpr int kTile = BK * LD;           // floats of a K or V tile
+  static constexpr int kSmem = kStages * 2 * kTile * 4;  // bytes
+  static constexpr int KS = DK / 8;               // k8 steps of Q K^T
+  static constexpr int NS = BK / 8;               // n8 tiles of S
+  static constexpr int NO = DK / 8;               // n8 tiles of O
+  // copies a thread rounds at once: all of them at DK <= 64 (their loads
+  // in flight together: ViT-B's launch took 15.3 us against 18.8 rounding
+  // 4 at a time, H100), 4 at DK = 128, where all at once spilled
+  static constexpr int kRoundBatch = DK <= 64 ? 32 : 4;
+  static_assert(kTBQ * LD <= 2 * kTile, "Q is staged in the last stage");
+  static_assert(KS % 2 == 0, "ldmatrix x4 reads two k8 steps of K");
+};
+
+// The block: 64 query rows of one (b, h), 4 warps of 16 rows. Q is staged
+// once (in the ring's last stage, before its first fill), rounded to TF32
+// and held as A fragments in registers. K and V tiles come in by cp.async
+// through a 3-stage ring, two tiles ahead, and are rounded to TF32 in
+// shared memory once a tile, each thread its own copies after its wait
+// (not once by every warp that reads them); one barrier a tile. Per key
+// tile a warp computes S = Q K^T into registers (mma.sync m16n8k8 TF32,
+// f32; K's B fragments by ldmatrix), updates the row max and sum with quad
+// shuffles, and adds P V into its f32 O accumulator: P's A fragments come
+// from S's C registers by the key permutation of mma_sm80.cuh (a = c0, c2,
+// c1, c3), so V's B fragments are scalar reads of rows 2t and 2t + 1, and
+// P is rounded to TF32 in registers. kBias, kLse as flash_fwd_kernel.
+template <int DK, bool kBias, bool kLse>
+__global__ void __launch_bounds__(kTThreads)
+flash_fwd_tf32_kernel(Params p) {
+  using C = Tf32Cfg<DK>;
+  constexpr int LD = C::LD, BK = C::BK, S = C::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // stage s: K, then V
+  float* sQ = ring + (S - 1) * 2 * C::kTile;     // until tile S - 1 comes
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tl = lane & 3;
+  const int nq = (p.Tq + kTBQ - 1) / kTBQ;
+  const int q0 = (blockIdx.x % nq) * kTBQ;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* og = static_cast<float*>(p.o) + (long long)bh * p.Tq * D;
+  const float* bg = kBias ? static_cast<const float*>(p.bias) +
+                                bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                          : nullptr;
+  const int ntiles = (p.Tk + BK - 1) / BK;
+  auto stage_kv = [&](int tile) {  // K and V of `tile` into its stage
+    float* dst = ring + (tile % S) * 2 * C::kTile;
+    stage_rows_f32<BK, DK, LD, kTThreads>(p.vec, dst, kg, p.k_st, tile * BK,
+                                          p.Tk, D);
+    stage_rows_f32<BK, DK, LD, kTThreads>(p.vec, dst + C::kTile, vg, p.v_st,
+                                          tile * BK, p.Tk, D);
+  };
+
+  // copy groups: Q with tile 0, then one a tile (empty past the last), so
+  // at tile t the wait for all but the newest S - 2 groups is tile t's
+  stage_rows_f32<kTBQ, DK, LD, kTThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
+  stage_kv(0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < S - 1; ++i) {
+    if (i < ntiles) stage_kv(i);
+    cp_async_commit();
+  }
+  cp_async_wait_mem<S - 2>();
+  __syncthreads();
+
+  uint32_t qf[C::KS][4];
+  {
+    const float* qr = sQ + (warp * 16 + g) * LD + tl;
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      qf[ks][0] = to_tf32(qr[ks * 8]);
+      qf[ks][1] = to_tf32(qr[8 * LD + ks * 8]);
+      qf[ks][2] = to_tf32(qr[ks * 8 + 4]);
+      qf[ks][3] = to_tf32(qr[8 * LD + ks * 8 + 4]);
+    }
+  }
+
+  float o[C::NO][4];
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row_a = q0 + warp * 16 + g;  // and row_a + 8
+  // this lane's ldmatrix row: matrix lane / 8 is (k8 step lane / 16, half
+  // (lane / 8) % 2) of 8 keys
+  const int k_lane = (lane & 7) * LD + (lane >> 4) * 8 + ((lane >> 3) & 1) * 4;
+
+  for (int t = 0; t < ntiles; ++t) {
+    float* kt = ring + (t % S) * 2 * C::kTile;
+    float* vt = kt + C::kTile;
+    cp_async_wait_mem<S - 2>();  // this thread's copies of tile t are in
+    round_rows_tf32_any<BK, DK, LD, kTThreads, C::kRoundBatch>(p.vec, kt);
+    round_rows_tf32_any<BK, DK, LD, kTThreads, C::kRoundBatch>(p.vec, vt);
+    // tile t is whole; every warp is done with tile t - 1 (and Q), whose
+    // stage takes tile t + S - 1
+    __syncthreads();
+    if (t + S - 1 < ntiles) stage_kv(t + S - 1);
+    cp_async_commit();
+    const int k0 = t * BK;
+
+    // S = Q K^T
+    float s[C::NS][4];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const uint32_t k_addr = smem_addr(kt + k_lane);
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ks += 2) {
+      uint32_t r[C::NS][4];  // K as rounded in shared memory: two k8 steps
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j)
+        ldmatrix_x4(r[j], k_addr + (j * 8 * LD + ks * 8) * 4);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) {
+        mma_tf32(s[j], qf[ks], r[j]);
+        mma_tf32(s[j], qf[ks + 1], r[j] + 2);
+      }
+    }
+
+    // online softmax over the tile's keys, rows row_a and row_a + 8
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + tl * 2 + (e & 1);
+        const int row = row_a + 8 * (e >> 1);
+        float x = s[j][e] * p.scale;
+        if (kBias && row < p.Tq && key < p.Tk)
+          x += bg[(long long)row * p.bias_sq + key];
+        if (key >= p.Tk) x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], msafe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      msafe[r] = mn == -INFINITY ? 0.f : mn;  // a row with no finite logit
+      alpha[r] = kLse ? expf(m[r] - msafe[r]) : __expf(m[r] - msafe[r]);
+      m[r] = mn;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e] - msafe[e >> 1];
+        s[j][e] = kLse ? expf(x) : __expf(x);  // P, unnormalised
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // this
+                                                                 // thread's keys
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V over DK's n8 tiles (V is zero past D: no branch in the
+    // loop, which would serialise each load behind the last product); k8
+    // step j is S's n8 tile j, its index t standing for key 2t and t + 4
+    // for key 2t + 1
+    // (V's fragments in groups of up to 8 n8 tiles: 16 registers at most)
+    constexpr int NG = C::NO < 8 ? C::NO : 8;
+    const uint32_t v_addr = smem_addr(vt + tl * 2 * LD + g);
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      const uint32_t a[4] = {to_tf32(s[j][0]), to_tf32(s[j][2]),
+                             to_tf32(s[j][1]), to_tf32(s[j][3])};
+#pragma unroll
+      for (int n0 = 0; n0 < C::NO; n0 += NG) {
+        uint32_t bv[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          bv[n][0] = lds_b32(v_addr + (j * 8 * LD + (n0 + n) * 8) * 4);
+          bv[n][1] = lds_b32(v_addr + ((j * 8 + 1) * LD + (n0 + n) * 8) * 4);
+        }
+#pragma unroll
+        for (int n = 0; n < NG; ++n) mma_tf32(o[n0 + n], a, bv[n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= p.Tq) continue;
+    float* orow = og + (long long)row * D;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      const int col = n * 8 + tl * 2;
+      if (col >= D) continue;
+      const float v0 = o[n][2 * r] * inv, v1 = o[n][2 * r + 1] * inv;
+      if (col + 1 < D && (D & 1) == 0) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        orow[col] = v0;
+        if (col + 1 < D) orow[col + 1] = v1;
+      }
+    }
+    if (kLse && tl == 0)
+      p.lse[(long long)bh * p.Tq + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+// The padded head dim of the TF32 register kernel's instance for D (the
+// f32 head dims the paths launch: 32; 52 and 64; 128), 0 past 128.
+inline int tf32_dk(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
+
+template <int DK, bool kBias, bool kLse>
+cudaError_t launch_tf32_as(Params p, int B, cudaStream_t stream) {
+  const int smem = Tf32Cfg<DK>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<DK, kBias, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.Tq + kTBQ - 1) / kTBQ) * B * p.H;
+  flash_fwd_tf32_kernel<DK, kBias, kLse><<<(unsigned)blocks, kTThreads, smem,
+                                           stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DK>
+cudaError_t launch_tf32_dk(Params p, int B, cudaStream_t stream) {
+  if (p.bias)
+    return p.lse ? launch_tf32_as<DK, true, true>(p, B, stream)
+                 : launch_tf32_as<DK, true, false>(p, B, stream);
+  return p.lse ? launch_tf32_as<DK, false, true>(p, B, stream)
+               : launch_tf32_as<DK, false, false>(p, B, stream);
+}
+
+cudaError_t launch_tf32(Params p, int B, cudaStream_t stream) {
+  switch (tf32_dk(p.D)) {
+    case 32: return launch_tf32_dk<32>(p, B, stream);
+    case 64: return launch_tf32_dk<64>(p, B, stream);
+    case 128: return launch_tf32_dk<128>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 at 128 < D <= 512 (and biased at 96 < D <= 128): O split by columns
 // across 8 warps
 
@@ -817,6 +1120,11 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && tf32_dk(D)) {
+    if (vec != 4 && vec != 8 && vec != 16)  // f32 rows move in 4-byte units
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_tf32(p, B, s);
+  }
   if (dtype == 1 && reg_dk(D, bias != nullptr)) {
     if (vec != 0 && vec != 4 && vec != 8 && vec != 16)
       return (int)cudaErrorInvalidValue;
@@ -834,20 +1142,29 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)(dtype == 1 ? launch<__nv_bfloat16>(p, B, s) : launch<float>(p, B, s));
 }
 
-// The tiles and shared memory a launch at head dim D would use; 0 when no
-// tile fits.
+// The tiles and shared memory an unbiased launch at head dim D would use,
+// and its kernel: 1 flash_fwd_kernel (the first design), 2
+// flash_fwd_reg_kernel (bf16), 3 flash_fwd_wide_kernel (bf16), 4
+// flash_fwd_tf32_kernel (f32); 0 when no tile fits.
 int flash_attn_fwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
+  if (dtype == 0 && tf32_dk(D)) {
+    *bq = kTBQ;
+    *bk = tf32_dk(D) <= 64 ? Tf32Cfg<64>::BK : Tf32Cfg<128>::BK;
+    *smem = tf32_dk(D) == 32 ? Tf32Cfg<32>::kSmem
+            : tf32_dk(D) == 64 ? Tf32Cfg<64>::kSmem : Tf32Cfg<128>::kSmem;
+    return 4;
+  }
   if (dtype == 1 && reg_dk(D)) {
     *bq = kRBQ;
     *bk = kRBK;
     *smem = reg_smem(reg_dk(D));
-    return 1;
+    return 2;
   }
   if (dtype == 1 && D <= kWDK && wide_fits()) {
     *bq = kWBQ;
     *bk = kWBK;
     *smem = kWSmem;
-    return 1;
+    return 3;
   }
   const int dp = (D + 15) / 16 * 16, esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(dp, esize, max_block_smem(), bq, bk)) return 0;

@@ -399,16 +399,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, bias, float(scale))
 
 
+# the forward's kernels by the code `flash_attn_fwd_tiles` returns
+FWD_ROUTES = {1: "flash_fwd_kernel", 2: "flash_fwd_reg_kernel",
+              3: "flash_fwd_wide_kernel", 4: "flash_fwd_tf32_kernel"}
+
+
+def _tiles(d, dtype, kernel):
+    lib = _library(kernel)
+    bq, bk, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = getattr(lib, f"{kernel}_tiles")(d, _DTYPE_CODE[dtype],
+                                           ctypes.byref(bq), ctypes.byref(bk),
+                                           ctypes.byref(smem))
+    if not code:
+        raise ValueError(f"no tile fits shared memory at head dim {d}")
+    return code, (bq.value, bk.value, smem.value)
+
+
 def flash_tiles(d: int, dtype: torch.dtype, kernel: str = "flash_attn_fwd"):
     """(BQ, BK, shared-memory bytes) the forward (or, with kernel=
     "flash_attn_bwd", the backward) picks at head dim d."""
-    lib = _library(kernel)
-    bq, bk, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if not getattr(lib, f"{kernel}_tiles")(d, _DTYPE_CODE[dtype],
-                                           ctypes.byref(bq), ctypes.byref(bk),
-                                           ctypes.byref(smem)):
-        raise ValueError(f"no tile fits shared memory at head dim {d}")
-    return bq.value, bk.value, smem.value
+    return _tiles(d, dtype, kernel)[1]
+
+
+def flash_route(d: int, dtype: torch.dtype) -> str:
+    """The forward's kernel for an unbiased launch at head dim d (f32 up to
+    d = 128: the TF32 register kernel; bf16 up to 128: the register kernel,
+    up to 512: the column-split one; else the first design)."""
+    return FWD_ROUTES[_tiles(d, dtype, "flash_attn_fwd")[0]]
 
 
 @functools.lru_cache(maxsize=None)

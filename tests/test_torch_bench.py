@@ -236,3 +236,52 @@ def test_sampler_launches_full_width():
     # 5 motion modules of 2 attentions at 32^2 (2 down, 3 up)
     assert fast["temporal_attn_fwd"][(16, 1024, 320, 16, 8, "bfloat16")] \
         == 8 * 10
+
+
+# --- chip_smoke.py's f32 route totals and the TF32 instances' ptxas gate ----
+
+def test_f32_route_totals_sum_launches_times_time_per_unit():
+    def rec(ms):
+        return dict(ms=ms, device_ms=ms / 2, bound_ms=1e-3, plain_ms=2 * ms,
+                    library_ms=3 * ms, route="flash_fwd_tf32_kernel")
+
+    vit, clip = ((1, 12, 197, 197, 64, "float32", ""),
+                 (6, 16, 257, 257, 64, "float32", ""))
+    records = {vit: rec(0.02), clip: rec(0.05)}
+    (t,) = chip_smoke.f32_route_totals(
+        records, [("scored clip", {vit: 288 * 4, clip: 24 * 4}, 4)])
+    kernel_s = (288 * 0.02 + 24 * 0.05) / 1e3
+    assert t["path"] == "scored clip" and t["launches"] == 312
+    assert t["kernel_s"] == pytest.approx(kernel_s)
+    assert t["device_s"] == pytest.approx(kernel_s / 2)
+    assert t["plain_s"] == pytest.approx(2 * kernel_s)
+    assert t["library_s"] == pytest.approx(3 * kernel_s)
+    assert t["bound_s"] == pytest.approx(312 * 1e-3 / 1e3)
+    assert t["routes"] == ["flash_fwd_tf32_kernel"]
+
+
+def _ptxas(dk, bias, lse, registers, spill=0):
+    """One -Xptxas -v entry of a TF32 register kernel instance (the mangled
+    name nvcc gives a kernel in an anonymous namespace)."""
+    return dict(source="flash_attn_fwd",
+                function=(f"_ZN50_GLOBAL__N__0_flash_attn_fwd_cu21flash_fwd_"
+                          f"tf32_kernelILi{dk}ELb{int(bias)}ELb{int(lse)}EEEv"
+                          f"NS_6ParamsE"),
+                registers=registers, spill_stores=spill, spill_loads=2 * spill)
+
+
+def test_tf32_instances_are_read_and_gated():
+    ptxas = [_ptxas(dk, bias, lse, 100 + dk)
+             for dk in (32, 64, 128) for bias in (0, 1) for lse in (0, 1)]
+    ptxas.append(dict(source="flash_attn_fwd", registers=150,
+                      function="_ZN3_GLOBAL__N_120flash_fwd_reg_kernelILi64E"))
+    got = chip_smoke.tf32_instances(ptxas)
+    assert sorted((i["dk"], i["bias"], i["lse"]) for i in got) == sorted(
+        (dk, b, l) for dk in (32, 64, 128) for b in (False, True)
+        for l in (False, True))
+    assert {i["dk"]: i["registers"] for i in got} == {32: 132, 64: 164,
+                                                      128: 228}
+    with pytest.raises(AssertionError):  # an instance spills
+        chip_smoke.tf32_instances(ptxas[:11] + [_ptxas(128, 1, 1, 255, 8)])
+    with pytest.raises(AssertionError):  # an instance is missing
+        chip_smoke.tf32_instances(ptxas[1:])

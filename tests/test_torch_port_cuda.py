@@ -752,14 +752,131 @@ def test_kernel_at_head_dim_88_from_fused_qkv(cuda, tq, tk):
     _check(q, k, v, torch.bfloat16)
 
 
+# The f32 route: the TF32 register kernel (flash_fwd_tf32_kernel) at d <=
+# 128, the first design past it. Stage 6 in f32 (ViT-B a frame, VideoMAE
+# over 6 frames, CLIP ViT-L) and the DecoderVideo of stage e and the seg
+# panels (d 128 at 256 tokens, 64 at 1024, 32 at 4096) at 2 rows
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t", [(1, 12, 197), (1, 12, 588), (6, 16, 257)])
-def test_f32_route_at_the_metric_shapes(cuda, b, h, t):
-    # stage 6 in f32: ViT-B a frame, VideoMAE over 6 frames, CLIP ViT-L
+@pytest.mark.parametrize("b,h,t,d", [(1, 12, 197, 64), (1, 12, 588, 64),
+                                     (6, 16, 257, 64), (2, 1, 256, 128),
+                                     (2, 1, 1024, 64), (2, 1, 4096, 32)])
+def test_f32_route_at_the_metric_shapes(cuda, b, h, t, d):
     g = torch.Generator("cuda").manual_seed(t)
-    q, k, v = (torch.randn((b, h, t, 64), generator=g, device="cuda")
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
                for _ in range(3))
     _check(q, k, v, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 40, 52, 64, 80, 96, 128, 160, 512])
+def test_f32_route_by_head_dim(cuda, d):
+    # the TF32 register kernel's instances pad d to 32, 64 or 128 (64 or 32
+    # keys a tile, rows of d + 4 floats, a 3-stage K/V ring)
+    route = attn.flash_route(d, torch.float32)
+    if d <= 128:
+        dk = 32 if d <= 32 else 64 if d <= 64 else 128
+        bk = 64 if dk <= 64 else 32
+        assert route == "flash_fwd_tf32_kernel"
+        assert attn.flash_tiles(d, torch.float32) == (
+            64, bk, 3 * 2 * bk * (dk + 4) * 4)
+    else:
+        assert route == "flash_fwd_kernel"
+    assert attn.flash_route(d, torch.bfloat16) != "flash_fwd_tf32_kernel"
+
+
+# ragged rows: Tq and Tk of 1, 16 k + 1 and 197 (a tail tile of one key or
+# one query row, and a block with a single valid row)
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(1, 1), (1, 197), (197, 1), (17, 65),
+                                   (65, 17), (197, 197)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_f32_route_takes_ragged_rows(cuda, tq, tk, d):
+    g = torch.Generator("cuda").manual_seed(tq * 1000 + tk)
+    q = torch.randn((2, 3, tq, d), generator=g, device="cuda")
+    k, v = (torch.randn((2, 3, tk, d), generator=g, device="cuda")
+            for _ in range(2))
+    _check(q, k, v, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [52, 64])
+def test_f32_route_takes_strided_head_views(cuda, d):
+    # ViT's fused qkv: [B, T, 3 H D] split into strided [B, H, T, D] views
+    g = torch.Generator("cuda").manual_seed(d)
+    b, t, h = 2, 197, 12
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device="cuda")
+    q, k, v = (y.reshape(b, t, h, d).transpose(1, 2)
+               for y in qkv.chunk(3, dim=-1))
+    assert q.stride(2) == 3 * h * d and not k.is_contiguous()
+    _check(q, k, v, torch.float32)
+
+
+def _check_f32_lse(q, k, v, bias, scale):
+    """The f32 forward with lse against float64 `attention_reference_lse`,
+    each within 1.5x the TF32 plain version's error; a rerun gives equal
+    bits."""
+    b64 = None if bias is None else bias.double()
+    want, want_lse = attn.attention_reference_lse(q.double(), k.double(),
+                                                  v.double(), b64, scale)
+    got, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                        return_lse=True)
+    again, again_lse = attn.flash_attention_fwd(q, k, v, scale=scale,
+                                                bias=bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    plain, plain_lse = attn.attention_reference_tf32(q, k, v, scale, bias,
+                                                     return_lse=True)
+    for name, x, px, w in (("out", got, plain, want),
+                           ("lse", lse, plain_lse, want_lse)):
+        assert bool(torch.isfinite(x).all()), name
+        err = (x.double() - w).abs().max().item()
+        plain_err = (px.double() - w).abs().max().item()
+        print(f"f32 {tuple(q.shape)} k {tuple(k.shape)} bias "
+              f"{None if bias is None else tuple(bias.shape)} {name}: err "
+              f"{err:.3e}, plain {plain_err:.3e}")
+        assert err <= 1.5 * plain_err, (name, err, plain_err)
+
+
+# the prior's f32 check: multi-query k/v at d = 52 with a shared, a
+# per-head and a per-(b, h) bias, and without one, with the lse
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_shape", [None, (129, 130), (4, 129, 130),
+                                        (2, 4, 129, 130)],
+                         ids=["none", "shared", "per_head", "per_bh"])
+def test_f32_route_multi_query_bias_modes_with_lse(cuda, bias_shape):
+    g = torch.Generator("cuda").manual_seed(52)
+    q = torch.randn((2, 4, 129, 52), generator=g, device="cuda")
+    k, v = (torch.randn((2, 1, 130, 52), generator=g, device="cuda")
+            for _ in range(2))
+    bias = (torch.randn(bias_shape, generator=g, device="cuda")
+            if bias_shape else None)
+    _check_f32_lse(q, k, v, bias, 52 ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_route_fully_masked_tiles(cuda, d):
+    # a bias of -inf over the whole first key tile and over the tail tile
+    # (keys 128, 129): the running max starts at -inf and a tile adds
+    # nothing, without a NaN
+    g = torch.Generator("cuda").manual_seed(d)
+    q = torch.randn((1, 2, 150, d), generator=g, device="cuda")
+    k, v = (torch.randn((1, 2, 130, d), generator=g, device="cuda")
+            for _ in range(2))
+    bias = torch.randn((2, 150, 130), generator=g, device="cuda")
+    bias[..., :64] = float("-inf")
+    bias[..., 128:] = float("-inf")
+    _check_f32_lse(q, k, v, bias, d ** -0.5)
+
+
+@pytest.mark.cuda
+def test_f32_route_rerun_gives_equal_bits(cuda):
+    g = torch.Generator("cuda").manual_seed(7)
+    q, k, v = (torch.randn((1, 12, 588, 64), generator=g, device="cuda")
+               for _ in range(3))
+    first = attn.flash_attention_fwd(q, k, v)
+    assert all(torch.equal(first, attn.flash_attention_fwd(q, k, v))
+               for _ in range(3))
 
 
 @pytest.mark.cuda

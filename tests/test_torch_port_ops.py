@@ -158,6 +158,118 @@ def test_attention_reference_tf32_is_plain_at_tf32_precision():
     assert torch.equal(exact, got)
 
 
+# The f32 route's register kernel (csrc/flash_attn_fwd.cu,
+# flash_fwd_tf32_kernel) multiplies with mma.m16n8k8 TF32. Its fragment
+# maps, emulated lane by lane: lane (g, t) = (lane // 4, lane % 4) holds
+# A (16 x 8) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+# B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g); C (16 x 8) c0, c1 (g, 2t,
+# 2t + 1), c2, c3 (g + 8, 2t, 2t + 1).
+def _mma_m16n8k8(a_regs, b_regs):
+    """One mma.m16n8k8 from 32 lanes' registers, the products summed in
+    float64: [16, 8]."""
+    a, b = torch.zeros(16, 8, dtype=torch.float64), torch.zeros(
+        8, 8, dtype=torch.float64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = a_regs[lane]
+        b[t, g], b[t + 4, g] = b_regs[lane]
+    return a @ b
+
+
+def _c_regs(s_tile):
+    """The C registers of a [16, 8] tile, by lane."""
+    return [(s_tile[g, 2 * t], s_tile[g, 2 * t + 1], s_tile[g + 8, 2 * t],
+             s_tile[g + 8, 2 * t + 1])
+            for g, t in (divmod(lane, 4) for lane in range(32))]
+
+
+def _pv_emulated(p, v, permuted):
+    """O = P V over a key tile as the kernel computes it: k8 step j takes S's
+    n8 tile j; with `permuted`, a = (c0, c2, c1, c3) and b = V rows 2t,
+    2t + 1 (A's k index t is key 2t, t + 4 is key 2t + 1); without, the
+    C registers taken as A as they stand, b = V rows t, t + 4."""
+    nk, d = v.shape
+    o = torch.zeros(16, d, dtype=torch.float64)
+    for j in range(nk // 8):
+        c = _c_regs(p[:, 8 * j:8 * j + 8])
+        a = [(c0, c2, c1, c3) if permuted else (c0, c1, c2, c3)
+             for c0, c1, c2, c3 in c]
+        vj = v[8 * j:8 * j + 8]
+        for n in range(d // 8):
+            col = vj[:, 8 * n:8 * n + 8]
+            b = [(col[2 * t, g], col[2 * t + 1, g]) if permuted
+                 else (col[t, g], col[t + 4, g])
+                 for g, t in (divmod(lane, 4) for lane in range(32))]
+            o[:, 8 * n:8 * n + 8] += _mma_m16n8k8(a, b)
+    return o
+
+
+@pytest.mark.parametrize("d", [32, 52, 64, 128])
+def test_tf32_pv_key_permutation_is_the_plain_product(d):
+    # a key tile of 64 (32 at d = 128), V zero-padded to d's n8 tiles as
+    # the kernel's shared memory holds it; P and V rounded to TF32
+    rng = np.random.default_rng(d)
+    nk, dp = (64 if d <= 64 else 32), -(-d // 8) * 8
+    p = tattn.round_to_tf32(torch.from_numpy(
+        np.exp(rng.standard_normal((16, nk), dtype=np.float32)))).double()
+    v = torch.zeros(nk, dp, dtype=torch.float64)
+    v[:, :d] = tattn.round_to_tf32(torch.from_numpy(
+        rng.standard_normal((nk, d), dtype=np.float32))).double()
+    want = p @ v
+    got = _pv_emulated(p, v, permuted=True)
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    # the C registers taken as A as they stand pair the wrong keys
+    wrong = _pv_emulated(p, v, permuted=False)
+    assert (wrong - want).abs().max() > 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tf32_qk_fragments_are_the_plain_product(d):
+    # S = Q K^T over a key tile: Q's A fragments read once; K's B fragments
+    # by ldmatrix x4, lane 8 m + i giving row i of matrix m = (k8 step
+    # 2 kp + m // 2, half m % 2) and each lane word (g, t) of every matrix
+    rng = np.random.default_rng(100 + d)
+    nk = 64 if d <= 64 else 32
+    q, k = (tattn.round_to_tf32(torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32))).double()
+        for shape in ((16, d), (nk, d)))
+    s = torch.zeros(16, nk, dtype=torch.float64)
+    for j in range(nk // 8):
+        for kp in range(d // 16):
+            mats = [k[8 * j:8 * j + 8, 16 * kp + 8 * (m // 2) + 4 * (m % 2):
+                      16 * kp + 8 * (m // 2) + 4 * (m % 2) + 4]
+                    for m in range(4)]
+            r = [[mats[m][g, t] for m in range(4)]
+                 for g, t in (divmod(lane, 4) for lane in range(32))]
+            for half in range(2):
+                ks = 2 * kp + half
+                a = [(q[g, 8 * ks + t], q[g + 8, 8 * ks + t],
+                      q[g, 8 * ks + t + 4], q[g + 8, 8 * ks + t + 4])
+                     for g, t in (divmod(lane, 4) for lane in range(32))]
+                b = [(rl[2 * half], rl[2 * half + 1]) for rl in r]
+                s[:, 8 * j:8 * j + 8] += _mma_m16n8k8(a, b)
+    want = q @ k.T
+    assert (s - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+# the f32 route's plain version with its lse against the JAX package's f32
+# attention (the Pallas kernel in interpret mode) at the f32 paths' ragged
+# rows, scaled down: ViT-B's 197 and CLIP's 257 tokens, the head dims 32,
+# 64 and 128. TF32 keeps 10 mantissa bits: held to 2^-8 relative
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t_len", [197, 257])
+def test_attention_reference_tf32_lse_matches_jax(t_len, d):
+    q, k, v = _qkv(t_len + d, b=1, h=2, tq=t_len, tk=t_len, d=d)
+    ref, ref_lse = jattn._flash_attention_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+        return_lse=True)
+    got, lse = tattn.attention_reference_tf32(t(q), t(k), t(v),
+                                              return_lse=True)
+    assert got.shape == ref.shape and lse.shape == ref_lse.shape
+    assert rel_err(got, ref) <= 2**-8
+    assert rel_err(lse, ref_lse) <= 2**-8
+
+
 @pytest.mark.parametrize("shapes", [
     ((1, 2, 8, 4), (1, 3, 8, 4)),       # k heads neither 1 nor H
     ((1, 2, 8, 4), (1, 2, 8, 5)),       # head dims differ

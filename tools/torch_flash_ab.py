@@ -4,7 +4,7 @@ backward (#4/#5), temporal attention (#6), GroupNorm+SiLU (#7) and
 GroupNorm+SiLU+3x3-conv kernel (#8) on one CUDA card, in turns, at every
 shape the main paths launch.
 
-    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash|bwd|conv|temporal|gnsilu] [--json PATH]
+    python3 tools/torch_flash_ab.py OTHER_ROOT [--only flash,f32,bwd,conv,temporal,gnsilu] [--json PATH]
 
 OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
@@ -12,7 +12,10 @@ checkout runs in its own process (it builds its own kernels), in the order
 other, this, this, other. Shapes: the flash forward at every attention
 shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
 stage-2 step's training sites (with lse, and the prior's bias); the
-backward at the same four step sites (from the forward's out and lse, with
+forward's f32 (TF32) route ("f32") at every f32 shape of a path: stage 6's
+three classifier shapes, the DecoderVideo's three sizes of the seg panel
+(24 rows) and of the CLI's stage e (12 rows), and the prior's f32 check
+(bias and lse); the backward at the same four step sites (from the forward's out and lse, with
 a random output gradient); #6 at the clip's four motion-module levels
 (bf16, 16 frames, 8 heads, no autograd); #7 in bf16 (bf16 GroupNorm
 parameters, as the bf16 models hold them) at every shape of the fused clip
@@ -67,6 +70,29 @@ FLASH_STEP = [
     ("decoder 16x16", (60, 1, 256, 256, 128, 1), None, 12, 6),
     ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None, 8, 4),
     ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, 8, 4),
+]
+
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape, {path: launches}) of the
+# flash forward's f32 route: a scored clip (stage 6), a seg panel and the
+# stage e of a 2-clip CLI run (one DecoderVideo forward: 3 launches at 16 x
+# 16, 2 at 32 x 32, 2 at 64 x 64), the prior's f32 check (lse, one a check)
+FLASH_F32 = [
+    ("vit-b frame", (1, 12, 197, 197, 64, 12), None, {"scored clip": 288}),
+    ("videomae 6 frames", (1, 12, 588, 588, 64, 12), None,
+     {"scored clip": 48}),
+    ("clip vit-l 6 frames", (6, 16, 257, 257, 64, 16), None,
+     {"scored clip": 24}),
+    ("decoder 16x16 panel", (24, 1, 256, 256, 128, 1), None, {"panel": 3}),
+    ("decoder 32x32 panel", (24, 1, 1024, 1024, 64, 1), None, {"panel": 2}),
+    ("decoder 64x64 panel", (24, 1, 4096, 4096, 32, 1), None, {"panel": 2}),
+    ("decoder 16x16 stage e", (12, 1, 256, 256, 128, 1), None,
+     {"stage e": 3}),
+    ("decoder 32x32 stage e", (12, 1, 1024, 1024, 64, 1), None,
+     {"stage e": 2}),
+    ("decoder 64x64 stage e", (12, 1, 4096, 4096, 32, 1), None,
+     {"stage e": 2}),
+    ("prior (train)", (10, 32, 513, 514, 52, 1), (32, 513, 514),
+     {"prior check": 1}),
 ]
 
 # ((N, Cin, H, W, Cout), launches a fused clip) of #8, 32 groups
@@ -191,7 +217,9 @@ def kernel_ms(fn, reps: int, prefix: str):
 
 
 def time_here(root: str, only: str):
-    """Times of `root`'s kernels, one JSON line on stdout."""
+    """Times of `root`'s kernels (`only`: a comma list of the groups, or
+    "all"), one JSON line on stdout."""
+    only = set(only.split(","))
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as F
@@ -207,7 +235,7 @@ def time_here(root: str, only: str):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
     out = {}
-    if only in ("all", "flash"):
+    if "all" in only or "flash" in only:
         for name, (b, h, tq, tk, d), _ in FLASH_CLIP:
             q, k, v = rand(b, h, tq, d), rand(b, h, tk, d), rand(b, h, tk, d)
             reps = 5 if tq * tk > 10_000_000 else 20
@@ -223,7 +251,23 @@ def time_here(root: str, only: str):
             out[f"flash {name} (train)"] = cuda_ms(fn, reps)
             out[f"device flash {name} (train)"] = device_ms(fn, reps)
         del q, k, v
-    if only in ("all", "bwd"):
+    if "all" in only or "f32" in only:
+        for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_F32:
+            q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
+            k, v = (torch.randn((b, hkv, tk, d), generator=gen, device="cuda")
+                    for _ in range(2))
+            bias = (torch.randn(bshape, generator=gen, device="cuda")
+                    if bshape else None)
+            reps = 5 if b * h * tq * tk > 2e8 else 20
+            fn = lambda: attn.flash_attention_fwd(  # noqa: E731
+                q, k, v, bias=bias, return_lse=bias is not None)
+            out[f"f32 {name}"] = cuda_ms(fn, reps)
+            out[f"device f32 {name}"] = device_ms(fn, reps)
+            out[f"profiled f32 {name}"] = sum(
+                kernel_ms(fn, reps, "flash_fwd_").values())
+        del q, k, v, bias
+        torch.cuda.empty_cache()
+    if "all" in only or "bwd" in only:
         for name, (b, h, tq, tk, d, hkv), bshape, _, _ in FLASH_STEP:
             q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
             bias = rand(*bshape) if bshape else None
@@ -240,7 +284,7 @@ def time_here(root: str, only: str):
                 out[f"device bwd {name}: {kernel}"] = ms
         del q, k, v, g, o, lse
         torch.cuda.empty_cache()
-    if only in ("all", "conv"):
+    if "all" in only or "conv" in only:
         for (n, cin, h, w, cout), _ in CONV_CLIP:
             x = rand(n, cin, h, w)
             gw, gb = 1.0 + 0.1 * rand(cin), 0.1 * rand(cin)
@@ -251,7 +295,7 @@ def time_here(root: str, only: str):
             out[f"conv {n},{cin},{h},{w}->{cout}"] = cuda_ms(fn, 20)
             out[f"device conv {n},{cin},{h},{w}->{cout}"] = device_ms(fn, 20)
         torch.cuda.empty_cache()
-    if only in ("all", "temporal"):
+    if "all" in only or "temporal" in only:
         for name, (bf, d, c) in TEMPORAL_CLIP:
             q, k, v = rand(bf, d, c), rand(bf, d, c), rand(bf, d, c)
             scale = (c // 8) ** -0.5
@@ -261,7 +305,7 @@ def time_here(root: str, only: str):
             out[f"device temporal {name}"] = device_ms(fn, 20)
         del q, k, v
         torch.cuda.empty_cache()
-    if only in ("all", "gnsilu"):
+    if "all" in only or "gnsilu" in only:
         for shape, _, _ in GN_SHAPES:
             x = rand(*shape)
             gw, gb = 1.0 + 0.1 * rand(shape[1]), 0.1 * rand(shape[1])
@@ -280,8 +324,9 @@ def time_here(root: str, only: str):
 
 def totals(times):
     """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #6,
-    #7, #8) and over a step (flash forward, flash backward, #7), from one
-    run's times:
+    #7, #8), over a step (flash forward, flash backward, #7) and over the
+    f32 route's paths (a scored clip, a seg panel, a 2-clip stage e), from
+    one run's times:
     event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
@@ -296,6 +341,11 @@ def totals(times):
             sums[pre + "flash bwd step"] = sums.get(
                 pre + "flash bwd step", 0.0) + n_bwd * times.get(
                 f"{pre}bwd {name}", 0.0)
+        for name, _, _, paths in FLASH_F32:
+            for path, n in paths.items():
+                key = f"{pre}f32 {path}"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}f32 {name}", 0.0)
         for (n, cin, h, w, cout), launches in CONV_CLIP:
             sums[pre + "conv fused clip"] = sums.get(
                 pre + "conv fused clip", 0.0) + launches * times.get(
@@ -318,11 +368,14 @@ def main():
         return time_here(sys.argv[2], sys.argv[3])
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("--only", choices=("all", "flash", "bwd", "conv",
-                                       "temporal", "gnsilu"),
-                    default="all")
+    ap.add_argument("--only", default="all",
+                    help="a comma list of flash, f32, bwd, conv, temporal, "
+                         "gnsilu (default all)")
     ap.add_argument("--json", help="also write the record here")
     args = ap.parse_args()
+    groups = {"all", "flash", "f32", "bwd", "conv", "temporal", "gnsilu"}
+    if not set(args.only.split(",")) <= groups:
+        ap.error(f"--only takes a comma list of {sorted(groups)}")
     other = str(Path(args.other).resolve())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
