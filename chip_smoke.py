@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
-paths), stages 4 and 6 (captions and the metric suite, through the port's
-CLI) and stages 1 and 2 (training, checkpoints and resume) on one CUDA
-card, in the default configuration and in the fused-norm one, and hold its
-kernels against their plain PyTorch versions.
+paths, and the HTTP server over them), stages 4 and 6 (captions and the
+metric suite, through the port's CLI), the CLI's `precompute` and
+`validate`, and stages 1 and 2 (training, checkpoints and resume) on one
+CUDA card, in the default configuration and in the fused-norm one, and
+hold its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -87,8 +88,15 @@ Phases, in order:
      stage, peak memory, its flash and temporal launches held to the
      count from the step schedule, and its rms deviation from the exact
      clip's first request on the same draws (for the preset also stage 5
-     alone on the exact stage-3 artifacts). Then one full-width UNet2D and
-     one UNet3D forward,
+     alone on the exact stage-3 artifacts). Then the server
+     (`serve_phase`): `serving.InferenceServer` on port 0 at batch 2 over
+     the same bf16 models (`serving.clip_pipeline`), four concurrent
+     single-clip requests, a 2-clip one and a `?format=gif` one, /healthz,
+     /stats and a request of the wrong shape (400); each served clip equal
+     to the direct pipeline call on its padded batch and seed, the mean
+     occupancy above 1, the GIF the native codec's, the launches equal to
+     `serve_launches` at batch 2 a batch; s a batch, the clients' p50/p95,
+     clips/s. Then one full-width UNet2D and one UNet3D forward,
      fused and unfused in bf16 on the same input against the same forward
      in f32 (the fused error within 1.5x the unfused one);
   4b. stage 4 and stage 6 at full width through `neurons_tpu_torch.cli`
@@ -116,7 +124,21 @@ Phases, in order:
      other keys' differences logged with the classifiers' argsorts); and
      `pipeline 12345e6 --tiny --synthetic` on the card against the CPU
      (keyframes and videos within 2e-2, captions and stage-e class
-     predictions equal). Every shape the CLI launched that no earlier
+     predictions equal). Between the two, before the weights are removed,
+     `validate` on the same files (`validate_on`): the real-weight branch
+     of both stages in f32 at the proxy shapes (64^2 latents over 38 steps,
+     32^2 latents of 16 frames over 25 steps), the report gated (real
+     weights, scores finite, corr in [-1, 1], fast != exact) and its
+     launches held to `validate_launches`;
+  4d. `precompute` at full width (`precompute_phase`): a root of 2 test and
+     3 train clips and seeded `open_clip_bigG.pt` (fp16, open_clip's
+     layout) and `sd_vae.pt`, then the command (the bigG vision tower in
+     f32 at d = 104, the VAE encoder, the bigG text tower): the tables'
+     shapes and dtypes, one frame's tokens and latents within 2e-2 * max
+     of the same towers on the CPU, the launches held to
+     `precompute_launches`; s a 1000 frames by table, setup s, peak
+     memory, bytes written; the files removed after. Every shape the CLI,
+     the server, `validate` and `precompute` launched that no earlier
      check covered is then held by the same 1.5x rule
      (`cli_kernel_checks`);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
@@ -166,7 +188,8 @@ Then one line of per-kernel totals for one clip or one step (launches x
 time summed: kernel by events and, for #6-#8, by device time, bound,
 library call), which gives the redesign order from one run, one line of
 the f32 route's (the flash forward on f32) over a scored clip, a seg
-panel and the CLI's stage e a clip, and one line
+panel, the CLI's stage e a clip, a precompute batch of 16 frames and one
+validate run, and one line
 of the same sums by the Pallas kernel each launch replaces. The last
 two lines are the kernels' JSON record (each (kernel, shape) of the main
 paths, the "max" fast clip's among them, those totals, the f32 route's,
@@ -1328,11 +1351,12 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
 
 def slice_phase():
     """The full-width clip in both configurations on the same models and
-    seeds: unfused, then the fast configurations (unfused), then fused;
-    each clip 2 counted requests and 1 profiled; then one UNet2D and one
-    UNet3D forward in both. Returns ({fused: {kernel: launches by shape}}, the
-    fast phase's {configuration: {kernel: launches by shape}}, the first
-    unfused clip's keyframe artifact and video on the host)."""
+    seeds: unfused, then the fast configurations and the server (unfused),
+    then fused; each clip 2 counted requests and 1 profiled; then one
+    UNet2D and one UNet3D forward in both. Returns ({fused: {kernel:
+    launches by shape}}, the fast phase's {configuration: {kernel:
+    launches by shape}}, the first unfused clip's keyframe artifact and
+    video on the host, and the serve phase's (launches, batches))."""
     import torch
 
     models, pcfg = build_clip()
@@ -1346,6 +1370,7 @@ def slice_phase():
                 # before the fused clip, whose packed #8 weights stay
                 # cached and would count in the fast clips' peak memory
                 fast_by_config = fast_phase(models, pcfg, by_shape, first)
+                serve = serve_phase(models, pcfg)
                 sample = (first[0].keyframe.float().cpu(),
                           first[1].video.float().cpu())
         by_config[fused] = by_shape
@@ -1353,7 +1378,230 @@ def slice_phase():
     fused_forward_check(models, pcfg)
     del models
     torch.cuda.empty_cache()
-    return by_config, fast_by_config, sample
+    return by_config, fast_by_config, sample, serve
+
+
+SERVE_BATCH = 2  # the server's batch: two clips a pipeline call
+
+
+def serve_launches(models, pcfg, batch: int):
+    """Flash and temporal launches of one served batch of `batch` clips
+    (`serving.clip_pipeline`: `run_stage3` then `run_stage5`, bf16),
+    counted from the code: the two samplers at that batch
+    (`sampler_launches`); stage 3's VAE decoder once a keyframe (96^2
+    latents) and once a blurry frame (64^2), the DecoderVideo twice over
+    batch x 6 rows (enhance mode: the seg masks and the blurry latents);
+    stage 5's VAE encoder once on the batch's interpolated
+    frames (batch x 16) and once on its keyframes, its decoder on chunks
+    of the largest divisor of batch x 16 up to 16 frames (32^2 latents)."""
+    import collections
+
+    dec = models[0]
+    flash, temporal = collections.Counter(), collections.Counter()
+    for stages in ("3", "5"):
+        got = sampler_launches(models, pcfg, {}, {}, batch=batch,
+                               stages=stages)
+        flash.update(got["flash_attn_fwd"])
+        temporal.update(got["temporal_attn_fwd"])
+    rows = batch * pcfg.decoupler.n_frames
+    f = pcfg.sampler.n_video_frames
+
+    def vae(b, side):
+        return (b, 1, side * side, side * side, 512, "bfloat16", "")
+
+    flash[vae(1, 96)] += batch
+    flash[vae(1, 64)] += rows
+    for _ in range(2):  # enhance mode: the seg masks, then blurry latents
+        flash.update(decoder_video_launches(dec.text_seg_dec.video_decoder,
+                                            rows, 16, "bfloat16"))
+    flash[vae(batch * f, 32)] += 1
+    flash[vae(batch, 32)] += 1
+    chunk = next(c for c in range(min(16, batch * f), 0, -1)
+                 if batch * f % c == 0)
+    flash[vae(chunk, 32)] += batch * f // chunk
+    return {"flash_attn_fwd": dict(flash), "temporal_attn_fwd":
+            dict(temporal)}
+
+
+def _http(port: int, method: str, path: str, body: bytes = None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    out = (resp.status, resp.getheader("Content-Type"), resp.read())
+    conn.close()
+    return out
+
+
+def serve_phase(models, pcfg):
+    """The port's HTTP server over the clip phase's bf16 models
+    (`serving.clip_pipeline`, batch 2, port 0), unfused: four concurrent
+    single-clip requests, then one 2-clip request and one `?format=gif`
+    request, then /healthz, /stats and one request of the wrong shape.
+    The kernels' launch counts are zeroed just before the first request
+    and read just after the last answer. Gates: every answer but the bad
+    one is 200, with [k,16,3,256,256] in [0,1]; the bad one is 400; each
+    served clip equals the direct pipeline call on its padded batch and
+    seed (bitwise, else its largest difference is printed and held to
+    2e-2 * max); the mean batch occupancy is above 1; the GIF is the
+    native codec's encoding of its batch's clip; /healthz names the card;
+    the launches equal `serve_launches` at batch 2 times the batches.
+    Prints the seconds a batch, the clients' p50/p95, the occupancy and
+    clips/s beside the clip phase's seconds a clip at batch 1. Returns
+    ({path: {kernel: launches by shape}}, {path: batches})."""
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+    from neurons_tpu_torch import native_io, serving
+
+    d = pcfg.decoupler
+    classes = torch.randn((d.num_classes, d.clip_txt_emb_dim),
+                          generator=torch.Generator("cuda").manual_seed(7),
+                          device="cuda")
+    pipeline = serving.clip_pipeline(models, pcfg, (96, 256, 60), classes,
+                                     "cuda")
+    batches = []
+
+    def recorded(voxels, seed):
+        t0 = time.perf_counter()
+        out = pipeline(voxels, seed)
+        batches.append(dict(voxels=voxels.copy(), seed=seed, out=out,
+                            s=time.perf_counter() - t0))
+        return out
+
+    n_vox = pcfg.brain.voxel_counts[0]
+    srv = serving.InferenceServer(recorded, n_vox, serving.ServerConfig(
+        port=0, batch_size=SERVE_BATCH, max_wait_ms=500.0),
+        device="cuda").start()
+    rng = np.random.default_rng(SEED + 2)
+    requests = {f"single {i}": 0.5 * rng.standard_normal((n_vox,))
+                for i in range(4)}
+    requests["pair"] = 0.5 * rng.standard_normal((2, n_vox))
+    requests["gif"] = 0.5 * rng.standard_normal((n_vox,))
+    requests = {k: v.astype(np.float32) for k, v in requests.items()}
+    answers = {}
+
+    def client(tag, path="/reconstruct"):
+        buf = io.BytesIO()
+        np.save(buf, requests[tag])
+        t0 = time.perf_counter()
+        answers[tag] = _http(srv.port, "POST", path, buf.getvalue()) + (
+            time.perf_counter() - t0,)
+
+    counters = cli_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t_start = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(f"single {i}",))
+                   for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        client("pair")
+        client("gif", "/reconstruct?format=gif")
+        wall = time.perf_counter() - t_start
+        launches = {k: dict(c.by_shape) for k, c in counters.items()}
+        health = json.loads(_http(srv.port, "GET", "/healthz")[2])
+        stats = json.loads(_http(srv.port, "GET", "/stats")[2])
+        buf = io.BytesIO()
+        np.save(buf, np.zeros((n_vox + 1,), np.float32))
+        bad = _http(srv.port, "POST", "/reconstruct", buf.getvalue())
+    finally:
+        srv.close()
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("serve: a client did not finish")
+
+    checks = {"bad shape answered 400": bad[0] == 400}
+    videos = {}
+    for tag, (status, ctype, body, _) in answers.items():
+        checks[f"{tag} answered 200"] = status == 200
+        if status != 200:
+            log(f"serve {tag}: {status} {body[:300]!r}")
+        elif tag != "gif":
+            videos[tag] = np.load(io.BytesIO(body))
+    for tag, v in videos.items():
+        k = 2 if tag == "pair" else 1
+        checks[f"{tag} [{k},16,3,256,256] in [0,1]"] = (
+            v.shape == (k, 16, 3, 256, 256) and bool(np.isfinite(v).all())
+            and v.min() >= 0.0 and v.max() <= 1.0)
+
+    # each served clip against the direct call on its padded batch and seed
+    def where(row):
+        for b in batches:
+            for i, r in enumerate(b["voxels"]):
+                if np.array_equal(r, row):
+                    return b, i
+        raise AssertionError("serve: a request's voxels are in no batch")
+
+    diffs = []
+    for b in batches:
+        direct = pipeline(b["voxels"], b["seed"])
+        err = float(np.abs(b["out"] - direct).max())
+        b["direct"] = direct
+        diffs.append(err)
+        if err:
+            log(f"serve batch seed {b['seed']}: served vs direct max |diff| "
+                f"{err:.3e} of max {np.abs(direct).max():.3e} (not bitwise: "
+                f"the batch ran again on the same inputs, held to 2e-2)")
+            checks[f"batch {b['seed']} within 2e-2 of the direct call"] = (
+                err <= 2e-2 * float(np.abs(direct).max()))
+    for tag, v in videos.items():
+        rows = requests[tag].reshape(-1, n_vox)
+        for j, row in enumerate(rows):
+            b, i = where(row)
+            checks[f"{tag} clip {j} is its batch's row {i}"] = \
+                np.array_equal(v[j], b["out"][i])
+    if answers["gif"][0] == 200:
+        b, i = where(requests["gif"])
+        checks["the GIF is the native codec's"] = (
+            native_io.available() and answers["gif"][1] == "image/gif"
+            and answers["gif"][2] == serving._encode_gif(b["out"][i:i + 1]))
+    occupancy = stats["mean_batch_occupancy"]
+    checks["mean occupancy above 1"] = occupancy is not None and occupancy > 1
+    checks["healthz names the card"] = (
+        health["platform"] == "cuda"
+        and health["device"] == torch.cuda.get_device_name(0))
+    want = serve_launches(models, pcfg, SERVE_BATCH)
+    n_batches = len(batches)
+    problems = []
+    for kernel in want:
+        got = launches[kernel]
+        for key in sorted(set(got) | set(want[kernel]), key=str):
+            if got.get(key, 0) != want[kernel].get(key, 0) * n_batches:
+                problems.append(f"{kernel} {key}: {got.get(key, 0)} "
+                                f"launched, {want[kernel].get(key, 0)} x "
+                                f"{n_batches} from the code")
+    problems += [k for k in ("flash_attn_bwd", "gn_silu", "gn_silu_conv")
+                 if launches[k]]
+    checks["launches equal serve_launches x batches"] = not problems
+
+    lat = sorted(a[3] for a in answers.values())
+    batch_s = [round(b["s"], 3) for b in batches]
+    clips = sum(len(r.reshape(-1, n_vox)) for r in requests.values())
+    lib = LIBRARY_STAGE_S.get("3", float("nan")) + LIBRARY_STAGE_S.get(
+        "5", float("nan"))
+    log(f"serve: {n_batches} batches of {SERVE_BATCH} (seeds "
+        f"{[b['seed'] for b in batches]}), s a batch {batch_s} (mean "
+        f"{np.mean(batch_s):.3f}, {np.mean(batch_s) / SERVE_BATCH:.3f} s a "
+        f"clip), clients' latency p50 {np.percentile(lat, 50):.3f} s p95 "
+        f"{np.percentile(lat, 95):.3f} s (server p50 "
+        f"{stats['latency_ms_p50']} ms, p95 {stats['latency_ms_p95']} ms), "
+        f"mean occupancy {occupancy}, {clips} clips in {wall:.1f} s = "
+        f"{clips / wall:.3f} clips/s; the clip phase's clip at batch 1: "
+        f"{lib:.3f} s; served vs direct max |diff| by batch {diffs}; "
+        f"launches {({k: sum(v.values()) for k, v in launches.items()})} "
+        f"({({k: sum(v.values()) for k, v in want.items()})} a batch from "
+        f"the code); health {health}")
+    log(f"serve checks: {checks}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve fails {failed} {problems[:8]}")
+    return {"serve": launches}, {"serve": n_batches}
 
 
 # --- the fast paths ----------------------------------------------------------
@@ -3194,12 +3442,15 @@ BPE_MERGES = ["#version: 0.2", "t o", "to k", "tok e", "toke n", "token s",
               "sce n", "scen e</w>"]
 
 
-def write_cc2017_root(root: Path, n: int, rng, txt_dim: int = 1280):
+def write_cc2017_root(root: Path, n: int, rng, txt_dim: int = 1280,
+                      n_train: int = 0, img: int = 224):
     """The CC2017 test split of subject 1 at its real widths (13447 voxels,
-    three repeats, 6 frames of 224 px) in the layout `load_split` reads,
-    with its captions, qwen annotation, test key-object masks and info,
-    the class-name table `class_text_embeds.npy`, and a BPE merges file.
-    Returns the merges file's path."""
+    three repeats, 6 frames of `img` = 224 px) in the layout `load_split`
+    reads, with its captions, qwen annotation, test key-object masks and
+    info, the class-name table `class_text_embeds.npy`, and a BPE merges
+    file; with `n_train`, a train split of that many clips too (two
+    repeats, its key-object masks and info). Returns the merges file's
+    path."""
     import numpy as np
     import torch
     from neurons_tpu_torch.config import SUBJECT_VOXELS
@@ -3211,22 +3462,28 @@ def write_cc2017_root(root: Path, n: int, rng, txt_dim: int = 1280):
     def save(x, name):
         torch.save(torch.from_numpy(np.ascontiguousarray(x)), root / name)
 
-    save(rng.standard_normal((n, 3, SUBJECT_VOXELS[1]), dtype=np.float32),
-         "subj01_test_fmri.pt")
-    save(rng.uniform(size=(n, 6, 3, 224, 224)).astype(np.float32),
-         "GT_test_3fps.pt")
-    save(rng.standard_normal((n, txt_dim), dtype=np.float32),
-         "GT_test_caption_emb.pt")
-    torch.save([f"a {CLS_DICT[i]} in the scene" for i in range(n)],
-               root / "GT_test_caption.pt")
-    with open(root / "qwen_annotation" /
-              "qwen_test_caption_tag_category_id.json", "w") as f:
-        json.dump([{"category_id": [i, (i + 3) % 51]} for i in range(n)], f)
-    save((rng.uniform(size=(n, 6, 224, 224)) < 0.3).astype(np.float32),
-         "masks/key_objects_masks_qwen_test.pt")
-    with open(root / "masks" / "key_objects_info_qwen_test.json", "w") as f:
-        json.dump({str(i): {"category": CLS_DICT[i + 1]} for i in range(n)},
-                  f)
+    for tag, m, repeats, masks in (("test", n, 3, "qwen_test"),
+                                   ("train", n_train, 2, "train")):
+        if not m:
+            continue
+        save(rng.standard_normal((m, repeats, SUBJECT_VOXELS[1]),
+                                 dtype=np.float32), f"subj01_{tag}_fmri.pt")
+        save(rng.uniform(size=(m, 6, 3, img, img)).astype(np.float32),
+             f"GT_{tag}_3fps.pt")
+        save(rng.standard_normal((m, txt_dim), dtype=np.float32),
+             f"GT_{tag}_caption_emb.pt")
+        torch.save([f"a {CLS_DICT[i % 51]} in the scene" for i in range(m)],
+                   root / f"GT_{tag}_caption.pt")
+        with open(root / "qwen_annotation" /
+                  f"qwen_{tag}_caption_tag_category_id.json", "w") as f:
+            json.dump([{"category_id": [i, (i + 3) % 51]} for i in range(m)],
+                      f)
+        save((rng.uniform(size=(m, 6, img, img)) < 0.3).astype(np.float32),
+             f"masks/key_objects_masks_{masks}.pt")
+        with open(root / "masks" / f"key_objects_info_{masks}.json",
+                  "w") as f:
+            json.dump({str(i): {"category": CLS_DICT[(i + 1) % 51]}
+                       for i in range(m)}, f)
     np.save(root / "class_text_embeds.npy",
             rng.standard_normal((51, txt_dim), dtype=np.float32))
     merges = root / "bpe_simple_vocab.txt"
@@ -3477,7 +3734,7 @@ def cli_counters():
 def run_cli(argv, what: str):
     """`cli.main(argv)` with every launch counter zeroed just before and
     read just after; returns ({kernel: {key: launches}}, the pipeline's
-    per-stage rows, wall seconds)."""
+    per-stage rows (none for another command), wall seconds)."""
     import tempfile
 
     import torch
@@ -3497,8 +3754,9 @@ def run_cli(argv, what: str):
         del os.environ["NEURONS_TPU_PIPELINE_REPORT"]
     wall = time.perf_counter() - t0
     launches = {k: dict(c.by_shape) for k, c in counters.items()}
-    with open(report) as f:
-        rows = json.load(f)
+    with open(report) as f:  # only `pipeline` writes its rows
+        text = f.read()
+    rows = json.loads(text) if text else []
     os.remove(report)
     log(f"cli {what}: {wall:.1f} s, launches "
         f"{ {k: sum(v.values()) for k, v in launches.items()} }")
@@ -3616,7 +3874,9 @@ def cli_phase():
        report checked.
     2. Stage 6 again on the same GIFs with `--platform cpu`: SSIM and PSNR
        within 1e-5 of the card's; the other keys' differences logged.
-    3. `pipeline 12345e6 --tiny --synthetic --num_epochs 1` on the card and
+    3. `validate` on the same weight files (the real-weight branches of
+       both stages, f32 at full width, `validate_on`).
+    4. `pipeline 12345e6 --tiny --synthetic --num_epochs 1` on the card and
        with `--platform cpu` (weights and stage-2 draws made on the CPU for
        both): stage-3 keyframes and stage-5 videos within 2e-2 of max
        |CPU|, equal caption tokens, equal stage-e class predictions, the
@@ -3711,10 +3971,13 @@ def cli_phase():
         if any(diffs[k] for k in diffs if k not in ("ssim", "psnr")):
             explain_nway_differences(
                 io.video_dir(str(exp), "exp1", 1, "motion"), str(weights))
+
+        # 3. validate on the same reference-layout weights, f32
+        by_path["cli validate"] = validate_on(weights)
         shutil.rmtree(weights)
         log(f"cli: weights removed; {shutil.disk_usage(d).free} bytes free")
 
-        # 3. the tiny chain 12345e6, card against CPU
+        # 4. the tiny chain 12345e6, card against CPU
         outs = {}
         for dev in ("cuda", "cpu"):
             tiny = ["pipeline", "12345e6", "--tiny", "--synthetic",
@@ -3758,7 +4021,329 @@ def cli_phase():
         if not ok:
             raise AssertionError("the tiny CLI chain on the card disagrees "
                                  "with the CPU")
-    return by_path, {"cli pipeline 35e6": CLI_CLIPS, "cli tiny 12345e6": 1}
+    return by_path, {"cli pipeline 35e6": CLI_CLIPS, "cli tiny 12345e6": 1,
+                     "cli validate": 1}
+
+
+def validate_launches():
+    """Flash and temporal launches of one full-width `validate`, counted
+    from the code: the exact unCLIP sampler at 64^2 latents (38 steps) and
+    the exact UNet3D + SparseCtrl sampler at 32^2 latents (16 frames, 25
+    steps) once each, then each distinct fast option set of the presets
+    once (`pipelines/validate.py` runs an option set once), all f32 at
+    batch 1; the stand-in autoencoder launches nothing."""
+    import collections
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.models.sparse_controlnet import \
+        SparseControlNetModel
+    from neurons_tpu_torch.models.unet2d import UNetModel
+    from neurons_tpu_torch.models.unet3d import UNet3DModel
+    from neurons_tpu_torch.pipelines.validate import preset_options
+
+    pcfg = config.PipelineConfig()
+    s = pcfg.sampler
+    with torch.device("meta"):
+        models = (None, UNetModel(pcfg.unet2d, device="meta"), None, None,
+                  UNet3DModel(pcfg.unet3d, n_frames=16, device="meta"),
+                  SparseControlNetModel(pcfg.unet3d, n_frames=16,
+                                        device="meta"))
+    opts = [preset_options(spec, s.unclip_steps, s.video_steps)
+            for spec in config.FAST_PRESETS.values()]
+    runs = ([({}, {}, "3"), ({}, {}, "5")]
+            + [(o3, {}, "3") for o3 in {tuple(sorted(o.items())): o
+                                       for o, _ in opts}.values()]
+            + [({}, o5, "5") for o5 in {tuple(sorted(o.items())): o
+                                       for _, o in opts}.values()])
+    total = {"flash_attn_fwd": collections.Counter(),
+             "temporal_attn_fwd": collections.Counter()}
+    for o3, o5, stage in runs:
+        got = sampler_launches(models, pcfg, o3, o5, latents=(64, 32),
+                               dtype="float32", stages=stage)
+        for k in total:
+            total[k].update(got[k])
+    return {k: dict(v) for k, v in total.items()}
+
+
+def validate_on(weights: Path):
+    """`cli validate` on the reference-layout weight files in `weights`
+    (the unclip6 checkpoint; the AnimateDiff bundle with its LoRA and
+    SparseCtrl): the real-weight branch of both stages at full width, f32.
+    Gates: both stages report "real" weights, every preset and stage has a
+    finite rms_rel and corr, corr in [-1, 1], fast != exact; the launches
+    equal `validate_launches`. Prints the seconds of each sampler run and
+    of each preset. Returns its {kernel: launches by shape}."""
+    import math
+
+    import torch
+    from neurons_tpu_torch import cli
+
+    with configuration(False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches, _, wall = run_cli(
+            ["validate", "--weights_dir", str(weights), "--seed", str(SEED)],
+            "validate (full width, f32)")
+    stats = cli._STAGE_STATS["validate"]
+    with open(weights / "fastpath_validation.json") as f:
+        rep = json.load(f)
+    run_s = stats["run_s"]
+    for name in sorted(rep["presets"]):
+        o3, o5 = (",".join(f"{k}={v}" for k, v in sorted(o.items()))
+                  for o in _preset_opts(name))
+        log(f"validate preset {name}: stage 3 {run_s['stage3'][o3]:.2f} s "
+            f"({o3}), stage 5 {run_s['stage5'][o5]:.2f} s ({o5}; a run "
+            f"shared by every preset with these options), scores "
+            f"{rep['presets'][name]}")
+    log(f"validate: exact stage 3 {run_s['stage3']['exact']:.2f} s, exact "
+        f"stage 5 {run_s['stage5']['exact']:.2f} s, setup {stats['setup_s']}"
+        f" s, scoring {stats['s']} s, wall {wall:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; report "
+        f"{json.dumps(rep)}")
+    bad = []
+    if (rep["weights_stage3"], rep["weights_stage5"]) != ("real", "real"):
+        bad.append("weights not real")
+    for name, scores in rep["presets"].items():
+        for stage in ("stage3", "stage5"):
+            rms, corr = scores[stage]["rms_rel"], scores[stage]["corr"]
+            if not (math.isfinite(rms) and math.isfinite(corr)
+                    and -1.0 <= corr <= 1.0 and (rms > 0.0 or corr < 1.0)):
+                bad.append(f"{name} {stage} {scores[stage]}")
+    want = validate_launches()
+    for kernel in want:
+        got = launches[kernel]
+        for key in sorted(set(got) | set(want[kernel]), key=str):
+            if got.get(key, 0) != want[kernel].get(key, 0):
+                bad.append(f"{kernel} {key}: {got.get(key, 0)} launched, "
+                           f"{want[kernel].get(key, 0)} from the code")
+    extra = [k for k in ("flash_attn_bwd", "gn_silu", "gn_silu_conv")
+             if launches[k]]
+    log(f"validate gates (real weights, scores finite, corr in [-1, 1], "
+        f"fast != exact, launches equal the count from the code "
+        f"{ {k: sum(v.values()) for k, v in want.items()} }): "
+        f"{not bad and not extra}")
+    if bad or extra:
+        raise AssertionError(f"validate fails: {bad[:8]} {extra}")
+    return launches
+
+
+def _preset_opts(name: str):
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.pipelines.validate import preset_options
+    s = config.SamplerConfig()
+    return preset_options(config.FAST_PRESETS[name], s.unclip_steps,
+                          s.video_steps)
+
+
+PRECOMPUTE_TRAIN_CLIPS = 3  # train clips of the precompute phase: 18 frames
+PRECOMPUTE_BATCH = 16       # the CLI's frames a tower call at full width
+
+
+def write_precompute_weights(weights: Path, vc, tc, vcfg,
+                             device="cuda") -> dict:
+    """`open_clip_bigG.pt` (the bigG vision and text towers in open_clip's
+    layout, fp16, through `torch_export.open_clip_state_dict`) and
+    `sd_vae.pt` (the VAE, f32, LDM keys under `first_stage_model.`), from
+    modules with seeded random weights (`synth_params_`) drawn on
+    `device`. Returns {file: (bytes, seconds)}."""
+    import torch
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    weights.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    def tree_of(module, seed):
+        tree = tex.jax_tree(synth_params_(module, seed))
+        del module
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return tree
+
+    def saved(name, obj):
+        t0 = time.perf_counter()
+        torch.save(obj, weights / name)
+        out[name] = (os.path.getsize(weights / name),
+                     time.perf_counter() - t0)
+        log(f"precompute: wrote {name}: {out[name][0] / 1e9:.3f} GB in "
+            f"{out[name][1]:.1f} s")
+
+    sd = tex.open_clip_state_dict(
+        tree_of(CLIPVisionTower(vc, device=device), SEED + 60), vc.layers,
+        tree_of(CLIPTextTower(tc, device=device), SEED + 61), tc.layers)
+    saved("open_clip_bigG.pt", tex.to_torch(sd, torch.float16))
+    del sd
+    vae = tex.ldm_vae_state_dict(
+        tree_of(AutoencoderKL(vcfg, device=device), SEED + 62), vcfg)
+    saved("sd_vae.pt", tex.to_torch({"first_stage_model." + k: v
+                                     for k, v in vae.items()}))
+    return out
+
+
+def precompute_launches(frames_by_split, vc, batch: int, vae_side: int = 28):
+    """Flash launches of one full-width `precompute`, counted from the
+    code: per split, the vision tower on one probe frame and then on every
+    batch of `batch` frames (the tail padded), each layer's attention once
+    (f32, d = width / heads, patch tokens + the class token); the VAE
+    encoder's mid attention once a call (one head, d = 512, at the latent
+    side); the text tower's causal attention never (the plain path)."""
+    import collections
+
+    tokens = (vc.image_size // vc.patch_size) ** 2 + 1
+    d = vc.width // vc.heads
+    t = vae_side * vae_side
+    flash = collections.Counter()
+    for frames in frames_by_split:
+        for b, n in ((1, 1), (batch, -(-frames // batch))):
+            flash[(b, vc.heads, tokens, tokens, d, "float32", "")] += (
+                n * vc.layers)
+            flash[(b, 1, t, t, 512, "float32", "")] += n
+    return {"flash_attn_fwd": dict(flash), "temporal_attn_fwd": {}}
+
+
+def precompute_phase():
+    """`cli precompute` at full width on the card. A CC2017 root of 2 test
+    and 3 train clips (`write_cc2017_root`) and seeded `open_clip_bigG.pt`
+    and `sd_vae.pt` (`write_precompute_weights`), then the command: the
+    bigG vision tower (f32, 48 layers, 257 tokens at d = 104) and the VAE
+    encoder on every frame, in batches of 16, and the bigG text tower on
+    the 51 class names. Gates: the tables' shapes and dtypes
+    ([N,6,256,1664] fp16, [N,6,4,28,28] fp16, [51,1280] f32) and finite
+    values; one frame's vision tokens and latents within 2e-2 * max of the
+    same towers on the CPU; the launches equal `precompute_launches`.
+    Prints each table's seconds a 1000 frames, the setup seconds, the peak
+    device memory and the bytes written. Files live in a git-ignored
+    directory of the checkout, removed after. Returns ({path: {kernel:
+    launches by shape}}, {path: 16-frame vision batches})."""
+    import functools
+
+    import numpy as np
+    import torch
+    from neurons_tpu_torch import cli
+    from neurons_tpu_torch.config import VAEConfig
+    from neurons_tpu_torch.data import clip_tokenizer
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.interop import torch_import as TI
+    from neurons_tpu_torch.interop.from_jax import load_jax_params
+    from neurons_tpu_torch.models.clip import (CLIPTextConfig,
+                                               CLIPVisionConfig,
+                                               CLIPVisionTower,
+                                               preprocess_images)
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+
+    vc, tc, vcfg = CLIPVisionConfig.bigG(), CLIPTextConfig.bigG(), VAEConfig()
+    n = {"train": PRECOMPUTE_TRAIN_CLIPS, "test": CLI_CLIPS}
+    with ckpt_tmpdir("precompute: dataset, open_clip_bigG.pt, sd_vae.pt, "
+                     "tables") as d:
+        d = Path(d)
+        root, weights = d / "cc2017", d / "weights"
+        merges = write_cc2017_root(root, n["test"],
+                                   np.random.default_rng(SEED + 1),
+                                   n_train=n["train"])
+        files = write_precompute_weights(weights, vc, tc, vcfg)
+        old_bpe = os.environ.get("CLIP_BPE_PATH")
+        os.environ["CLIP_BPE_PATH"] = str(merges)
+        clip_tokenizer._tokenizer = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with configuration(False):
+                launches, _, wall = run_cli(
+                    ["precompute", "--root_dir", str(root), "--weights_dir",
+                     str(weights), "--seed", str(SEED)],
+                    "precompute (full width, f32)")
+        finally:
+            clip_tokenizer._tokenizer = None
+            if old_bpe is None:
+                del os.environ["CLIP_BPE_PATH"]
+            else:
+                os.environ["CLIP_BPE_PATH"] = old_bpe
+        peak = torch.cuda.max_memory_allocated()
+        stats = cli._STAGE_STATS["precompute"]
+        load = cli._LOAD_STATS["open_clip bigG"]
+        for name, t in stats["tables"].items():
+            per_k = (f"{1e3 * t['s'] / t['frames']:.3f} s a 1000 frames"
+                     if t["frames"] else f"{t['s']:.3f} s for 51 names")
+            log(f"precompute {name}: {t['frames']} frames in {t['s']:.3f} s "
+                f"({per_k}), {t['bytes']} bytes")
+        written = sum(t["bytes"] for t in stats["tables"].values())
+        log(f"precompute: setup {stats['setup_s']} s (open_clip bigG loaded "
+            f"in {load['seconds']} s from {load['bytes'] / 1e9:.3f} GB), "
+            f"tables {stats['s']} s, wall {wall:.1f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, {written} bytes of tables written; "
+            f"weight files {files}")
+
+        checks = {}
+        tab = {}
+        for tag, m in n.items():
+            ct = np.load(root / f"clip_targets_{tag}.npy", mmap_mode="r")
+            vl = np.load(root / f"vae_latents_{tag}.npy", mmap_mode="r")
+            tab[tag] = (ct, vl)
+            checks[f"clip_targets_{tag} [{m},6,256,1664] fp16"] = (
+                ct.shape == (m, 6, 256, 1664) and ct.dtype == np.float16
+                and bool(np.isfinite(ct).all()))
+            checks[f"vae_latents_{tag} [{m},6,4,28,28] fp16"] = (
+                vl.shape == (m, 6, 4, 28, 28) and vl.dtype == np.float16
+                and bool(np.isfinite(vl).all()))
+        cls = np.load(root / "class_text_embeds.npy")
+        checks["class_text_embeds [51,1280] f32"] = (
+            cls.shape == (51, 1280) and cls.dtype == np.float32
+            and bool(np.isfinite(cls).all()))
+
+        # one frame through the same towers on the CPU
+        t0 = time.perf_counter()
+        frame = torch.load(root / "GT_train_3fps.pt")[0, :1].float()
+        vision = LW.materialize(functools.partial(CLIPVisionTower, vc),
+                                "cpu", torch.float32)
+        TI.load_torch_checkpoint(vision, TI.import_open_clip_vision,
+                                 LW._torch_load(str(weights /
+                                                    "open_clip_bigG.pt")),
+                                 vc.layers)
+        vae = LW.materialize(functools.partial(AutoencoderKL, vcfg), "cpu",
+                             torch.float32)
+        load_jax_params(vae, LW.load_sd_vae(str(weights / "sd_vae.pt"),
+                                            vcfg)[0])
+        with torch.inference_mode():
+            want = {"vision tokens": vision(preprocess_images(
+                        frame, vc.image_size))[1][0].numpy(),
+                    "latents": (vae.encode(frame * 2 - 1).mode()[0]
+                                * 0.18215).numpy()}
+        del vision, vae
+        got = {"vision tokens": np.asarray(tab["train"][0][0, 0], np.float32),
+               "latents": np.asarray(tab["train"][1][0, 0], np.float32)}
+        for name in want:
+            err = float(np.abs(got[name] - want[name]).max())
+            scale = float(np.abs(want[name]).max())
+            checks[f"{name} of one frame within 2e-2 * max of the CPU's"] = (
+                err <= 2e-2 * scale)
+            log(f"precompute {name} of train frame 0, card table vs CPU "
+                f"tower (f32): max |diff| {err:.3e} of max {scale:.3e} "
+                f"(gate {2e-2 * scale:.3e})")
+        log(f"precompute: the CPU check took {time.perf_counter() - t0:.1f} "
+            f"s")
+
+        want_l = precompute_launches([m * 6 for m in n.values()], vc,
+                                     PRECOMPUTE_BATCH)
+        problems = [f"flash_attn_fwd {k}: {launches['flash_attn_fwd'].get(k, 0)}"
+                    f" launched, {want_l['flash_attn_fwd'].get(k, 0)} from "
+                    f"the code" for k in sorted(
+                        set(launches["flash_attn_fwd"])
+                        | set(want_l["flash_attn_fwd"]), key=str)
+                    if launches["flash_attn_fwd"].get(k, 0)
+                    != want_l["flash_attn_fwd"].get(k, 0)]
+        problems += [k for k in ("flash_attn_bwd", "temporal_attn_fwd",
+                                 "gn_silu", "gn_silu_conv") if launches[k]]
+        checks["launches equal the count from the code"] = not problems
+        log(f"precompute checks: {checks}; launches "
+            f"{ {k: sum(v.values()) for k, v in launches.items()} }")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"precompute fails {failed} {problems[:8]}")
+    batches = sum(-(-m * 6 // PRECOMPUTE_BATCH) for m in n.values())
+    return {"cli precompute": launches}, {"cli precompute": batches}
 
 
 def cli_kernel_checks(by_path, flash_records, temporal_records,
@@ -4183,11 +4768,15 @@ def main():
         small_fast_check()
         small_caption_check()
         small_classifier_check()
-    clip_by_shape, fast_by_config, sample = slice_phase()
+    clip_by_shape, fast_by_config, sample, serve = slice_phase()
     with configuration(False):
         stage46_by_path, stage46_runs = stage46_phase(sample)
     del sample
     cli_by_path, cli_runs = cli_phase()
+    precompute = precompute_phase()
+    for by_path, path_runs in (serve, precompute):
+        cli_by_path.update(by_path)
+        cli_runs.update(path_runs)
     with configuration(False):
         train_by_shape, fused_train_by_shape = train_phase()
         stage1_phase()
@@ -4223,9 +4812,16 @@ def main():
                                    if "library_bwd_s" in t else "")
         for t in record["totals"]))
     # the f32 route: a scored clip, the run's one seg panel (one stage-2
-    # epoch), the CLI's stage e a clip (its f32 launches but stage 6's)
+    # epoch), the CLI's stage e a clip (its f32 launches but stage 6's), a
+    # precompute batch of 16 frames (the bigG vision tower at d = 104) and
+    # one validate run (its f32 UNet2D, UNet3D and SparseCtrl)
     cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
     stage6 = scored_clip_launches(CLI_FRAMES)
+
+    def f32_upto_128(path):
+        return {k: n for k, n in cli_by_path[path]["flash_attn_fwd"].items()
+                if k[5] == "float32" and k[4] <= 128}
+
     record["f32_route"] = f32_route_totals(
         flash_records,
         [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
@@ -4233,7 +4829,11 @@ def main():
                         .items() if k[5] == "float32"}, 1),
          ("cli stage e", {k: n for k, n in cli_fwd.items()
                           if k[5] == "float32" and k not in stage6},
-          runs["cli pipeline 35e6"])])
+          runs["cli pipeline 35e6"]),
+         ("precompute batch", f32_upto_128("cli precompute"),
+          runs["cli precompute"]),
+         ("validate run", f32_upto_128("cli validate"),
+          runs["cli validate"])])
     log("f32 route (the flash forward on f32; s of launches x time): "
         + " | ".join(f"{t['path']} x{t['launches']:g} {t['routes']}: kernel "
                      f"{t['kernel_s']:.4f} (device {t['device_s']:.4f}) "

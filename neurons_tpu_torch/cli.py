@@ -1,7 +1,8 @@
-"""The staged CLI of the port: stages 1-6 and e, and `pipeline`.
+"""The staged CLI of the port: stages 1-6 and e, `pipeline`, the tables,
+the preset re-scoring and the server.
 
-Counterpart of neurons_tpu/cli.py, with the same subcommands (but
-`precompute`, `validate` and `serve`), flags, EXP tree and artifacts:
+Counterpart of neurons_tpu/cli.py, with the same subcommands, flags, EXP
+tree and artifacts:
 
   python -m neurons_tpu_torch.cli train-brain      stage 1: the core
   python -m neurons_tpu_torch.cli train-decoupler  stage 2: the heads
@@ -13,12 +14,21 @@ Counterpart of neurons_tpu/cli.py, with the same subcommands (but
       and multi-label scores
   python -m neurons_tpu_torch.cli eval             stage 6: the metric report
   python -m neurons_tpu_torch.cli pipeline 12345e6 the stages in order
+  python -m neurons_tpu_torch.cli precompute       the frozen-encoder tables
+      (CLIP-bigG tokens, VAE latents, class-name embeds) under --root_dir
+  python -m neurons_tpu_torch.cli validate         the --fast presets'
+      deviation on the weights in --weights_dir (fastpath_validation.json)
+  python -m neurons_tpu_torch.cli serve            the HTTP server over the
+      clip (serving.py)
 
-Every stage runs on the card; `--platform cpu` runs it on the CPU.
+Every command runs on the card; `--platform cpu` runs it on the CPU.
 `--synthetic --tiny` runs a stage on random data at miniature widths;
 `--synthetic` alone draws full-width weights on the device in the stage's
 dtype. Without them a missing weights file, class table, ground-truth
-video or test-mask file raises.
+video or test-mask file raises. `--profile DIR` writes a torch.profiler
+trace of the command to DIR/trace.json; `--debug_nans` turns on autograd's
+anomaly mode (a NaN in a backward raises; the JAX package's jax_debug_nans
+also checks forwards).
 
 Weights read from `--weights_dir` (the reference's file names):
 `unclip6_epoch0_step110000.ckpt` (stage 3), `v3_sd15_mm.ckpt`,
@@ -26,8 +36,9 @@ Weights read from `--weights_dir` (the reference's file names):
 `v3_sd15_adapter.ckpt` (optional LoRA) and `v3_sd15_sparsectrl_rgb.ckpt`
 (stage 5), `brain_model_prior_last.pth` (the released ensemble, when the
 EXP tree holds no stage-2 checkpoint), `last.pth` (MindEye2 warm start),
-`blip2-opt.pt` (stage 4) and the stage-6 classifiers. From `--root_dir`:
-the CC2017 tensors (`data/cc2017.py:load_split`), `class_text_embeds.npy`,
+`blip2-opt.pt` (stage 4), the stage-6 classifiers, and `open_clip_bigG.pt`
+with `sd_vae.pt` (precompute). From `--root_dir`: the CC2017 tensors
+(`data/cc2017.py:load_split`), `class_text_embeds.npy`,
 `clip_targets_{train,test}.npy`, `vae_latents_train.npy`,
 `coco_tokens_avg_proj.pth`.
 
@@ -69,6 +80,11 @@ def _add_common(p):
     p.add_argument("--platform", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="device the stage runs on (default: the card)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the command to "
+                        "DIR/trace.json")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly mode: a NaN in a backward raises")
     p.add_argument("--n_test", type=int, default=0,
                    help="cap the number of test clips stages 3/5 process "
                         "(0 = 4 with --synthetic, else the whole test "
@@ -156,6 +172,9 @@ def _setup(args):
         # synthetic paths may tokenize without the CLIP BPE merges file;
         # real runs raise instead (data/clip_tokenizer.py)
         os.environ.setdefault("NEURONS_TPU_ALLOW_BYTE_TOKENIZER", "1")
+    if getattr(args, "debug_nans", False):
+        import torch
+        torch.autograd.set_detect_anomaly(True, check_nan=True)
 
 
 def _configs(args, stage2: bool = False):
@@ -1094,6 +1113,318 @@ def cmd_eval(args):
     print(f"=== stage 6 finished -> {out} ===")
 
 
+def _loaded_module(args, build, dev, dt, importer, state_dict, *iargs):
+    """`build`'s module on `dev` in `dt` (built on the meta device at full
+    width), filled from a reference state dict through `importer`
+    (`load_torch_checkpoint`: strict both ways)."""
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.interop.torch_import import load_torch_checkpoint
+
+    module = (build(device=dev, dtype=dt).eval() if args.tiny
+              else LW.materialize(build, dev, dt))
+    load_torch_checkpoint(module, importer, state_dict, *iargs)
+    return module
+
+
+def cmd_precompute(args):
+    """The frozen-encoder tables stage 1 and 2 stream from disk
+    (`data/precompute.py`), written under --root_dir: the CLIP-bigG vision
+    tokens and the VAE latents of the train and test splits, and the
+    class-name text table. The bigG towers and the VAE run in f32, their
+    weights from `open_clip_bigG.pt` and `sd_vae.pt` in --weights_dir
+    (seeded random ones under --tiny/--synthetic when a file is absent)."""
+    _setup(args)
+    import functools
+
+    import numpy as np
+    import torch
+    from neurons_tpu_torch import resolve_device
+    from neurons_tpu_torch.config import VAEConfig
+    from neurons_tpu_torch.data import precompute as pc
+    from neurons_tpu_torch.data.clip_tokenizer import tokenize
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.interop import torch_import as TI
+    from neurons_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextTower,
+                                               CLIPVisionConfig,
+                                               CLIPVisionTower,
+                                               preprocess_images)
+    from neurons_tpu_torch.models.vae import AutoencoderKL
+
+    dev = resolve_device(args.platform)
+    f32 = torch.float32
+    bcfg, _, _, tcfg = _configs(args)
+    if args.tiny:
+        vc, tc = CLIPVisionConfig.tiny(), CLIPTextConfig.tiny()
+        vcfg = VAEConfig(block_out_channels=(8, 8), layers_per_block=1,
+                         norm_num_groups=4)
+    else:
+        vc, tc, vcfg = (CLIPVisionConfig.bigG(), CLIPTextConfig.bigG(),
+                        VAEConfig())
+    build_vision = functools.partial(CLIPVisionTower, vc)
+    build_text = functools.partial(CLIPTextTower, tc)
+    build_vae = functools.partial(AutoencoderKL, vcfg)
+
+    wfile = os.path.join(args.weights_dir, "open_clip_bigG.pt")
+    vae_file = os.path.join(args.weights_dir, "sd_vae.pt")
+    if not (os.path.exists(wfile) or args.tiny or args.synthetic):
+        raise FileNotFoundError(f"{wfile} missing (open_clip bigG sd)")
+    if os.path.exists(wfile):
+        def load_towers():
+            sd = LW._torch_load(wfile)
+            return (_loaded_module(args, build_vision, dev, f32,
+                                   TI.import_open_clip_vision, sd, vc.layers),
+                    _loaded_module(args, build_text, dev, f32,
+                                   TI.import_open_clip_text, sd, tc.layers))
+
+        vision, text = _timed_load("open_clip bigG", [wfile], load_towers)
+    else:
+        vision = _module(args, build_vision, dev, f32, args.seed)
+        text = _module(args, build_text, dev, f32, args.seed + 1)
+    if os.path.exists(vae_file):
+        vae = _timed_load("SD VAE", [vae_file], lambda: _module(
+            args, build_vae, dev, f32, args.seed + 2,
+            LW.load_sd_vae(vae_file, vcfg)[0]))
+    else:
+        vae = _module(args, build_vae, dev, f32, args.seed + 2)
+
+    def tokens_fn(x):
+        return vision(preprocess_images(x.to(dev), vc.image_size))[1]
+
+    def text_fn(t):
+        return text(t.to(dev))[1]
+
+    def vae_fn(x):
+        return vae.encode(x.to(dev)).mode()
+
+    os.makedirs(args.root_dir, exist_ok=True)
+    bs = 4 if args.tiny else 16
+    tables = {}
+    t0 = _loop_start("precompute")
+
+    def timed(name, n_frames, fn, *fargs, **fkw):
+        t = time.perf_counter()
+        path = fn(*fargs, **fkw)
+        tables[name] = {"frames": n_frames,
+                        "s": round(time.perf_counter() - t, 3),
+                        "bytes": os.path.getsize(path)}
+
+    for train in (True, False):
+        split = _load_data(args, bcfg, tcfg, train=train)
+        tag = "train" if train else "test"
+        images = np.asarray(split.images)
+        frames = images.shape[0] * images.shape[1]
+        timed(f"clip_targets_{tag}", frames, pc.precompute_clip_targets,
+              images, tokens_fn,
+              os.path.join(args.root_dir, f"clip_targets_{tag}.npy"),
+              batch_size=bs)
+        timed(f"vae_latents_{tag}", frames, pc.precompute_vae_latents,
+              images, vae_fn,
+              os.path.join(args.root_dir, f"vae_latents_{tag}.npy"),
+              batch_size=bs)
+    # ids modulo the tower's vocabulary: a no-op for CLIP's 49408, and the
+    # tiny tower's 128 would otherwise see CLIP's start and end ids (JAX's
+    # jnp.take fills those rows with NaN)
+    timed("class_text_embeds", 0, pc.precompute_class_text_embeds,
+          text_fn, lambda names: np.stack(
+              [np.asarray(t[:tc.context_length]) for t in
+               _pad_tokens(tokenize(names), tc.context_length)])
+          % tc.vocab_size,
+          os.path.join(args.root_dir, "class_text_embeds.npy"))
+    _STAGE_STATS["precompute"] = {
+        "setup_s": round(_SETUP_S.pop("precompute"), 2),
+        "s": round(time.perf_counter() - t0, 3), "batch": bs,
+        "tables": tables}
+    print(f"--- precompute: {json.dumps(_STAGE_STATS['precompute'])} ---",
+          flush=True)
+    print(f"=== precompute finished -> {args.root_dir} ===")
+
+
+def _pad_tokens(tok_list, length):
+    import numpy as np
+    out = []
+    for t in tok_list:
+        t = list(t)[:length]
+        out.append(np.asarray(t + [0] * (length - len(t)), np.int32))
+    return out
+
+
+def _validate_configs(args):
+    """(UNet2DConfig, UNet3DConfig, hw3, steps3, hw5, frames, steps5,
+    n_tok): the JAX command's tiny widths, else the full ones at the proxy
+    shapes the preset frontier was scored at (64^2 latents over 38 steps
+    for stage 3, 32^2 latents of 16 frames over 25 steps for stage 5)."""
+    from neurons_tpu_torch.config import UNet2DConfig, UNet3DConfig
+
+    if args.tiny:
+        ucfg = UNet2DConfig(model_channels=16, channel_mult=(1, 2),
+                            num_res_blocks=1, attention_resolutions=(2,),
+                            transformer_depth=(1, 1), num_head_channels=8,
+                            context_dim=16, adm_in_channels=8)
+        u3 = UNet3DConfig(block_out_channels=(16, 32),
+                          down_block_types=("CrossAttnDownBlock3D",
+                                            "DownBlock3D"),
+                          up_block_types=("UpBlock3D",
+                                          "CrossAttnUpBlock3D"),
+                          layers_per_block=1, cross_attention_dim=16,
+                          attention_head_dim=8, norm_num_groups=8,
+                          motion_num_attention_heads=2)
+        return ucfg, u3, 16, 4, 8, 4, 3, 8
+    return UNet2DConfig(), UNet3DConfig(), 64, 38, 32, 16, 25, 256
+
+
+def _randomize_proxy_heads(unet2d, unet3d, seed: int):
+    """The heads a reference init leaves at zero, drawn as the JAX command
+    draws them (normal x 0.1 for the UNet2D's transformer proj_outs, x 0.05
+    for its out_conv, the UNet3D's conv_out and its motion modules'
+    proj_outs; biases kept), on the CPU from `seed`. A module passed as
+    None is left alone."""
+    import torch
+    from neurons_tpu_torch.models.unet2d import cross_attn_sites
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(p, scale):
+        p.copy_(torch.randn(p.shape, generator=g) * scale)
+
+    with torch.no_grad():
+        if unet2d is not None:
+            for name, _ in cross_attn_sites(unet2d.cfg):
+                draw(getattr(unet2d, name).proj_out.weight, 0.1)
+            draw(unet2d.out_conv.weight, 0.05)
+        if unet3d is not None:
+            draw(unet3d.conv_out.weight, 0.05)
+            for name, mod in unet3d.named_children():
+                if "motion" in name:
+                    draw(mod.proj_out.weight, 0.05)
+
+
+def cmd_validate(args):
+    """Re-score the --fast presets on the weights in --weights_dir: per
+    preset and stage, the rms relative deviation and correlation of the
+    final latents, fast against exact on the same draws
+    (`pipelines/validate.py`), written to fastpath_validation.json there.
+    Stage 3 takes `unclip6_epoch0_step110000.ckpt`, stage 5 the AnimateDiff
+    bundle (`v3_sd15_mm.ckpt`, the SD-1.5 base, the optional LoRA and
+    SparseCtrl); without them --synthetic/--tiny draws random weights (the
+    random-weight proxy the presets were scored on), with the heads a
+    reference init leaves at zero drawn too. Everything runs in f32."""
+    _setup(args)
+    import functools
+
+    import torch
+    from neurons_tpu_torch import resolve_device
+    from neurons_tpu_torch.config import VAEConfig
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.models.sparse_controlnet import \
+        SparseControlNetModel
+    from neurons_tpu_torch.models.unet2d import UNetModel
+    from neurons_tpu_torch.models.unet3d import UNet3DModel
+    from neurons_tpu_torch.pipelines import validate as V
+
+    dev = resolve_device(args.platform)
+    f32 = torch.float32
+    ucfg, u3, hw3, steps3, hw5, frames, steps5, n_tok = \
+        _validate_configs(args)
+    w = lambda f: os.path.join(args.weights_dir, f)  # noqa: E731
+    unclip_ckpt, mm_path = w("unclip6_epoch0_step110000.ckpt"), \
+        w("v3_sd15_mm.ckpt")
+    real3 = os.path.exists(unclip_ckpt) and not args.tiny
+    real5 = os.path.exists(mm_path) and not args.tiny
+    for real, path in ((real3, unclip_ckpt), (real5, mm_path)):
+        if not (real or args.synthetic or args.tiny):
+            raise FileNotFoundError(
+                f"{path} missing (pass --synthetic for the random-weight "
+                "proxy)")
+    build_u2 = functools.partial(UNetModel, ucfg)
+    build_u3 = functools.partial(UNet3DModel, u3, n_frames=frames)
+    build_cn = functools.partial(SparseControlNetModel, u3, n_frames=frames)
+    if real3:
+        unet2d = _timed_load("unclip engine", [unclip_ckpt], lambda: _module(
+            args, build_u2, dev, f32, args.seed + 1,
+            LW.load_unclip_engine(unclip_ckpt, ucfg, VAEConfig())[0]))
+    else:
+        unet2d = _module(args, build_u2, dev, f32, args.seed + 1)
+    if real5:
+        base = w("realisticVisionV60B1_v51VAE.safetensors")
+        if not os.path.exists(base):
+            base = w("sd-v1-5.ckpt")
+        lora = w("v3_sd15_adapter.ckpt")
+        lora = lora if os.path.exists(lora) else None
+        unet3d = _timed_load(
+            "AnimateDiff UNet3D", [base, mm_path, lora], lambda: _module(
+                args, build_u3, dev, f32, args.seed + 3,
+                LW.load_animatediff_unet3d(base, mm_path, u3,
+                                           lora_path=lora)[0]))
+        cn_path = w("v3_sd15_sparsectrl_rgb.ckpt")
+        cn = _timed_load("SparseCtrl", [cn_path], lambda: _module(
+            args, build_cn, dev, f32, args.seed + 4,
+            LW.load_sparse_controlnet(cn_path, u3)[0]))
+    else:
+        unet3d = _module(args, build_u3, dev, f32, args.seed + 3)
+        cn = _module(args, build_cn, dev, f32, args.seed + 4)
+    _randomize_proxy_heads(unet2d if not real3 else None,
+                           unet3d if not real5 else None, args.seed + 7)
+
+    inputs = V.draw_inputs(ucfg.context_dim, ucfg.adm_in_channels,
+                           u3.cross_attention_dim, hw3, hw5, frames, n_tok,
+                           args.seed)
+    source3 = "real" if real3 else "random-proxy"
+    source5 = "real" if real5 else "random-proxy"
+    t0 = _loop_start("validate")
+    presets, seconds = V.score_presets(
+        unet2d, unet3d, cn, inputs, FAST_PRESETS, steps3=steps3, hw3=hw3,
+        steps5=steps5, frames=frames, device=dev,
+        log=lambda m: print(f"{m}  [{source3}/{source5} weights]",
+                            flush=True))
+    _STAGE_STATS["validate"] = {
+        "setup_s": round(_SETUP_S.pop("validate"), 2),
+        "s": round(time.perf_counter() - t0, 3),
+        "run_s": {k: {o: round(v, 3) for o, v in d.items()}
+                  for k, d in seconds.items()}}
+    print(f"--- validate: {json.dumps(_STAGE_STATS['validate'])} ---",
+          flush=True)
+    results = {"weights_stage3": source3, "weights_stage5": source5,
+               "shapes": {"stage3": [hw3, steps3],
+                          "stage5": [hw5, frames, steps5]},
+               "presets": presets}
+    out_path = os.path.join(args.weights_dir, "fastpath_validation.json")
+    try:
+        os.makedirs(args.weights_dir, exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=1)
+        print(f"=== validate finished -> {out_path} ===")
+    except OSError as e:
+        print(f"(could not write {out_path}: {e})")
+    return results
+
+
+def cmd_serve(args):
+    """The HTTP server over the clip (`serving.py`): the pipeline
+    bench_torch.py times, batches of --serve_batch clips. --fast expands
+    into the BENCH_TGATE* knobs the pipeline reads, leaving any the
+    environment already sets."""
+    from neurons_tpu_torch import serving
+
+    if args.tiny:
+        os.environ["BENCH_TINY"] = "1"
+    if args.fast:
+        preset = FAST_PRESETS[args.fast]
+        os.environ.setdefault("BENCH_TGATE", str(preset["recon"]["tgate"]))
+        os.environ.setdefault("BENCH_TGATE_VIDEO",
+                              str(preset["video"]["tgate"]))
+        os.environ.setdefault("BENCH_TGATE_PAB",
+                              str(preset["recon"]["tgate_pab"]))
+    pipeline, n_vox = serving.build_bench_pipeline(args.serve_batch,
+                                                   args.platform)
+    cfg = serving.ServerConfig(host=args.host, port=args.port,
+                               batch_size=args.serve_batch,
+                               max_wait_ms=args.max_wait_ms)
+    srv = serving.InferenceServer(pipeline, n_vox, cfg, device=args.platform)
+    print(f"serving on http://{args.host}:{srv.port}  "
+          f"(batch {cfg.batch_size}, n_voxels {n_vox})", flush=True)
+    srv.serve_forever()
+
+
 STAGES = {"1": cmd_train_brain, "2": cmd_train_decoupler, "3": cmd_recon,
           "4": cmd_caption, "5": cmd_video, "e": cmd_decoupled_eval,
           "6": cmd_eval}
@@ -1190,6 +1521,37 @@ def main(argv=None) -> int:
     p.add_argument("--enhance", action="store_true")
     p.set_defaults(fn=cmd_eval)
 
+    p = sub.add_parser("precompute", help="build the frozen-encoder tables "
+                                          "(CLIP targets, VAE latents, "
+                                          "class text embeds)")
+    _add_common(p)
+    _add_train_args(p)
+    p.set_defaults(fn=cmd_precompute)
+
+    p = sub.add_parser("validate", help="re-score the --fast presets' "
+                       "deviation on the weights in --weights_dir (writes "
+                       "fastpath_validation.json)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_validate)
+
+    p = sub.add_parser("serve", help="HTTP inference server over the "
+                                     "voxel -> video pipeline "
+                                     "(neurons_tpu_torch/serving.py)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--serve_batch", type=int, default=1,
+                   help="the batch size requests coalesce into")
+    p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--platform", type=str, default="cuda",
+                   choices=["cuda", "cpu"],
+                   help="device the pipeline runs on (default: the card)")
+    p.add_argument("--fast", choices=sorted(FAST_PRESETS), default=None,
+                   help="serve with a named fast preset (expands to the "
+                        "BENCH_TGATE* knobs the pipeline reads; explicit "
+                        "environment settings win)")
+    p.set_defaults(fn=cmd_serve)
+
     p = sub.add_parser("pipeline", help="run stages in sequence, e.g. "
                                         "'pipeline 12345e6'")
     p.add_argument("stages", type=str,
@@ -1208,6 +1570,20 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_pipeline)
 
     args = parser.parse_args(argv)
+    if getattr(args, "profile", None):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if args.platform == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(args.profile, exist_ok=True)
+        with profile(activities=activities) as prof:
+            args.fn(args)
+        path = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"--- profiler trace -> {path} ---")
+        return 0
     args.fn(args)
     return 0
 

@@ -10,6 +10,8 @@ module's weights can be written as the reference's released files are:
                                     convert_ldm_vae_to_diffusers
                                     import_diffusers_vae (the SD-1.5 VAE)
   hf_clip_text_state_dict        <- import_hf_clip_text
+  open_clip_state_dict           <- import_open_clip_vision +
+                                    import_open_clip_text (open_clip_bigG)
   ldm_unet3d_state_dict          <- convert_ldm_unet_to_diffusers +
                                     import_animatediff_unet3d (the SD-1.5
                                     base, motion modules left out)
@@ -273,6 +275,45 @@ def hf_clip_text_state_dict(tree: Tree, layers: int,
         _norm(sd, f"{q}.layer_norm2", blk["ln_2"])
         _lin(sd, f"{q}.mlp.fc1", blk["mlp_fc"])
         _lin(sd, f"{q}.mlp.fc2", blk["mlp_proj"])
+    return sd
+
+
+# ------------------------------------------------- open_clip bigG towers ----
+
+def _open_clip_block(sd, p: str, blk: Tree) -> None:
+    _norm(sd, f"{p}.ln_1", blk["ln_1"])
+    sd[f"{p}.attn.in_proj_weight"] = np.asarray(blk["in_proj"]["kernel"]).T
+    sd[f"{p}.attn.in_proj_bias"] = np.asarray(blk["in_proj"]["bias"])
+    _lin(sd, f"{p}.attn.out_proj", blk["out_proj"])
+    _norm(sd, f"{p}.ln_2", blk["ln_2"])
+    _lin(sd, f"{p}.mlp.c_fc", blk["mlp_fc"])
+    _lin(sd, f"{p}.mlp.c_proj", blk["mlp_proj"])
+
+
+def open_clip_state_dict(vision: Tree, vision_layers: int, text: Tree,
+                         text_layers: int) -> Dict[str, np.ndarray]:
+    """CLIPVisionTower and CLIPTextTower trees -> one open_clip model's
+    keys (`visual.*` for the vision tower, the text tower's at the top)."""
+    sd: Dict[str, np.ndarray] = {
+        "visual.conv1.weight": np.asarray(
+            vision["patch_embed"]["kernel"]).transpose(3, 2, 0, 1),
+        "visual.class_embedding": np.asarray(vision["class_embedding"]),
+        "visual.positional_embedding": np.asarray(
+            vision["positional_embedding"]),
+        "visual.proj": np.asarray(vision["proj"]),
+        "token_embedding.weight": np.asarray(text["token_embedding"]),
+        "positional_embedding": np.asarray(text["positional_embedding"]),
+        "text_projection": np.asarray(text["text_projection"]),
+    }
+    _norm(sd, "visual.ln_pre", vision["ln_pre"])
+    _norm(sd, "visual.ln_post", vision["ln_post"])
+    _norm(sd, "ln_final", text["ln_final"])
+    for i in range(vision_layers):
+        _open_clip_block(sd, f"visual.transformer.resblocks.{i}",
+                         vision[f"resblock_{i}"])
+    for i in range(text_layers):
+        _open_clip_block(sd, f"transformer.resblocks.{i}",
+                         text[f"resblock_{i}"])
     return sd
 
 

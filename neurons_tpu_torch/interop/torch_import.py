@@ -10,6 +10,7 @@ the same list of unused source keys as its JAX twin:
   * HF Blip2ForConditionalGeneration (OPT)    -> models.blip2.Blip2Captioner
   * HF GPT-2                                  -> models.gpt2.TextDecoder
   * HF CLIPTextModel (SD-1.5's text encoder)  -> models.clip.CLIPTextTower
+  * open_clip bigG vision and text towers     -> models.clip (precompute)
   * diffusers / LDM AutoencoderKL             -> models.vae.AutoencoderKL
   * LDM/sgm UNet (the unclip6 checkpoint)     -> models.unet2d.UNetModel
   * diffusers SD-1.5 UNet + AnimateDiff
@@ -393,6 +394,61 @@ def import_gpt2(state_dict: Dict, n_layer: int) -> Tuple[Dict, List[str]]:
     unused = [k for k in sd.unused() if not k.endswith("attn.bias")
               and not k.endswith("attn.masked_bias")]
     return params, unused
+
+
+# ---------------------------------------------------------------------------
+# open_clip bigG towers (precompute's frozen encoders) -> models.clip
+# ---------------------------------------------------------------------------
+
+def _open_clip_block(sd, p: str) -> Dict[str, Any]:
+    return {
+        "ln_1": norm(sd, f"{p}.ln_1"),
+        "in_proj": {"kernel": t2j(sd[f"{p}.attn.in_proj_weight"]).T,
+                    "bias": t2j(sd[f"{p}.attn.in_proj_bias"])},
+        "out_proj": linear(sd, f"{p}.attn.out_proj"),
+        "ln_2": norm(sd, f"{p}.ln_2"),
+        "mlp_fc": linear(sd, f"{p}.mlp.c_fc"),
+        "mlp_proj": linear(sd, f"{p}.mlp.c_proj"),
+    }
+
+
+def import_open_clip_vision(state_dict: Dict, layers: int,
+                            prefix: str = "visual."
+                            ) -> Tuple[Dict, List[str]]:
+    """open_clip VisionTransformer (the bigG tower the reference embeds
+    with) -> CLIPVisionTower params; keys outside `prefix` are ignored."""
+    sd = _Tracker({k[len(prefix):]: v for k, v in state_dict.items()
+                   if k.startswith(prefix)})
+    params: Dict[str, Any] = {
+        "patch_embed": {"kernel": t2j(sd["conv1.weight"]).transpose(2, 3, 1, 0)},
+        "class_embedding": t2j(sd["class_embedding"]),
+        "positional_embedding": t2j(sd["positional_embedding"]),
+        "ln_pre": norm(sd, "ln_pre"),
+        "ln_post": norm(sd, "ln_post"),
+        "proj": t2j(sd["proj"]),
+    }
+    for i in range(layers):
+        params[f"resblock_{i}"] = _open_clip_block(
+            sd, f"transformer.resblocks.{i}")
+    return params, sd.unused()
+
+
+def import_open_clip_text(state_dict: Dict, layers: int
+                          ) -> Tuple[Dict, List[str]]:
+    """open_clip text tower (the reference's FrozenOpenCLIPEmbedder2) ->
+    CLIPTextTower params; the `visual.` keys are ignored."""
+    sd = _Tracker({k: v for k, v in state_dict.items()
+                   if not k.startswith("visual.")})
+    params: Dict[str, Any] = {
+        "token_embedding": t2j(sd["token_embedding.weight"]),
+        "positional_embedding": t2j(sd["positional_embedding"]),
+        "ln_final": norm(sd, "ln_final"),
+        "text_projection": t2j(sd["text_projection"]),
+    }
+    for i in range(layers):
+        params[f"resblock_{i}"] = _open_clip_block(
+            sd, f"transformer.resblocks.{i}")
+    return params, sd.unused()
 
 
 # ---------------------------------------------------------------------------

@@ -137,10 +137,13 @@ def unclip_sample(unet: nn.Module, vae: nn.Module, clip_tokens: torch.Tensor,
                   encoder_reuse: int = 1, tgate_step: int = 0,
                   tgate_pab: int = 0, pab: Optional[tuple] = None,
                   pab_range: Optional[tuple] = None,
-                  deep_cache: int = 0) -> torch.Tensor:
+                  deep_cache: int = 0,
+                  vector: Optional[torch.Tensor] = None) -> torch.Tensor:
     """unclip_recon, batched: clip_tokens [B, 256, 1664] -> images NCHW in
     [0, 1]. x0 = z + noise * sigma_0 (the sampler's prepare step cancels
-    the reference's divide by sqrt(1 + sigma_0^2)). Each cross-attention
+    the reference's divide by sqrt(1 + sigma_0^2)). `vector` is the UNet's
+    adm conditioning [B, adm_in_channels] (default: the constant
+    `unclip_vector_suffix`). Each cross-attention
     site's K/V projection of the CFG-doubled context is hoisted out of the
     loop (exact); latents are unscaled by the UNet config's
     `scale_factor` before the VAE decode.
@@ -169,7 +172,8 @@ def unclip_sample(unet: nn.Module, vae: nn.Module, clip_tokens: torch.Tensor,
         eps = eps + offset_noise_level * offset[:, None, None, None]
     sigmas = sd_sigmas(num_steps, device=device)
     x = z + eps * sigmas[0]
-    vector = unclip_vector_suffix(b, device=device)
+    vector = (unclip_vector_suffix(b, device=device) if vector is None
+              else vector.to(device, torch.float32))
 
     udt = _dtype(unet)
     denoiser = DiscreteDenoiser.create_sd(device=device)

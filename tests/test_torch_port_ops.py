@@ -526,6 +526,10 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.data.cc2017\n"
             "import neurons_tpu_torch.data.categories\n"
             "import neurons_tpu_torch.data.clip_tokenizer\n"
+            "import neurons_tpu_torch.data.precompute\n"
+            "import neurons_tpu_torch.data.tasks\n"
+            "import neurons_tpu_torch.pipelines.validate\n"
+            "import neurons_tpu_torch.serving\n"
             "import os, tempfile, torch\n"
             "p = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
             "tex.write_safetensors(p, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
