@@ -2,7 +2,8 @@
 """Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
 paths, and the HTTP server over them), stages 4 and 6 (captions and the
 metric suite, through the port's CLI), the CLI's `precompute` and
-`validate`, and stages 1 and 2 (training, checkpoints and resume) on one
+`validate`, the sgm engine surface and SVD image-to-video, and stages 1
+and 2 (training, checkpoints and resume) on one
 CUDA card, in the default configuration and in the fused-norm one, and
 hold its kernels against their plain PyTorch versions.
 
@@ -96,7 +97,12 @@ Phases, in order:
      to the direct pipeline call on its padded batch and seed, the mean
      occupancy above 1, the GIF the native codec's, the launches equal to
      `serve_launches` at batch 2 a batch; s a batch, the clients' p50/p95,
-     clips/s. Then one full-width UNet2D and one UNet3D forward,
+     clips/s. Then the sgm engine (`engine_phase`): a `DiffusionEngine` over
+     the clip's unCLIP UNet and VAE, `do_sample` at 768 px under each of
+     the six samplers (4 steps) and one `do_img2img` at strength 0.5, every
+     sample finite in [0, 1] with its 48-bit watermark read back, the
+     launches held to `engine_launches`. Then one full-width UNet2D and one
+     UNet3D forward,
      fused and unfused in bf16 on the same input against the same forward
      in f32 (the fused error within 1.5x the unfused one);
   4b. stage 4 and stage 6 at full width through `neurons_tpu_torch.cli`
@@ -129,7 +135,10 @@ Phases, in order:
      of both stages in f32 at the proxy shapes (64^2 latents over 38 steps,
      32^2 latents of 16 frames over 25 steps), the report gated (real
      weights, scores finite, corr in [-1, 1], fast != exact) and its
-     launches held to `validate_launches`;
+     launches held to `validate_launches`; and
+     `DiffusionEngine.from_checkpoint` on the unclip6 file
+     (`engine_from_checkpoint`: the EMA weights swapped in, a 2-step
+     sample, its launches as counted);
   4d. `precompute` at full width (`precompute_phase`): a root of 2 test and
      3 train clips and seeded `open_clip_bigG.pt` (fp16, open_clip's
      layout) and `sd_vae.pt`, then the command (the bigG vision tower in
@@ -137,9 +146,20 @@ Phases, in order:
      shapes and dtypes, one frame's tokens and latents within 2e-2 * max
      of the same towers on the CPU, the launches held to
      `precompute_launches`; s a 1000 frames by table, setup s, peak
-     memory, bytes written; the files removed after. Every shape the CLI,
-     the server, `validate` and `precompute` launched that no earlier
-     check covered is then held by the same 1.5x rule
+     memory, bytes written; the files removed after;
+  4e. SVD at full width (`svd_phase`): a reduced SVD card vs CPU
+     (`svd_small_check`, 2e-2), then `VideoUNetConfig()` and
+     `VideoDecoderConfig()` in bf16 from a seeded fp16 sgm-layout
+     `svd.safetensors` read back through `load_svd`, one 14-frame 576x1024
+     clip through `svd_img2vid` (25 EulerEDM steps, the linear CFG ramp,
+     decoded in chunks of 7): setup, sampling and decode s, op counts and
+     TFLOP/s, peak memory, the flash launches held to `svd_launches`
+     (400 + 1 + 2), every frame finite; one UNet call and one decode chunk
+     under torch.profiler (busy time, idle share, top kernels); each
+     launched shape by the 1.5x rule (the [28, 5, 9216, 64] launch on a row
+     slice) with its sums of launches x time. Every shape the CLI, the
+     server, the engine, `validate` and `precompute` launched that no
+     earlier check covered is then held by the same 1.5x rule
      (`cli_kernel_checks`);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
@@ -216,6 +236,7 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_TF32_FLOPS = 495e12    # dense TF32
 PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+PLAIN_LOGITS_BYTES = 8 * 2**30  # the plain attention's f32 logits a call
 SEED = 0
 CLIP_REQUESTS = 2   # full-width clips a configuration
 FIXED_STEPS = 4     # fixed-batch train steps a configuration
@@ -429,17 +450,22 @@ def flash_phase(checks=None):
         v = torch.randn((b, h, tk, d), generator=gen, device="cuda")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        want = attn.attention_reference(q, k, v)
         qx, kx, vx = q.to(dt), k.to(dt), v.to(dt)
         got = attn.flash_attention_fwd(qx, kx, vx)
         torch.cuda.synchronize()
+        # where the plain version's f32 logits of the whole launch pass
+        # PLAIN_LOGITS_BYTES, the errors are taken on its first batch row
+        # and the plain version runs a row at a time
+        rows = 1 if b * h * tq * tk * 4 > PLAIN_LOGITS_BYTES else b
+        q, k, v = q[:rows], k[:rows], v[:rows]
+        want = attn.attention_reference(q, k, v)
         # the plain version at the kernel's precision: bf16 operands, or,
         # for f32, operands rounded to TF32 as the kernel's f32 route does
         if dt == torch.float32:
             plain = attn.attention_reference_tf32(q, k, v)
         else:
-            plain = attn.attention_reference(qx, kx, vx)
-        err = (got.float() - want).abs().max().item()
+            plain = attn.attention_reference(qx[:rows], kx[:rows], vx[:rows])
+        err = (got[:rows].float() - want).abs().max().item()
         plain_err = (plain.float() - want).abs().max().item()
         # the plain version is timed as the port would call it (TF32
         # products allowed for f32)
@@ -449,7 +475,13 @@ def flash_phase(checks=None):
                             reps)
         kernel_dev_ms = device_ms(
             lambda: attn.flash_attention_fwd(qx, kx, vx), reps)
-        plain_ms = cuda_ms(lambda: attn.attention_reference(qx, kx, vx), reps)
+
+        def plain_call():
+            for i in range(0, b, rows):
+                attn.attention_reference(qx[i:i + rows], kx[i:i + rows],
+                                         vx[i:i + rows])
+
+        plain_ms = cuda_ms(plain_call, reps)
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(qx, kx, vx), reps)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -464,7 +496,10 @@ def flash_phase(checks=None):
         tname = str(dt).split(".")[-1]
         log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] {route} "
             f"tiles {bq}x{bk} smem {smem} B  max_abs_err {err:.3e} "
-            f"(plain {plain_err:.3e})  kernel_ms {kernel_ms:.4f} (device "
+            f"(plain {plain_err:.3e}"
+            + (f"; on row 0 of {b}, the plain version timed a row at a time"
+               if rows < b else "")
+            + f")  kernel_ms {kernel_ms:.4f} (device "
             f"{kernel_dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
             f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})  "
             f"{'OK' if ok else 'FAIL'}")
@@ -472,7 +507,8 @@ def flash_phase(checks=None):
             raise AssertionError(f"flash kernel disagrees at {name} {tname}: "
                                  f"{err:.3e} > 1.5 x {plain_err:.3e}")
         records[(b, h, tq, tk, d, tname, "")] = dict(
-            site=name, max_abs_err=err, plain_err=plain_err, ms=kernel_ms,
+            site=name, max_abs_err=err, plain_err=plain_err, err_rows=rows,
+            ms=kernel_ms,
             device_ms=kernel_dev_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             route=route)
@@ -1351,12 +1387,13 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
 
 def slice_phase():
     """The full-width clip in both configurations on the same models and
-    seeds: unfused, then the fast configurations and the server (unfused),
-    then fused; each clip 2 counted requests and 1 profiled; then one
-    UNet2D and one UNet3D forward in both. Returns ({fused: {kernel:
-    launches by shape}}, the fast phase's {configuration: {kernel:
-    launches by shape}}, the first unfused clip's keyframe artifact and
-    video on the host, and the serve phase's (launches, batches))."""
+    seeds: unfused, then the fast configurations, the server and the sgm
+    engine (unfused), then fused; each clip 2 counted requests and 1
+    profiled; then one UNet2D and one UNet3D forward in both. Returns
+    ({fused: {kernel: launches by shape}}, the fast phase's
+    {configuration: {kernel: launches by shape}}, the first unfused clip's
+    keyframe artifact and video on the host, and the serve and engine
+    phases' (launches, runs))."""
     import torch
 
     models, pcfg = build_clip()
@@ -1371,6 +1408,7 @@ def slice_phase():
                 # cached and would count in the fast clips' peak memory
                 fast_by_config = fast_phase(models, pcfg, by_shape, first)
                 serve = serve_phase(models, pcfg)
+                engine = engine_phase(models, pcfg)
                 sample = (first[0].keyframe.float().cpu(),
                           first[1].video.float().cpu())
         by_config[fused] = by_shape
@@ -1378,7 +1416,7 @@ def slice_phase():
     fused_forward_check(models, pcfg)
     del models
     torch.cuda.empty_cache()
-    return by_config, fast_by_config, sample, serve
+    return by_config, fast_by_config, sample, (serve, engine)
 
 
 SERVE_BATCH = 2  # the server's batch: two clips a pipeline call
@@ -3875,7 +3913,9 @@ def cli_phase():
     2. Stage 6 again on the same GIFs with `--platform cpu`: SSIM and PSNR
        within 1e-5 of the card's; the other keys' differences logged.
     3. `validate` on the same weight files (the real-weight branches of
-       both stages, f32 at full width, `validate_on`).
+       both stages, f32 at full width, `validate_on`), and
+       `DiffusionEngine.from_checkpoint` on the unclip6 file
+       (`engine_from_checkpoint`).
     4. `pipeline 12345e6 --tiny --synthetic --num_epochs 1` on the card and
        with `--platform cpu` (weights and stage-2 draws made on the CPU for
        both): stage-3 keyframes and stage-5 videos within 2e-2 of max
@@ -3935,22 +3975,7 @@ def cli_phase():
         log("cli peak device memory by stage (GiB): " + ", ".join(
             f"{r['stage']} {r.get('peak_device_gib')}" for r in rows)
             + f"; wall {wall:.1f} s")
-        want = cli_launches(CLI_CLIPS)
-        problems = []
-        for kernel in ("flash_attn_fwd", "temporal_attn_fwd"):
-            got = launches[kernel]
-            for key in sorted(set(got) | set(want[kernel]), key=str):
-                if got.get(key, 0) != want[kernel].get(key, 0):
-                    problems.append(f"{kernel} {key}: {got.get(key, 0)} "
-                                    f"launched, {want[kernel].get(key, 0)} "
-                                    f"from the code")
-        extra = [k for k in ("flash_attn_bwd", "gn_silu", "gn_silu_conv")
-                 if launches[k]]
-        log(f"cli launches equal the count from the code: "
-            f"{not problems and not extra}")
-        if problems or extra:
-            raise AssertionError(f"cli launches differ from the count from "
-                                 f"the code: {problems[:8]} {extra}")
+        check_counted("cli pipeline 35e6", launches, cli_launches(CLI_CLIPS))
         by_path["cli pipeline 35e6"] = launches
         report_card, _ = check_cli_outputs(str(exp), CLI_CLIPS, 256,
                                            CLI_FRAMES, 6, "full width")
@@ -3972,8 +3997,12 @@ def cli_phase():
             explain_nway_differences(
                 io.video_dir(str(exp), "exp1", 1, "motion"), str(weights))
 
-        # 3. validate on the same reference-layout weights, f32
+        # 3. validate on the same reference-layout weights, f32, and the
+        # sgm engine from the unclip6 file
         by_path["cli validate"] = validate_on(weights)
+        with configuration(False):
+            by_path["engine from_checkpoint"] = engine_from_checkpoint(
+                weights)
         shutil.rmtree(weights)
         log(f"cli: weights removed; {shutil.disk_usage(d).free} bytes free")
 
@@ -4022,7 +4051,7 @@ def cli_phase():
             raise AssertionError("the tiny CLI chain on the card disagrees "
                                  "with the CPU")
     return by_path, {"cli pipeline 35e6": CLI_CLIPS, "cli tiny 12345e6": 1,
-                     "cli validate": 1}
+                     "cli validate": 1, "engine from_checkpoint": 1}
 
 
 def validate_launches():
@@ -4110,21 +4139,11 @@ def validate_on(weights: Path):
             if not (math.isfinite(rms) and math.isfinite(corr)
                     and -1.0 <= corr <= 1.0 and (rms > 0.0 or corr < 1.0)):
                 bad.append(f"{name} {stage} {scores[stage]}")
-    want = validate_launches()
-    for kernel in want:
-        got = launches[kernel]
-        for key in sorted(set(got) | set(want[kernel]), key=str):
-            if got.get(key, 0) != want[kernel].get(key, 0):
-                bad.append(f"{kernel} {key}: {got.get(key, 0)} launched, "
-                           f"{want[kernel].get(key, 0)} from the code")
-    extra = [k for k in ("flash_attn_bwd", "gn_silu", "gn_silu_conv")
-             if launches[k]]
     log(f"validate gates (real weights, scores finite, corr in [-1, 1], "
-        f"fast != exact, launches equal the count from the code "
-        f"{ {k: sum(v.values()) for k, v in want.items()} }): "
-        f"{not bad and not extra}")
-    if bad or extra:
-        raise AssertionError(f"validate fails: {bad[:8]} {extra}")
+        f"fast != exact): {not bad}")
+    if bad:
+        raise AssertionError(f"validate fails: {bad[:8]}")
+    check_counted("validate", launches, validate_launches())
     return launches
 
 
@@ -4325,25 +4344,515 @@ def precompute_phase():
         log(f"precompute: the CPU check took {time.perf_counter() - t0:.1f} "
             f"s")
 
-        want_l = precompute_launches([m * 6 for m in n.values()], vc,
-                                     PRECOMPUTE_BATCH)
-        problems = [f"flash_attn_fwd {k}: {launches['flash_attn_fwd'].get(k, 0)}"
-                    f" launched, {want_l['flash_attn_fwd'].get(k, 0)} from "
-                    f"the code" for k in sorted(
-                        set(launches["flash_attn_fwd"])
-                        | set(want_l["flash_attn_fwd"]), key=str)
-                    if launches["flash_attn_fwd"].get(k, 0)
-                    != want_l["flash_attn_fwd"].get(k, 0)]
-        problems += [k for k in ("flash_attn_bwd", "temporal_attn_fwd",
-                                 "gn_silu", "gn_silu_conv") if launches[k]]
-        checks["launches equal the count from the code"] = not problems
-        log(f"precompute checks: {checks}; launches "
-            f"{ {k: sum(v.values()) for k, v in launches.items()} }")
+        log(f"precompute checks: {checks}")
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
-            raise AssertionError(f"precompute fails {failed} {problems[:8]}")
+            raise AssertionError(f"precompute fails {failed}")
+        check_counted("precompute", launches, precompute_launches(
+            [m * 6 for m in n.values()], vc, PRECOMPUTE_BATCH))
     batches = sum(-(-m * 6 // PRECOMPUTE_BATCH) for m in n.values())
     return {"cli precompute": launches}, {"cli precompute": batches}
+
+
+# ---------------------------------------------------- the sgm engine, SVD ----
+
+ENGINE_STEPS = 4        # do_sample's steps a sampler, 768 px
+ENGINE_IMG2IMG = (8, 0.5)  # do_img2img's steps and strength: 3 UNet steps
+SVD_FRAMES = 14         # svd_img2vid's defaults: 14 frames of 576 x 1024,
+SVD_STEPS = 25          # 25 EulerEDM steps
+SVD_HW = (576, 1024)
+SVD_DECODE_CHUNK = 7    # the temporal decoder's frames a call: 2 chunks
+
+
+def op_tflop(fn, flash_launches) -> float:
+    """TFLOP of one call of `fn` on the card: torch's FlopCounterMode over
+    its ATen ops (convolutions and products) plus 4 b h tq tk d for each
+    flash launch in `flash_launches` (the kernel is no ATen op). Run
+    outside the counted windows: the call launches its kernels."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc, torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    attn = sum(n * 4 * b * h * tq * tk * d for (b, h, tq, tk, d, *_), n
+               in flash_launches.items())
+    return (fc.get_total_flops() + attn) / 1e12
+
+
+def sampler_unet_calls(sampler, sigmas) -> int:
+    """UNet calls of one sampler run over the host ladder `sigmas`, from the
+    samplers' control flow: one a step; Heun's correction adds one where
+    sigma_next > 0; DPM++(2S) ancestral's midpoint adds one where
+    sigma_down > 1e-10 (at eta 1, sigma_down = sigma_next^2 / sigma)."""
+    from neurons_tpu_torch.pipelines.api import Sampler
+    s = [float(v) for v in sigmas]
+    n = len(s) - 1
+    if sampler == Sampler.HEUN_EDM:
+        return n + sum(s[i + 1] > 0 for i in range(n))
+    if sampler == Sampler.DPMPP2S_ANCESTRAL:
+        return n + sum(s[i + 1] ** 2 / s[i] > 1e-10 for i in range(n))
+    return n
+
+
+def engine_launches(unet, pcfg, calls: int, vae_calls: int):
+    """Flash launches of the engine phase, counted from the code: each of
+    `calls` unCLIP UNet calls on the CFG batch of 2 at 96 x 96 latents
+    (`attn_site_launches`: the self- and cross-attentions over the 256
+    CLIP tokens of the transformer sites), and the VAE's mid attention once
+    a decode or an encode (`vae_calls`, 9216 tokens at d 512)."""
+    import collections
+    flash, _ = attn_site_launches(unet, 96, 2, len(pcfg.unet2d.channel_mult),
+                                  True, ("self", "cross"),
+                                  context_tokens=pcfg.brain.clip_seq_dim)
+    out = collections.Counter({k: v * calls for k, v in flash.items()})
+    out[(1, 1, 96 * 96, 96 * 96, 512, "bfloat16", "")] += vae_calls
+    return dict(out)
+
+
+def check_counted(what, launches, want):
+    """Raise unless every kernel's launches by shape ({kernel: {key: n}})
+    equal `want`'s, a kernel `want` leaves out launching none (the default,
+    unfused configuration runs no #7/#8)."""
+    problems = []
+    for kernel, got in launches.items():
+        exp = want.get(kernel, {})
+        problems += [f"{kernel} {k}: {got.get(k, 0)} launched, "
+                     f"{exp.get(k, 0)} from the code"
+                     for k in sorted(set(got) | set(exp), key=str)
+                     if got.get(k, 0) != exp.get(k, 0)]
+    log(f"{what}: launches { {k: sum(v.values()) for k, v in launches.items()} }"
+        f", equal to the count from the code: {not problems}")
+    if problems:
+        raise AssertionError(f"{what} launches differ: {problems[:8]}")
+
+
+def engine_phase(models, pcfg):
+    """`models/engine.py:DiffusionEngine` over the clip's full-width unCLIP
+    UNet and VAE (bf16, the clip phase's modules): `pipelines/api.py:
+    do_sample` at 768 px under each of the six samplers for ENGINE_STEPS
+    steps (CFG 5 over random unconditional tokens), then one `do_img2img`
+    of the first sample at strength 0.5 (EulerEDM, 8 steps: 3 run). Every
+    sample [1, 3, 768, 768] finite in [0, 1], its watermark round trip the
+    48 bits; the launches, zeroed just before and read just after, equal
+    `engine_launches`. Returns ({"engine": {kernel: launches by shape}},
+    {"engine": 1})."""
+    import numpy as np
+    import torch
+    from neurons_tpu_torch.models.engine import DiffusionEngine
+    from neurons_tpu_torch.pipelines import api
+
+    _, unet, vae = models[:3]
+    eng = DiffusionEngine(pcfg.unet2d, pcfg.vae, pcfg.sampler, unet=unet,
+                          vae=vae)
+    g = torch.Generator("cuda").manual_seed(SEED + 70)
+    shape = (1, pcfg.brain.clip_seq_dim, pcfg.unet2d.context_dim)
+    vector = eng.conditioner(1)
+    cond = {"crossattn": torch.randn(shape, generator=g, device="cuda"),
+            "vector": vector}
+    uc = {"crossattn": torch.randn(shape, generator=g, device="cuda"),
+          "vector": vector}
+    x = torch.zeros((2, pcfg.unet2d.in_channels, 96, 96), device="cuda")
+    call_tflop = op_tflop(lambda: eng.network(
+        x, torch.full((2,), 500.0, device="cuda"),
+        torch.cat([cond["crossattn"], uc["crossattn"]]),
+        torch.cat([vector, vector])), engine_launches(unet, pcfg, 1, 0))
+    counters = cli_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    calls = vae_calls = 0
+    first, checks, times = None, {}, {}
+    runs = [(s.name, api.SamplingParams(
+        width=768, height=768, steps=ENGINE_STEPS, sampler=s,
+        scale=pcfg.sampler.unclip_cfg_scale)) for s in api.Sampler]
+    steps, strength = ENGINE_IMG2IMG
+    runs.append(("img2img EULER_EDM", api.SamplingParams(
+        width=768, height=768, steps=steps, img2img_strength=strength,
+        sampler=api.Sampler.EULER_EDM,
+        scale=pcfg.sampler.unclip_cfg_scale)))
+    for name, p in runs:
+        t0 = time.perf_counter()
+        if name.startswith("img2img"):  # of the first sample, in [-1, 1]
+            out = api.do_img2img(first * 2 - 1, eng, p, cond, uc,
+                                 generator=g)
+            vae_calls += 1  # the encode
+        else:
+            out = api.do_sample(eng, p, cond, uc, generator=g)
+            first = out if first is None else first
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        n = sampler_unet_calls(p.sampler, api.build_sigmas(p))
+        calls += n
+        vae_calls += 1
+        img = out.float().cpu().numpy()
+        marked = api.embed_watermark(img)
+        checks[name] = dict(
+            shape=tuple(out.shape) == (1, 3, 768, 768),
+            finite=bool(np.isfinite(img).all()),
+            in_01=bool((img >= 0).all() and (img <= 1).all()),
+            watermark=api.decode_watermark(marked[0]) == api.WATERMARK_BITS)
+        log(f"engine {name}: {n} UNet calls, {times[name]:.3f} s, "
+            f"checks {checks[name]}")
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    log(f"engine: {calls} UNet calls ({call_tflop:.3f} TFLOP a CFG call) "
+        f"and {vae_calls} VAE calls in "
+        f"{sum(times.values()):.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    failed = [(n, k) for n, c in checks.items() for k, ok in c.items()
+              if not ok]
+    if failed:
+        raise AssertionError(f"engine outputs fail {failed}")
+    check_counted("engine", launches, {"flash_attn_fwd": engine_launches(
+        unet, pcfg, calls, vae_calls)})
+    return {"engine": launches}, {"engine": 1}
+
+
+def engine_from_checkpoint(weights: Path):
+    """`DiffusionEngine.from_checkpoint` on the CLI phase's unclip6 file
+    (bf16 on the card; the file's live UNet weights are the negated EMA
+    shadows, so the EMA swap shows), then `do_sample` at 768 px (EulerEDM,
+    2 steps): load seconds, the UNet's conv_in equal to the file's EMA
+    tensor in bf16, the sample finite in [0, 1], the launches equal the
+    count from the code. Returns {kernel: launches by shape}."""
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.models.engine import DiffusionEngine
+    from neurons_tpu_torch.pipelines import api
+
+    pcfg = config.PipelineConfig()
+    path = str(weights / "unclip6_epoch0_step110000.ckpt")
+    t0 = time.perf_counter()
+    eng = DiffusionEngine.from_checkpoint(path, pcfg.unet2d, pcfg.vae,
+                                          device="cuda",
+                                          dtype=torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    sd = LW._torch_load(path)
+    ema = sd["model_ema.diffusion_modelinput_blocks00weight"].to(
+        "cuda", torch.bfloat16)
+    live = sd["model.diffusion_model.input_blocks.0.0.weight"].to("cuda")
+    swapped = (torch.equal(eng.unet.conv_in.weight, ema)
+               and torch.equal(eng.unet.conv_in.weight, -live))
+    del sd
+    g = torch.Generator("cuda").manual_seed(SEED + 71)
+    shape = (1, pcfg.brain.clip_seq_dim, pcfg.unet2d.context_dim)
+    vector = eng.conditioner(1)
+    p = api.SamplingParams(width=768, height=768, steps=2,
+                           sampler=api.Sampler.EULER_EDM,
+                           scale=pcfg.sampler.unclip_cfg_scale)
+    counters = cli_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = api.do_sample(
+        eng, p, {"crossattn": torch.randn(shape, generator=g, device="cuda"),
+                 "vector": vector},
+        {"crossattn": torch.randn(shape, generator=g, device="cuda"),
+         "vector": vector}, generator=g)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    ok = (swapped and bool(torch.isfinite(out).all())
+          and bool((out >= 0).all() and (out <= 1).all()))
+    log(f"engine from_checkpoint: loaded in {load_s:.1f} s "
+        f"({eng.import_report['ema_swapped']} EMA tensors swapped, "
+        f"{len(eng.import_report['unet_unused'])} unused keys), conv_in "
+        f"the EMA tensor: {swapped}; 2-step sample {sample_s:.3f} s; "
+        f"finite in [0, 1]: {ok}")
+    if not ok:
+        raise AssertionError("DiffusionEngine.from_checkpoint fails")
+    check_counted("engine from_checkpoint", launches,
+                  {"flash_attn_fwd": engine_launches(eng.unet, pcfg, 2, 1)})
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def svd_unet_launches(unet, latent_hw, rows: int, dtype="bfloat16"):
+    """Flash launches of one VideoUNet forward at `rows` folded frames over
+    latents latent_hw (h, w), counted from its sites: each
+    SpatialVideoTransformer's spatial self-attention launches once a block
+    where its tokens reach 128; the cross-attention over the one CLIP-H
+    token and the temporal attention over the frames launch none (the JAX
+    package routes them to XLA)."""
+    import collections
+    from neurons_tpu_torch.models.video_unet import SpatialVideoTransformer
+
+    n_levels = len(unet.cfg.channel_mult)
+    flash = collections.Counter()
+    for name, mod in unet.named_children():
+        if not isinstance(mod, SpatialVideoTransformer):
+            continue
+        level = (n_levels - 1 if name.startswith("mid")
+                 else int(name.split("_")[1]))
+        tokens = (latent_hw[0] >> level) * (latent_hw[1] >> level)
+        a = mod.block_0.attn1
+        if tokens >= 128:
+            flash[(rows, a.heads, tokens, tokens, a.dim_head, dtype,
+                   "")] += mod.depth
+    return flash
+
+
+def svd_launches(unet, frames: int, steps: int, latent_hw, chunks,
+                 d_vae: int, dtype="bfloat16"):
+    """Flash launches of one `svd_img2vid` clip, counted from the code: the
+    VideoUNet on the CFG batch of 2 x frames rows at each EulerEDM step,
+    the VAE encoder's mid attention once on the conditioning frame, the
+    temporal decoder's (a spatial VAEAttnBlock under time_mode
+    'conv-only') once a chunk of frames."""
+    out = svd_unet_launches(unet, latent_hw, 2 * frames, dtype)
+    for k in out:
+        out[k] *= steps
+    tokens = latent_hw[0] * latent_hw[1]
+    for rows in (1, *chunks):
+        out[(rows, 1, tokens, tokens, d_vae, dtype, "")] += 1
+    return dict(out)
+
+
+def svd_small_check():
+    """A reduced SVD (a 2-level VideoUNet of width 32 and heads of 16, a
+    2-level temporal decoder, 4 frames of 16 x 16 latents: flash at 256
+    tokens in the UNet and the decoder), f32, `svd_img2vid` over 4 steps
+    decoded in chunks of 2 on the card against the CPU, the same weights
+    (drawn on the CPU) and draws: latents and video within 2e-2 * max."""
+    import torch
+    from neurons_tpu_torch.config import (VAEConfig, VideoDecoderConfig,
+                                          VideoUNetConfig)
+    from neurons_tpu_torch.models.temporal_ae import VideoDecoder
+    from neurons_tpu_torch.models.video_unet import VideoUNet
+    from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from neurons_tpu_torch.pipelines.svd import SVDNoise, svd_img2vid
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    ucfg = VideoUNetConfig(model_channels=32, channel_mult=(1, 2),
+                           num_res_blocks=1, attention_resolutions=(1, 2),
+                           transformer_depth=(1, 1), num_head_channels=16,
+                           context_dim=64)
+    dcfg = VideoDecoderConfig(vae=VAEConfig(block_out_channels=(32, 64),
+                                            layers_per_block=1))
+    f = 4
+    gen = torch.Generator().manual_seed(SEED + 62)
+    noise = SVDNoise(torch.randn((1, 4, 16, 16), generator=gen),
+                     torch.randn((f, 4, 16, 16), generator=gen))
+    cond = torch.randn((1, 4, 16, 16), generator=gen)
+    clip = torch.randn((1, 64), generator=gen)
+    outs = {}
+    FLASH_FWD_LAUNCHES.reset()
+    for dev in ("cuda", "cpu"):
+        unet = synth_params_(VideoUNet(ucfg, device=dev).eval(), SEED + 63,
+                             host=True)
+        dec = synth_params_(VideoDecoder(dcfg, device=dev).eval(), SEED + 64,
+                            host=True)
+        outs[dev] = svd_img2vid(unet, dec, cond.to(dev),
+                                clip.to(dev), num_frames=f, num_steps=4,
+                                decode_chunk=2, noise=noise)
+    errs = {}
+    for k in ("latents", "video"):
+        got = getattr(outs["cuda"], k).cpu()
+        want = getattr(outs["cpu"], k)
+        errs[k] = float((got - want).abs().max() / want.abs().max())
+    launched = FLASH_FWD_LAUNCHES.total
+    ok = all(e <= 2e-2 for e in errs.values()) and launched > 0
+    log(f"svd small check (reduced depth, f32) card vs CPU: rel err "
+        f"{errs} (<= 2e-2), {launched} flash launches on the card: {ok}")
+    if not ok:
+        raise AssertionError("the reduced SVD on the card disagrees with "
+                             "the CPU")
+
+
+def svd_phase(flash_records):
+    """SVD image-to-video at full width on the card: `VideoUNetConfig()`
+    (1.52 B parameters) and `VideoDecoderConfig()` (time_mode 'conv-only',
+    video kernel (3, 3, 3), the default the port copies; the JAX package's
+    own SVD tests run (3, 1, 1)) and the SD VAE encoder, bf16.
+
+    1. `svd_small_check`.
+    2. Weights: seeded modules (`synth_params_` on the card, every head
+       non-zero) written as one fp16 sgm-layout `svd.safetensors`
+       (`torch_export.svd_state_dict`) in a git-ignored directory, read
+       back through `load_weights.load_svd` into bf16 modules (no key
+       unused), the file removed after.
+    3. One clip: a seeded CLIP-H embedding [1, 1024] and a 576 x 1024
+       conditioning frame, encoded by the VAE encoder (the posterior's
+       mean times 0.18215); `pipelines/svd.py:svd_img2vid` with its
+       defaults (14 frames, 25 EulerEDM steps, the linear CFG ramp 1.0 ->
+       2.5, fps 6, motion bucket 127, cond aug 0.02, sigma_max 700),
+       decoded in chunks of SVD_DECODE_CHUNK frames. The launches, zeroed
+       before the encode and read after the decode, equal `svd_launches`
+       (400 + 1 + 2); every frame finite; setup, sampling and decode
+       seconds, each call's op count and rate, and the peak device memory.
+       Then one UNet call and one decode chunk under torch.profiler.
+    4. Every launched shape no earlier check held, by `flash_phase`'s rule
+       (the [28, 5, 9216, 64] launch on a row slice: its plain version
+       would need 47 GB of f32 logits), added to `flash_records`; then
+       each shape's launches, error and sums of launches x time.
+    Returns ({"svd": {kernel: launches by shape}}, {"svd": 1})."""
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch.config import VideoDecoderConfig, VideoUNetConfig
+    from neurons_tpu_torch.interop import load_weights as LW
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.interop.from_jax import load_jax_params
+    from neurons_tpu_torch.models.temporal_ae import VideoDecoder
+    from neurons_tpu_torch.models.vae import Encoder
+    from neurons_tpu_torch.models.video_unet import VideoUNet
+    from neurons_tpu_torch.pipelines.svd import svd_img2vid
+    from neurons_tpu_torch.utils.synth_init import synth_params_
+
+    svd_small_check()
+    ucfg, dcfg = VideoUNetConfig(), VideoDecoderConfig()
+    vcfg = dcfg.vae
+
+    def encoder(device="cuda", dtype=torch.float32):
+        with torch.device(device):
+            return Encoder(vcfg).to(dtype)
+
+    builds = {"unet": functools.partial(VideoUNet, ucfg),
+              "decoder": functools.partial(VideoDecoder, dcfg),
+              "encoder": encoder}
+    with ckpt_tmpdir("svd: svd.safetensors") as d:
+        path = str(Path(d) / "svd.safetensors")
+        t0 = time.perf_counter()
+        trees, n_params = {}, {}
+        for i, (name, build) in enumerate(builds.items()):
+            m = synth_params_(build(device="cuda"), SEED + 60 + i)
+            n_params[name] = sum(p.numel() for p in m.parameters())
+            trees[name] = tex.jax_tree(m)
+            del m
+            torch.cuda.empty_cache()
+        sd = tex.svd_state_dict(trees["unet"], ucfg, trees["decoder"], dcfg,
+                                trees["encoder"])
+        del trees
+        n_bytes = tex.write_safetensors(path, tex.to_torch(sd, torch.float16))
+        del sd
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        up, dp, ep, report = LW.load_svd(path, ucfg, dcfg)
+        models = {}
+        for name, tree in (("unet", up), ("decoder", dp), ("encoder", ep)):
+            models[name] = LW.materialize(builds[name], "cuda",
+                                          torch.bfloat16)
+            load_jax_params(models[name], tree)
+        del up, dp, ep
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    unused = {k: v for k, v in report.items() if k.endswith("_unused") and v}
+    log(f"svd: seeded weights ({ {k: round(v / 1e9, 4) for k, v in n_params.items()} } "
+        f"B params) written as a {n_bytes / 1e9:.3f} GB fp16 sgm-layout "
+        f"svd.safetensors in {write_s:.1f} s, read back through load_svd "
+        f"into bf16 modules in {load_s:.1f} s; unused keys {unused}")
+    if unused:
+        raise AssertionError(f"load_svd left keys unused: {unused}")
+
+    unet, dec, enc = models["unet"], models["decoder"], models["encoder"]
+    h, w = SVD_HW
+    latent_hw = (h // 8, w // 8)
+    g = torch.Generator("cuda").manual_seed(SEED + 61)
+    clip_emb = torch.randn((1, ucfg.context_dim), generator=g, device="cuda")
+    frame = torch.rand((1, 3, h, w), generator=g, device="cuda") * 2 - 1
+    marks = {}
+
+    def decode(z, n):
+        if "decode" not in marks:
+            torch.cuda.synchronize()
+            marks["decode"] = time.perf_counter()
+        return dec((z / vcfg.scaling_factor).to(torch.bfloat16), n)
+
+    chunks = [min(SVD_DECODE_CHUNK, SVD_FRAMES - i)
+              for i in range(0, SVD_FRAMES, SVD_DECODE_CHUNK)]
+    rows, tokens = 2 * SVD_FRAMES, latent_hw[0] * latent_hw[1]
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    calls = {  # one CFG UNet call and one decode chunk, on zeros
+        "unet": lambda: unet(
+            torch.zeros((rows, ucfg.in_channels, *latent_hw), **bf16),
+            torch.zeros((rows,), device="cuda"),
+            torch.zeros((rows, 1, ucfg.context_dim), **bf16),
+            torch.zeros((rows, ucfg.adm_in_channels), **bf16),
+            num_frames=SVD_FRAMES),
+        "decoder": lambda: dec(torch.zeros(
+            (chunks[0], vcfg.latent_channels, *latent_hw), **bf16),
+            chunks[0])}
+    unet_tflop = op_tflop(calls["unet"],
+                          svd_unet_launches(unet, latent_hw, rows))
+    dec_tflop = op_tflop(calls["decoder"], {
+        (chunks[0], 1, tokens, tokens, vcfg.block_out_channels[-1]): 1})
+    counters = cli_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        moments = enc(frame.to(torch.bfloat16)).float()
+        cond_latent = moments[:, :vcfg.latent_channels] * vcfg.scaling_factor
+        res = svd_img2vid(unet, decode, cond_latent, clip_emb,
+                          num_frames=SVD_FRAMES, num_steps=SVD_STEPS,
+                          decode_chunk=SVD_DECODE_CHUNK, generator=g)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    sampling_s, decode_s = marks["decode"] - t0, t_end - marks["decode"]
+    checks = {
+        f"video [1,{SVD_FRAMES},3,{h},{w}]": tuple(res.video.shape) == (
+            1, SVD_FRAMES, 3, h, w),
+        "every frame finite": bool(torch.isfinite(res.video).all()),
+        "latents finite": bool(torch.isfinite(res.latents).all()),
+        "frames differ": bool((res.video[0, 1:] - res.video[0, :-1])
+                              .abs().amax() > 0),
+    }
+    log(f"svd: {SVD_FRAMES} frames of {h}x{w}: sampling {sampling_s:.3f} "
+        f"s ({SVD_STEPS} steps of {unet_tflop:.2f} TFLOP, with the encode: "
+        f"{SVD_STEPS * unet_tflop / sampling_s:.0f} TFLOP/s), decode "
+        f"{decode_s:.3f} s ({len(chunks)} chunks of {dec_tflop:.2f} TFLOP "
+        f"for {chunks[0]} frames: "
+        f"{dec_tflop * SVD_FRAMES / chunks[0] / decode_s:.0f} TFLOP/s), "
+        f"peak device memory {peak / 2**30:.2f} GiB, video range "
+        f"[{res.video.min().item():.3f}, {res.video.max().item():.3f}]; "
+        f"checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"svd outputs fail {checks}")
+    want = svd_launches(unet, SVD_FRAMES, SVD_STEPS, latent_hw, chunks,
+                        vcfg.block_out_channels[-1])
+    log(f"svd: {sum(want.values())} flash launches counted from the code "
+        f"({SVD_STEPS} x {sum(svd_unet_launches(unet, latent_hw, 2).values())} "
+        f"UNet + 1 encoder + {len(chunks)} decoder chunks)")
+    check_counted("svd", launches, {"flash_attn_fwd": want})
+    for name, call in calls.items():  # outside the counted run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                torch.inference_mode():
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+        device_profile(prof, time.perf_counter() - t0,
+                       f"svd: one {name} call (unprofiled: sampling "
+                       f"{sampling_s / SVD_STEPS:.3f} s a step, decode "
+                       f"{decode_s / len(chunks):.3f} s a chunk)",
+                       {"flash": FLASH_FWD_SYMBOLS})
+    del unet, dec, enc, models, res, moments, cond_latent, frame, calls
+    torch.cuda.empty_cache()
+
+    todo = [(f"svd {k[0]}x{k[1]}x{k[2]}", k[:5], torch.bfloat16)
+            for k in sorted(launches["flash_attn_fwd"])
+            if k not in flash_records]
+    flash_records.update(flash_phase(todo))
+    for key, n in sorted(launches["flash_attn_fwd"].items()):
+        rec = flash_records[key]
+        log(f"svd flash {list(key[:5])} x{n}: max_abs_err "
+            f"{rec['max_abs_err']:.3e} (plain {rec['plain_err']:.3e}"
+            + (f", row 0 of {key[0]}" if rec.get("err_rows", key[0])
+               < key[0] else "")
+            + f"), sum kernel {n * rec['ms'] / 1e3:.4f} s (device "
+            f"{n * rec['device_ms'] / 1e3:.4f}), bound "
+            f"{n * rec['bound_ms'] / 1e3:.4f}, plain "
+            f"{n * rec['plain_ms'] / 1e3:.4f}, library "
+            f"{n * rec['library_ms'] / 1e3:.4f}")
+    return {"svd": launches}, {"svd": 1}
 
 
 def cli_kernel_checks(by_path, flash_records, temporal_records,
@@ -4768,13 +5277,15 @@ def main():
         small_fast_check()
         small_caption_check()
         small_classifier_check()
-    clip_by_shape, fast_by_config, sample, serve = slice_phase()
+    clip_by_shape, fast_by_config, sample, (serve, engine) = slice_phase()
     with configuration(False):
         stage46_by_path, stage46_runs = stage46_phase(sample)
     del sample
     cli_by_path, cli_runs = cli_phase()
     precompute = precompute_phase()
-    for by_path, path_runs in (serve, precompute):
+    with configuration(False):
+        svd = svd_phase(flash_records)
+    for by_path, path_runs in (serve, engine, precompute, svd):
         cli_by_path.update(by_path)
         cli_runs.update(path_runs)
     with configuration(False):

@@ -1,11 +1,11 @@
-"""Typed configuration for the PyTorch port (stages 2, 3 and 5).
+"""Typed configuration for the PyTorch port (stages 2, 3 and 5, SVD).
 
 The port's own copy of the JAX package's dataclasses
 (neurons_tpu/config.py:63-321), with the same names and defaults, so a
 configuration written for one package reads the same in the other. Only
-the configurations stages 2, 3 and 5 need are here; GPT-2's lives in
-models/gpt2.py and the CLIP text tower's in models/clip.py, as in the JAX
-package.
+the configurations stages 2, 3 and 5 and the SVD stack need are here;
+GPT-2's lives in models/gpt2.py and the CLIP text tower's in
+models/clip.py, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -167,6 +167,45 @@ class UNet3DConfig:
                                                      "Temporal_Self")
     motion_zero_initialize: bool = True
     use_inflated_groupnorm: bool = True
+
+
+@dataclass(frozen=True)
+class VideoUNetConfig:
+    """The SVD spatiotemporal UNet (img2vid): every spatial transformer is
+    paired with a temporal mix stack and every res block with a temporal
+    (3,1,1)-conv res stack, blended by a learned-with-images alpha."""
+
+    in_channels: int = 8  # latent ++ conditioning frame concat
+    out_channels: int = 4
+    model_channels: int = 320
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
+    num_head_channels: int = 64
+    context_dim: int = 1024  # CLIP-H image embedding
+    adm_in_channels: int = 768  # fps / motion bucket / cond aug embeddings
+    time_context_dim: int = 0  # 0 -> use_spatial_context
+    video_kernel_size: Tuple[int, int, int] = (3, 1, 1)
+    merge_strategy: str = "learned_with_images"
+    merge_factor: float = 0.5
+    extra_ff_mix_layer: bool = True
+    use_spatial_context: bool = True
+    disable_temporal_crossattention: bool = False
+    max_ddpm_temb_period: int = 10000
+
+
+@dataclass(frozen=True)
+class VideoDecoderConfig:
+    """The SVD temporal VAE decoder: the SD VAE decoder with a temporal res
+    stack on every resnet block, a 3-D time-mix conv after conv_out, and
+    (time_mode 'all' or 'attn-only') temporal attention at the mid block."""
+
+    vae: VAEConfig = field(default_factory=VAEConfig)
+    video_kernel_size: Tuple[int, int, int] = (3, 3, 3)
+    alpha: float = 0.0
+    merge_strategy: str = "learned"
+    time_mode: str = "conv-only"  # all | conv-only | attn-only
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,11 @@
-"""EDM-preconditioned discrete denoiser (sgm-equivalent).
+"""EDM-preconditioned denoisers (sgm-equivalent).
 
 Counterpart of neurons_tpu/diffusion/denoiser.py: the network is wrapped as
-  D(x, sigma) = net(x * c_in, idx, cond) * c_out + x * c_skip
-with eps-prediction scalings; sigma snaps to the nearest entry of the
-1000-step DDPM table and its index is the timestep conditioning.
+  D(x, sigma) = net(x * c_in, c_noise, cond) * c_out + x * c_skip
+with the scalings of a prediction convention (eps, v, EDM).
+`DiscreteDenoiser` snaps sigma to the nearest entry of the 1000-step DDPM
+table and feeds its index as the timestep conditioning;
+`ContinuousDenoiser` feeds the scaling's c_noise.
 """
 
 from __future__ import annotations
@@ -21,6 +23,22 @@ def eps_scaling(sigma: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     c_out = -sigma
     c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
     return c_skip, c_out, c_in, sigma
+
+
+def v_scaling(sigma: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(c_skip, c_out, c_in, c_noise) of a v-prediction model."""
+    c_skip = 1.0 / (sigma ** 2 + 1.0)
+    c_out = -sigma / torch.sqrt(sigma ** 2 + 1.0)
+    c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
+    return c_skip, c_out, c_in, sigma
+
+
+def edm_scaling(sigma: torch.Tensor, sigma_data: float = 0.5
+                ) -> Tuple[torch.Tensor, ...]:
+    """(c_skip, c_out, c_in, c_noise) of Karras et al.'s preconditioning."""
+    s2 = sigma ** 2 + sigma_data ** 2
+    return (sigma_data ** 2 / s2, sigma * sigma_data / torch.sqrt(s2),
+            1.0 / torch.sqrt(s2), 0.25 * torch.log(sigma))
 
 
 class DiscreteDenoiser(NamedTuple):
@@ -46,3 +64,17 @@ class DiscreteDenoiser(NamedTuple):
         c_skip, c_out, c_in, _ = self.scaling(sigma_q)
         return (network(x * c_in, idx.float(), **cond) * c_out
                 + x * c_skip)
+
+
+class ContinuousDenoiser(NamedTuple):
+    """The plain denoiser (no quantization) of EDM-style models."""
+
+    scaling: Callable = eps_scaling
+
+    def __call__(self, network, x: torch.Tensor, sigma: torch.Tensor,
+                 **cond) -> torch.Tensor:
+        """x: [B, ...], sigma: [B]."""
+        bshape = sigma.shape + (1,) * (x.dim() - sigma.dim())
+        c_skip, c_out, c_in, c_noise = self.scaling(sigma.reshape(bshape))
+        return (network(x * c_in, c_noise.reshape(sigma.shape), **cond)
+                * c_out + x * c_skip)

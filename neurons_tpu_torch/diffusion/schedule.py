@@ -2,8 +2,8 @@
 
 Counterpart of neurons_tpu/diffusion/schedule.py: the cosine DDPM schedule
 of the prior, the forward process q(x_t | x_0) and the posterior
-q(x_{t-1} | x_t, x_0), and the sigma ladder of
-sgm's LegacyDDPMDiscretization used by the unCLIP sampler. The tables are
+q(x_{t-1} | x_t, x_0), the sigma ladder of sgm's LegacyDDPMDiscretization
+used by the unCLIP sampler, and the EDM ladder of SVD. The tables are
 computed in float64 numpy, then stored as f32 tensors, as in the JAX
 package.
 """
@@ -127,3 +127,17 @@ def sd_sigmas(num_steps: int, timesteps: int = 1000,
         sigmas = np.concatenate([sigmas, [0.0]])
     return torch.as_tensor(np.ascontiguousarray(sigmas, np.float32),
                            device=device)
+
+
+def edm_sigmas(num_steps: int, sigma_min: float = 0.002,
+               sigma_max: float = 80.0, rho: float = 7.0,
+               append_zero: bool = True, device="cpu") -> torch.Tensor:
+    """The EDM (Karras et al.) ladder: sigma_i = (max^(1/rho) + i/(n-1) *
+    (min^(1/rho) - max^(1/rho)))^rho, descending, with a trailing 0. f32
+    (computed in float64 numpy)."""
+    ramp = np.linspace(0, 1, num_steps)
+    min_r, max_r = sigma_min ** (1 / rho), sigma_max ** (1 / rho)
+    sigmas = (max_r + ramp * (min_r - max_r)) ** rho
+    if append_zero:
+        sigmas = np.concatenate([sigmas, [0.0]])
+    return torch.as_tensor(np.asarray(sigmas, np.float32), device=device)

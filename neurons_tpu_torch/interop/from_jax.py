@@ -6,6 +6,7 @@ The port's modules use the flax submodule names as attribute names
 
   Dense  kernel [in, out]        -> Linear.weight [out, in]
   Conv   kernel HWIO             -> Conv2d.weight OIHW
+  Conv   kernel DHWIO (3-D)      -> Conv3d.weight OIDHW
   norm   scale                   -> weight
   Embed  embedding               -> weight
   any other leaf (bias, raw `self.param` leaves such as `null_kv`, `g`,
@@ -31,6 +32,8 @@ def _target(module: nn.Module, key: str, arr: np.ndarray):
             return "weight", arr.T
         if isinstance(module, nn.Conv2d):
             return "weight", arr.transpose(3, 2, 0, 1)
+        if isinstance(module, nn.Conv3d):
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"a flax kernel maps to no parameter of "
                          f"{type(module).__name__}")
     if key in ("scale", "embedding"):

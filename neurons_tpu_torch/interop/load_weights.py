@@ -11,6 +11,8 @@ port module:
     + domain-adapter LoRA          -> stage-5 UNet3D
   * SD-1.5 VAE and text encoder    -> stage-5 VAE, CLIP text tower
   * SparseCtrl ckpt                -> stage-5 controlnet
+  * SVD ckpt (sgm layout)          -> VideoUNet, temporal VideoDecoder,
+                                      VAE Encoder
 
 Files are read on the host. A `.safetensors` file is read by this module's
 own reader (`read_safetensors`: memory-mapped, each tensor a
@@ -167,6 +169,74 @@ def load_sparse_controlnet(ckpt_path: str, cfg) -> Tuple[Dict, Dict]:
         sd = TI.strip_prefix(sd, "controlnet.")
     params, unused = TI.import_sparse_controlnet(sd, cfg)
     return params, {"controlnet_unused": unused}
+
+
+def load_svd(ckpt_path: str, unet_cfg, dec_cfg,
+             vae_cfg=None) -> Tuple[Dict, Dict, Dict, Dict]:
+    """SVD checkpoint -> (VideoUNet params, temporal-decoder params,
+    VAE-encoder params, report). The SVD safetensors/Lightning file uses
+    the sgm layout: `model.diffusion_model.` the VideoUNet,
+    `first_stage_model.` an AutoencodingEngine with an sgm Encoder (no
+    quant_conv) and the temporal VideoDecoder; the `conditioner.` towers
+    are counted and skipped. vae_cfg defaults to dec_cfg.vae; the encoder
+    takes the LDM VAE key scheme (the encoder half only) and fills a
+    `models.vae.Encoder`."""
+    sd = _torch_load(ckpt_path)
+    report: Dict[str, Any] = {}
+    if any(k.startswith("conditioner.") for k in sd):
+        # conditioner CLIP/VAE towers are loaded separately
+        report["conditioner_keys_skipped"] = sum(
+            1 for k in sd if k.startswith("conditioner."))
+    unet_sd = TI.strip_prefix(sd, "model.diffusion_model.")
+    unet_params, report["unet_unused"] = TI.import_svd_unet(unet_sd,
+                                                            unet_cfg)
+    fs = TI.strip_prefix(sd, "first_stage_model.")
+    dec_sd = TI.strip_prefix(fs, "decoder.")
+    dec_params, report["decoder_unused"] = TI.import_video_decoder(
+        dec_sd, dec_cfg)
+    vae_cfg = vae_cfg or dec_cfg.vae
+    enc_params: Dict[str, Any] = {}
+    if any(k.startswith("encoder.") for k in fs):
+        enc_sd = TI.strip_prefix(fs, "encoder.")
+        enc_params, report["encoder_unused"] = _import_vae_encoder(
+            enc_sd, vae_cfg)
+    return unet_params, dec_params, enc_params, report
+
+
+def _import_vae_encoder(sd: Dict, cfg) -> Tuple[Dict, list]:
+    """The encoder half of the sgm VAE layout (the key scheme
+    import_ldm_vae maps under 'encoder.')."""
+    tr = TI._Tracker(dict(sd))
+
+    def resnet(prefix):
+        r = {"norm1": TI.norm(tr, f"{prefix}.norm1"),
+             "conv1": TI.conv(tr, f"{prefix}.conv1"),
+             "norm2": TI.norm(tr, f"{prefix}.norm2"),
+             "conv2": TI.conv(tr, f"{prefix}.conv2")}
+        if f"{prefix}.nin_shortcut.weight" in tr:
+            r["nin_shortcut"] = TI.conv(tr, f"{prefix}.nin_shortcut")
+        return r
+
+    p: Dict[str, Any] = {
+        "conv_in": TI.conv(tr, "conv_in"),
+        "norm_out": TI.norm(tr, "norm_out"),
+        "conv_out": TI.conv(tr, "conv_out"),
+        "mid_block_1": resnet("mid.block_1"),
+        "mid_attn": {"norm": TI.norm(tr, "mid.attn_1.norm"),
+                     "q": TI._lin_or_1x1(tr, "mid.attn_1.q"),
+                     "k": TI._lin_or_1x1(tr, "mid.attn_1.k"),
+                     "v": TI._lin_or_1x1(tr, "mid.attn_1.v"),
+                     "proj_out": TI._lin_or_1x1(tr, "mid.attn_1.proj_out")},
+        "mid_block_2": resnet("mid.block_2"),
+    }
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            p[f"down_{i}_block_{j}"] = resnet(f"down.{i}.block.{j}")
+        if f"down.{i}.downsample.conv.weight" in tr:
+            p[f"down_{i}_downsample"] = {
+                "conv": TI.conv(tr, f"down.{i}.downsample.conv")}
+    return p, tr.unused()
 
 
 # ------------------------------------------------ filling the port modules ----

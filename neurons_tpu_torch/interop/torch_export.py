@@ -6,6 +6,9 @@ port module) and gives back the state dict that importer reads, so a
 module's weights can be written as the reference's released files are:
 
   ldm_unet_state_dict            <- import_ldm_unet (the unclip6 UNet)
+  svd_state_dict                 <- load_svd: import_svd_unet,
+                                    import_video_decoder and the VAE
+                                    encoder's import (svd.safetensors)
   ldm_vae_state_dict             <- import_ldm_vae, and through
                                     convert_ldm_vae_to_diffusers
                                     import_diffusers_vae (the SD-1.5 VAE)
@@ -44,8 +47,9 @@ def jax_tree(module: nn.Module) -> Dict:
     """A port module's parameters as the flax tree `load_jax_params` reads
     (numpy f32 on the host, one copy of each parameter; the kernels are
     transposed views of it): Linear weight -> kernel [in, out], Conv2d
-    weight -> kernel HWIO, Embedding weight -> embedding, another module's
-    weight -> scale, every other parameter under its own name."""
+    weight -> kernel HWIO, Conv3d weight -> kernel DHWIO, Embedding weight
+    -> embedding, another module's weight -> scale, every other parameter
+    under its own name."""
     tree: Dict = {}
     for name, p in module.named_parameters():
         *path, leaf = name.split(".")
@@ -56,6 +60,8 @@ def jax_tree(module: nn.Module) -> Dict:
                 leaf, arr = "kernel", arr.T
             elif isinstance(owner, nn.Conv2d):
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif isinstance(owner, nn.Conv3d):
+                leaf, arr = "kernel", arr.transpose(2, 3, 4, 1, 0)
             elif isinstance(owner, nn.Embedding):
                 leaf = "embedding"
             else:
@@ -131,11 +137,11 @@ def _ldm_transformer(sd, p: str, node: Tree, depth: int,
         _lin(sd, f"{q}.ff.net.2", blk["ff"]["proj_out"])
 
 
-def ldm_unet_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
-    """UNetModel tree -> the LDM/sgm `model.diffusion_model` keys
-    (unprefixed): input_blocks / middle_block / output_blocks."""
-    sd: Dict[str, np.ndarray] = {}
-    lin_io = not getattr(cfg, "use_linear_in_transformer", True)
+def _unet_blocks(sd, tree: Tree, cfg, resblock, transformer) -> None:
+    """The LDM UNet's key walk (input_blocks / middle_block /
+    output_blocks), shared by the unCLIP and the SVD UNets:
+    `resblock(sd, key, node)` and `transformer(sd, key, node, depth)`
+    write one block."""
     _lin(sd, "time_embed.0", tree["time_embed_0"])
     _lin(sd, "time_embed.2", tree["time_embed_2"])
     if "label_emb_0" in tree:
@@ -144,20 +150,20 @@ def ldm_unet_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
     _conv(sd, "input_blocks.0.0", tree["conv_in"])
     _norm(sd, "out.0", tree["out_norm"])
     _conv(sd, "out.2", tree["out_conv"])
-    _ldm_resblock(sd, "middle_block.0", tree["mid_res_0"])
-    _ldm_transformer(sd, "middle_block.1", tree["mid_attn"],
-                     cfg.transformer_depth[-1], lin_io)
-    _ldm_resblock(sd, "middle_block.2", tree["mid_res_1"])
+    resblock(sd, "middle_block.0", tree["mid_res_0"])
+    transformer(sd, "middle_block.1", tree["mid_attn"],
+                cfg.transformer_depth[-1])
+    resblock(sd, "middle_block.2", tree["mid_res_1"])
     levels, nres = len(cfg.channel_mult), cfg.num_res_blocks
     idx, ds = 1, 1
     for level in range(levels):
         for i in range(nres):
-            _ldm_resblock(sd, f"input_blocks.{idx}.0",
-                          tree[f"down_{level}_res_{i}"])
+            resblock(sd, f"input_blocks.{idx}.0",
+                     tree[f"down_{level}_res_{i}"])
             if ds in cfg.attention_resolutions:
-                _ldm_transformer(sd, f"input_blocks.{idx}.1",
-                                 tree[f"down_{level}_attn_{i}"],
-                                 cfg.transformer_depth[level], lin_io)
+                transformer(sd, f"input_blocks.{idx}.1",
+                            tree[f"down_{level}_attn_{i}"],
+                            cfg.transformer_depth[level])
             idx += 1
         if level != levels - 1:
             _conv(sd, f"input_blocks.{idx}.0.op",
@@ -167,19 +173,29 @@ def ldm_unet_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
     idx = 0
     for level in reversed(range(levels)):
         for i in range(nres + 1):
-            _ldm_resblock(sd, f"output_blocks.{idx}.0",
-                          tree[f"up_{level}_res_{i}"])
+            resblock(sd, f"output_blocks.{idx}.0",
+                     tree[f"up_{level}_res_{i}"])
             sub = 1
             if ds in cfg.attention_resolutions:
-                _ldm_transformer(sd, f"output_blocks.{idx}.1",
-                                 tree[f"up_{level}_attn_{i}"],
-                                 cfg.transformer_depth[level], lin_io)
+                transformer(sd, f"output_blocks.{idx}.1",
+                            tree[f"up_{level}_attn_{i}"],
+                            cfg.transformer_depth[level])
                 sub = 2
             if level and i == nres:
                 _conv(sd, f"output_blocks.{idx}.{sub}.conv",
                       tree[f"up_{level}_upsample"]["conv"])
                 ds //= 2
             idx += 1
+
+
+def ldm_unet_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
+    """UNetModel tree -> the LDM/sgm `model.diffusion_model` keys
+    (unprefixed): input_blocks / middle_block / output_blocks."""
+    sd: Dict[str, np.ndarray] = {}
+    lin_io = not getattr(cfg, "use_linear_in_transformer", True)
+    _unet_blocks(sd, tree, cfg, _ldm_resblock,
+                 lambda sd, p, node, depth: _ldm_transformer(
+                     sd, p, node, depth, lin_io))
     return sd
 
 
@@ -243,6 +259,145 @@ def ldm_vae_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
         if f"up_{i}_upsample" in dec:
             _conv(sd, f"decoder.up.{src}.upsample.conv",
                   dec[f"up_{i}_upsample"]["conv"])
+    return sd
+
+
+# ------------------------------------------------------------------- SVD ----
+
+def _conv3(sd: Dict, key: str, node: Tree) -> None:
+    sd[f"{key}.weight"] = np.asarray(node["kernel"]).transpose(4, 3, 0, 1, 2)
+    if "bias" in node:
+        sd[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _ldm_resblock3d(sd, p: str, node: Tree) -> None:
+    _norm(sd, f"{p}.in_layers.0", node["in_norm"])
+    _conv3(sd, f"{p}.in_layers.2", node["in_conv"])
+    if "emb_proj" in node:
+        _lin(sd, f"{p}.emb_layers.1", node["emb_proj"])
+    _norm(sd, f"{p}.out_layers.0", node["out_norm"])
+    _conv3(sd, f"{p}.out_layers.3", node["out_conv"])
+    if "skip_conv" in node:
+        _conv3(sd, f"{p}.skip_connection", node["skip_conv"])
+
+
+def _mix_factor(sd, p: str, node: Tree) -> None:
+    sd[f"{p}.mix_factor"] = np.asarray(node["mix_factor"])
+
+
+def _video_resblock(sd, p: str, node: Tree) -> None:
+    _ldm_resblock(sd, p, node["spatial"])
+    _ldm_resblock3d(sd, f"{p}.time_stack", node["time_stack"])
+    _mix_factor(sd, f"{p}.time_mixer", node["time_mixer"])
+
+
+def _video_tblock(sd, q: str, node: Tree) -> None:
+    _norm(sd, f"{q}.norm1", node["norm1"])
+    _attn_block(sd, f"{q}.attn1", node["attn1"])
+    _norm(sd, f"{q}.norm3", node["norm3"])
+    _lin(sd, f"{q}.ff.net.0.proj", node["ff"]["proj_in"])
+    _lin(sd, f"{q}.ff.net.2", node["ff"]["proj_out"])
+    if "ff_in" in node:
+        _norm(sd, f"{q}.norm_in", node["norm_in"])
+        _lin(sd, f"{q}.ff_in.net.0.proj", node["ff_in"]["proj_in"])
+        _lin(sd, f"{q}.ff_in.net.2", node["ff_in"]["proj_out"])
+    if "attn2" in node:
+        _norm(sd, f"{q}.norm2", node["norm2"])
+        _attn_block(sd, f"{q}.attn2", node["attn2"])
+
+
+def _video_transformer(sd, p: str, node: Tree, depth: int) -> None:
+    _ldm_transformer(sd, p, node, depth, as_1x1=False)
+    for d in range(depth):
+        _video_tblock(sd, f"{p}.time_stack.{d}", node[f"time_stack_{d}"])
+    _lin(sd, f"{p}.time_pos_embed.0", node["time_pos_embed_0"])
+    _lin(sd, f"{p}.time_pos_embed.2", node["time_pos_embed_2"])
+    _mix_factor(sd, f"{p}.time_mixer", node["time_mixer"])
+
+
+def svd_unet_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
+    """VideoUNet tree -> the sgm `model.diffusion_model` keys of an SVD
+    checkpoint (unprefixed)."""
+    sd: Dict[str, np.ndarray] = {}
+    _unet_blocks(sd, tree, cfg, _video_resblock, _video_transformer)
+    return sd
+
+
+def video_decoder_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
+    """VideoDecoder tree -> the sgm temporal decoder's keys (unprefixed;
+    `first_stage_model.decoder.` in an SVD checkpoint): a block's resnet
+    at its root, its temporal stack under `.time_stack` and its
+    `mix_factor` on the block; conv_out's time-mix conv under
+    `conv_out.time_mix_conv`; up indexed in reverse."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def block(key, node):
+        if "spatial" not in node:  # time_mode 'attn-only'
+            _vae_resnet(sd, key, node)
+            return
+        _vae_resnet(sd, key, node["spatial"])
+        _ldm_resblock3d(sd, f"{key}.time_stack", node["time_stack"])
+        _mix_factor(sd, key, node["time_mixer"])
+
+    _conv(sd, "conv_in", tree["conv_in"])
+    _norm(sd, "norm_out", tree["norm_out"])
+    block("mid.block_1", tree["mid_block_1"])
+    attn = tree["mid_attn"]
+    _vae_attn(sd, "mid.attn_1", attn)
+    if "time_mix_block" in attn:
+        _video_tblock(sd, "mid.attn_1.time_mix_block", attn["time_mix_block"])
+        _lin(sd, "mid.attn_1.video_time_embed.0", attn["video_time_embed_0"])
+        _lin(sd, "mid.attn_1.video_time_embed.2", attn["video_time_embed_2"])
+        _mix_factor(sd, "mid.attn_1", attn["time_mixer"])
+    block("mid.block_2", tree["mid_block_2"])
+    if "time_mix_conv" in tree["conv_out"]:
+        _conv(sd, "conv_out", tree["conv_out"]["conv"])
+        _conv3(sd, "conv_out.time_mix_conv", tree["conv_out"]["time_mix_conv"])
+    else:
+        _conv(sd, "conv_out", tree["conv_out"])
+    nres = len(cfg.vae.block_out_channels)
+    for i in range(nres):
+        src = nres - 1 - i
+        for j in range(cfg.vae.layers_per_block + 1):
+            block(f"up.{src}.block.{j}", tree[f"up_{i}_block_{j}"])
+        if f"up_{i}_upsample" in tree:
+            _conv(sd, f"up.{src}.upsample.conv",
+                  tree[f"up_{i}_upsample"]["conv"])
+    return sd
+
+
+def vae_encoder_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
+    """vae.Encoder tree -> the sgm encoder's keys (unprefixed; the
+    `encoder.` half of `ldm_vae_state_dict`)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "conv_in", tree["conv_in"])
+    _norm(sd, "norm_out", tree["norm_out"])
+    _conv(sd, "conv_out", tree["conv_out"])
+    _vae_resnet(sd, "mid.block_1", tree["mid_block_1"])
+    _vae_attn(sd, "mid.attn_1", tree["mid_attn"])
+    _vae_resnet(sd, "mid.block_2", tree["mid_block_2"])
+    for i in range(len(cfg.block_out_channels)):
+        for j in range(cfg.layers_per_block):
+            _vae_resnet(sd, f"down.{i}.block.{j}", tree[f"down_{i}_block_{j}"])
+        if f"down_{i}_downsample" in tree:
+            _conv(sd, f"down.{i}.downsample.conv",
+                  tree[f"down_{i}_downsample"]["conv"])
+    return sd
+
+
+def svd_state_dict(unet: Tree, unet_cfg, decoder: Tree, dec_cfg,
+                   encoder: Tree) -> Dict[str, np.ndarray]:
+    """The three trees -> one SVD checkpoint's keys in the sgm layout:
+    `model.diffusion_model.` (the VideoUNet), `first_stage_model.decoder.`
+    (the temporal decoder) and `first_stage_model.encoder.` (the encoder
+    of dec_cfg.vae)."""
+    sd = {f"model.diffusion_model.{k}": v
+          for k, v in svd_unet_state_dict(unet, unet_cfg).items()}
+    sd.update({f"first_stage_model.decoder.{k}": v
+               for k, v in video_decoder_state_dict(decoder, dec_cfg).items()})
+    sd.update({f"first_stage_model.encoder.{k}": v
+               for k, v in vae_encoder_state_dict(encoder,
+                                                  dec_cfg.vae).items()})
     return sd
 
 

@@ -13,6 +13,8 @@ the same list of unused source keys as its JAX twin:
   * open_clip bigG vision and text towers     -> models.clip (precompute)
   * diffusers / LDM AutoencoderKL             -> models.vae.AutoencoderKL
   * LDM/sgm UNet (the unclip6 checkpoint)     -> models.unet2d.UNetModel
+  * sgm SVD VideoUNet and temporal decoder    -> models.video_unet,
+                                                 models.temporal_ae
   * diffusers SD-1.5 UNet + AnimateDiff
     motion modules                            -> models.unet3d.UNet3DModel
   * AnimateDiff SparseCtrl                    -> models.sparse_controlnet
@@ -24,7 +26,7 @@ plus the helpers of the loaders (`strip_prefix`, `ldm_apply_ema`,
 `interop/from_jax.py:load_jax_params` then fills the port module from the
 tree; `load_torch_checkpoint` does both steps. Conventions: torch Linear
 weight [out, in] -> flax kernel [in, out]; Conv2d [out, in, kh, kw] ->
-[kh, kw, in, out].
+[kh, kw, in, out]; Conv3d [out, in, kt, kh, kw] -> [kt, kh, kw, in, out].
 """
 
 from __future__ import annotations
@@ -711,6 +713,204 @@ def import_ldm_vae(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
         if f"decoder.up.{src}.upsample.conv.weight" in sd:
             p["decoder"][f"up_{i}_upsample"] = {
                 "conv": conv(sd, f"decoder.up.{src}.upsample.conv")}
+    return p, sd.unused()
+
+
+# ---------------------------------------------------------------------------
+# SVD video model (sgm VideoUNet + temporal VAE decoder) -> models.video_unet,
+# models.temporal_ae
+# ---------------------------------------------------------------------------
+
+def conv3(sd, key: str) -> Dict[str, np.ndarray]:
+    """torch Conv3d [out, in, kt, kh, kw] -> flax NDHWC [kt, kh, kw, in, out]."""
+    out = {"kernel": t2j(sd[f"{key}.weight"]).transpose(2, 3, 4, 1, 0)}
+    if f"{key}.bias" in sd:
+        out["bias"] = t2j(sd[f"{key}.bias"])
+    return out
+
+
+def _ldm_resblock3d(sd, p: str) -> Dict[str, Any]:
+    """Temporal res stack (openaimodel ResBlock with dims=3; reference
+    video_model.py:42-55 / temporal_ae.py:32-44)."""
+    r = {"in_norm": norm(sd, f"{p}.in_layers.0"),
+         "in_conv": conv3(sd, f"{p}.in_layers.2"),
+         "out_norm": norm(sd, f"{p}.out_layers.0"),
+         "out_conv": conv3(sd, f"{p}.out_layers.3")}
+    if f"{p}.emb_layers.1.weight" in sd:
+        r["emb_proj"] = linear(sd, f"{p}.emb_layers.1")
+    if f"{p}.skip_connection.weight" in sd:
+        r["skip_conv"] = conv3(sd, f"{p}.skip_connection")
+    return r
+
+
+def _mix_factor(sd, p: str) -> Dict[str, np.ndarray]:
+    return {"mix_factor": t2j(sd[f"{p}.mix_factor"])}
+
+
+def _video_resblock(sd, p: str) -> Dict[str, Any]:
+    """reference video_model.py:12-81 VideoResBlock: spatial ResBlock keys
+    live directly at `p`, temporal stack at `p.time_stack`."""
+    return {"spatial": _ldm_resblock(sd, p),
+            "time_stack": _ldm_resblock3d(sd, f"{p}.time_stack"),
+            "time_mixer": _mix_factor(sd, f"{p}.time_mixer")}
+
+
+def _video_tblock(sd, q: str) -> Dict[str, Any]:
+    """reference video_attention.py:15-143 VideoTransformerBlock."""
+    t: Dict[str, Any] = {
+        "norm1": norm(sd, f"{q}.norm1"),
+        "attn1": {"to_q": linear(sd, f"{q}.attn1.to_q"),
+                  "to_k": linear(sd, f"{q}.attn1.to_k"),
+                  "to_v": linear(sd, f"{q}.attn1.to_v"),
+                  "to_out": linear(sd, f"{q}.attn1.to_out.0")},
+        "norm3": norm(sd, f"{q}.norm3"),
+        "ff": {"proj_in": linear(sd, f"{q}.ff.net.0.proj"),
+               "proj_out": linear(sd, f"{q}.ff.net.2")},
+    }
+    if f"{q}.norm_in.weight" in sd:  # ff_in
+        t["norm_in"] = norm(sd, f"{q}.norm_in")
+        t["ff_in"] = {"proj_in": linear(sd, f"{q}.ff_in.net.0.proj"),
+                      "proj_out": linear(sd, f"{q}.ff_in.net.2")}
+    if f"{q}.norm2.weight" in sd:  # temporal cross-attn present
+        t["norm2"] = norm(sd, f"{q}.norm2")
+        t["attn2"] = {"to_q": linear(sd, f"{q}.attn2.to_q"),
+                      "to_k": linear(sd, f"{q}.attn2.to_k"),
+                      "to_v": linear(sd, f"{q}.attn2.to_v"),
+                      "to_out": linear(sd, f"{q}.attn2.to_out.0")}
+    return t
+
+
+def _video_transformer(sd, p: str, depth: int) -> Dict[str, Any]:
+    """reference video_attention.py:146-301 SpatialVideoTransformer: the
+    spatial SpatialTransformer keys plus time_stack / time_pos_embed /
+    time_mixer."""
+    t = _ldm_transformer(sd, p, depth)
+    for d in range(depth):
+        t[f"time_stack_{d}"] = _video_tblock(sd, f"{p}.time_stack.{d}")
+    t["time_pos_embed_0"] = linear(sd, f"{p}.time_pos_embed.0")
+    t["time_pos_embed_2"] = linear(sd, f"{p}.time_pos_embed.2")
+    t["time_mixer"] = _mix_factor(sd, f"{p}.time_mixer")
+    return t
+
+
+def import_svd_unet(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
+    """sgm `model.diffusion_model` of an SVD checkpoint -> VideoUNet
+    params (reference video_model.py:84-493; block indexing identical to
+    import_ldm_unet with video res/transformer blocks)."""
+    sd = _Tracker(dict(state_dict))
+    levels = len(cfg.channel_mult)
+    nres = cfg.num_res_blocks
+    p: Dict[str, Any] = {
+        "time_embed_0": linear(sd, "time_embed.0"),
+        "time_embed_2": linear(sd, "time_embed.2"),
+        "conv_in": conv(sd, "input_blocks.0.0"),
+        "out_norm": norm(sd, "out.0"),
+        "out_conv": conv(sd, "out.2"),
+        "mid_res_0": _video_resblock(sd, "middle_block.0"),
+        "mid_attn": _video_transformer(sd, "middle_block.1",
+                                       cfg.transformer_depth[-1]),
+        "mid_res_1": _video_resblock(sd, "middle_block.2"),
+    }
+    if "label_emb.0.0.weight" in sd:
+        p["label_emb_0"] = linear(sd, "label_emb.0.0")
+        p["label_emb_2"] = linear(sd, "label_emb.0.2")
+
+    idx, ds = 1, 1
+    for level in range(levels):
+        for i in range(nres):
+            p[f"down_{level}_res_{i}"] = _video_resblock(
+                sd, f"input_blocks.{idx}.0")
+            if ds in cfg.attention_resolutions:
+                p[f"down_{level}_attn_{i}"] = _video_transformer(
+                    sd, f"input_blocks.{idx}.1", cfg.transformer_depth[level])
+            idx += 1
+        if level != levels - 1:
+            p[f"down_{level}_downsample"] = {
+                "op": conv(sd, f"input_blocks.{idx}.0.op")}
+            idx += 1
+            ds *= 2
+
+    idx = 0
+    for level in reversed(range(levels)):
+        for i in range(nres + 1):
+            p[f"up_{level}_res_{i}"] = _video_resblock(
+                sd, f"output_blocks.{idx}.0")
+            sub = 1
+            if ds in cfg.attention_resolutions:
+                p[f"up_{level}_attn_{i}"] = _video_transformer(
+                    sd, f"output_blocks.{idx}.1", cfg.transformer_depth[level])
+                sub = 2
+            if level and i == nres:
+                p[f"up_{level}_upsample"] = {
+                    "conv": conv(sd, f"output_blocks.{idx}.{sub}.conv")}
+                ds //= 2
+            idx += 1
+    return p, sd.unused()
+
+
+def import_video_decoder(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
+    """sgm temporal VAE decoder (`first_stage_model.decoder.` of an SVD
+    ckpt) -> models.temporal_ae.VideoDecoder params (reference
+    temporal_ae.py:293-349; VAE resnet keys at the block root, temporal
+    stack under `.time_stack`, conv_out gains `.time_mix_conv`).
+    cfg is a VideoDecoderConfig."""
+    sd = _Tracker(dict(state_dict))
+    v = cfg.vae
+    nres = len(v.block_out_channels)
+    conv_time = cfg.time_mode in ("all", "conv-only")
+    attn_time = cfg.time_mode in ("all", "attn-only")
+    res_time = cfg.time_mode in ("all", "conv-only")
+
+    def resnet(prefix):
+        r = {"norm1": norm(sd, f"{prefix}.norm1"),
+             "conv1": conv(sd, f"{prefix}.conv1"),
+             "norm2": norm(sd, f"{prefix}.norm2"),
+             "conv2": conv(sd, f"{prefix}.conv2")}
+        if f"{prefix}.nin_shortcut.weight" in sd:
+            r["nin_shortcut"] = conv(sd, f"{prefix}.nin_shortcut")
+        return r
+
+    def vres(prefix):
+        if not res_time:
+            return resnet(prefix)
+        # temporal_ae.py:46-54 registers mix_factor directly on the block
+        # (no AlphaBlender submodule, unlike video_model.py)
+        return {"spatial": resnet(prefix),
+                "time_stack": _ldm_resblock3d(sd, f"{prefix}.time_stack"),
+                "time_mixer": _mix_factor(sd, prefix)}
+
+    def attn(prefix):
+        a = {"norm": norm(sd, f"{prefix}.norm"),
+             "q": _lin_or_1x1(sd, f"{prefix}.q"),
+             "k": _lin_or_1x1(sd, f"{prefix}.k"),
+             "v": _lin_or_1x1(sd, f"{prefix}.v"),
+             "proj_out": _lin_or_1x1(sd, f"{prefix}.proj_out")}
+        if attn_time:
+            a["time_mix_block"] = _video_tblock(sd, f"{prefix}.time_mix_block")
+            a["video_time_embed_0"] = linear(sd, f"{prefix}.video_time_embed.0")
+            a["video_time_embed_2"] = linear(sd, f"{prefix}.video_time_embed.2")
+            a["time_mixer"] = _mix_factor(sd, prefix)
+        return a
+
+    p: Dict[str, Any] = {
+        "conv_in": conv(sd, "conv_in"),
+        "norm_out": norm(sd, "norm_out"),
+        "mid_block_1": vres("mid.block_1"),
+        "mid_attn": attn("mid.attn_1"),
+        "mid_block_2": vres("mid.block_2"),
+    }
+    if conv_time:
+        p["conv_out"] = {"conv": conv(sd, "conv_out"),
+                         "time_mix_conv": conv3(sd, "conv_out.time_mix_conv")}
+    else:
+        p["conv_out"] = conv(sd, "conv_out")
+    for i in range(nres):
+        src = nres - 1 - i  # decoder.up is reverse-indexed (see import_ldm_vae)
+        for j in range(v.layers_per_block + 1):
+            p[f"up_{i}_block_{j}"] = vres(f"up.{src}.block.{j}")
+        if f"up.{src}.upsample.conv.weight" in sd:
+            p[f"up_{i}_upsample"] = {
+                "conv": conv(sd, f"up.{src}.upsample.conv")}
     return p, sd.unused()
 
 

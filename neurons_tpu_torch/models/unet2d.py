@@ -249,7 +249,9 @@ class UpsampleConv(nn.Module):
 
 class UNetModel(nn.Module):
     """x [B, 4, H, W], timesteps [B], context [B, T, context_dim],
-    y [B, adm_in_channels] -> eps [B, 4, H, W]."""
+    y [B, adm_in_channels] -> eps [B, 4, H, W]. The label embedding of `y`
+    exists only where adm_in_channels > 0, as the JAX UNet creates it only
+    when called with a `y` (SD 2.1 has none)."""
 
     def __init__(self, cfg: UNet2DConfig, device="cuda",
                  dtype: torch.dtype = torch.float32):
@@ -267,8 +269,9 @@ class UNetModel(nn.Module):
         with torch.device(resolve_device(device)):
             self.time_embed_0 = nn.Linear(mc, ted)
             self.time_embed_2 = nn.Linear(ted, ted)
-            self.label_emb_0 = nn.Linear(c.adm_in_channels, ted)
-            self.label_emb_2 = nn.Linear(ted, ted)
+            if c.adm_in_channels > 0:  # the adm vector `y` (unCLIP, SDXL)
+                self.label_emb_0 = nn.Linear(c.adm_in_channels, ted)
+                self.label_emb_2 = nn.Linear(ted, ted)
             self.conv_in = nn.Conv2d(c.in_channels, mc, 3, padding=1)
             ch, skips, ds = mc, [mc], 1
             for level, mult in enumerate(c.channel_mult):

@@ -25,7 +25,7 @@ a test can replay the JAX package's draws).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,23 +39,9 @@ from neurons_tpu_torch.diffusion.samplers import (
     sample_euler, sample_euler_encoder_reuse, sample_euler_pab,
     sample_euler_tgate)
 from neurons_tpu_torch.diffusion.schedule import sd_sigmas
+from neurons_tpu_torch.models.conditioner import unclip_vector_suffix
 from neurons_tpu_torch.models.prior import prior_attn_bias
-from neurons_tpu_torch.models.unet2d import (precompute_context_kv,
-                                             timestep_embedding)
-
-
-def unclip_vector_suffix(batch_size: int = 1,
-                         orig_size: Sequence[int] = (768, 768),
-                         crop_coords: Sequence[int] = (0, 0),
-                         outdim: int = 256, device="cpu") -> torch.Tensor:
-    """The constant `vector` conditioning of the unclip engine:
-    cat(embed(orig_size), embed(crop)) -> [B, 4 * outdim]."""
-    def embed(values):
-        v = torch.tensor([values], dtype=torch.float32,
-                         device=device).repeat(batch_size, 1)
-        return timestep_embedding(v.reshape(-1), outdim).reshape(
-            batch_size, -1)
-    return torch.cat([embed(orig_size), embed(crop_coords)], dim=-1)
+from neurons_tpu_torch.models.unet2d import precompute_context_kv
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):

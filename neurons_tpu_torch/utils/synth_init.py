@@ -36,7 +36,8 @@ def synth_params_(module: nn.Module, seed: int = 0,
             if p.dim() <= 1:  # norm scales and gains
                 p.fill_(1.0)
                 continue
-            if isinstance(mod, (nn.Linear, nn.Conv2d)) and name == "weight":
+            if (isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d))
+                    and name == "weight"):
                 fan_in = p[0].numel()
             else:
                 fan_in = math.prod(p.shape[:-1])

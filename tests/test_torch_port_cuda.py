@@ -127,6 +127,44 @@ def test_kernel_counts_launches_and_refuses_fp16(cuda):
         attn.flash_attention_fwd(q.half(), q.half(), q.half())
 
 
+# SVD's launches at 14 frames, CFG doubled to 28 rows, 576 x 1024 (latents
+# 72 x 128): the VideoUNet's spatial self-attention at ds 2, 4 and the mid
+# block (heads of 64), and the temporal decoder's mid attention on a chunk
+# of 7 frames (d 512, 9216 tokens)
+SVD_SHAPES = [(28, 10, 2304, 64), (28, 20, 576, 64), (28, 20, 144, 64),
+              (7, 1, 9216, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SVD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_at_the_svd_shapes(cuda, shape):
+    b, h, t, d = shape
+    g = torch.Generator("cuda").manual_seed(11)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
+               for _ in range(3))
+    _check(q, k, v, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_svd_full_resolution_rows(cuda):
+    """[28, 5, 9216, 64] (ds 1): the kernel runs the whole launch; the plain
+    version, whose f32 logits would take 47 GB, is held on rows 0 and 27."""
+    g = torch.Generator("cuda").manual_seed(12)
+    q, k, v = (torch.randn((28, 5, 9216, 64), generator=g, device="cuda")
+               for _ in range(3))
+    qx, kx, vx = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = attn.flash_attention_fwd(qx, kx, vx).float()
+    for r in (0, 27):
+        want = attn.attention_reference(q[r:r + 1], k[r:r + 1], v[r:r + 1])
+        plain = attn.attention_reference(qx[r:r + 1], kx[r:r + 1],
+                                         vx[r:r + 1]).float()
+        err = (got[r:r + 1] - want).abs().max().item()
+        plain_err = (plain - want).abs().max().item()
+        print(f"svd row {r}: err {err:.3e}, plain {plain_err:.3e}")
+        assert err <= 1.5 * plain_err, err
+
+
 def _check_temporal(bf, d, c, f, h, dtype, seed=2):
     g = torch.Generator("cuda").manual_seed(seed)
     q, k, v = (torch.randn((bf, d, c), generator=g, device="cuda").to(dtype)

@@ -530,6 +530,12 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.data.tasks\n"
             "import neurons_tpu_torch.pipelines.validate\n"
             "import neurons_tpu_torch.serving\n"
+            "import neurons_tpu_torch.models.conditioner\n"
+            "import neurons_tpu_torch.models.engine\n"
+            "import neurons_tpu_torch.models.video_unet\n"
+            "import neurons_tpu_torch.models.temporal_ae\n"
+            "import neurons_tpu_torch.pipelines.api\n"
+            "import neurons_tpu_torch.pipelines.svd\n"
             "import os, tempfile, torch\n"
             "p = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
             "tex.write_safetensors(p, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
