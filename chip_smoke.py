@@ -2,10 +2,10 @@
 """Drive the PyTorch port of stages 3 and 5 (inference, exact and fast
 paths, and the HTTP server over them), stages 4 and 6 (captions and the
 metric suite, through the port's CLI), the CLI's `precompute` and
-`validate`, the sgm engine surface and SVD image-to-video, and stages 1
-and 2 (training, checkpoints and resume) on one
-CUDA card, in the default configuration and in the fused-norm one, and
-hold its kernels against their plain PyTorch versions.
+`validate`, the sgm engine surface and SVD image-to-video, the sgm
+autoencoder trainer and T5, and stages 1 and 2 (training, checkpoints and
+resume) on one CUDA card, in the default configuration and in the
+fused-norm one, and hold its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -157,10 +157,26 @@ Phases, in order:
      (400 + 1 + 2), every frame finite; one UNet call and one decode chunk
      under torch.profiler (busy time, idle share, top kernels); each
      launched shape by the 1.5x rule (the [28, 5, 9216, 64] launch on a row
-     slice) with its sums of launches x time. Every shape the CLI, the
-     server, the engine, `validate` and `precompute` launched that no
-     earlier check covered is then held by the same 1.5x rule
-     (`cli_kernel_checks`);
+     slice) with its sums of launches x time;
+  4f. the sgm autoencoder trainer and T5 (`autoencoder_phase`): a reduced
+     trainer card vs CPU (`ae_small_check`: one generator and one
+     discriminator step, gradients within 2e-2 of max, losses 2e-3); then
+     `AutoencoderTrainConfig(disc_start=0)` at full width (`VAEConfig()`,
+     LPIPS VGG16 from a seeded `vgg.pth` through `import_lpips`, the
+     3-layer PatchGAN through its importer), f32 with TF32 convolutions,
+     batch 4 of 256 px: 6 alternated generator and discriminator steps
+     with the KL regularizer and 3 with VQ (8192 codes), each step's time,
+     losses and d_weight, the peak memory, every step checked (finite,
+     parameters moved, the generator pass leaving the running statistics),
+     the flash launches (#1/#2 with lse and #4 at [4, 1, 1024, 1024, 512]
+     f32) held to `autoencoder_launches`; one profiled step pair; one
+     `ema.update` over the VAE; one generator step under
+     NEURONS_TPU_FUSED_NORM=1 against the unfused one (`ae_fused_check`);
+     then T5 (`t5_phase`: a reduced T5 card vs CPU, `t5_v1_1_xxl` at 2 x
+     77 ids, `byt5_base` with its importer round trip). Every shape the
+     CLI, the server, the engine, `validate`, `precompute` and the
+     autoencoder step launched that no earlier check covered is then held
+     by the same 1.5x rule (`cli_kernel_checks`);
   5. train phase: stage 2 at full width (`PipelineConfig()`, `GPT2Config()`,
      `TrainConfig()`: batch 10, 6 frames, bf16 autocast, the cycle
      schedule, the core held in bf16) with seeded random weights and random
@@ -196,8 +212,9 @@ Phases, in order:
      a reduced width (hidden 256, 16 CLIP tokens), equal bits; and the
      tiny chain, card against CPU: stage 1 ->
      `load_stage1_core` -> stage 2 -> `load_decoupler_params` -> stage 3;
-  6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip and
-     the fused step launched, against float64 on the same inputs by the
+  6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip,
+     the fused step and the fused autoencoder step (f32) launched, against
+     float64 on the same inputs by the
      1.5x rule; times: kernel (by events, and its device time, every
      launch of a call, with calls queued behind a kernel that keeps the
      card busy while the host enqueues them (`device_ms`): the plain events
@@ -4855,6 +4872,490 @@ def svd_phase(flash_records):
     return {"svd": launches}, {"svd": 1}
 
 
+# --- the sgm autoencoder trainer, T5 and EMA ------------------------------------
+
+AE_BATCH, AE_HW = 4, 256        # the trainer's batch: 4 seeded images of 256 px
+AE_STEPS = {"kl": 6, "vq": 3}   # alternated generator / discriminator steps
+T5_TOKENS = 77                  # T5's batch: 2 prompts of 77 ids
+
+
+class GradRecorder:
+    """Stands in for a trainer's Adam: keeps each parameter's gradient at
+    `step` and moves nothing, so two runs compare gradients from one
+    state."""
+
+    def __init__(self, params):
+        self.param_groups = [{"params": list(params)}]
+        self.grads = []
+
+    def step(self):
+        self.grads = [p.grad.detach().float().cpu().clone()
+                      for p in self.param_groups[0]["params"]]
+
+
+def autoencoder_launches(cfg, batch: int, hw: int):
+    """Flash launches of one generator and one discriminator step, counted
+    from the code: the VAE's two mid attentions (encoder, decoder), one
+    head at d = the last width over (hw / 2^(levels - 1))^2 tokens; a
+    generator step runs each as the forward with lse and the backward
+    (the two last-layer gradients stop at conv_out), a discriminator step
+    as the plain forward (its reconstruction runs under no_grad)."""
+    v = cfg.vae
+    t = (hw // 2 ** (len(v.block_out_channels) - 1)) ** 2
+    if t < 128:  # below 128 tokens the plain path
+        return {}, {}
+    key = (batch, 1, t, t, v.block_out_channels[-1], "float32")
+    return ({"flash_attn_fwd": {key + ("lse",): 2},
+             "flash_attn_bwd": {key + ("",): 2}},
+            {"flash_attn_fwd": {key + ("",): 2}})
+
+
+def ae_small_check():
+    """A reduced trainer (VAE widths 32, 64 at 64 px: flash at 1024 tokens,
+    d 64; LPIPS VGG16; a 3-layer PatchGAN of width 16), f32 (no TF32 but
+    the flash kernels' own), one generator
+    and one discriminator step on the card against the CPU, the same
+    weights (drawn on the CPU), images and posterior noise, with gradient
+    recorders in place of Adam: losses and logs within 2e-3 relative, every
+    gradient within 2e-2 of its optimizer's largest, the running
+    statistics within 2e-2 of max."""
+    import torch
+    from neurons_tpu_torch.config import VAEConfig
+    from neurons_tpu_torch.interop.torch_export import jax_tree
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.training import train_autoencoder as tta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tta.AutoencoderTrainConfig(
+        vae=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+        disc_start=0, disc_ndf=16, learn_logvar=True)
+    gen = torch.Generator().manual_seed(SEED + 80)
+    x = torch.rand((2, 3, 64, 64), generator=gen) * 2 - 1
+    noise = torch.randn((2, 4, 32, 32), generator=gen)
+    torch.manual_seed(SEED + 81)
+    engines = {"cpu": tta.AutoencodingEngine(cfg)}
+    states = {"cpu": engines["cpu"].init("cpu")}
+    engines["cuda"] = tta.AutoencodingEngine(
+        cfg, lpips_params=jax_tree(engines["cpu"].lpips))
+    states["cuda"] = engines["cuda"].init("cuda")
+    for name in ("vae", "disc"):
+        getattr(states["cuda"], name).load_state_dict(
+            getattr(states["cpu"], name).state_dict())
+    FLASH_FWD_LAUNCHES.reset()
+    FLASH_BWD_LAUNCHES.reset()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st, eng = states[dev], engines[dev]
+        st.opt_g = GradRecorder(st.gen_params())
+        st.opt_d = GradRecorder(st.disc.parameters())
+        _, _, glog = eng.make_generator_step()(st, x.to(dev), noise.to(dev))
+        _, _, dlog = eng.make_discriminator_step()(st, x.to(dev),
+                                                   noise.to(dev))
+        runs[dev] = dict(logs={k: float(v) for k, v in {**glog,
+                                                         **dlog}.items()},
+                         g=st.opt_g.grads, d=st.opt_d.grads,
+                         stats=[b.cpu() for b in st.disc.buffers()])
+    cpu, card = runs["cpu"], runs["cuda"]
+    log_err = max(abs(card["logs"][k] - v) / max(abs(v), 1e-6)
+                  for k, v in cpu["logs"].items())
+    grad_err, worst = {}, {}
+    for which in ("g", "d"):
+        scale = max(float(g.abs().max()) for g in cpu[which])
+        errs = [float((a - b).abs().max()) / scale
+                for a, b in zip(card[which], cpu[which])]
+        grad_err[which] = max(errs)
+        worst[which] = (errs.index(grad_err[which]),
+                        tuple(cpu[which][errs.index(grad_err[which])].shape))
+    stats_err = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(card["stats"], cpu["stats"]))
+    launched = (FLASH_FWD_LAUNCHES.total, FLASH_BWD_LAUNCHES.total)
+    ok = (log_err <= 2e-3 and max(grad_err.values()) <= 2e-2
+          and stats_err <= 2e-2 and launched == (4, 2)
+          and cpu["logs"]["scalars/d_weight"] > 0)
+    log(f"autoencoder small check (reduced width, f32) card vs CPU: losses "
+        f"and logs rel err {log_err:.3e} (<= 2e-3; d_weight "
+        f"{card['logs']['scalars/d_weight']:.5g} / "
+        f"{cpu['logs']['scalars/d_weight']:.5g}), gradients "
+        f"{ {k: f'{v:.3e}' for k, v in grad_err.items()} } of max (<= "
+        f"2e-2; worst at tensor {worst}), running statistics "
+        f"{stats_err:.3e}, flash launches on the "
+        f"card (fwd, bwd) {launched} (4, 2): {ok}")
+    if not ok:
+        raise AssertionError("the reduced autoencoder trainer on the card "
+                             "disagrees with the CPU")
+
+
+def lpips_from_file(d: str):
+    """Seeded LPIPS weights written in the `vgg_lpips` layout by the
+    exporter and read back through `import_lpips` (no key unused)."""
+    import torch
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.training.perceptual import LPIPS, import_lpips
+
+    torch.manual_seed(SEED + 82)
+    with torch.device("cuda"):
+        tree = tex.jax_tree(LPIPS())
+    path = Path(d) / "vgg.pth"
+    torch.save(tex.to_torch(tex.lpips_state_dict(tree)), path)
+    params, unused = import_lpips(torch.load(path, map_location="cpu"))
+    log(f"autoencoder: seeded LPIPS written as {path.name} "
+        f"({path.stat().st_size / 1e6:.1f} MB, the vgg_lpips layout), read "
+        f"back through import_lpips, unused keys {unused}")
+    if unused:
+        raise AssertionError(f"import_lpips left keys unused: {unused}")
+    return params
+
+
+def flat(tensors):
+    import torch
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def ae_train_run(name, cfg, lpips_params, steps, x):
+    """`steps` alternated generator and discriminator steps of the trainer
+    at full width from seeded weights (the discriminator read back through
+    `import_nlayer_discriminator`), the posterior's noise from a card
+    generator: each step's time by CUDA events, its losses, d_weight and
+    checks (finite; the VAE moved by a generator step, the discriminator by
+    a discriminator step; the running statistics as they were after a
+    generator step); the launches, zeroed just before and read just after,
+    against `autoencoder_launches`; peak device memory. Returns (engine,
+    state, launches by shape, summary)."""
+    import math
+
+    import torch
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.interop.from_jax import (load_jax_buffers,
+                                                    load_jax_params)
+    from neurons_tpu_torch.training import train_autoencoder as tta
+    from neurons_tpu_torch.training.perceptual import \
+        import_nlayer_discriminator
+
+    torch.manual_seed(SEED + 83)
+    eng = tta.AutoencodingEngine(cfg, lpips_params=lpips_params)
+    t0 = time.perf_counter()
+    st = eng.init("cuda")
+    sd = tex.to_torch(tex.nlayer_discriminator_state_dict(
+        tex.jax_tree(st.disc), tex.jax_buffer_tree(st.disc),
+        cfg.disc_num_layers))
+    variables, unused = import_nlayer_discriminator(sd, cfg.disc_num_layers)
+    load_jax_params(st.disc, variables["params"])
+    load_jax_buffers(st.disc, variables["batch_stats"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if unused:
+        raise AssertionError(f"import_nlayer_discriminator: unused {unused}")
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in
+                (("vae", st.vae), ("disc", st.disc), ("lpips", eng.lpips))}
+    gstep, dstep = eng.make_generator_step(), eng.make_discriminator_step()
+    gen = torch.Generator("cuda").manual_seed(SEED + 84)
+    counters = cli_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    times, losses, problems = {"g": [], "d": []}, [], []
+    for i in range(steps):
+        for kind, fn, params in (("g", gstep, st.gen_params()),
+                                 ("d", dstep, list(st.disc.parameters()))):
+            # the snapshots wait on the host, out of the step's peak memory
+            before = flat(params).cpu()
+            stats = flat(st.disc.buffers())
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+            _, loss, lg = fn(st, x, generator=gen)
+            marks[1].record()
+            torch.cuda.synchronize()
+            times[kind].append(marks[0].elapsed_time(marks[1]))
+            vals = {k: float(v) for k, v in lg.items()}
+            losses.append((kind, float(loss), vals))
+            if not all(math.isfinite(v)
+                       for v in [float(loss)] + list(vals.values())):
+                problems.append(f"step {i} {kind}: a non-finite loss {vals}")
+            if torch.equal(before, flat(params).cpu()):
+                problems.append(f"step {i} {kind}: parameters unchanged")
+            if kind == "g" and not torch.equal(stats, flat(st.disc.buffers())):
+                problems.append(f"step {i} g: the generator pass moved the "
+                                f"running statistics")
+            del before, stats
+    launches = {k: dict(c.by_shape) for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {}
+    for per_step in autoencoder_launches(cfg, AE_BATCH, AE_HW):
+        for k, shapes in per_step.items():
+            for key, n in shapes.items():
+                want.setdefault(k, {})[key] = (want.get(k, {}).get(key, 0)
+                                               + steps * n)
+    summary = dict(
+        setup_s=setup_s, n_params=n_params, peak_gib=peak / 2**30,
+        g_ms=sum(times["g"][1:]) / (steps - 1),
+        d_ms=sum(times["d"][1:]) / (steps - 1), times=times)
+    log(f"autoencoder {name}: {steps} generator + {steps} discriminator "
+        f"steps at {AE_BATCH} x {AE_HW}^2 px, f32 ({ {k: round(v / 1e6, 3) for k, v in n_params.items()} } "
+        f"M params; setup {setup_s:.2f} s): ms a generator step "
+        f"{[round(t, 2) for t in times['g']]} (steady {summary['g_ms']:.2f})"
+        f", a discriminator step {[round(t, 2) for t in times['d']]} "
+        f"(steady {summary['d_ms']:.2f}); peak device memory "
+        f"{summary['peak_gib']:.2f} GiB")
+    for i in range(0, len(losses), 2):
+        (_, gl, gv), (_, dl, dv) = losses[i], losses[i + 1]
+        log(f"  step {i // 2}: generator loss {gl:.6g} (rec "
+            f"{gv['loss/rec']:.5f}, nll {gv['loss/nll']:.5g}, g "
+            f"{gv['loss/g']:.5f}, d_weight {gv['scalars/d_weight']:.5g}"
+            + "".join(f", {k} {gv[k]:.5g}" for k in ("kl_loss", "loss/vq")
+                      if k in gv)
+            + f"); discriminator loss {dl:.6f} (logits real "
+            f"{dv['logits/real']:.4f}, fake {dv['logits/fake']:.4f})")
+    if problems:
+        raise AssertionError(f"autoencoder {name}: {problems}")
+    check_counted(f"autoencoder {name} ({steps} step pairs)", launches, want)
+    return eng, st, launches, summary
+
+
+@contextlib.contextmanager
+def plain_train_attention():
+    """The differentiable attention's plain version (autograd through
+    `attention_reference`) in place of the flash kernels."""
+    from neurons_tpu_torch.ops import attention as attn
+
+    fn = attn.flash_attention
+    attn.flash_attention = lambda q, k, v, bias=None, scale=None: \
+        attn.attention_reference(q, k, v, bias=bias, scale=scale)
+    try:
+        yield
+    finally:
+        attn.flash_attention = fn
+
+
+def ae_fused_check(eng, st, x, noise):
+    """One generator step in the fused-norm configuration (every
+    GroupNormSiLU of the VAE through #7; no #8, the VAE has no GN -> conv
+    pair) against the unfused step, both against the same step in f32
+    without TF32 and with the plain attention: the fused gradients' error
+    within 1.5x the unfused one's (the fused forwards' rule), taken as the
+    norm of the error over the norm of the reference's 83.7 M gradients
+    (the max error of one element is logged too: both runs' TF32
+    convolutions, whose wgrad sums in no fixed order, set it, so it
+    differs between two unfused runs); #7 launched once a GroupNormSiLU
+    (the backward is the plain version's VJP). Gradient recorders stand in
+    for Adam. Returns #7's launches by shape."""
+    import torch
+
+    st.opt_g = GradRecorder(st.gen_params())
+    step = eng.make_generator_step()
+    runs = {}
+    for name in ("reference", "unfused", "fused"):
+        tf32 = name != "reference"
+        torch.backends.cudnn.allow_tf32 = tf32
+        ctx = (plain_train_attention() if name == "reference"
+               else contextlib.nullcontext())
+        counters = gn_counters()
+        for c in counters.values():
+            c.reset()
+        with configuration(name == "fused"), ctx:
+            _, loss, lg = step(st, x, noise)
+        torch.cuda.synchronize()
+        runs[name] = (flat(st.opt_g.grads), float(loss),
+                      float(lg["scalars/d_weight"]),
+                      dict(counters["gn_silu"].by_shape),
+                      counters["gn_silu_conv"].total)
+    torch.backends.cudnn.allow_tf32 = True
+    ref = runs["reference"][0].double()
+    err, err_max = {}, {}
+    for n in ("unfused", "fused"):
+        diff = runs[n][0].double() - ref
+        err[n] = float(diff.norm() / ref.norm())
+        err_max[n] = float(diff.abs().max() / ref.abs().max())
+    launches = runs["fused"][3]
+    want = gn_sites(st.vae)
+    ok = (err["fused"] <= 1.5 * err["unfused"]
+          and sum(launches.values()) == want and not runs["unfused"][3]
+          and not runs["fused"][4])  # the VAE has no GN -> conv pair
+    log(f"autoencoder fused generator step (#7): gradients' error norm / "
+        f"norm of the f32 reference fused {err['fused']:.3e}, unfused "
+        f"{err['unfused']:.3e} (fused <= 1.5x unfused; max error / max "
+        f"fused {err_max['fused']:.3e}, unfused {err_max['unfused']:.3e}); "
+        f"loss "
+        + ", ".join(f"{n} {r[1]:.6g}" for n, r in runs.items())
+        + "; d_weight " + ", ".join(f"{n} {r[2]:.6g}"
+                                    for n, r in runs.items())
+        + f"; #7 launches {sum(launches.values())} (one a GroupNormSiLU: "
+        f"{want}): {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the fused generator step fails its checks: "
+                             f"{err}, {launches}")
+    return launches
+
+
+def t5_phase():
+    """T5: a reduced encoder (2 blocks of width 256 over 150 ids) on the
+    card against the CPU, the same weights drawn on the CPU (2e-2 * max);
+    `T5Encoder(t5_v1_1_xxl())` (4.76 B parameters, f32, about 19 GB) built
+    on the card from a seeded generator, 2 prompts of 77 ids: s a batch,
+    peak memory, freed after; `byt5_base` on `byt5_tokenize` ids, its
+    importer round trip in memory (the exporter's HF T5EncoderModel keys
+    read back through `import_t5_encoder`, equal outputs)."""
+    import copy
+
+    import torch
+    from neurons_tpu_torch.interop import torch_export as tex
+    from neurons_tpu_torch.interop.from_jax import load_jax_params
+    from neurons_tpu_torch.models import t5 as T5
+
+    small = T5.T5Config(vocab_size=384, d_model=256, d_kv=64, d_ff=512,
+                        num_layers=2, num_heads=4)
+    torch.manual_seed(SEED + 90)
+    cpu = T5.T5Encoder(small, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    ids = torch.randint(0, 384, (2, 150),
+                        generator=torch.Generator().manual_seed(SEED + 91))
+    with torch.inference_mode():
+        want = cpu(ids)
+        err = float((card(ids.cuda()).cpu() - want).abs().max()
+                    / want.abs().max())
+    log(f"t5 small check (reduced, f32) card vs CPU: rel err {err:.3e} "
+        f"(<= 2e-2)")
+    if not err <= 2e-2:
+        raise AssertionError("the reduced T5 on the card disagrees with the "
+                             "CPU")
+    del cpu, card
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(SEED + 92)
+    t0 = time.perf_counter()
+    xxl = T5.T5Encoder(T5.t5_v1_1_xxl(), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in xxl.parameters())
+    ids = torch.randint(0, xxl.cfg.vocab_size, (2, T5_TOKENS), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.inference_mode():
+        out = xxl(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = xxl(ids)
+        torch.cuda.synchronize()
+        s_batch = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    ok = bool(torch.isfinite(out).all()) and tuple(out.shape) == (
+        2, T5_TOKENS, xxl.cfg.d_model)
+    log(f"t5: t5_v1_1_xxl {n / 1e9:.3f} B params f32 built on the card in "
+        f"{build_s:.2f} s; 2 x {T5_TOKENS} ids: {s_batch:.4f} s a batch, "
+        f"peak device memory {peak / 2**30:.2f} GiB, output "
+        f"{list(out.shape)} finite: {ok}")
+    del xxl, out
+    torch.cuda.empty_cache()
+    cfg = T5.byt5_base()
+    torch.manual_seed(SEED + 93)
+    byt5 = T5.T5Encoder(cfg, device="cuda")
+    sd = tex.to_torch(tex.t5_encoder_state_dict(tex.jax_tree(byt5), cfg))
+    params, unused = T5.import_t5_encoder(sd, cfg)
+    del sd
+    fresh = T5.T5Encoder(cfg, device="cuda")
+    load_jax_params(fresh, params)
+    del params
+    ids = torch.from_numpy(T5.byt5_tokenize(
+        ["a photo of a cat", "naïve façade — 漢字"], T5_TOKENS)).cuda()
+    with torch.inference_mode():
+        a, b = byt5(ids), fresh(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        byt5(ids)
+        torch.cuda.synchronize()
+        byt5_s = time.perf_counter() - t0
+    same = torch.equal(a, b)
+    log(f"t5: byt5_base {sum(p.numel() for p in byt5.parameters()) / 1e9:.3f}"
+        f" B params on byt5_tokenize ids [2, {T5_TOKENS}]: {byt5_s:.4f} s a "
+        f"batch; its importer round trip (HF keys -> import_t5_encoder) "
+        f"unused {unused}, outputs equal: {same}")
+    del byt5, fresh, a, b
+    torch.cuda.empty_cache()
+    if not (ok and same and not unused):
+        raise AssertionError("t5 fails its checks")
+    return dict(s_batch=s_batch, peak_gib=peak / 2**30, byt5_s=byt5_s)
+
+
+def autoencoder_phase():
+    """The sgm autoencoder trainer at full width on the card, then T5.
+
+    1. `ae_small_check`.
+    2. `AutoencoderTrainConfig(disc_start=0)`: `VAEConfig()` (83.7 M
+       params), LPIPS VGG16 (seeded, through `lpips_from_file`), the
+       3-layer PatchGAN of width 64 (through its importer), f32 with
+       PyTorch's defaults (TF32 convolutions, f32 products), batch 4 of
+       seeded 256 px images, the GAN term and d_weight live from step 0:
+       `ae_train_run` for the KL regularizer (6 step pairs), one EMA update
+       over the VAE's parameters (its ms), one profiled step pair (busy
+       time, idle share), `ae_fused_check`; then the VQ regularizer (8192
+       codes, 3 step pairs).
+    3. `t5_phase`.
+    Returns ({"autoencoder step": {kernel: launches by shape}},
+    {"autoencoder step": step pairs}, #7's launches by shape in the fused
+    step)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch.training import train_autoencoder as tta
+    from neurons_tpu_torch.utils import ema
+
+    ae_small_check()
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's defaults, as a
+    torch.backends.cuda.matmul.allow_tf32 = False  # user runs the trainer
+    with ckpt_tmpdir("autoencoder: vgg.pth") as d:
+        lpips_params = lpips_from_file(d)
+    gen = torch.Generator("cuda").manual_seed(SEED + 85)
+    x = torch.rand((AE_BATCH, 3, AE_HW, AE_HW), generator=gen,
+                   device="cuda") * 2 - 1
+    by_shape = {k: collections.Counter() for k in cli_counters()}
+    pairs = 0
+    for reg in ("kl", "vq"):
+        cfg = tta.AutoencoderTrainConfig(disc_start=0, regularizer=reg)
+        eng, st, launches, summary = ae_train_run(
+            reg, cfg, lpips_params, AE_STEPS[reg], x)
+        pairs += AE_STEPS[reg]
+        for k, v in launches.items():
+            by_shape[k].update(v)
+        if reg != "kl":
+            del eng, st
+            torch.cuda.empty_cache()
+            continue
+        ema_state = ema.init(dict(st.vae.named_parameters()))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.make_generator_step()(st, x, generator=gen)
+            eng.make_discriminator_step()(st, x, generator=gen)
+            torch.cuda.synchronize()
+        device_profile(prof, time.perf_counter() - t0,
+                       f"autoencoder step pair (kl; unprofiled steady: "
+                       f"generator {summary['g_ms']:.2f} ms, discriminator "
+                       f"{summary['d_ms']:.2f} ms)",
+                       {"flash forward": FLASH_FWD_SYMBOLS,
+                        **FLASH_BWD_SYMBOLS})
+        before = flat(ema_state.shadow.values())
+        params = dict(st.vae.named_parameters())
+        ema_ms = cuda_ms(lambda: ema.update(ema_state, params), 10)
+        moved = not torch.equal(before, flat(ema_state.shadow.values()))
+        log(f"autoencoder: ema.update over the VAE's "
+            f"{len(params)} tensors ({summary['n_params']['vae'] / 1e6:.3f} "
+            f"M params): {ema_ms:.4f} ms a call; the shadow moved: {moved}")
+        if not moved:
+            raise AssertionError("ema.update left the shadow unchanged")
+        del before, ema_state, params
+        noise = torch.randn((AE_BATCH, 4, AE_HW // 8, AE_HW // 8),
+                            generator=gen, device="cuda")
+        fused = ae_fused_check(eng, st, x, noise)
+        del eng, st
+        torch.cuda.empty_cache()
+    t5 = t5_phase()
+    log(f"autoencoder phase: {pairs} step pairs counted; t5 {t5}")
+    return ({"autoencoder step": {k: dict(v) for k, v in by_shape.items()}},
+            {"autoencoder step": pairs}, fused)
+
+
 def cli_kernel_checks(by_path, flash_records, temporal_records,
                       train_records):
     """Every shape the CLI runs launched that the kernel phases did not
@@ -4906,7 +5407,8 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
     """The kernels JSON: one entry per (kernel, shape) of the main paths
     (the unfused clip's, then stage 2's, then the fast clip's, the "max"
     preset, then stage 4's caption batch and stage 6's scored clip; for #7
-    and #8 the fused clip's, then the fused step's); per
+    and #8 the fused clip's, then the fused step's, then the fused
+    autoencoder step's, f32); per
     kernel and path the sums of launches x time (kernel, bound, library);
     the f32 flash checks; each kernel's registers and spills. `runs`: the
     clips or steps each path's counts span ("clip", "step", "fast clip",
@@ -5098,7 +5600,9 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
         for kernel, records in zip(("gn_silu", "gn_silu_conv"), gn_records):
             for key, launches in sorted(shapes[kernel].items()):
                 rec = records.get(key)
-                if rec is None or key[-1] != "bfloat16":
+                # bf16 in the clip and the step, f32 in the autoencoder's
+                if rec is None or (key[-1] != "bfloat16"
+                                   and path != "autoencoder step"):
                     raise AssertionError(f"the fused {path} launched {kernel} "
                                          f"at {key}, a shape the kernel "
                                          f"phase did not check")
@@ -5106,8 +5610,9 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                     shape = "x".join(map(str, key[:-2]))
                 else:
                     shape = "x".join(map(str, key[:4])) + f"->{key[4]}"
+                dt = "bf16" if key[-1] == "bfloat16" else "f32"
                 entries.append({
-                    "name": f"{kernel}[{shape} G{key[-2]} bf16 {path}]",
+                    "name": f"{kernel}[{shape} G{key[-2]} {dt} {path}]",
                     "route": "cuda",
                     "source": sources[kernel][0],
                     "replaces": sources[kernel][1],
@@ -5285,7 +5790,8 @@ def main():
     precompute = precompute_phase()
     with configuration(False):
         svd = svd_phase(flash_records)
-    for by_path, path_runs in (serve, engine, precompute, svd):
+        *autoencoder, ae_fused = autoencoder_phase()
+    for by_path, path_runs in (serve, engine, precompute, svd, autoencoder):
         cli_by_path.update(by_path)
         cli_runs.update(path_runs)
     with configuration(False):
@@ -5294,7 +5800,9 @@ def main():
         stage1_checkpoints()
         chained_tiny_check()
     fused_by_shapes = (("clip", clip_by_shape[True]),
-                       ("step", fused_train_by_shape))
+                       ("step", fused_train_by_shape),
+                       ("autoencoder step", {"gn_silu": ae_fused,
+                                             "gn_silu_conv": {}}))
     gn_records = gn_kernel_phase(
         *({k for _, shapes in fused_by_shapes for k in shapes[kernel]}
           for kernel in ("gn_silu", "gn_silu_conv")))
@@ -5308,7 +5816,8 @@ def main():
                     / sum(STEP_LAUNCHES["flash_attn_bwd"].values()))
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
             "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
-            "fused step": FIXED_STEPS, **stage46_runs, **cli_runs}
+            "fused step": FIXED_STEPS, "fused autoencoder step": 1,
+            **stage46_runs, **cli_runs}
     record = kernels_record(flash_records, temporal_records, train_records,
                             clip_by_shape[False], train_by_shape, gn_records,
                             fused_by_shapes, f32_check_records(flash_records),

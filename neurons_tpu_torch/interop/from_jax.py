@@ -14,6 +14,11 @@ The port's modules use the flax submodule names as attribute names
 
 The walk is strict: a port parameter left unfilled, a JAX leaf left unused
 or a shape that differs raises.
+
+`load_jax_buffers` carries flax's other collections into the buffers of
+the same walk: the discriminator's `batch_stats` (`mean` ->
+`running_mean`, `var` -> `running_var`) and `EMAVectorQuantizer`'s `ema`
+(`weight`, `cluster_size`, `embed_avg`), as strict.
 """
 
 from __future__ import annotations
@@ -105,3 +110,52 @@ def jax_named_tensors(module: nn.Module, params: Mapping
     device): a partial flax tree as an overlay of the port's names."""
     return {name: torch.from_numpy(np.ascontiguousarray(arr))
             for name, _, arr in _walk(module, params, [])}
+
+
+# a flax batch_stats leaf -> the port's buffer; other leaves keep their name
+BUFFER_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def load_jax_buffers(module: nn.Module, collection: Mapping) -> int:
+    """Fill the persistent buffers of `module` from a flax collection other
+    than "params" (nested dicts of numpy arrays), each cast to the buffer's
+    dtype on its device. Strict: every persistent buffer filled, every
+    leaf used and every shape equal, else this raises. Returns how many
+    were filled."""
+    expected = {}
+    for name, _ in module.named_buffers():
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path)) if path else module
+        if leaf not in owner._non_persistent_buffers_set:
+            expected[name] = owner
+    filled, unused = set(), []
+
+    def walk(mod: nn.Module, tree: Mapping, prefix: str, path: str):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                child = mod._modules.get(key)
+                if child is None:
+                    unused.append(f"{path}{key}/...")
+                else:
+                    walk(child, val, f"{prefix}{key}.", f"{path}{key}/")
+                continue
+            name = BUFFER_NAMES.get(key, key)
+            if f"{prefix}{name}" not in expected:
+                unused.append(path + key)
+                continue
+            buf = mod._buffers[name]
+            arr = np.asarray(val)
+            if tuple(arr.shape) != tuple(buf.shape):
+                raise ValueError(f"{path}{key}: JAX shape {arr.shape} != "
+                                 f"port buffer shape {tuple(buf.shape)}")
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(
+                arr.astype(np.float32) if arr.dtype.kind == "f" else arr)))
+            filled.add(f"{prefix}{name}")
+
+    with torch.no_grad():
+        walk(module, collection, "", "")
+    missing = sorted(set(expected) - filled)
+    if missing or unused:
+        raise ValueError(f"load_jax_buffers: port buffers left unfilled "
+                         f"{missing}; JAX leaves left unused {unused}")
+    return len(filled)

@@ -25,6 +25,10 @@ module's weights can be written as the reference's released files are:
                                     (brain_model_prior_last.pth)
   lora_state_dict                a LoRA pair for chosen diffusers keys
                                  (`convert_ldm.merge_lora_into_state_dict`)
+  t5_encoder_state_dict          <- import_t5_encoder (HF T5EncoderModel)
+  lpips_state_dict               <- import_lpips (`vgg_lpips`)
+  nlayer_discriminator_state_dict <- import_nlayer_discriminator (with the
+                                 BatchNorm running statistics)
 
 `write_safetensors` writes the safetensors format that
 `load_weights.read_safetensors` reads. Values are numpy arrays; a writer
@@ -48,8 +52,9 @@ def jax_tree(module: nn.Module) -> Dict:
     (numpy f32 on the host, one copy of each parameter; the kernels are
     transposed views of it): Linear weight -> kernel [in, out], Conv2d
     weight -> kernel HWIO, Conv3d weight -> kernel DHWIO, Embedding weight
-    -> embedding, another module's weight -> scale, every other parameter
-    under its own name."""
+    -> embedding, another module's weight -> its `flax_weight` name (the
+    VQ codebook's `embedding`) or scale, every other parameter under its
+    own name."""
     tree: Dict = {}
     for name, p in module.named_parameters():
         *path, leaf = name.split(".")
@@ -64,12 +69,34 @@ def jax_tree(module: nn.Module) -> Dict:
                 leaf, arr = "kernel", arr.transpose(2, 3, 4, 1, 0)
             elif isinstance(owner, nn.Embedding):
                 leaf = "embedding"
-            else:
-                leaf = "scale"
+            else:  # a norm's scale, or a leaf the module names itself
+                leaf = getattr(owner, "flax_weight", "scale")
         node = tree
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = arr
+    return tree
+
+
+def jax_buffer_tree(module: nn.Module) -> Dict:
+    """A port module's persistent buffers as flax's non-`params`
+    collections read them (`from_jax.load_jax_buffers`'s inverse): the
+    discriminator's BatchNorm `running_mean` / `running_var` as
+    batch_stats `mean` / `var`, every other buffer (the EMA codebook's
+    `weight`, `cluster_size`, `embed_avg`) under its own name; numpy f32."""
+    from neurons_tpu_torch.interop.from_jax import BUFFER_NAMES
+    leaf_of = {v: k for k, v in BUFFER_NAMES.items()}
+    tree: Dict = {}
+    for name, b in module.named_buffers():
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path)) if path else module
+        if leaf in owner._non_persistent_buffers_set:
+            continue
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf_of.get(leaf, leaf)] = b.detach().to(
+            "cpu", torch.float32, copy=True).numpy()
     return tree
 
 
@@ -852,3 +879,69 @@ def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
             if t.numel():
                 f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
     return 8 + len(raw) + offset
+
+
+# ------------------------------------- T5, LPIPS, the PatchGAN discriminator --
+
+def t5_encoder_state_dict(tree: Tree, cfg) -> Dict[str, np.ndarray]:
+    """T5Encoder tree -> HF T5EncoderModel keys (`embed_tokens` tied to
+    `shared`, as HF saves it)."""
+    sd: Dict[str, np.ndarray] = {
+        "shared.weight": np.asarray(tree["shared"]),
+        "encoder.embed_tokens.weight": np.asarray(tree["shared"]),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias"
+        ".weight": np.asarray(tree["relative_attention_bias"]),
+        "encoder.final_layer_norm.weight": np.asarray(
+            tree["final_norm"]["weight"]),
+    }
+    for i in range(cfg.num_layers):
+        q, blk = f"encoder.block.{i}", tree[f"block_{i}"]
+        sd[f"{q}.layer.0.layer_norm.weight"] = np.asarray(
+            blk["attn_norm"]["weight"])
+        for k in ("q", "k", "v", "o"):
+            _lin(sd, f"{q}.layer.0.SelfAttention.{k}", blk[k])
+        sd[f"{q}.layer.1.layer_norm.weight"] = np.asarray(
+            blk["ff_norm"]["weight"])
+        for k in ("wi_0", "wi_1", "wo"):
+            _lin(sd, f"{q}.layer.1.DenseReluDense.{k}", blk[k])
+    return sd
+
+
+def lpips_state_dict(tree: Tree) -> Dict[str, np.ndarray]:
+    """LPIPS tree -> the `vgg_lpips` layout (the VGG trunk's slices, the
+    NetLin heads after their dropout, the scaling layer's buffers)."""
+    from neurons_tpu_torch.training.perceptual import (_SCALE, _SHIFT,
+                                                       _VGG_SLICES, LPIPS_CHNS)
+    sd: Dict[str, np.ndarray] = {
+        "scaling_layer.shift": np.asarray(_SHIFT, np.float32)[None, :, None,
+                                                              None],
+        "scaling_layer.scale": np.asarray(_SCALE, np.float32)[None, :, None,
+                                                              None]}
+    for si, (_, idxs) in enumerate(_VGG_SLICES):
+        for ci in idxs:
+            _conv(sd, f"net.slice{si + 1}.{ci}", tree["net"][f"conv_{ci}"])
+    for k in range(len(LPIPS_CHNS)):
+        _conv(sd, f"lin{k}.model.1", tree[f"lin{k}"])
+    return sd
+
+
+def nlayer_discriminator_state_dict(params: Tree, batch_stats: Tree,
+                                    n_layers: int = 3
+                                    ) -> Dict[str, np.ndarray]:
+    """NLayerDiscriminator params and batch_stats trees -> the PatchGAN's
+    Sequential keys (`main.<i>`, the BatchNorms' running statistics and
+    `num_batches_tracked`)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "main.0", params["conv_0"])
+    si = 2
+    for n in range(1, n_layers + 1):
+        _conv(sd, f"main.{si}", params[f"conv_{n}"])
+        _norm(sd, f"main.{si + 1}", params[f"bn_{n}"])
+        sd[f"main.{si + 1}.running_mean"] = np.asarray(
+            batch_stats[f"bn_{n}"]["mean"])
+        sd[f"main.{si + 1}.running_var"] = np.asarray(
+            batch_stats[f"bn_{n}"]["var"])
+        sd[f"main.{si + 1}.num_batches_tracked"] = np.asarray(0, np.int64)
+        si += 3
+    _conv(sd, f"main.{si}", params["conv_out"])
+    return sd

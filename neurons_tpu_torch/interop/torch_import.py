@@ -20,6 +20,11 @@ the same list of unused source keys as its JAX twin:
   * AnimateDiff SparseCtrl                    -> models.sparse_controlnet
   * the reference's NEURONS ensemble, stage-1
     core, MindEye2 backbone, coco clipproj    -> models.neurons
+  * HF T5EncoderModel                         -> models.t5.T5Encoder
+  * the `vgg_lpips` checkpoint                -> training.perceptual.LPIPS
+  * the PatchGAN (with its BatchNorm running
+    statistics)                               -> training.perceptual.
+                                                 NLayerDiscriminator
 plus the helpers of the loaders (`strip_prefix`, `ldm_apply_ema`,
 `filter_motion_module`, `merge_lora`).
 
@@ -1322,3 +1327,84 @@ def import_neurons_ensemble(state_dict: Dict, n_blocks: int = 4,
     # re-prefix the GPT-2 sub-importer's unused keys into the report
     unused = sd.unused() + [f"text_dec.decoder.{k}" for k in gpt2_unused]
     return p, sorted(unused)
+
+
+# ---------------------------------------------------------------------------
+# T5 encoder / LPIPS / PatchGAN discriminator (the sgm autoencoder trainer
+# and text conditioners)
+# ---------------------------------------------------------------------------
+
+def import_t5_encoder(state_dict: Dict, cfg) -> Tuple[Dict, List[str]]:
+    """HF T5EncoderModel state dict -> models.t5.T5Encoder params."""
+    sd = _Tracker(dict(state_dict))
+    p: Dict = {
+        "shared": t2j(sd["shared.weight"]),
+        "relative_attention_bias": t2j(
+            sd["encoder.block.0.layer.0.SelfAttention"
+               ".relative_attention_bias.weight"]),
+        "final_norm": {"weight": t2j(sd["encoder.final_layer_norm.weight"])},
+    }
+    if "encoder.embed_tokens.weight" in sd:
+        sd["encoder.embed_tokens.weight"]  # tied copy of `shared`
+    for i in range(cfg.num_layers):
+        q = f"encoder.block.{i}"
+        p[f"block_{i}"] = {
+            "attn_norm": {"weight": t2j(
+                sd[f"{q}.layer.0.layer_norm.weight"])},
+            "q": linear(sd, f"{q}.layer.0.SelfAttention.q"),
+            "k": linear(sd, f"{q}.layer.0.SelfAttention.k"),
+            "v": linear(sd, f"{q}.layer.0.SelfAttention.v"),
+            "o": linear(sd, f"{q}.layer.0.SelfAttention.o"),
+            "ff_norm": {"weight": t2j(
+                sd[f"{q}.layer.1.layer_norm.weight"])},
+            "wi_0": linear(sd, f"{q}.layer.1.DenseReluDense.wi_0"),
+            "wi_1": linear(sd, f"{q}.layer.1.DenseReluDense.wi_1"),
+            "wo": linear(sd, f"{q}.layer.1.DenseReluDense.wo"),
+        }
+    return p, sd.unused()
+
+
+def import_lpips(state_dict: Dict) -> Tuple[Dict, List[str]]:
+    """`vgg_lpips` checkpoint (torchvision vgg16.features + NetLin 1x1
+    heads; reference lpips/loss/lpips.py:28-44) -> training.perceptual
+    LPIPS params."""
+    from neurons_tpu_torch.training.perceptual import _VGG_SLICES, LPIPS_CHNS
+    sd = _Tracker(dict(state_dict))
+    net = {}
+    for si, (_, idxs) in enumerate(_VGG_SLICES):
+        for ci in idxs:
+            net[f"conv_{ci}"] = conv(sd, f"net.slice{si + 1}.{ci}")
+    p = {"net": net}
+    for k in range(len(LPIPS_CHNS)):
+        # NetLinLayer: model.1 with dropout, model.0 without
+        key = (f"lin{k}.model.1" if f"lin{k}.model.1.weight" in sd
+               else f"lin{k}.model.0")
+        p[f"lin{k}"] = conv(sd, key, bias=False)
+    # the scaling constants are buffers in the checkpoint, constants here
+    for buf in ("scaling_layer.shift", "scaling_layer.scale"):
+        if buf in sd:
+            sd[buf]
+    return p, sd.unused()
+
+
+def import_nlayer_discriminator(state_dict: Dict, n_layers: int = 3
+                                ) -> Tuple[Dict, List[str]]:
+    """The PatchGAN's Sequential layout (reference lpips/model/model.py:
+    42-84) -> NLayerDiscriminator variables {'params', 'batch_stats'}
+    (the BatchNorm running statistics), and the unused keys."""
+    sd = _Tracker(dict(state_dict))
+    p: Dict = {"conv_0": conv(sd, "main.0")}
+    stats: Dict = {}
+    si = 2
+    for n in range(1, n_layers + 1):
+        p[f"conv_{n}"] = conv(sd, f"main.{si}")
+        p[f"bn_{n}"] = {"scale": t2j(sd[f"main.{si+1}.weight"]),
+                        "bias": t2j(sd[f"main.{si+1}.bias"])}
+        stats[f"bn_{n}"] = {
+            "mean": t2j(sd[f"main.{si+1}.running_mean"]),
+            "var": t2j(sd[f"main.{si+1}.running_var"])}
+        if f"main.{si+1}.num_batches_tracked" in sd:
+            sd[f"main.{si+1}.num_batches_tracked"]
+        si += 3
+    p["conv_out"] = conv(sd, f"main.{si}")
+    return {"params": p, "batch_stats": stats}, sd.unused()

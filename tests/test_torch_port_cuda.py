@@ -32,8 +32,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_conv = torch.backends.cudnn.allow_tf32
     yield
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = tf32_conv
 
 
 def _check(q, k, v, dtype, scale=None):
@@ -360,6 +362,13 @@ TRAIN_SHAPES = [
     (2, 1, 200, 150, 64, 1, None),
     (2, 1, 130, 130, 128, 1, None),
 ]
+# the autoencoder trainer's VAE mid attention (one head at d 512 over 1024
+# tokens, batch 4 at 256 px) and a ragged d 512, in f32 as the trainer runs
+# (bf16 at d 512 writes its lse at 2.0-2.4x the plain version's error, at
+# f32 level: tensor-core accumulation over 512 products; no path launches
+# it)
+VAE_TRAIN_SHAPES = [(4, 1, 1024, 1024, 512, 1, None),
+                    (2, 1, 300, 190, 512, 1, None)]
 
 
 @pytest.mark.cuda
@@ -368,6 +377,13 @@ TRAIN_SHAPES = [
                          ids=lambda s: "x".join(map(str, s[:6])))
 def test_train_kernels_match_plain(cuda, dtype, shape):
     _check_train(*shape, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VAE_TRAIN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:6])))
+def test_train_kernels_at_the_vae_shapes_f32(cuda, shape):
+    _check_train(*shape, torch.float32)
 
 
 # the bias modes with lse in bf16: one slice, one per head, one per (b, h)
@@ -932,3 +948,81 @@ def test_native_gif_codec_builds_into_the_package(cuda):
     data = native_io.encode_gif(frames)
     assert data[:6] == b"GIF89a"
     assert np.array_equal(native_io.decode_gif(data), frames)
+
+
+class _GradRecorder(torch.optim.Optimizer):
+    """Keeps each parameter's .grad at `step`; moves nothing."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads = []
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().cpu().clone()
+                      for g in self.param_groups for p in g["params"]]
+
+
+@pytest.mark.cuda
+def test_autoencoder_steps_card_against_cpu(cuda):
+    """One generator and one discriminator step of the full-width trainer
+    (`VAEConfig()`, LPIPS VGG16, the 3-layer PatchGAN, f32 without TF32
+    but the flash kernels' own, 128 px so that
+    the VAE's mid attention runs 256 tokens at d 512 through the flash
+    kernels) on the card and on the CPU from the same weights, images and
+    posterior noise, with a gradient recorder in place of Adam: losses and
+    logs within 2e-3 relative, every gradient within 2e-2 of its module's
+    largest, the discriminator's running statistics within 1e-3 of max;
+    the flash launches as counted (2 forwards with lse and 2 backwards a
+    generator step, 2 plain forwards a discriminator step)."""
+    from neurons_tpu_torch.interop.torch_export import jax_tree
+    from neurons_tpu_torch.training import train_autoencoder as tta
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions, as the CPU
+    cfg = tta.AutoencoderTrainConfig(disc_start=0)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 3, 128, 128), generator=gen) * 2 - 1
+    noise = torch.randn((2, 4, 16, 16), generator=gen)
+    torch.manual_seed(0)
+    cpu_eng = tta.AutoencodingEngine(cfg)
+    states = {"cpu": cpu_eng.init("cpu")}
+    engines = {"cpu": cpu_eng, "cuda": tta.AutoencodingEngine(
+        cfg, lpips_params=jax_tree(cpu_eng.lpips))}
+    states["cuda"] = engines["cuda"].init("cuda")
+    for name in ("vae", "disc"):
+        getattr(states["cuda"], name).load_state_dict(
+            getattr(states["cpu"], name).state_dict())
+    runs = {}
+    for dev, st in states.items():
+        st.opt_g = _GradRecorder(st.gen_params())
+        st.opt_d = _GradRecorder(list(st.disc.parameters()))
+        eng = engines[dev]
+        fwd0, bwd0 = (attn.FLASH_FWD_LAUNCHES.total,
+                      attn.FLASH_BWD_LAUNCHES.total)
+        st, gl, glog = eng.make_generator_step()(st, x.to(dev),
+                                                 noise.to(dev))
+        g_launches = (attn.FLASH_FWD_LAUNCHES.total - fwd0,
+                      attn.FLASH_BWD_LAUNCHES.total - bwd0)
+        ggrads = st.opt_g.grads
+        st, dl, dlog = eng.make_discriminator_step()(st, x.to(dev),
+                                                     noise.to(dev))
+        d_launches = attn.FLASH_FWD_LAUNCHES.total - fwd0 - g_launches[0]
+        runs[dev] = dict(
+            logs={**{k: float(v) for k, v in glog.items()},
+                  **{k: float(v) for k, v in dlog.items()}},
+            ggrads=ggrads, dgrads=st.opt_d.grads,
+            stats={k: v.cpu() for k, v in st.disc.state_dict().items()
+                   if "running" in k},
+            launches=(g_launches, d_launches))
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert cpu["launches"] == ((0, 0), 0)
+    assert card["launches"] == ((2, 2), 2)
+    assert cpu["logs"]["scalars/d_weight"] > 0
+    for k, v in cpu["logs"].items():
+        assert abs(card["logs"][k] - v) <= 2e-3 * max(abs(v), 1e-6), k
+    for which in ("ggrads", "dgrads"):
+        scale = max(float(g.abs().max()) for g in cpu[which])
+        assert scale > 0
+        for i, (a, b) in enumerate(zip(card[which], cpu[which])):
+            assert float((a - b).abs().max()) <= 2e-2 * scale, (which, i)
+    for k, v in cpu["stats"].items():
+        assert float((card["stats"][k] - v).abs().max()) <= 1e-3 * float(
+            v.abs().max()), k

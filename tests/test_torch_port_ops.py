@@ -536,6 +536,14 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.models.temporal_ae\n"
             "import neurons_tpu_torch.pipelines.api\n"
             "import neurons_tpu_torch.pipelines.svd\n"
+            "import neurons_tpu_torch.models.t5\n"
+            "import neurons_tpu_torch.models.vq\n"
+            "import neurons_tpu_torch.training.perceptual\n"
+            "import neurons_tpu_torch.training.train_autoencoder\n"
+            "import neurons_tpu_torch.diffusion.loss\n"
+            "import neurons_tpu_torch.diffusion.lr_schedule\n"
+            "import neurons_tpu_torch.utils.ema\n"
+            "import neurons_tpu_torch.data.download\n"
             "import os, tempfile, torch\n"
             "p = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
             "tex.write_safetensors(p, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
@@ -543,7 +551,7 @@ def test_port_import_loads_no_jax_module():
             "torch.ones(2, dtype=torch.bfloat16))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'neurons_tpu', 'transformers', "
-            "'imageio', 'safetensors')]\n"
+            "'imageio', 'safetensors', 'huggingface_hub')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
