@@ -4,10 +4,14 @@ paths, and the HTTP server over them), stages 4 and 6 (captions and the
 metric suite, through the port's CLI), the CLI's `precompute` and
 `validate`, the sgm engine surface and SVD image-to-video, the sgm
 autoencoder trainer and T5, and stages 1 and 2 (training, checkpoints and
-resume) on one CUDA card, in the default configuration and in the
-fused-norm one, and hold its kernels against their plain PyTorch versions.
+resume, and data-parallel over a process group) on one CUDA card, in the
+default configuration and in the fused-norm one, and hold its kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py
+
+(`python3 chip_smoke.py --rank R PORT DIR` is one rank of the two-rank
+phase, which the script starts itself.)
 
 The fused-norm configuration is the JAX package's: NEURONS_TPU_FUSED_NORM=1
 (every GroupNorm+SiLU through kernel #7, csrc/gn_silu.cu) and
@@ -73,8 +77,8 @@ Phases, in order:
      (`reconstruct_keyframes(enhance=True)`, the blurry-video decode and
      the 256-px artifact resize) then stage 5 (SD-1.5 text tower, 25-step
      CFG-8.5 DDIM through UNet3D + SparseCtrl over 16 frames of 32x32
-     latents, VAE decode) for 2 voxel requests one at a time, unfused and
-     then fused on the same models and seeds; the kernels' launch counts
+     latents, VAE decode) for CLIP_REQUESTS (1) voxel request at a time,
+     unfused and then fused on the same models and seeds; the kernels' launch counts
      are zeroed just before and read just after each, #7/#8 held to the
      count from the code, the unfused clip's flash and temporal launches
      to the count from the step schedule (`sampler_launches`). After each,
@@ -83,15 +87,15 @@ Phases, in order:
      kernel and copy times) in the same run, the idle share they give,
      each kernel's share of busy time, and the top kernels. Between the
      two, unfused, the fast clips (`fast_phase`): the CLI's "max" preset
-     (TGATE at step 10 with PAB every 2nd gated step, both stages) for 2
-     counted requests and 1 profiled, then one request each of PAB,
+     (TGATE at step 10 with PAB every 2nd gated step, both stages) for
+     CLIP_REQUESTS counted requests, then one request each of PAB,
      encoder reuse and DeepCache (bench.py's knobs), each with s/clip by
      stage, peak memory, its flash and temporal launches held to the
      count from the step schedule, and its rms deviation from the exact
      clip's first request on the same draws (for the preset also stage 5
      alone on the exact stage-3 artifacts). Then the server
      (`serve_phase`): `serving.InferenceServer` on port 0 at batch 2 over
-     the same bf16 models (`serving.clip_pipeline`), four concurrent
+     the same bf16 models (`serving.clip_pipeline`), two concurrent
      single-clip requests, a 2-clip one and a `?format=gif` one, /healthz,
      /stats and a request of the wrong shape (400); each served clip equal
      to the direct pipeline call on its padded batch and seed, the mean
@@ -212,6 +216,27 @@ Phases, in order:
      a reduced width (hidden 256, 16 CLIP tokens), equal bits; and the
      tiny chain, card against CPU: stage 1 ->
      `load_stage1_core` -> stage 2 -> `load_decoupler_params` -> stage 3;
+  5b. data-parallel (`parallel/`): right after the stage-2 steps,
+     `run_stage2` again in a one-process NCCL group with
+     `mesh=create_mesh()` (`nccl_world1_phase`: the
+     prefetched batches, NCCL's all-reduce of the gradients, rank 0's
+     saves), its trained tensors bitwise those of the run without a mesh,
+     its tags of the same bytes; then the feed A/B (`prefetch_phase`): the
+     full-width stage-2 step over 5 host batches fed by a synchronous copy
+     from pageable memory and by `prefetch_to_device` (the loops' feed),
+     in turns, bitwise equal parameters, launches as counted, ms
+     a step of each run, each feed's median and range, and one batch's
+     copy times (`python3 chip_smoke.py --feed-ab ROUNDS` runs the build
+     and this A/B alone). After
+     the stage-1 phases, two ranks on the one card over gloo
+     (`two_rank_phase`: this script with `--rank`, each rank with a 300 s
+     limit) run one f32 stage-1 and one fused f32 stage-2 step at the
+     small train check's widths on their rows, against one process's step
+     on the whole batch: #1-#5 and #7 launched on each rank, losses equal
+     across the ranks, gradients within 1e-4 by error norm; and
+     `python -m neurons_tpu_torch.ops.microbench --iters 5` once
+     (`microbench_phase`: every case with the hand-written kernel). One
+     line gives the four phases' seconds and the ms a step of each feed;
   6. kernel phase for #7 and #8 at every (shape, dtype) the fused clip,
      the fused step and the fused autoencoder step (f32) launched, against
      float64 on the same inputs by the
@@ -255,7 +280,8 @@ PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PLAIN_LOGITS_BYTES = 8 * 2**30  # the plain attention's f32 logits a call
 SEED = 0
-CLIP_REQUESTS = 2   # full-width clips a configuration
+CLIP_REQUESTS = 1   # full-width clips a configuration (was 2: cut to keep
+                    # the script within its time limit)
 FIXED_STEPS = 4     # fixed-batch train steps a configuration
 
 # (B, H, Tq, Tk, D) of every flash-attention launch of the full-width clip
@@ -1405,8 +1431,8 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
 def slice_phase():
     """The full-width clip in both configurations on the same models and
     seeds: unfused, then the fast configurations, the server and the sgm
-    engine (unfused), then fused; each clip 2 counted requests and 1
-    profiled; then one UNet2D and one UNet3D forward in both. Returns
+    engine (unfused), then fused; each clip CLIP_REQUESTS counted
+    requests and 1 profiled; then one UNet2D and one UNet3D forward in both. Returns
     ({fused: {kernel: launches by shape}}, the fast phase's
     {configuration: {kernel: launches by shape}}, the first unfused clip's
     keyframe artifact and video on the host, and the serve and engine
@@ -1437,6 +1463,7 @@ def slice_phase():
 
 
 SERVE_BATCH = 2  # the server's batch: two clips a pipeline call
+SERVE_SINGLES = 2  # concurrent single-clip requests (was 4: time limit)
 
 
 def serve_launches(models, pcfg, batch: int):
@@ -1490,8 +1517,8 @@ def _http(port: int, method: str, path: str, body: bytes = None):
 
 def serve_phase(models, pcfg):
     """The port's HTTP server over the clip phase's bf16 models
-    (`serving.clip_pipeline`, batch 2, port 0), unfused: four concurrent
-    single-clip requests, then one 2-clip request and one `?format=gif`
+    (`serving.clip_pipeline`, batch 2, port 0), unfused: SERVE_SINGLES
+    concurrent single-clip requests, then one 2-clip request and one `?format=gif`
     request, then /healthz, /stats and one request of the wrong shape.
     The kernels' launch counts are zeroed just before the first request
     and read just after the last answer. Gates: every answer but the bad
@@ -1532,7 +1559,7 @@ def serve_phase(models, pcfg):
         device="cuda").start()
     rng = np.random.default_rng(SEED + 2)
     requests = {f"single {i}": 0.5 * rng.standard_normal((n_vox,))
-                for i in range(4)}
+                for i in range(SERVE_SINGLES)}
     requests["pair"] = 0.5 * rng.standard_normal((2, n_vox))
     requests["gif"] = 0.5 * rng.standard_normal((n_vox,))
     requests = {k: v.astype(np.float32) for k, v in requests.items()}
@@ -1552,7 +1579,7 @@ def serve_phase(models, pcfg):
     t_start = time.perf_counter()
     try:
         threads = [threading.Thread(target=client, args=(f"single {i}",))
-                   for i in range(4)]
+                   for i in range(SERVE_SINGLES)]
         for th in threads:
             th.start()
         for th in threads:
@@ -2015,10 +2042,10 @@ def rms_rel(a, b) -> float:
 
 def fast_phase(models, pcfg, exact_by_shape, exact_first):
     """The fast configurations of the full-width clip, unfused, on the
-    exact clip's models and seeds: the "max" preset for 2 requests (the
-    launch counts zeroed just before and read just after, held to the
-    schedule's count; s/clip by stage; peak memory), then one profiled
-    request (wall, busy, idle share); then one request each of PAB,
+    exact clip's models and seeds: the "max" preset for CLIP_REQUESTS
+    requests (the launch counts zeroed just before and read just after,
+    held to the schedule's count; s/clip by stage; peak memory); then one
+    request each of PAB,
     encoder reuse and DeepCache, each held to its count. Every first
     request replays the exact clip's first request's draws, so its
     keyframe and video are compared with the exact ones (rms deviation,
@@ -2093,14 +2120,6 @@ def fast_phase(models, pcfg, exact_by_shape, exact_first):
         log(f"fast {name}: stage 5 alone on the exact stage-3 artifacts, "
             f"rms deviation {rms_rel(vid5['fast'], vid5['exact']):.4f}")
         del vid5
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, _, s3, s5 = clip_request(models, pcfg, classes, g, s3_opts,
-                                        s5_opts)
-        device_profile(prof, s3 + s5,
-                       f"fast {name} clip (stage 3 {s3:.3f} s, stage 5 "
-                       f"{s5:.3f} s; unprofiled steady clip "
-                       f"{sum(per_request[-1]):.3f} s)", PROFILE_KERNELS)
     return out
 
 
@@ -2350,7 +2369,9 @@ def train_phase():
     ensemble by `load_decoupler_params` (equal bits), then the fixed-batch
     timed steps and one profiled step; then the same steps fused
     (`fused_train_steps`). Returns ({kernel: launches by shape} of the
-    counted run, the same of the fused steps)."""
+    counted run, the same of the fused steps, the counted run's result for
+    `nccl_world1_phase`: its trained tensors, each tag's bytes and its last
+    epoch's metrics)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch import config
@@ -2378,6 +2399,7 @@ def train_phase():
     with ckpt_tmpdir("stage-2 tags") as ckdir:
         for c in counters.values():
             c.reset()
+        ckpt.LAST_SAVE_STATS.clear()  # earlier phases' saves
         t0 = time.perf_counter()
         state = loop.run_stage2(
             pcfg.brain, pcfg.prior, pcfg.decoupler, tcfg, gcfg, split,
@@ -2394,6 +2416,12 @@ def train_phase():
             f"included); launches {totals}; epoch means " + " ".join(
                 f"{k.split('/')[-1]} {v:.4f}" for k, v in records[-1].items()
                 if k.startswith("train/")))
+        run0 = {"saves": {tag: st["bytes"]
+                          for tag, st in ckpt.LAST_SAVE_STATS.items()},
+                "metrics": records[-1],
+                "params": {n: p.detach().clone()
+                           for n, p in state.params.items()
+                           if not td.is_core(n)}}
         log_saves("run_stage2")
         if any(v == 0 for v in totals.values()):
             raise AssertionError(f"run_stage2 launched no training kernel: "
@@ -2487,7 +2515,7 @@ def train_phase():
     with configuration(True):
         fused_by_shape = fused_train_steps(pcfg, gcfg, tcfg, spe, batch,
                                            draws, first, steady_ms)
-    return by_shape, fused_by_shape
+    return by_shape, fused_by_shape, run0
 
 
 def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
@@ -5400,6 +5428,455 @@ def cli_kernel_checks(by_path, flash_records, temporal_records,
         train_records[1].update(bwd)
 
 
+# ------------------------------------------------------ data-parallel ----
+
+PREFETCH_STEPS = 5        # full-width stage-2 steps a run of the feed A/B
+PREFETCH_ROUNDS = 1       # rounds of 4 runs (2 a feed) of the feed A/B
+PARALLEL_TIMEOUT_S = 300  # each rank of `two_rank_phase`
+PARALLEL_GRAD_TOL = 1e-4  # error norm of the ranks' gradient, f32 on the card
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def prefetch_phase(rounds: int = PREFETCH_ROUNDS):
+    """The stage-2 step at full width (`PipelineConfig()`, batch 10, the
+    core in bf16) over PREFETCH_STEPS random batches at the real tables'
+    shapes, built on the host beforehand: fed by a synchronous copy from
+    pageable memory as each batch comes (`pageable`, the feed the loops had
+    before `parallel/`) and by `parallel.prefetch_to_device` (pinned
+    memory, a side stream, two batches ahead), in `rounds` rounds of turns
+    (pageable, prefetch, prefetch, pageable), each run from the same seeded
+    weights. Each run's parameters after its steps equal the first run's
+    bitwise, its launches are the steps' count from the code
+    (`STEP_LAUNCHES`), and its ms a step (wall, unprofiled, over the steps
+    after the first) is logged; then each feed's median and range over its
+    runs, and whether the ranges are apart. Returns {feed: [ms a step of
+    each run]}."""
+    import statistics
+
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.data import cc2017
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.parallel import create_mesh, prefetch_to_device
+    from neurons_tpu_torch.training import train_decoupler as td
+    from neurons_tpu_torch.utils.prng import epoch_generator
+
+    pcfg, gcfg = config.PipelineConfig(), GPT2Config()
+    tcfg = pcfg.train
+    spe = tcfg.num_train_samples // tcfg.batch_size
+    split = cc2017.synthetic_split(
+        n=PREFETCH_STEPS * tcfg.batch_size,
+        n_voxels=pcfg.brain.voxel_counts[0],
+        n_frames=pcfg.decoupler.n_frames, img=224,
+        txt_dim=pcfg.decoupler.clip_txt_emb_dim,
+        n_classes=pcfg.decoupler.num_classes, seed=SEED + 1)
+    build = table_shaped_builder(pcfg, gcfg.vocab_size, SEED + 1)
+    batches = [build(raw, 0) for raw in cc2017.batches(
+        split, tcfg.batch_size, seed=SEED + 1)]
+    nbytes = sum(v.nbytes for v in batches[0].values())
+    mesh = create_mesh()
+
+    def pageable(batch):
+        return {k: torch.as_tensor(v, device=mesh.device)
+                for k, v in batch.items()}
+
+    # one batch's copy, from pageable memory and through pinned memory (the
+    # second pass: the pinned blocks come from the host allocator's cache)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pageable(batches[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pinned = {k: torch.from_numpy(v).pin_memory()
+                  for k, v in batches[0].items()}
+        t2 = time.perf_counter()
+        {k: v.to(mesh.device, non_blocking=True) for k, v in pinned.items()}
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del pinned
+    log(f"prefetch A/B: one host batch of {nbytes / 1e6:.1f} MB: pageable "
+        f"copy {1e3 * (t1 - t0):.1f} ms ({nbytes / (t1 - t0) / 1e9:.1f} "
+        f"GB/s); into pinned memory {1e3 * (t2 - t1):.1f} ms, then "
+        f"{1e3 * (t3 - t2):.1f} ms ({nbytes / (t3 - t2) / 1e9:.1f} GB/s)")
+    counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+                "flash_attn_bwd": FLASH_BWD_LAUNCHES}
+    want = {k: PREFETCH_STEPS * sum(v.values())
+            for k, v in STEP_LAUNCHES.items()}
+
+    def run(feed):
+        bundle, state = td.init_stage2(pcfg.brain, pcfg.prior,
+                                       pcfg.decoupler, tcfg, gcfg, spe,
+                                       seed=SEED)
+        bundle.model.core.to(torch.bfloat16)
+        state = state._replace(params=dict(bundle.model.named_parameters()))
+        step = td.make_stage2_train_step(bundle, tcfg, pcfg.decoupler, spe)
+        source = (prefetch_to_device(iter(batches), mesh)
+                  if feed == "prefetch" else map(pageable, batches))
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = None
+        for i, batch in enumerate(source):
+            state, metrics = step(state, epoch_generator(SEED, 0, i, "cuda"),
+                                  batch, 0, i, tcfg.soft_temp_start)
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (PREFETCH_STEPS - 1)
+        launches = {k: c.total for k, c in counters.items()}
+        trained = {n: p.detach().clone() for n, p in state.params.items()
+                   if not td.is_core(n)}
+        loss = float(metrics["loss"])
+        del state, bundle, step, source
+        torch.cuda.empty_cache()
+        return ms, launches, trained, loss
+
+    times = {"pageable": [], "prefetch": []}
+    first = None
+    for feed in ("pageable", "prefetch", "prefetch", "pageable") * rounds:
+        ms, launches, trained, loss = run(feed)
+        times[feed].append(ms)
+        if first is None:
+            first = trained
+        same = all(torch.equal(p, first[n]) for n, p in trained.items())
+        log(f"prefetch A/B ({card_line()}): {feed} {ms:.1f} ms a step "
+            f"(steps 2-{PREFETCH_STEPS}, {nbytes / 1e6:.1f} MB of host "
+            f"batch a step), last loss {loss:.4f}, launches {launches} "
+            f"(as counted: {launches == want}), parameters equal to the "
+            f"first run's bitwise: {same}")
+        if not (same and launches == want):
+            raise AssertionError(f"the {feed} feed's steps differ: equal "
+                                 f"{same}, launches {launches} != {want}")
+        del trained
+    del first, batches
+    torch.cuda.empty_cache()
+    a, b = times["pageable"], times["prefetch"]
+    apart = max(a) < min(b) or max(b) < min(a)
+    log(f"prefetch A/B ({card_line()}): {len(a)} runs a feed; ms a step "
+        f"median (min-max): pageable {statistics.median(a):.1f} "
+        f"({min(a):.1f}-{max(a):.1f}), prefetch {statistics.median(b):.1f} "
+        f"({min(b):.1f}-{max(b):.1f}); ranges apart: {apart}")
+    return times
+
+
+def nccl_world1_phase(run0):
+    """`training/loop.py:run_stage2` at full width (the counted run of
+    `train_phase`: 1 epoch of 2 steps, the core in bf16, its checkpoints
+    and seg panel) with `mesh=create_mesh()` inside a
+    one-process NCCL group (`parallel.distributed.join_group` at
+    127.0.0.1): the batches through `prefetch_to_device`, the gradients
+    through NCCL's all-reduce in flat buckets, the eval-free loop's saves
+    from rank 0. Its trained tensors equal `run0`'s (the run without a mesh)
+    bitwise, its tags have the same bytes and its epoch metrics are the
+    same. Returns the run's seconds."""
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.data import cc2017
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.parallel import create_mesh, distributed
+    from neurons_tpu_torch.training import loop
+    from neurons_tpu_torch.utils import checkpoint as ckpt
+
+    pcfg, gcfg = config.PipelineConfig(), GPT2Config()
+    tcfg = config.replace(pcfg.train, num_epochs=1)
+    split = cc2017.synthetic_split(
+        n=2 * tcfg.batch_size, n_voxels=pcfg.brain.voxel_counts[0],
+        n_frames=pcfg.decoupler.n_frames, img=224,
+        txt_dim=pcfg.decoupler.clip_txt_emb_dim,
+        n_classes=pcfg.decoupler.num_classes, seed=SEED)
+    distributed.join_group(f"127.0.0.1:{free_port()}", 1, 0, "nccl")
+    try:
+        mesh = create_mesh()
+        rec = Recorder()
+        with ckpt_tmpdir("stage-2 tags, NCCL world 1") as ckdir:
+            for c in (FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES):
+                c.reset()
+            ckpt.LAST_SAVE_STATS.clear()
+            t0 = time.perf_counter()
+            state = loop.run_stage2(
+                pcfg.brain, pcfg.prior, pcfg.decoupler, tcfg, gcfg, split,
+                table_shaped_builder(pcfg, gcfg.vocab_size, SEED),
+                ckpt_dir=ckdir, log_every=1, logger=rec,
+                bf16_frozen_core=True, last_save_every=1, image_log_every=1,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            saves = {tag: st["bytes"]
+                     for tag, st in ckpt.LAST_SAVE_STATS.items()}
+            log_saves("run_stage2, NCCL world 1")
+        same = all(torch.equal(state.params[n], p)
+                   for n, p in run0["params"].items())
+        launches = (FLASH_FWD_LAUNCHES.total, FLASH_BWD_LAUNCHES.total)
+        metrics_same = (rec.rows[-1].keys() == run0["metrics"].keys()
+                        and all(rec.rows[-1][k] == v
+                                for k, v in run0["metrics"].items()
+                                if k.startswith("train/")))
+        log(f"run_stage2 in a one-process NCCL group ({card_line()}): mesh "
+            f"{mesh}, 1 epoch of {state.step} steps in {run_s:.1f} s; "
+            f"launches (fwd, bwd) {launches}; trained tensors equal to the "
+            f"run without a mesh bitwise: {same}; tags {saves} (as without "
+            f"a mesh: {saves == run0['saves']}); epoch metrics as without a "
+            f"mesh: {metrics_same}")
+        if not (same and saves == run0["saves"] and metrics_same
+                and min(launches) > 0):
+            raise AssertionError("run_stage2 under a world-1 NCCL mesh differs "
+                                 "from the run without a mesh")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
+    return run_s
+
+
+def parallel_case(mesh):
+    """One f32 stage-1 step and one f32 stage-2 step at the widths of
+    `small_train_check` (64 CLIP tokens: the prior's 129 x 130 biased
+    attention, the decoder's 256 and 1024 tokens), in the fused-norm
+    configuration (the decoder's norms through #7), from seeded weights
+    drawn on the CPU, on this process's rows of global batches and draws
+    made on the CPU from seeds (every process makes the same). `mesh`: the
+    process group's (its rows), or None (the whole batch, one process).
+    Returns each step's metrics, its gradients (on the CPU) and its
+    launches by kernel and variant."""
+    import numpy as np
+    import torch
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.diffusion.prior import PriorDiffusion
+    from neurons_tpu_torch.models.gpt2 import tiny_gpt2_config
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.ops.fused_norm import GN_SILU_LAUNCHES
+    from neurons_tpu_torch.parallel import shard_batch
+    from neurons_tpu_torch.training import train_brain as tb
+    from neurons_tpu_torch.training import train_decoupler as td
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = config.tiny_pipeline_config()
+    brain = config.replace(pcfg.brain, clip_seq_dim=64)
+    prior = config.replace(pcfg.prior, num_tokens=64)
+    dcfg, gcfg = pcfg.decoupler, tiny_gpt2_config()
+    tcfg = config.replace(pcfg.train, bf16_autocast=False)
+    counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+                "flash_attn_bwd": FLASH_BWD_LAUNCHES,
+                "gn_silu": GN_SILU_LAUNCHES}
+    g = np.random.default_rng(SEED)
+    f32 = np.float32
+
+    def rows(batch):
+        if mesh is None:
+            return {k: torch.as_tensor(v, device="cuda")
+                    for k, v in batch.items()}
+        return shard_batch(mesh, batch)
+
+    def counted(fn):
+        for c in counters.values():
+            c.reset()
+        state, metrics = fn()
+        torch.cuda.synchronize()
+        by_variant = {k: {} for k in counters}
+        for k, c in counters.items():
+            for shape, n in c.by_shape.items():
+                v = shape[-1] if k != "gn_silu" else ""
+                by_variant[k][v] = by_variant[k].get(v, 0) + n
+        return state, metrics, by_variant
+
+    out = {}
+    # stage 1: batch 8
+    b1 = 8
+    batch1 = {"voxel": g.standard_normal((b1, 1, brain.voxel_counts[0]), f32),
+              "target": g.standard_normal(
+                  (b1, brain.clip_seq_dim, brain.clip_emb_dim), f32),
+              "text": g.standard_normal((b1, brain.clip_txt_emb_dim), f32)}
+    draws1 = tb.draw_stage1(brain, torch.as_tensor(batch1["voxel"]),
+                            torch.Generator().manual_seed(SEED))
+    core, state, schedule = tb.init_stage1(brain, tcfg, 4, seed=7,
+                                           device="cuda", host_draws=True)
+    step1 = tb.make_stage1_train_step(core, schedule, tcfg, mesh)
+    local = rows(batch1)
+    state, metrics, launches = counted(lambda: step1(
+        state, draws1, local["voxel"], local["target"], local["text"]))
+    out["stage1"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "launches": launches,
+                     "grads": {n: p.grad.cpu() for n, p in state.params.items()
+                               if not tb.FROZEN(n)}}
+    del core, state, step1
+    # stage 2: batch 4 (tcfg.batch_size)
+    b, f, n = tcfg.batch_size, dcfg.n_frames, brain.clip_seq_dim
+    c, ct = brain.clip_emb_dim, dcfg.clip_txt_emb_dim
+    tokens = g.integers(1, gcfg.vocab_size, size=(b, 12))
+    tokens[:, 9:] = 0
+    tokens[0, 6:] = 0
+    batch2 = {
+        "voxel": g.standard_normal((b, 1, brain.voxel_counts[0]), f32),
+        "clip_vision_target": g.standard_normal((b, n, c), f32),
+        "clip_video_target": g.standard_normal((b, f, n, c), f32),
+        "text_emb": g.standard_normal((b, ct), f32),
+        "key_obj_text_embed": g.standard_normal((b, ct), f32),
+        "key_obj_masks": (g.uniform(size=(b, f, 32, 32)) < 0.3).astype(f32),
+        "cls_label": (g.uniform(size=(b, dcfg.num_classes)) < 0.3
+                      ).astype(f32),
+        "clip_tokens": tokens.astype(np.int64),
+        "vae_latents": g.standard_normal((b, f, 4, 8, 8), f32)}
+    host = PriorDiffusion.create(prior.timesteps, prior.cond_drop_prob,
+                                 device="cpu")
+    d = td.draw_stage2(host, {"clip_vision_target": torch.as_tensor(
+        batch2["clip_vision_target"])}, dcfg,
+        torch.Generator().manual_seed(SEED + 1))
+    draws2 = td.Stage2Draws(
+        type(d.prior)(*(x.to("cuda") for x in d.prior)),
+        type(d.dropout)(*(x.to("cuda") for x in d.dropout)))
+    bundle, state = td.init_stage2(brain, prior, dcfg, tcfg, gcfg, 4, seed=7,
+                                   device="cuda", host_draws=True)
+    step2 = td.make_stage2_train_step(bundle, tcfg, dcfg, 4, mesh)
+    local = rows(batch2)
+    state, metrics, launches = counted(lambda: step2(
+        state, draws2, local, 0, 0, 0.05))
+    out["stage2"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "launches": launches,
+                     "grads": {n: p.grad.cpu() for n, p in state.params.items()
+                               if not td.is_core(n)}}
+    return out
+
+
+def two_rank_child(rank: int, port: int, directory: str) -> int:
+    """One of `two_rank_phase`'s ranks: a gloo group of 2 over the torchrun
+    environment, both ranks on the one card (LOCAL_RANK 0), `parallel_case`
+    on this rank's rows; its result in directory/rank{rank}.pt."""
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK="0")
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.parallel import create_mesh, distributed
+    if not distributed.initialize(backend="gloo"):
+        raise RuntimeError("initialize joined no group")
+    try:
+        mesh = create_mesh()
+        with configuration(True):
+            out = parallel_case(mesh)
+        out["mesh"] = (mesh.world, mesh.rank, str(mesh.device))
+        torch.save(out, Path(directory) / f"rank{rank}.pt")
+        distributed.barrier()
+    finally:
+        distributed.destroy()
+    return 0
+
+
+def err_norm(got, want) -> float:
+    num = sum(float((got[n].double() - w.double()).pow(2).sum())
+              for n, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def two_rank_phase():
+    """Two ranks on the one card over gloo (`two_rank_child`, each a
+    process of this script, each with a PARALLEL_TIMEOUT_S limit; a rank
+    that fails or hangs fails the phase), against one process's step on
+    the whole batch (`parallel_case(None)`, here): each rank launched the
+    flash forward with lse (#1/#2) and with bias and lse (#3), both
+    backwards (#4, #5) and #7 in its stage-2 step; the ranks' losses are
+    equal bitwise and within 1e-5 of one process's; each rank's gradient
+    (averaged over the ranks) within PARALLEL_GRAD_TOL of one process's by
+    error norm, and the ranks' gradients equal bitwise. Returns seconds."""
+    import shutil
+    import tempfile
+    import torch
+
+    t_start = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="_ckpt_ranks_", dir=REPO)
+    try:
+        port = free_port()
+        logs = [open(Path(d) / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--rank", str(r),
+             str(port), d], cwd=REPO, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            with configuration(True):
+                want = parallel_case(None)
+            codes = [p.wait(timeout=PARALLEL_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            for fh in logs:
+                fh.close()
+        if codes != [0, 0]:
+            for r in range(2):
+                log(f"--- rank {r} ---\n"
+                    + (Path(d) / f"rank{r}.log").read_text()[-4000:])
+            raise AssertionError(f"the two ranks exited with {codes}")
+        ranks = [torch.load(Path(d) / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok = True
+    for case in ("stage1", "stage2"):
+        w = want[case]
+        errs = [err_norm(r[case]["grads"], w["grads"]) for r in ranks]
+        loss_err = max(abs(r[case]["metrics"][k] - v) / max(abs(v), 1.0)
+                       for r in ranks for k, v in w["metrics"].items())
+        same_loss = ranks[0][case]["metrics"] == ranks[1][case]["metrics"]
+        same_grads = all(torch.equal(ranks[0][case]["grads"][n],
+                                     ranks[1][case]["grads"][n])
+                         for n in w["grads"])
+        launched = case == "stage1" or all(
+            r[case]["launches"]["flash_attn_fwd"].get(v, 0) > 0
+            and r[case]["launches"]["flash_attn_bwd"].get(u, 0) > 0
+            and r[case]["launches"]["gn_silu"].get("", 0) > 0
+            for r in ranks for v, u in (("lse", ""), ("bias+lse", "bias")))
+        good = (same_loss and same_grads and launched and loss_err <= 1e-5
+                and max(errs) <= PARALLEL_GRAD_TOL)
+        ok = ok and good
+        log(f"two ranks on one card over gloo ({card_line()}), {case} step: "
+            f"meshes {[r['mesh'] for r in ranks]}; launches by rank "
+            f"{[r[case]['launches'] for r in ranks]} (one process "
+            f"{w['launches']}); losses equal across ranks {same_loss}, "
+            f"largest rel diff from one process {loss_err:.3e} (<= 1e-5), "
+            f"loss {ranks[0][case]['metrics']['loss']:.6f}; gradient error "
+            f"norm against one process by rank "
+            f"{[f'{e:.3e}' for e in errs]} (<= {PARALLEL_GRAD_TOL:g}), "
+            f"equal across ranks {same_grads}: {good}")
+    if not ok:
+        raise AssertionError("the two-rank steps disagree with one process")
+    return time.perf_counter() - t_start
+
+
+def microbench_phase():
+    """`python -m neurons_tpu_torch.ops.microbench --iters 5` once: every
+    case with the hand-written kernel (a failure raises there and fails
+    the command). Returns seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "neurons_tpu_torch.ops.microbench", "--iters", "5"],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=PARALLEL_TIMEOUT_S)
+    lines = [x for x in res.stdout.splitlines() if "| kernel" in x]
+    for line in res.stdout.splitlines():
+        log(f"microbench: {line}")
+    if res.returncode != 0 or len(lines) != 9:
+        log(res.stderr[-4000:])
+        raise AssertionError(f"the microbench exited with {res.returncode} "
+                             f"after {len(lines)} of 9 cases")
+    return time.perf_counter() - t0
+
+
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
                    train_by_shape, gn_records, fused_by_shapes, f32_checks,
                    ptxas, runs, fast_by_shape, stage46_by_path,
@@ -5746,12 +6223,26 @@ def ptxas_summary(name):
     return out
 
 
+def feed_ab(rounds: int) -> int:
+    """`python3 chip_smoke.py --feed-ab ROUNDS`: build the kernels and run
+    `prefetch_phase(ROUNDS)` alone (no JSON line; exit 0 when it passes)."""
+    from neurons_tpu_torch.ops import cuda_build
+    log(card_line())
+    cuda_build.build(sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu")))
+    prefetch_phase(rounds)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank"]:  # one rank of two_rank_phase
+        return two_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--feed-ab"]:  # the build and the feed A/B alone
+        return feed_ab(int(sys.argv[2]))
     from neurons_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
@@ -5769,10 +6260,16 @@ def main():
             f"{f.get('spill_loads', 0)} B")
     tf32_instances(ptxas)
     del libs
+    done_at = {"build": time.perf_counter() - t_start}
+
+    def stamp(name):  # seconds from the start at the end of each phase
+        done_at[name] = time.perf_counter() - t_start
+        log(f"phase {name} done at {done_at[name]:.1f} s")
 
     flash_records = flash_phase()
     temporal_records = temporal_phase()
     train_records = train_kernel_phase()
+    stamp("kernels")
     for fused in (False, True):
         with configuration(fused):
             small_check(fused)
@@ -5782,23 +6279,48 @@ def main():
         small_fast_check()
         small_caption_check()
         small_classifier_check()
+    stamp("small checks")
     clip_by_shape, fast_by_config, sample, (serve, engine) = slice_phase()
+    stamp("slice")
     with configuration(False):
         stage46_by_path, stage46_runs = stage46_phase(sample)
     del sample
+    stamp("stages 4 and 6")
     cli_by_path, cli_runs = cli_phase()
+    stamp("cli")
     precompute = precompute_phase()
+    stamp("precompute")
     with configuration(False):
         svd = svd_phase(flash_records)
+        stamp("svd")
         *autoencoder, ae_fused = autoencoder_phase()
+        stamp("autoencoder")
     for by_path, path_runs in (serve, engine, precompute, svd, autoencoder):
         cli_by_path.update(by_path)
         cli_runs.update(path_runs)
     with configuration(False):
-        train_by_shape, fused_train_by_shape = train_phase()
+        train_by_shape, fused_train_by_shape, run0 = train_phase()
+        stamp("stage-2 train")
+        t0 = time.perf_counter()
+        nccl_world1_phase(run0)
+        del run0
+        phase_s = {"nccl world 1": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        feed_ms = prefetch_phase()
+        phase_s["prefetch"] = time.perf_counter() - t0
+        stamp("data-parallel, one card")
         stage1_phase()
+        stamp("stage-1 train")
         stage1_checkpoints()
+        stamp("stage-1 checkpoints")
         chained_tiny_check()
+    phase_s["two ranks"] = two_rank_phase()
+    phase_s["microbench"] = microbench_phase()
+    stamp("data-parallel, two ranks and microbench")
+    log(f"data-parallel phases ({card_line()}): seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + "; stage-2 step ms by feed (runs in turns) " + ", ".join(
+            f"{k} {[round(x, 1) for x in v]}" for k, v in feed_ms.items()))
     fused_by_shapes = (("clip", clip_by_shape[True]),
                        ("step", fused_train_by_shape),
                        ("autoencoder step", {"gn_silu": ae_fused,
@@ -5808,8 +6330,11 @@ def main():
           for kernel in ("gn_silu", "gn_silu_conv")))
     cli_kernel_checks(cli_by_path, flash_records, temporal_records,
                       train_records)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    # the clips and steps the counted runs span: 2 requests a
+    stamp("kernel checks")
+    log(f"total {time.perf_counter() - t_start:.1f} s; phases (s): "
+        + ", ".join(f"{k} {v - prev:.1f}" for (k, v), prev in zip(
+            done_at.items(), [0.0] + list(done_at.values()))))
+    # the clips and steps the counted runs span: CLIP_REQUESTS a
     # configuration, run_stage2's steps, the 4 fixed fused steps
     # (from the backward's launches: the seg panel adds forwards only)
     stage2_steps = (sum(train_by_shape["flash_attn_bwd"].values())

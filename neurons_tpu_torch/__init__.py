@@ -14,9 +14,15 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. A CUDA device without CUDA
-    raises: the port never moves to the CPU on its own."""
+    raises: the port never moves to the CPU on its own. Inside a process
+    group a bare "cuda" is this process's card, cuda:LOCAL_RANK."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        from neurons_tpu_torch.parallel.distributed import local_rank
+        dev = torch.device("cuda", local_rank())
     return dev

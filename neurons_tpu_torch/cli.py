@@ -42,6 +42,13 @@ with `sd_vae.pt` (precompute). From `--root_dir`: the CC2017 tensors
 `clip_targets_{train,test}.npy`, `vae_latents_train.npy`,
 `coco_tokens_avg_proj.pth`.
 
+Under torchrun (`torchrun --nproc_per_node=N -m neurons_tpu_torch.cli
+...`) the CLI joins the process group the environment describes
+(`parallel/distributed.py:initialize`; NCCL, or gloo with `--platform
+cpu`), each rank on cuda:LOCAL_RANK: `train-brain` and `train-decoupler`
+train data-parallel over every rank (`create_mesh()`),
+and `video` without `--num_shards` takes the clips `rank::N`.
+
 Random draws of the generation stages come from a CPU generator seeded by
 (seed, stage, the batch's first clip) (`utils/prng.py:stage_generator`),
 so a card run and a CPU run draw the same noise; under `--tiny` the random
@@ -435,9 +442,11 @@ def cmd_train_brain(args):
     _setup(args)
     import numpy as np
     from neurons_tpu_torch import resolve_device
+    from neurons_tpu_torch.parallel import create_mesh
     from neurons_tpu_torch.training.loop import run_stage1
 
     dev = resolve_device(args.platform)
+    mesh = create_mesh(dev)
     bcfg, _, _, tcfg = _configs(args)
     train_split = _load_data(args, bcfg, tcfg, train=True)
     test_split = _load_data(args, bcfg, tcfg, train=False)
@@ -459,7 +468,7 @@ def cmd_train_brain(args):
                ckpt_dir=ckpt_dir, resume=args.resume_from_ckpt,
                warm_start_params=_core_overlay(
                    bcfg, _warm_start_overlay(args, bcfg)),
-               host_draws=args.tiny, device=dev)
+               host_draws=args.tiny, device=dev, mesh=mesh)
     _STAGE_STATS["1"] = {"train_s": round(time.perf_counter() - t0, 2)}
     print("=== stage 1 finished ===")
 
@@ -475,12 +484,14 @@ def cmd_train_decoupler(args):
     from neurons_tpu_torch import resolve_device
     from neurons_tpu_torch.interop.load_weights import _torch_load
     from neurons_tpu_torch.interop.torch_import import import_neurons_core
+    from neurons_tpu_torch.parallel import create_mesh
     from neurons_tpu_torch.training.loop import (run_stage2,
                                                  synthetic_stage2_batch_builder,
                                                  table_stage2_batch_builder)
     from neurons_tpu_torch.utils import checkpoint as ckpt_lib
 
     dev = resolve_device(args.platform)
+    mesh = create_mesh(dev)
     bcfg, pcfg, dcfg, tcfg = _configs(args, stage2=True)
     gcfg = _gpt2_config(args)
     train_split = _load_data(args, bcfg, tcfg, train=True)
@@ -516,7 +527,7 @@ def cmd_train_decoupler(args):
     run_stage2(bcfg, pcfg, dcfg, tcfg, gcfg, train_split, builder,
                core_params=core, ckpt_dir=ckpt_dir,
                resume=args.resume_from_ckpt, host_draws=args.tiny,
-               device=dev)
+               device=dev, mesh=mesh)
     _STAGE_STATS["2"] = {"train_s": round(time.perf_counter() - t0, 2)}
     print("=== stage 2 finished ===")
 
@@ -851,6 +862,7 @@ def cmd_video(args):
     from neurons_tpu_torch import resolve_device
     from neurons_tpu_torch.config import UNet3DConfig, VAEConfig
     from neurons_tpu_torch.ops.resize import resize_np
+    from neurons_tpu_torch.parallel import distributed
     from neurons_tpu_torch.pipelines import io
     from neurons_tpu_torch.pipelines.e2e import resize_linear
     from neurons_tpu_torch.pipelines.video import reconstruct_video
@@ -879,12 +891,20 @@ def cmd_video(args):
     # is built
     st3 = io.stage3_dir(args.exp_dir, args.exp, args.subj, args.enhance)
     g = np.random.default_rng(args.seed)
+    # round-robin clips: this process takes shard, shard + num_shards, ...
     shard, num_shards = args.shard, args.num_shards
+    if num_shards == 1 and distributed.world_size() > 1:
+        # inside a process group without --num_shards: the rank split (the
+        # reference's `accelerate launch` semantics)
+        shard, num_shards = distributed.rank(), distributed.world_size()
+        print(f"--- stage 5: rank-scattered clips "
+              f"{shard}::{num_shards} (process group) ---", flush=True)
     blurry = art = None
     try:
         art = io.load_stage3_artifacts(st3, args.subj,
                                        caption_mode=args.caption_mode)
-        sel = np.arange(shard, len(art["all_recons"]), num_shards)
+        sel = distributed.round_robin_indices(len(art["all_recons"]),
+                                              shard, num_shards)
         if args.tiny:
             sel = sel[:2]
         elif args.n_test:
@@ -1570,6 +1590,11 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_pipeline)
 
     args = parser.parse_args(argv)
+    # join the process group the environment asks for (torchrun's
+    # variables; a single process joins none)
+    from neurons_tpu_torch.parallel.distributed import initialize
+    initialize(backend=("gloo" if getattr(args, "platform", "cuda") == "cpu"
+                        else None))
     if getattr(args, "profile", None):
         import torch
         from torch.profiler import ProfilerActivity, profile

@@ -17,6 +17,12 @@ last up block) through the dispatcher, so it takes the flash kernels on
 the card (under autograd, the forward with lse and the backward); the
 temporal rows (a few frames) take the plain path.
 
+Stage 2 runs the temporal attention over all B*F rows of its batch as one
+sequence (`time` = B*F). Data-parallel, a rank holds B*F / N of them and
+its caller passes a `RowSplit` (`split=`, `time` then this rank's rows):
+each site gathers the sequence's rows from every rank, attends over all of
+them and keeps its own.
+
 Training dropout (stage 2): 0.1 on the text-attention weights and on the
 attention output, 0.3 after the maps projector, as the JAX package's
 TextDrivenDecoder. The keep masks are drawn by `draw_decoder_dropout` and
@@ -27,7 +33,7 @@ recompute restores the global RNG state, not a user generator's).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +41,16 @@ from torch import nn
 
 from neurons_tpu_torch.ops.attention import dot_product_attention
 from neurons_tpu_torch.ops.fused_norm import GroupNorm, GroupNormSiLU
+
+
+class RowSplit(NamedTuple):
+    """A temporal sequence whose rows lie on several ranks, in rank order:
+    `gather(t)` is every rank's rows of `t` along axis 0 (differentiable;
+    each rank's rows get the gradient of every rank's use of them), and
+    `rows` is this rank's slice of the gathered rows."""
+
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    rows: slice
 
 
 class ResnetBlock2D(nn.Module):
@@ -101,14 +117,25 @@ class _SpatialTemporalAttn(nn.Module):
         self.temp_attn = AttnBlock(channels, groups)
         self.blend_weight = nn.Parameter(torch.ones(1))
 
-    def forward(self, x, time: int):
+    def forward(self, x, time: int, split: Optional[RowSplit] = None):
         bt, c, hh, ww = x.shape
-        b, hw = bt // time, hh * ww
+        hw = hh * ww
         spatial = self.attn(x.flatten(2).transpose(1, 2))      # [bt, hw, c]
+        rows = spatial
+        if split is not None:  # one sequence over every rank's rows
+            if time != bt:
+                raise ValueError(f"a sequence split over ranks holds all of "
+                                 f"each rank's {bt} rows, not {time}")
+            rows = split.gather(spatial)
+            time = rows.shape[0]
+        n = rows.shape[0]
+        b = n // time
         # (b t) (h w) c -> (b h w) t c
-        tmp = spatial.reshape(b, time, hw, c).transpose(1, 2)
+        tmp = rows.reshape(b, time, hw, c).transpose(1, 2)
         tmp = self.temp_attn(tmp.reshape(b * hw, time, c))
-        tmp = tmp.reshape(b, hw, time, c).transpose(1, 2).reshape(bt, hw, c)
+        tmp = tmp.reshape(b, hw, time, c).transpose(1, 2).reshape(n, hw, c)
+        if split is not None:
+            tmp = tmp[split.rows]
         w = self.blend_weight
         out = w * spatial + (1 - w) * tmp
         return out.transpose(1, 2).reshape(bt, c, hh, ww)
@@ -127,10 +154,10 @@ class MidBlockVideo(nn.Module):
             self.add_module(f"resnet_{i + 1}",
                             ResnetBlock2D(channels, channels, groups))
 
-    def forward(self, x, time: int):
+    def forward(self, x, time: int, split: Optional[RowSplit] = None):
         x = self.resnet_0(x)
         for i in range(self.num_layers):
-            x = getattr(self, f"st_attn_{i}")(x, time)
+            x = getattr(self, f"st_attn_{i}")(x, time, split)
             x = getattr(self, f"resnet_{i + 1}")(x)
         return x
 
@@ -151,10 +178,10 @@ class AttnUpBlockVideo(nn.Module):
         if add_upsample:
             self.upsample = Upsample2D(out_channels)
 
-    def forward(self, x, time: int):
+    def forward(self, x, time: int, split: Optional[RowSplit] = None):
         for i in range(self.num_layers):
             x = getattr(self, f"resnet_{i}")(x)
-            x = getattr(self, f"st_attn_{i}")(x, time)
+            x = getattr(self, f"st_attn_{i}")(x, time, split)
         if hasattr(self, "upsample"):
             x = self.upsample(x)
         return x
@@ -180,10 +207,10 @@ class DecoderVideo(nn.Module):
             prev = out_c
         self.conv_norm_out = GroupNormSiLU(norm_num_groups, ch[0], 1e-6)
 
-    def forward(self, x, time: int = 1):
-        x = self.mid_block(self.conv_in(x), time)
+    def forward(self, x, time: int = 1, split: Optional[RowSplit] = None):
+        x = self.mid_block(self.conv_in(x), time, split)
         for i in range(self.n_up):
-            x = getattr(self, f"up_block_{i}")(x, time)
+            x = getattr(self, f"up_block_{i}")(x, time, split)
         return self.conv_norm_out(x)
 
 
@@ -260,10 +287,12 @@ class TextDrivenDecoder(nn.Module):
                 time: int = 1, is_seg: bool = True,
                 deterministic: bool = True,
                 dropout_masks: Optional[DecoderDropout] = None,
-                return_all: bool = False):
+                return_all: bool = False,
+                split: Optional[RowSplit] = None):
         """`deterministic=False` applies the training dropout with the
         given `dropout_masks`; `return_all` gives (seg, recon) from one
-        decode."""
+        decode; `split`: the temporal sequence spans the ranks (`RowSplit`;
+        `time` is this rank's rows)."""
         if not deterministic and dropout_masks is None:
             raise ValueError("training dropout needs its keep masks "
                              "(draw_decoder_dropout)")
@@ -293,7 +322,7 @@ class TextDrivenDecoder(nn.Module):
         if masks is not None:
             x = dropout(x, masks.maps, MAPS_DROPOUT)
         x = self.norm(x)
-        x = self.video_decoder(x, time)
+        x = self.video_decoder(x, time, split)
         if return_all:
             return self.seg_head(x), self.recon_head(x)
         return self.seg_head(x) if is_seg else self.recon_head(x)

@@ -8,8 +8,20 @@ temperature index, the curriculum, the optional bf16 frozen core, the
 one-time `brain_model_core` artifact, mid-run saves of the trained subtree
 only, the full-tree `brain_model_prior_last` at the end, the seg panels),
 both with resume from their `_last` tag and a simulated preemption
-(`stop_after_epochs`), and the stage-2 batch builders. The JAX loops' mesh
-argument has no counterpart (one card).
+(`stop_after_epochs`), and the stage-2 batch builders.
+
+`mesh` (a `parallel.Mesh`, from `create_mesh`) trains data-parallel over
+the process group, as the JAX loops train over theirs: every rank
+assembles the same global batch from the same seed and
+`prefetch_to_device` gives it this rank's rows (on a card from pinned
+memory, on a side stream, two batches ahead); the steps compute the global
+batch's loss and average the gradients (train_brain, train_decoupler), so
+every rank holds the same parameters. Each rank runs the stage-1 eval and
+takes rank 0's metrics (`broadcast_from_host0`), so every rank makes the
+same best and save decisions. Rank 0 alone logs, writes metrics and saves
+(`utils/checkpoint.py`); every rank takes rank 0's answer of whether to
+resume and from where, and a barrier follows the final save. Without a
+mesh the loop is a mesh of one rank: the same feed, on one process.
 
 Each step's draws come from a generator seeded from (seed, epoch, step)
 (`utils.prng.epoch_generator`, the port's `epoch_key`), the batch order of
@@ -27,7 +39,7 @@ the JAX loop saves it when it runs without a test split.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +50,9 @@ from neurons_tpu_torch.config import (BrainModelConfig, DecouplerConfig,
 from neurons_tpu_torch.data import cc2017
 from neurons_tpu_torch.diffusion import prior as prior_lib
 from neurons_tpu_torch.models.decoder_video import DecoderDropout
+from neurons_tpu_torch.parallel import distributed
+from neurons_tpu_torch.parallel.mesh import (Mesh, local_rows,
+                                             prefetch_to_device, replicate)
 from neurons_tpu_torch.training import losses, train_brain, train_decoupler
 from neurons_tpu_torch.training.train_decoupler import is_core
 from neurons_tpu_torch.utils import checkpoint as ckpt_lib
@@ -50,11 +65,34 @@ DrawFn = Callable[[int, int, Dict[str, torch.Tensor]], Any]
 
 
 def _log(msg: str):
-    print(msg, flush=True)
+    if distributed.is_main_process():
+        print(msg, flush=True)
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def _loop_mesh(device, mesh: Optional[Mesh]) -> Mesh:
+    """The loop's mesh: `mesh` (on `device`), or this process alone."""
+    device = resolve_device(device)
+    if mesh is None:
+        return Mesh(world=1, rank=0, device=device)
+    if mesh.device != device:
+        raise ValueError(f"the mesh's device {mesh.device} is not the "
+                         f"loop's {device}")
+    return mesh
+
+
+def _resume_found(ckpt_dir: str, tag: str) -> bool:
+    """Whether `tag` is there to resume from: rank 0's answer on every
+    rank. Rank 0 first finishes a swap a crash interrupted (`ckpt_lib.
+    exists` puts a `<tag>.old` back), and the broadcast returns on no rank
+    before it has, so every rank then reads the same tag."""
+    found = distributed.is_main_process() and ckpt_lib.exists(ckpt_dir, tag)
+    return distributed.broadcast_from_host0(found)
+
+
+def _resume_point(point: Tuple[int, float, int]) -> Tuple[int, float, int]:
+    """(start epoch, best metric, best epoch) of a resume, rank 0's on
+    every rank."""
+    return distributed.broadcast_from_host0(point)
 
 
 def _eval_targets(clip_targets_test, sl: slice, device) -> torch.Tensor:
@@ -231,7 +269,8 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
                best_save_every: int = 1,
                draws: Optional[DrawFn] = None,
                host_draws: bool = False,
-               device="cuda") -> train_brain.TrainState:
+               device="cuda",
+               mesh: Optional[Mesh] = None) -> train_brain.TrainState:
     """Stage-1 training of the core.
 
     clip_targets_*: the CLIP tables [N, n_frames, 256, 1664] (numpy or
@@ -254,8 +293,12 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
     `host_draws=True` draws the initial weights on the CPU too, so the
     card starts where the CPU starts.
     `logger` has MetricLogger's `log_metrics`; by default a MetricLogger
-    under `ckpt_dir`."""
-    device = resolve_device(device)
+    under `ckpt_dir`. `mesh`: data-parallel over its ranks (module
+    docstring; `device` must be the mesh's); a callable
+    `clip_targets_train` is asked for this rank's rows, and `draws`
+    returns the global batch's draws (`batch` holds this rank's rows)."""
+    mesh = _loop_mesh(device, mesh)
+    device = mesh.device
     if logger is None:
         logger = MetricLogger(log_dir=ckpt_dir)
     steps_per_epoch = max(len(train_split) // tcfg.batch_size, 1)
@@ -267,19 +310,21 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
             for name, value in warm_start_params.items():
                 if name in state.params:
                     state.params[name].copy_(value)
-    step_fn = train_brain.make_stage1_train_step(model, schedule, tcfg)
+    replicate(mesh, state.params)
+    step_fn = train_brain.make_stage1_train_step(model, schedule, tcfg, mesh)
     eval_fn = train_brain.make_stage1_eval_step(model)
     if draws is None:
-        def draws(epoch, it, batch):
-            return train_brain.draw_stage1(
-                bcfg, batch["voxel"], epoch_generator(tcfg.seed, epoch, it))
+        def draws(epoch, it, batch):  # the step draws the global batch's
+            return epoch_generator(tcfg.seed, epoch, it)
 
     start_epoch, best_metric, best_epoch = 0, -np.inf, -1
-    if resume and ckpt_dir and ckpt_lib.exists(ckpt_dir, "brain_model_last"):
+    if resume and ckpt_dir and _resume_found(ckpt_dir, "brain_model_last"):
         state, start_epoch, rextra = _restore_state(
             ckpt_dir, "brain_model_last", state)
         best_metric = float(rextra.get("best_metric", -np.inf))
         best_epoch = int(rextra.get("best_epoch", -1))
+        start_epoch, best_metric, best_epoch = _resume_point(
+            (start_epoch, best_metric, best_epoch))
         _log(f"--- resumed brain_model_last at epoch {start_epoch} "
              f"(best_metric {best_metric:.3f}) ---")
 
@@ -290,17 +335,20 @@ def run_stage1(bcfg: BrainModelConfig, tcfg: TrainConfig,
             clip_targets_test, ckpt_dir, log_every, logger,
             stop_after_epochs, saver, mid_save, state, step_fn, eval_fn,
             draws, start_epoch, best_metric, best_epoch, best_save_every,
-            device)
+            device, mesh)
     except BaseException:
         if saver is not None:
             saver.abort()  # drop queued snapshots; don't leak the thread
         raise
     if saver is not None:
         saver.close()
+    distributed.barrier()  # every tag on disk before any rank reads one
     return state
 
 
-def _stage1_batches(train_split, tcfg, epoch, clip_targets_train, device):
+def _stage1_batches(train_split, tcfg, epoch, clip_targets_train):
+    """The host batches of an epoch (a callable `clip_targets_train`
+    gives this rank's rows: `_stage1_feed`)."""
     for batch in cc2017.batches(train_split, tcfg.batch_size,
                                 seed=tcfg.seed + epoch):
         if callable(clip_targets_train):
@@ -309,9 +357,17 @@ def _stage1_batches(train_split, tcfg, epoch, clip_targets_train, device):
         else:
             voxel, target = train_brain.select_stage1_inputs(
                 batch, epoch, clip_targets_train)
-        yield {"voxel": torch.as_tensor(voxel, device=device),
-               "target": torch.as_tensor(target, device=device),
-               "text": torch.as_tensor(batch["text_emb"], device=device)}
+        yield {"voxel": voxel, "target": target, "text": batch["text_emb"]}
+
+
+def _stage1_feed(train_split, tcfg, epoch, clip_targets_train, mesh):
+    targets = clip_targets_train
+    if callable(clip_targets_train):
+        def targets(index, epoch):  # this rank's rows, placed by the caller
+            return clip_targets_train(index[local_rows(mesh, len(index))],
+                                      epoch)
+    return prefetch_to_device(
+        _stage1_batches(train_split, tcfg, epoch, targets), mesh)
 
 
 def _stage1_eval(eval_fn, params, test_split, clip_targets_test, device):
@@ -339,14 +395,14 @@ def _stage1_epochs(tcfg, train_split, test_split, clip_targets_train,
                    clip_targets_test, ckpt_dir, log_every, logger,
                    stop_after_epochs, saver, mid_save, state, step_fn,
                    eval_fn, draws, start_epoch, best_metric, best_epoch,
-                   best_save_every, device):
+                   best_save_every, device, mesh):
     pending_best = False
     last_best_saved = -(1 << 30)
     for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.time()
         ep_losses = []
-        for it, b in enumerate(_stage1_batches(train_split, tcfg, epoch,
-                                               clip_targets_train, device)):
+        for it, b in enumerate(_stage1_feed(train_split, tcfg, epoch,
+                                            clip_targets_train, mesh)):
             state, metrics = step_fn(state, draws(epoch, it, b), b["voxel"],
                                      b["target"], b["text"])
             ep_losses.append(metrics["loss"])
@@ -357,6 +413,7 @@ def _stage1_epochs(tcfg, train_split, test_split, clip_targets_train,
 
         ev = _stage1_eval(eval_fn, state.params, test_split,
                           clip_targets_test, device)
+        ev = distributed.broadcast_from_host0(ev)  # rank 0's, everywhere
         fwd = ev["test_fwd_percent_correct"]
         bwd = ev["test_bwd_percent_correct"]
         txt = ev["text_fwd_percent_correct"]
@@ -435,7 +492,8 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
                best_save_every: int = 1,
                draws: Optional[DrawFn] = None,
                host_draws: bool = False,
-               device="cuda") -> train_decoupler.TrainState:
+               device="cuda",
+               mesh: Optional[Mesh] = None) -> train_decoupler.TrainState:
     """Stage-2 training. `batch_builder(batch, epoch)` assembles the
     precomputed-table fields (numpy) for a raw batch of `train_split`;
     `core_params` is stage 1's core (`load_stage1_core`). Weights come
@@ -454,16 +512,21 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
     `image_log_every=k` logs the seg panels (`make_stage2_seg_panel_fn`,
     `min(4, B)` clips of the epoch's last batch) every k epochs through
     `logger.log_images`; `logger` has MetricLogger's `log_metrics` and
-    `log_images`, by default a MetricLogger under `ckpt_dir`."""
-    device = resolve_device(device)
+    `log_images`, by default a MetricLogger under `ckpt_dir`. `mesh`:
+    data-parallel over its ranks (module docstring; `device` must be the
+    mesh's); `draws` returns the global batch's draws (`batch` holds this
+    rank's rows), and rank 0 logs the seg panel of its rows."""
+    mesh = _loop_mesh(device, mesh)
+    device = mesh.device
     if logger is None:
         logger = MetricLogger(log_dir=ckpt_dir)
     steps_per_epoch = max(len(train_split) // tcfg.batch_size, 1)
     bundle, state = train_decoupler.init_stage2(
         bcfg, pcfg, dcfg, tcfg, gpt2_cfg, steps_per_epoch, seed=tcfg.seed,
         core_params=core_params, device=device, host_draws=host_draws)
-    step_fn = train_decoupler.make_stage2_train_step(bundle, tcfg, dcfg,
-                                                     steps_per_epoch)
+    replicate(mesh, state.params)
+    step_fn = train_decoupler.make_stage2_train_step(
+        bundle, tcfg, dcfg, steps_per_epoch, mesh)
     mixup_epochs = int(tcfg.mixup_pct * tcfg.num_epochs)
     soft_temps = losses.cosine_anneal(
         tcfg.soft_temp_start, tcfg.soft_temp_end,
@@ -476,22 +539,23 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
             shape = {"clip_vision_target": batch["clip_vision_target"].cpu()}
             d = train_decoupler.draw_stage2(
                 host_diffusion, shape, dcfg,
-                epoch_generator(tcfg.seed, epoch, it))
+                epoch_generator(tcfg.seed, epoch, it),
+                rows=batch["voxel"].shape[0] * mesh.world)
             return train_decoupler.Stage2Draws(
                 prior_lib.PriorDraws(*(x.to(device) for x in d.prior)),
                 DecoderDropout(*(x.to(device) for x in d.dropout)))
     elif draws is None:
-        def draws(epoch, it, batch):
-            return train_decoupler.draw_stage2(
-                bundle.diffusion, batch, dcfg,
-                epoch_generator(tcfg.seed, epoch, it, device))
+        def draws(epoch, it, batch):  # the step draws the global batch's
+            return epoch_generator(tcfg.seed, epoch, it, device)
 
     start_epoch, best_metric, best_epoch = 0, -np.inf, -1
     tag = "brain_model_prior_last"
-    if resume and ckpt_dir and ckpt_lib.exists(ckpt_dir, tag):
+    if resume and ckpt_dir and _resume_found(ckpt_dir, tag):
         state, start_epoch, rextra = _restore_state(ckpt_dir, tag, state)
         best_metric = float(rextra.get("best_metric", -np.inf))
         best_epoch = int(rextra.get("best_epoch", -1))
+        start_epoch, best_metric, best_epoch = _resume_point(
+            (start_epoch, best_metric, best_epoch))
         _log(f"--- resumed {tag} at epoch {start_epoch} ---")
     if bf16_frozen_core:
         bundle.model.core.to(torch.bfloat16)
@@ -516,13 +580,14 @@ def run_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
             image_log_every, last_save_every, stop_after_epochs,
             best_save_every, state, step_fn, soft_temps, mixup_epochs, draws,
             saver, mid_save, panel_fn, start_epoch, best_metric, best_epoch,
-            device)
+            device, mesh)
     except BaseException:
         if saver is not None:
             saver.abort()
         raise
     if saver is not None:
         saver.close()
+    distributed.barrier()  # every tag on disk before any rank reads one
     return state
 
 
@@ -530,16 +595,17 @@ def _stage2_epochs(tcfg, train_split, batch_builder, ckpt_dir, log_every,
                    logger, image_log_every, last_save_every,
                    stop_after_epochs, best_save_every, state, step_fn,
                    soft_temps, mixup_epochs, draws, saver, mid_save,
-                   panel_fn, start_epoch, best_metric, best_epoch, device):
+                   panel_fn, start_epoch, best_metric, best_epoch, device,
+                   mesh):
     last_best_saved = -(1 << 30)
     for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.time()
         comps: Dict[str, list] = {}
         temp_idx = min(max(epoch - mixup_epochs, 0), len(soft_temps) - 1)
         last_batch = None
-        for it, raw in enumerate(cc2017.batches(train_split, tcfg.batch_size,
-                                                seed=tcfg.seed + epoch)):
-            batch = to_device(batch_builder(raw, epoch), device)
+        host = (batch_builder(raw, epoch) for raw in cc2017.batches(
+            train_split, tcfg.batch_size, seed=tcfg.seed + epoch))
+        for it, batch in enumerate(prefetch_to_device(host, mesh)):
             state, metrics = step_fn(state, draws(epoch, it, batch), batch,
                                      epoch, it, soft_temps[temp_idx])
             for k, v in metrics.items():
@@ -551,7 +617,8 @@ def _stage2_epochs(tcfg, train_split, batch_builder, ckpt_dir, log_every,
                      f"prior={float(metrics['loss_prior']):.4f} "
                      f"seg={float(metrics['loss_key_obj_seg']):.4f}")
         if (panel_fn is not None and epoch % image_log_every == 0
-                and last_batch is not None):
+                and last_batch is not None
+                and distributed.is_main_process()):
             nshow = min(4, last_batch["voxel"].shape[0])
             pred, gt = panel_fn(
                 state.params, epoch_generator(tcfg.seed, epoch, 0, device),

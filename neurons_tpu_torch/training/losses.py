@@ -7,13 +7,16 @@ with ignore index and label smoothing, L1, the cosine-annealed
 temperature, L2 normalisation, the retrieval metrics of the stage-1 eval
 and the NaN guard. Every reduction is a mean over all elements, as in the
 JAX package. Random draws are explicit: `mixco` takes them as tensors
-(`MixcoState`) or from a torch.Generator.
+(`MixcoState`) or from a torch.Generator. The two losses that are ratios
+of sums over the batch (Dice and the token cross-entropy) take `across`, a
+sum over the process group's ranks (`parallel.distributed.
+sum_across_ranks`), to sum over the global batch from this rank's rows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -108,12 +111,19 @@ def soft_clip_loss(preds: torch.Tensor, targs: torch.Tensor,
     return (loss1 + loss2) / 2
 
 
+#: a sum over the process group's ranks (`distributed.sum_across_ranks`)
+Across = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
 def dice_loss(pred_logits: torch.Tensor, mask: torch.Tensor,
-              smooth: float = 1e-7) -> torch.Tensor:
-    """Dice loss on sigmoid logits, over the whole batch."""
+              smooth: float = 1e-7, across: Across = None) -> torch.Tensor:
+    """Dice loss on sigmoid logits, over the whole batch (with `across`,
+    the global batch)."""
     p = torch.sigmoid(pred_logits)
     intersection = torch.sum(p * mask)
     union = torch.sum(p) + torch.sum(mask)
+    if across is not None:
+        intersection, union = across(torch.stack([intersection, union]))
     return 1.0 - (2.0 * intersection + smooth) / (union + smooth)
 
 
@@ -125,10 +135,12 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = 0,
-                         label_smoothing: float = 0.1) -> torch.Tensor:
+                         label_smoothing: float = 0.1,
+                         across: Across = None) -> torch.Tensor:
     """Token cross-entropy with an ignored label and label smoothing:
     (1 - eps) * nll + eps * mean over classes of -logp, averaged over the
-    tokens that are not ignored."""
+    tokens that are not ignored (with `across`, those of the global
+    batch)."""
     n_classes = logits.shape[-1]
     logits = logits.reshape(-1, n_classes)
     labels = labels.reshape(-1).long()
@@ -136,8 +148,11 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     per_tok = (1.0 - label_smoothing) * nll + label_smoothing * (-logp.mean(-1))
-    denom = valid.sum().clamp(min=1)
-    return torch.where(valid, per_tok, torch.zeros_like(per_tok)).sum() / denom
+    total = torch.where(valid, per_tok, torch.zeros_like(per_tok)).sum()
+    count = valid.sum()
+    if across is not None:
+        total, count = across(total), across(count)
+    return total / count.clamp(min=1)
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

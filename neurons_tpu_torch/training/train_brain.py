@@ -14,6 +14,15 @@ cast to bf16 after the mixup, the outputs and every loss term in f32.
 
 Randomness: a step's mixup draws and dropout keep masks are one
 `Stage1Draws`, passed in or drawn from a generator (`draw_stage1`).
+
+Data-parallel (a `parallel.Mesh` of N > 1 ranks, each holding its rows of
+the global batch): the step is the one-process step of the global batch.
+Its draws are the global batch's (every rank draws them alike); MixCo
+mixes the gathered voxels and each rank keeps its rows, and both InfoNCE
+terms run over the gathered embeddings (`distributed.gather_rows`, whose
+backward sums the ranks' gradients), so every rank's loss is the global
+one; the gradients are then averaged over the ranks before the update
+(`distributed.all_reduce_grads_`), which the clip sees.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from neurons_tpu_torch import resolve_device
 from neurons_tpu_torch.config import BrainModelConfig, TrainConfig
 from neurons_tpu_torch.models.brain import MixerDropout, draw_mixer_dropout
 from neurons_tpu_torch.models.neurons import NeuronsCore
+from neurons_tpu_torch.parallel import distributed
+from neurons_tpu_torch.parallel.mesh import Mesh, local_rows
 from neurons_tpu_torch.training import losses
 from neurons_tpu_torch.training.optimizers import (Schedule, freeze_by_prefix,
                                                    make_optimizer,
@@ -99,25 +110,46 @@ def init_stage1(cfg: BrainModelConfig, tcfg: TrainConfig,
 
 
 def draw_stage1(cfg: BrainModelConfig, voxel: torch.Tensor,
-                generator: torch.Generator) -> Stage1Draws:
+                generator: torch.Generator,
+                rows: Optional[int] = None) -> Stage1Draws:
     """A step's draws for a batch `voxel` [B, ...] from `generator` (on
     its device; they are moved to the batch's where used): the mixup's,
-    then the dropout keep masks."""
-    b = voxel.shape[0]
+    then the dropout keep masks. `rows`: draw for that many rows instead
+    (the global batch of a data-parallel step)."""
+    b = voxel.shape[0] if rows is None else rows
     return Stage1Draws(losses.draw_mixco(b, generator),
                        draw_mixer_dropout(cfg, b, generator))
+
+
+def shard_draws(draws: Stage1Draws, mesh: Mesh) -> Stage1Draws:
+    """This rank's rows of a global batch's draws: the dropout masks'
+    (MixCo's stay global: it mixes the gathered batch)."""
+    if draws.dropout is None:
+        return draws
+    b = draws.mixco.perm.shape[0]
+    rows = local_rows(mesh, b)
+    return Stage1Draws(draws.mixco, MixerDropout(
+        *(tuple(m[rows] for m in ms) for ms in draws.dropout)))
 
 
 def stage1_loss(model: NeuronsCore, params: Dict[str, torch.Tensor],
                 draws: Stage1Draws, voxel: torch.Tensor,
                 clip_target: torch.Tensor, text_target: torch.Tensor,
                 mixco_temp: float, use_mixco: bool = True,
-                bf16_autocast: bool = False
+                bf16_autocast: bool = False, mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The stage-1 loss and its metrics. With `use_mixco` the vision term
-    is the mixup InfoNCE, else SoftCLIP."""
+    is the mixup InfoNCE, else SoftCLIP. Under a `mesh` of several ranks the
+    inputs are this rank's rows, the draws the global batch's MixCo draws
+    and this rank's dropout masks (`shard_draws`), and the loss is the
+    global batch's."""
+    sharded = mesh is not None and mesh.world > 1
     state = None
-    if use_mixco:
+    if use_mixco and sharded:
+        mixed, state = losses.mixco(distributed.gather_rows(voxel),
+                                    draws.mixco)
+        voxel = mixed[local_rows(mesh, mixed.shape[0])]
+    elif use_mixco:
         voxel, state = losses.mixco(voxel, draws.mixco)
     call = module_caller(model, params, bf16_autocast)
     _, clip_vision, clip_text = call(
@@ -126,13 +158,16 @@ def stage1_loss(model: NeuronsCore, params: Dict[str, torch.Tensor],
     b = clip_vision.shape[0]
     v_norm = losses.l2norm(clip_vision.reshape(b, -1))
     t_norm = losses.l2norm(clip_target.reshape(b, -1))
+    ct_norm = losses.l2norm(clip_text)
+    tt_norm = losses.l2norm(text_target.reshape(b, -1))
+    if sharded:
+        v_norm, t_norm, ct_norm, tt_norm = map(
+            distributed.gather_rows, (v_norm, t_norm, ct_norm, tt_norm))
     if use_mixco:
         loss_vision = losses.mixco_nce(v_norm, t_norm, temp=mixco_temp,
                                        state=state)
     else:
         loss_vision = losses.soft_clip_loss(v_norm, t_norm)
-    ct_norm = losses.l2norm(clip_text)
-    tt_norm = losses.l2norm(text_target.reshape(b, -1))
     loss_text = losses.mixco_nce(ct_norm, tt_norm) * 0.25
     loss = loss_vision + loss_text
     return loss, {"loss": loss.detach(),
@@ -141,31 +176,41 @@ def stage1_loss(model: NeuronsCore, params: Dict[str, torch.Tensor],
 
 
 def make_stage1_train_step(model: NeuronsCore, schedule: Schedule,
-                           tcfg: TrainConfig):
+                           tcfg: TrainConfig, mesh: Optional[Mesh] = None):
     """`train_step(state, draws, voxel, clip_target, text_target)` ->
     (state, metrics); `draws` is a Stage1Draws or a torch.Generator to draw
     them from (dropout on). The previous step's gradients are released
-    before the backward, so one set is live at a time."""
+    before the backward, so one set is live at a time. Under a `mesh` the
+    inputs are this rank's rows and `draws` the global batch's (a
+    generator draws them for the global batch); the gradients are averaged
+    over the ranks before the update."""
     cfg = model.backbone.cfg
+    sharded = mesh is not None and mesh.world > 1
 
     def train_step(state: TrainState,
                    draws: Union[Stage1Draws, torch.Generator],
                    voxel: torch.Tensor, clip_target: torch.Tensor,
                    text_target: torch.Tensor):
         if isinstance(draws, torch.Generator):
-            draws = draw_stage1(cfg, voxel, draws)
+            draws = draw_stage1(cfg, voxel, draws, rows=(
+                voxel.shape[0] * mesh.world if sharded else None))
+        if sharded:
+            draws = shard_draws(draws, mesh)
         trainable = [p for n, p in state.params.items() if not FROZEN(n)]
         for p in trainable:
             p.grad = None
         loss, metrics = stage1_loss(model, state.params, draws, voxel,
                                     clip_target, text_target,
                                     tcfg.mixco_temp, use_mixco=True,
-                                    bf16_autocast=tcfg.bf16_autocast)
+                                    bf16_autocast=tcfg.bf16_autocast,
+                                    mesh=mesh)
         grads = torch.autograd.grad(loss, trainable, allow_unused=True)
         # another subject's ridge gets a zero gradient, as optax gives it
         for p, g in zip(trainable, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         del grads
+        if mesh is not None:
+            distributed.all_reduce_grads_(trainable)
         optimizer_step(state.optimizer, schedule, state.step, tcfg.grad_clip)
         return state._replace(step=state.step + 1), metrics
 

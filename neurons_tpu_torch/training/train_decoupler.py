@@ -30,6 +30,20 @@ decoder's dropout masks are one `Stage2Draws`, passed in or drawn from a
 recompute of `torch.utils.checkpoint` (which restores the global RNG, not
 a generator) sees the same masks. Both decoder calls share one set of
 masks, as the JAX package's two applies share one dropout key.
+
+Data-parallel (a `parallel.Mesh` of N > 1 ranks, each holding its rows of
+the global batch): the step is the one-process step of the global batch,
+as GSPMD computes it for the JAX package. The draws are the global
+batch's, sliced to this rank's rows (`shard_draws`). The terms coupled
+across the batch run over gathered rows (`distributed.gather_rows`, whose
+backward sums the ranks' gradients): the temporal SoftCLIP over the B*F
+rows, the text InfoNCE, the decoder's text attention over the batch of
+texts and its temporal attention over all B*F rows (`decoder_video`); Dice
+and the caption cross-entropy sum over the global batch (`across`), and
+the per-row means (the prior's MSE, BCE, L1) are averaged over the ranks
+(`distributed.mean_across_ranks`: shards are of equal size). Every rank's
+loss and metrics are then the global batch's, and the gradients are
+averaged over the ranks before the update (the clip sees the average).
 """
 
 from __future__ import annotations
@@ -45,10 +59,12 @@ from neurons_tpu_torch.config import (BrainModelConfig, DecouplerConfig,
                                       PriorConfig, TrainConfig)
 from neurons_tpu_torch.diffusion.prior import (PriorDiffusion, PriorDraws,
                                                draw_prior, p_losses)
-from neurons_tpu_torch.models.decoder_video import (DecoderDropout,
+from neurons_tpu_torch.models.decoder_video import (DecoderDropout, RowSplit,
                                                     draw_decoder_dropout)
 from neurons_tpu_torch.models.gpt2 import GPT2Config
 from neurons_tpu_torch.models.neurons import NeuronsDecoupler
+from neurons_tpu_torch.parallel import distributed
+from neurons_tpu_torch.parallel.mesh import Mesh, local_rows
 from neurons_tpu_torch.training import losses
 from neurons_tpu_torch.training.curriculum import get_loss_weights
 from neurons_tpu_torch.training.train_brain import TrainState, module_caller
@@ -110,28 +126,54 @@ def init_stage2(bcfg: BrainModelConfig, pcfg: PriorConfig,
 
 
 def draw_stage2(diffusion: PriorDiffusion, batch: Dict[str, torch.Tensor],
-                dcfg: DecouplerConfig, generator: torch.Generator
-                ) -> Stage2Draws:
+                dcfg: DecouplerConfig, generator: torch.Generator,
+                rows: Optional[int] = None) -> Stage2Draws:
     """A step's draws for `batch` from `generator`: the prior's, then the
-    decoder's keep masks."""
+    decoder's keep masks. `rows`: draw for that many rows instead (the
+    global batch of a data-parallel step)."""
     target = batch["clip_vision_target"]
-    b, n = target.shape[:2]
+    shape = tuple(target.shape) if rows is None else (
+        (rows,) + tuple(target.shape[1:]))
+    b, n = shape[:2]
     device = target.device
-    prior = draw_prior(diffusion, tuple(target.shape), generator, device)
+    prior = draw_prior(diffusion, shape, generator, device)
     return Stage2Draws(prior, draw_decoder_dropout(
         b * dcfg.n_frames, n, b, dcfg.clip_txt_emb_dim, generator, device))
+
+
+def shard_draws(draws: Stage2Draws, mesh: Mesh) -> Stage2Draws:
+    """This rank's rows of a global batch's draws: the prior's rows of B,
+    the decoder masks' rows of B*F (their text axis stays the global
+    batch's)."""
+    rows = local_rows(mesh, draws.prior.times.shape[0])
+    prior = PriorDraws(*(x[rows] for x in draws.prior))
+    if draws.dropout is None:
+        return Stage2Draws(prior, None)
+    flat = local_rows(mesh, draws.dropout.attn.shape[0])
+    return Stage2Draws(prior, DecoderDropout(
+        *(m[flat] for m in draws.dropout)))
 
 
 def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
                 draws: Stage2Draws, batch: Dict[str, torch.Tensor],
                 soft_temp: float, weights: torch.Tensor, tcfg: TrainConfig,
-                dcfg: DecouplerConfig
+                dcfg: DecouplerConfig, mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The weighted stage-2 loss and its metrics (each term, the total and
-    the caption token accuracy)."""
+    the caption token accuracy). Under a `mesh` of several ranks `batch`
+    and `draws` are this rank's rows (`shard_draws`) and the loss and
+    metrics are the global batch's."""
+    sharded = mesh is not None and mesh.world > 1
+    gather = distributed.gather_rows if sharded else (lambda x: x)
+    mean = distributed.mean_across_ranks if sharded else (lambda x: x)
+    across = distributed.sum_across_ranks if sharded else None
     call = module_caller(bundle.model, params, tcfg.bf16_autocast)
     voxel = batch["voxel"]
     b, f = voxel.shape[0], dcfg.n_frames
+    # the decoder's temporal sequence: all B*F rows of the global batch
+    split = (RowSplit(distributed.gather_rows,
+                      local_rows(mesh, b * f * mesh.world))
+             if sharded else None)
 
     # frozen core forward
     with torch.no_grad():
@@ -144,6 +186,7 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
     loss_prior, prior_out = p_losses(bundle.diffusion, net,
                                      batch["clip_vision_target"], clip_vision,
                                      draws=draws.prior)
+    loss_prior = mean(loss_prior)
 
     motion = call("motion_proj", prior_out)              # [B, F, N, C]
 
@@ -151,21 +194,25 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
     vt = losses.l2norm(batch["clip_video_target"].reshape(b, f, -1)
                        ).reshape(b * f, -1)
     mt = losses.l2norm(motion.reshape(b, f, -1)).reshape(b * f, -1)
-    loss_clip_vision = losses.soft_clip_loss(mt, vt, temp=soft_temp)
+    loss_clip_vision = losses.soft_clip_loss(gather(mt), gather(vt),
+                                             temp=soft_temp)
 
     # text alignment
     pred_text = call("core.clipproj", motion.mean(dim=1))
     pred_text_norm = losses.l2norm(pred_text)
     target_text_norm = losses.l2norm(batch["text_emb"].reshape(b, -1))
-    loss_clip_txt = losses.mixco_nce(pred_text_norm, target_text_norm)
+    loss_clip_txt = losses.mixco_nce(gather(pred_text_norm),
+                                     gather(target_text_norm))
 
     # key-object segmentation and blurry recon: the DecoderVideo head,
     # recomputed in the backward (its 64x64 activations are the step's
-    # memory peak). `time` is B*F, as the JAX package passes it.
+    # memory peak). Its temporal sequence is all B*F rows, as the JAX
+    # package passes it (`split` over the ranks); the text attention runs
+    # over the global batch's texts.
     def seg_decode(flat, text, is_seg):
-        return call("text_seg_dec", flat, text, time=flat.shape[0], is_seg=is_seg,
-                    deterministic=draws.dropout is None,
-                    dropout_masks=draws.dropout)
+        return call("text_seg_dec", flat, gather(text), time=flat.shape[0],
+                    is_seg=is_seg, deterministic=draws.dropout is None,
+                    dropout_masks=draws.dropout, split=split)
 
     flat_motion = motion.reshape(b * f, motion.shape[2], motion.shape[3])
     seg_logits = checkpoint(seg_decode, flat_motion,
@@ -175,19 +222,22 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
     masks = batch["key_obj_masks"]
     masks = F.interpolate(masks.reshape(b * f, 1, *masks.shape[-2:]).float(),
                           size=tuple(hw), mode="nearest-exact")
-    loss_seg = losses.dice_loss(seg_logits, masks)
+    loss_seg = losses.dice_loss(seg_logits, masks, across=across)
 
     # multi-label classification
     cls_pred = call("classifier", motion.mean(dim=1).mean(dim=1))
-    loss_cls = losses.bce_with_logits(cls_pred, batch["cls_label"])
+    loss_cls = mean(losses.bce_with_logits(cls_pred, batch["cls_label"]))
 
     # caption CE
     tokens = batch["clip_tokens"].long()
     logits = call("text_dec", pred_text_norm, tokens)[:, :-1]
-    loss_text = losses.cross_entropy_ignore(logits, tokens)
+    loss_text = losses.cross_entropy_ignore(logits, tokens, across=across)
     valid = tokens > 0
-    acc_text = ((logits.argmax(-1) == tokens) & valid).sum() / valid.sum(
-    ).clamp(min=1)
+    hits = ((logits.argmax(-1) == tokens) & valid).sum()
+    count = valid.sum()
+    if sharded:
+        hits, count = across(hits), across(count)
+    acc_text = hits / count.clamp(min=1)
 
     # blurry video recon
     vae_lat = batch["vae_latents"]
@@ -196,7 +246,7 @@ def stage2_loss(bundle: Stage2Bundle, params: Dict[str, torch.Tensor],
                      use_reentrant=False)                # [(B F), 4, h', w']
     rec = F.interpolate(rec, size=tuple(vae_lat.shape[-2:]),
                         mode="nearest-exact")
-    loss_recon = losses.l1_loss(rec, vae_lat)
+    loss_recon = mean(losses.l1_loss(rec, vae_lat))
 
     w = weights.to(loss_prior.device)
     loss = (loss_prior * tcfg.prior_scale + loss_clip_vision + loss_clip_txt
@@ -252,10 +302,15 @@ def make_stage2_seg_panel_fn(bundle: Stage2Bundle, dcfg: DecouplerConfig):
 
 
 def make_stage2_train_step(bundle: Stage2Bundle, tcfg: TrainConfig,
-                           dcfg: DecouplerConfig, steps_per_epoch: int):
+                           dcfg: DecouplerConfig, steps_per_epoch: int,
+                           mesh: Optional[Mesh] = None):
     """`train_step(state, draws, batch, epoch, iteration, soft_temp)` ->
     (state, metrics); `draws` is a Stage2Draws or a torch.Generator to draw
-    them from (dropout on)."""
+    them from (dropout on). Under a `mesh` `batch` holds this rank's rows
+    and `draws` are the global batch's (a generator draws them for the
+    global batch); the gradients are averaged over the ranks before the
+    update."""
+    sharded = mesh is not None and mesh.world > 1
 
     def train_step(state: TrainState,
                    draws: Union[Stage2Draws, torch.Generator],
@@ -264,15 +319,21 @@ def make_stage2_train_step(bundle: Stage2Bundle, tcfg: TrainConfig,
         weights = get_loss_weights(tcfg.num_epochs, epoch, iteration,
                                    steps_per_epoch)
         if isinstance(draws, torch.Generator):
-            draws = draw_stage2(bundle.diffusion, batch, dcfg, draws)
+            draws = draw_stage2(bundle.diffusion, batch, dcfg, draws, rows=(
+                batch["voxel"].shape[0] * mesh.world if sharded else None))
+        if sharded:
+            draws = shard_draws(draws, mesh)
         trainable = [p for n, p in state.params.items() if not is_core(n)]
         loss, metrics = stage2_loss(bundle, state.params, draws, batch,
-                                    soft_temp, weights, tcfg, dcfg)
+                                    soft_temp, weights, tcfg, dcfg, mesh)
         grads = torch.autograd.grad(loss, trainable, allow_unused=True)
         # an unused parameter gets a zero gradient, as optax gives it (its
         # Adam moments still decay)
         for p, g in zip(trainable, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        del grads
+        if mesh is not None:
+            distributed.all_reduce_grads_(trainable)
         optimizer_step(state.optimizer, bundle.schedule, state.step,
                        tcfg.grad_clip)
         return state._replace(step=state.step + 1), metrics

@@ -21,6 +21,11 @@ directory then takes the tag's place (the old one renamed to `<tag>.old`
 first and removed after), so a half-written payload is never a tag; a
 crash between the two renames leaves `<tag>.old`, which the next access
 puts back. Loads read on the CPU with `weights_only=True` and `mmap=True`.
+
+Inside a process group rank 0 alone writes: `save_ckpt` on another rank
+returns the tag's path and writes nothing, `AsyncCkptWriter` starts no
+thread there, and only rank 0 puts back or removes a `<tag>.old` (another
+rank's access would race rank 0's rename). Every rank reads.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from neurons_tpu_torch.parallel import distributed
 
 PAYLOAD = "payload.pt"
 
@@ -63,9 +70,9 @@ def _fsync_dir(path: str) -> None:
 
 def _settle(path: str) -> None:
     """Finish a swap a crash interrupted: `<tag>.old` without `<tag>` is
-    put back; beside a complete `<tag>` it is removed."""
+    put back; beside a complete `<tag>` it is removed. Rank 0 only."""
     old = path + ".old"
-    if os.path.isdir(old):
+    if distributed.is_main_process() and os.path.isdir(old):
         if os.path.isdir(path):
             shutil.rmtree(old)
         else:
@@ -77,9 +84,11 @@ def save_ckpt(directory: str, tag: str, *, params: Dict[str, torch.Tensor],
               epoch: int = 0, extra: Optional[Dict] = None) -> str:
     """Write `params` (and `opt_state`, an optimizer state_dict) under
     `directory/tag`, atomically; tensors are copied to the host first.
-    Returns the tag's path."""
-    os.makedirs(directory, exist_ok=True)
+    Returns the tag's path. Off rank 0 it writes nothing."""
     path = os.path.abspath(os.path.join(directory, tag))
+    if not distributed.is_main_process():
+        return path
+    os.makedirs(directory, exist_ok=True)
     t0 = time.perf_counter()
     payload = {"params": map_tensors(lambda t: t.detach().cpu(), params),
                "step": int(step), "epoch": int(epoch)}
@@ -167,14 +176,17 @@ class AsyncCkptWriter:
     save of a tag lands last; a queue of `max_pending` gives backpressure.
     `drain()` waits for every queued write and re-raises the first writer
     error; call it before a synchronous save of the same tag and at the
-    end. The snapshot costs device memory of the payload's size."""
+    end. The snapshot costs device memory of the payload's size. Off rank
+    0 it starts no thread and `submit` does nothing."""
 
     def __init__(self, max_pending: int = 2):
         self._q: "queue.Queue" = queue.Queue(maxsize=max_pending)
         self._err: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="ckpt-writer")
-        self._thread.start()
+        self._thread = None
+        if distributed.is_main_process():
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="ckpt-writer")
+            self._thread.start()
 
     def _run(self):
         while True:
@@ -204,6 +216,8 @@ class AsyncCkptWriter:
         reports it."""
         if self._err is not None:
             raise self._err
+        if self._thread is None:
+            return
         payload = {"params": self._snapshot(params),
                    "opt_state": (self._snapshot(opt_state)
                                  if opt_state is not None else None),
@@ -220,8 +234,9 @@ class AsyncCkptWriter:
 
     def close(self) -> None:
         self.drain()
-        self._q.put(None)
-        self._thread.join(timeout=60)
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join(timeout=60)
 
     def abort(self) -> None:
         """Shut down without draining, for exception paths: drop the queued
@@ -236,7 +251,8 @@ class AsyncCkptWriter:
             self._q.put_nowait(None)
         except queue.Full:
             pass
-        self._thread.join(timeout=10)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
 
 
 # ------------------------------------------- consumers of trained tags ----

@@ -1,11 +1,12 @@
 """Experiment metrics logging.
 
-Counterpart of neurons_tpu/utils/metrics_log.py (one process, so no rank
-gating): one JSONL line per `log_metrics` call in `<log_dir>/metrics.jsonl`,
-image panels as PNGs under `<log_dir>/images/` (an `.npy` of the uint8
-panel where imageio is missing), and wandb only when the caller names a
-project and the package imports. Without a `log_dir` nothing is written
-to disk.
+Counterpart of neurons_tpu/utils/metrics_log.py: one JSONL line per
+`log_metrics` call in `<log_dir>/metrics.jsonl`, image panels as PNGs under
+`<log_dir>/images/` (an `.npy` of the uint8 panel where imageio is
+missing), and wandb only when the caller names a project and the package
+imports. Without a `log_dir` nothing is written to disk. Inside a process
+group only rank 0 logs: elsewhere the logger opens nothing and every
+method returns at once.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from neurons_tpu_torch.parallel.distributed import is_main_process
+
 
 class MetricLogger:
     def __init__(self, log_dir: Optional[str] = None,
@@ -26,6 +29,8 @@ class MetricLogger:
         self._fh = None
         self._wandb = None
         self._dir = log_dir
+        if not is_main_process():
+            return
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, "metrics.jsonl"), "a")
@@ -40,10 +45,13 @@ class MetricLogger:
                            config=config or {})
 
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
+        if is_main_process():
+            print(msg, flush=True)
 
     def log_metrics(self, metrics: Dict[str, Any],
                     step: Optional[int] = None) -> None:
+        if not is_main_process():
+            return
         row = {k: (float(v) if hasattr(v, "__float__") else v)
                for k, v in metrics.items()}
         row["_time"] = time.time()
@@ -61,6 +69,8 @@ class MetricLogger:
         """Image panels: `images` maps a panel name to [H, W], [H, W, C] or
         [N, H, W(, C)] values in [0, 1] (numpy or tensors; a leading batch
         is tiled side by side)."""
+        if not is_main_process():
+            return
         panels = {}
         for name, img in images.items():
             if hasattr(img, "detach"):

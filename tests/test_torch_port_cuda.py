@@ -1026,3 +1026,67 @@ def test_autoencoder_steps_card_against_cpu(cuda):
     for k, v in cpu["stats"].items():
         assert float((card["stats"][k] - v).abs().max()) <= 1e-3 * float(
             v.abs().max()), k
+
+
+# --- parallel/: the pinned prefetch and a world-1 NCCL group ----------------
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_the_card(cuda, monkeypatch):
+    """`prefetch_to_device` yields the tensors a plain copy gives, and the
+    consuming stream waits on an event recorded after each batch's copy."""
+    import numpy as np
+    from neurons_tpu_torch.parallel import create_mesh, prefetch_to_device
+
+    waits = []
+    wait_event = torch.cuda.Stream.wait_event
+
+    def recording(stream, event):
+        waits.append((stream, event))
+        return wait_event(stream, event)
+
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", recording)
+    mesh = create_mesh()
+    rng = np.random.default_rng(0)
+    batches = [{"a": rng.standard_normal((10, 6, 256, 1664), np.float32),
+                "b": np.arange(10) + i} for i in range(4)]
+    for i, got in enumerate(prefetch_to_device(iter(batches), mesh)):
+        assert waits and waits[-1][0] == torch.cuda.current_stream()
+        assert isinstance(waits[-1][1], torch.cuda.Event)
+        total = got["a"].sum()  # a kernel on the consumer stream
+        for k, v in batches[i].items():
+            assert torch.equal(got[k].cpu(), torch.as_tensor(v)), (i, k)
+        assert torch.equal(total.cpu(), torch.as_tensor(
+            batches[i]["a"]).to("cuda").sum().cpu())
+    assert len(waits) == len(batches)
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_round_trip(cuda):
+    """A one-process NCCL group: the collectives the training steps use
+    return what a single process holds."""
+    import socket
+
+    import numpy as np
+    from neurons_tpu_torch.parallel import distributed as D
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    D.join_group(f"127.0.0.1:{port}", 1, 0, "nccl")
+    try:
+        assert (D.world_size(), D.rank()) == (1, 0)
+        t = torch.arange(6.0, device="cuda")
+        assert torch.equal(D.all_reduce_(t.clone()), t)
+        x = torch.randn(3, 4, device="cuda")
+        assert torch.equal(D._all_gather_rows(x), x)
+        assert torch.equal(D.broadcast_(x.clone()), x)
+        p = torch.zeros(5, device="cuda", requires_grad=True)
+        p.grad = torch.arange(5.0, device="cuda")
+        D.all_reduce_grads_([p])
+        assert torch.equal(p.grad, torch.arange(5.0, device="cuda"))
+        assert D.broadcast_from_host0({"k": 1.5}) == {"k": 1.5}
+        out = D.process_allgather({"v": np.ones(2)})
+        assert out["v"].shape == (1, 2)
+        D.barrier()
+    finally:
+        D.destroy()

@@ -544,6 +544,16 @@ def test_port_import_loads_no_jax_module():
             "import neurons_tpu_torch.diffusion.lr_schedule\n"
             "import neurons_tpu_torch.utils.ema\n"
             "import neurons_tpu_torch.data.download\n"
+            "import neurons_tpu_torch.parallel\n"
+            "import neurons_tpu_torch.parallel.distributed\n"
+            "import neurons_tpu_torch.parallel.mesh\n"
+            "import neurons_tpu_torch.ops.microbench\n"
+            "import importlib, pkgutil, neurons_tpu_torch\n"
+            "walked = [m.name for m in pkgutil.walk_packages(\n"
+            "    neurons_tpu_torch.__path__, 'neurons_tpu_torch.')]\n"
+            "for name in walked:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'neurons_tpu_torch.parallel.mesh' in walked, walked\n"
             "import os, tempfile, torch\n"
             "p = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
             "tex.write_safetensors(p, {'w': torch.ones(2, dtype=torch.bfloat16)})\n"
