@@ -29,9 +29,9 @@ Phases, in order:
      at stage 4's BLIP-2 vision shape (bf16, heads of 88, 257 tokens) and
      stage 6's three classifier shapes (f32: ViT-B's 197 tokens,
      VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), each with the kernel
-     it routes to (f32 up to d = 128: the TF32 register kernel, whose
-     instances' registers and spills, 0 bytes required, are logged after
-     the build), against an f32
+     it routes to (f32 up to d = 128: the TF32 register kernel, past it up
+     to 512 the TF32 column-split kernels, whose instances' registers and
+     spills, 0 bytes required, are logged after the build), against an f32
      reference; its error must be no worse than 1.5x the plain version's
      at the kernel's precision (bf16 operands; for f32, operands rounded
      to TF32 as the kernel rounds them). The
@@ -149,8 +149,10 @@ Phases, in order:
      f32 at d = 104, the VAE encoder, the bigG text tower): the tables'
      shapes and dtypes, one frame's tokens and latents within 2e-2 * max
      of the same towers on the CPU, the launches held to
-     `precompute_launches`; s a 1000 frames by table, setup s, peak
-     memory, bytes written; the files removed after;
+     `precompute_launches`, each launched shape by the 1.5x rule (the VAE
+     encoder's [16, 1, 784, 784, 512] on the TF32 column-split forward); s
+     a 1000 frames by table, setup s, peak memory, bytes written; the
+     files removed after;
   4e. SVD at full width (`svd_phase`): a reduced SVD card vs CPU
      (`svd_small_check`, 2e-2), then `VideoUNetConfig()` and
      `VideoDecoderConfig()` in bf16 from a seeded fp16 sgm-layout
@@ -173,7 +175,10 @@ Phases, in order:
      losses and d_weight, the peak memory, every step checked (finite,
      parameters moved, the generator pass leaving the running statistics),
      the flash launches (#1/#2 with lse and #4 at [4, 1, 1024, 1024, 512]
-     f32) held to `autoencoder_launches`; one profiled step pair; one
+     f32, on the TF32 column-split kernels) held to
+     `autoencoder_launches` and, each shape, by the 1.5x rule (forward,
+     forward with lse, backward, with device times); one profiled step
+     pair; one
      `ema.update` over the VAE; one generator step under
      NEURONS_TPU_FUSED_NORM=1 against the unfused one (`ae_fused_check`);
      then T5 (`t5_phase`: a reduced T5 card vs CPU, `t5_v1_1_xxl` at 2 x
@@ -249,9 +254,10 @@ Phases, in order:
 Then one line of per-kernel totals for one clip or one step (launches x
 time summed: kernel by events and, for #6-#8, by device time, bound,
 library call), which gives the redesign order from one run, one line of
-the f32 route's (the flash forward on f32) over a scored clip, a seg
-panel, the CLI's stage e a clip, a precompute batch of 16 frames and one
-validate run, and one line
+the f32 route's (the flash kernels on f32) over a scored clip, a seg
+panel, the CLI's stage e a clip, a precompute batch of 16 frames (at d
+104, and at d 512) and one validate run, and an autoencoder step pair (the
+forwards, the backwards), each path held to its kernel, and one line
 of the same sums by the Pallas kernel each launch replaces. The last
 two lines are the kernels' JSON record (each (kernel, shape) of the main
 paths, the "max" fast clip's among them, those totals, the f32 route's,
@@ -305,6 +311,9 @@ FLASH_SHAPES = [
     ("unet3d self 32x32 gated", (16, 8, 1024, 1024, 40)),
     ("unet3d self 16x16 gated", (16, 8, 256, 256, 80)),
 ]
+# the f32 checks at two of the clip's shapes: the UNet's cross-attention on
+# the TF32 register kernel, the VAE's d = 512 over 4096 tokens on the TF32
+# column-split one (no clip launches either in f32)
 F32_CHECKS = ["unet cross 48x48", "vae blurry 64x64"]
 # the stage-2 seg panels' launches (`make_stage2_seg_panel_fn`, min(4, B) =
 # 4 clips of 6 frames, f32 as the JAX package's panel runs, no grad): the
@@ -743,7 +752,11 @@ def train_kernel_phase(checks=None):
             q, k, v, bias, scale), reps)
         fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, kx, vx, attn_mask=bias, scale=scale), reps)
+        fwd_dev_ms = device_ms(lambda: attn.flash_attention_fwd(
+            q, k, v, scale=scale, bias=bias, return_lse=True), reps)
         bwd_ms = cuda_ms(lambda: attn.flash_attention_bwd(
+            q, k, v, bias, g, out, lse, scale), reps)
+        bwd_dev_ms = device_ms(lambda: attn.flash_attention_bwd(
             q, k, v, bias, g, out, lse, scale), reps)
         bwd_plain_ms = cuda_ms(lambda: attn.flash_attention_bwd_reference(
             q, k, v, bias, g, out, lse, scale), reps)
@@ -777,14 +790,21 @@ def train_kernel_phase(checks=None):
         err_s = " ".join(f"{n} {e:.3e} (plain {pe:.3e})"
                          for n, (e, pe, _) in errs.items())
         bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
+        fwd_route = attn.flash_route(d, dt)
+        # the route tables name unbiased launches: a biased f32 backward
+        # past d 128 keeps the first design
+        bwd_route = (attn.BWD_ROUTES[1] if bias is not None and tf32
+                     and d > 128 else attn.flash_bwd_route(d, dt))
         log(f"train {name:14s} {tname:8s} [{b},{h},{tq},{tk},{d}] kv heads "
-            f"{hkv} bias {bshape}  max_abs_err {err_s}  fwd+lse kernel_ms "
-            f"{fwd_ms:.4f} plain_ms {fwd_plain_ms:.4f} library_ms "
-            f"{fwd_lib_ms:.4f} bound_ms {fwd_bound:.4f} ({fwd_by})  bwd "
-            f"tiles {bq}x{bk} smem {smem} B kernel_ms {bwd_ms:.4f} plain_ms "
-            f"{bwd_plain_ms:.4f} library_ms {bwd_lib_ms:.4f} (fwd+bwd) "
-            f"library_bwd_ms {bwd_lib_only_ms:.4f} bound_ms {bwd_bound:.4f} "
-            f"({bwd_by})  {'OK' if ok else 'FAIL'}")
+            f"{hkv} bias {bshape}  max_abs_err {err_s}  fwd+lse {fwd_route} "
+            f"kernel_ms {fwd_ms:.4f} (device {fwd_dev_ms:.4f}) plain_ms "
+            f"{fwd_plain_ms:.4f} library_ms {fwd_lib_ms:.4f} bound_ms "
+            f"{fwd_bound:.4f} ({fwd_by})  bwd {bwd_route} tiles {bq}x{bk} "
+            f"smem {smem} B kernel_ms {bwd_ms:.4f} (device "
+            f"{bwd_dev_ms:.4f}) plain_ms {bwd_plain_ms:.4f} library_ms "
+            f"{bwd_lib_ms:.4f} (fwd+bwd) library_bwd_ms "
+            f"{bwd_lib_only_ms:.4f} bound_ms {bwd_bound:.4f} ({bwd_by})  "
+            f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"training kernels disagree at {name} "
                                  f"{tname}: {errs}")
@@ -792,14 +812,15 @@ def train_kernel_phase(checks=None):
         fwd_records[key + ("bias+lse" if bias is not None else "lse",)] = dict(
             site=f"{name} (train)", max_abs_err=max(errs["out"][0],
                                                     errs["lse"][0]),
-            ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
-            bound_ms=fwd_bound, bound_by=fwd_by)
+            ms=fwd_ms, device_ms=fwd_dev_ms, plain_ms=fwd_plain_ms,
+            library_ms=fwd_lib_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+            route=fwd_route)
         bwd_records[key + ("bias" if bias is not None else "",)] = dict(
             site=f"{name} (train)",
             max_abs_err=max(errs[n][0] for n in GRADS if n in errs),
-            ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
-            library_bwd_ms=bwd_lib_only_ms, bound_ms=bwd_bound,
-            bound_by=bwd_by)
+            ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=bwd_plain_ms,
+            library_ms=bwd_lib_ms, library_bwd_ms=bwd_lib_only_ms,
+            bound_ms=bwd_bound, bound_by=bwd_by, route=bwd_route)
         del q, k, v, g, bias, out, lse, got, kx, vx
         torch.cuda.empty_cache()
     return fwd_records, bwd_records
@@ -2248,14 +2269,16 @@ def device_profile(prof, wall: float, what: str, kernels):
 # #8's statistics carry the prefix gn_conv_stats_ (csrc/gn_common.cuh)
 GN_SILU_SYMBOLS = ("gn_silu_cluster_kernel", "gn_silu_stats_kernel",
                    "gn_silu_apply_kernel")
-# (the forward's four kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
-# flash_fwd_tf32_kernel, flash_fwd_kernel; #8's halo, split-reduce and TF32
-# kernels)
+# (the forward's five kernels: flash_fwd_reg_kernel, flash_fwd_wide_kernel,
+# flash_fwd_tf32_kernel, flash_fwd_wide_tf32_kernel, flash_fwd_kernel; #8's
+# halo, split-reduce and TF32 kernels)
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
 # the backward's passes: flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel
 # and, for the prior's per-head bias, flash_bwd_dbias_reg_kernel (bf16,
-# d <= 128); flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the WMMA
-# kernels of f32 and d > 128)
+# d <= 128); flash_bwd_dkdv_wide_tf32_kernel and
+# flash_bwd_dq_wide_tf32_kernel (f32 at 128 < d <= 512, unbiased);
+# flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the WMMA kernels of the
+# rest of f32 and of d > 512)
 FLASH_BWD_SYMBOLS = {"flash backward dk/dv": ("flash_bwd_dkdv_",),
                      "flash backward dq": ("flash_bwd_dq_",),
                      "flash backward dbias": ("flash_bwd_dbias_",)}
@@ -5998,6 +6021,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"],
                 "library_bwd_ms": rec["library_bwd_ms"],
+                "device_ms": rec["device_ms"],
             })
             groups.append(("flash_attn_bwd", path, runs[path]))
         for key, launches in sorted(kernels["temporal_attn_fwd"].items()):
@@ -6042,6 +6066,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "library_bwd_ms": rec["library_bwd_ms"],
+            "device_ms": rec["device_ms"],
         })
         groups.append(("flash_attn_bwd", "step", runs["step"]))
     for path, key, launches in (
@@ -6140,35 +6165,44 @@ def kernel_totals(entries, groups, by_tpu_kernel=False):
 def f32_check_records(flash_records):
     """The f32 flash checks at two of the clip's shapes (F32_CHECKS: the
     UNet's cross-attention on the TF32 register kernel, the VAE's d = 512
-    on the first design), which no main path launches in f32, recorded
-    with their bound and library time. The f32 route's main-path launches
-    (stage 6, stage e, the seg panels) are entries of the kernels list and
-    of `f32_route_totals`."""
+    over 4096 tokens on the TF32 column-split one), which the clip does
+    not launch in f32, recorded with their bound and library time. The f32
+    route's main-path launches (stage 6, stage e, the seg panels at d <=
+    128; the autoencoder step and precompute's VAE encoder at d = 512) are
+    entries of the kernels list and of `f32_route_totals`."""
     return [dict(name=f"flash_attn_fwd[{b}x{h}x{tq}x{tk}x{d} float32]",
                  site=rec["site"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                  bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                 library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"])
+                 library_ms=rec["library_ms"], max_abs_err=rec["max_abs_err"],
+                 device_ms=rec["device_ms"], route=rec["route"])
             for (b, h, tq, tk, d, dt, _), rec in sorted(flash_records.items())
             if dt == "float32" and rec["site"] in F32_CHECKS]
 
 
-def f32_route_totals(fwd_records, paths):
-    """The flash forward's f32 route (the TF32 register kernel at d <= 128)
-    over its paths, for one unit of each: `paths` is [(path, {shape key:
-    launches}, units the launches span)]. Per path: launches and the sums
-    of launches x time of the kernel (by events and by device time), of its
-    bound, of its plain version and of the library call, in seconds."""
+def f32_route_totals(records, paths):
+    """The flash kernels' f32 route (the forward's TF32 register kernel at
+    d <= 128, the TF32 column-split forward and backward past it) over its
+    paths, for one unit of each: `paths` is [(path, {shape key: launches},
+    units the launches span)], the keys those of `records` (the forward's,
+    or the backward's). Per path: launches and the sums of
+    launches x time of the kernels (by events and by device time), of
+    their bound, of their plain versions and of the library calls (for the
+    backward the library's backward alone), in seconds, and the routes
+    taken."""
     out = []
     for path, launches, units in paths:
         t = dict(path=path, launches=0.0, kernel_s=0.0, device_s=0.0,
                  bound_s=0.0, plain_s=0.0, library_s=0.0, routes=set())
         for key, n in launches.items():
-            rec = fwd_records[key]
+            rec = records[key]
             n = n / units
             t["launches"] += n
+            # a backward record's library time alone: the library's
+            # backward, without its forward
+            lib = "library_bwd_ms" if "library_bwd_ms" in rec else "library_ms"
             for k, ms in (("kernel_s", "ms"), ("device_s", "device_ms"),
                           ("bound_s", "bound_ms"), ("plain_s", "plain_ms"),
-                          ("library_s", "library_ms")):
+                          ("library_s", lib)):
                 t[k] += n * rec[ms] / 1e3
             t["routes"].add(rec["route"])
         t["routes"] = sorted(t["routes"])
@@ -6197,6 +6231,23 @@ def tf32_instances(ptxas):
                              for i in out):
         raise AssertionError(f"the TF32 register kernel's instances: {out}")
     return out
+
+
+def wide_tf32_kernels(ptxas):
+    """The TF32 column-split kernels past d 128 in the -Xptxas -v summary:
+    the forward's four instances (bias, lse) and the backward's two
+    passes; raises if one is missing or spills."""
+    wide = [dict(function=f["function"], registers=f["registers"],
+                 spill_stores=f.get("spill_stores", 0),
+                 spill_loads=f.get("spill_loads", 0))
+            for f in ptxas if "wide_tf32_kernel" in f["function"]]
+    for i in wide:
+        log(f"  wide tf32 {i['function']}: {i['registers']} registers, "
+            f"spill stores {i['spill_stores']} B, loads {i['spill_loads']} B")
+    if len(wide) != 6 or any(i["spill_stores"] or i["spill_loads"]
+                             for i in wide):
+        raise AssertionError(f"the TF32 column-split kernels: {wide}")
+    return wide
 
 
 def ptxas_summary(name):
@@ -6259,6 +6310,7 @@ def main():
             f"registers, spill stores {f.get('spill_stores', 0)} B, loads "
             f"{f.get('spill_loads', 0)} B")
     tf32_instances(ptxas)
+    wide_tf32_kernels(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}
 
@@ -6289,11 +6341,19 @@ def main():
     cli_by_path, cli_runs = cli_phase()
     stamp("cli")
     precompute = precompute_phase()
+    # precompute's shapes held by the 1.5x rule in its phase (the VAE
+    # encoder's d 512 on the TF32 column-split forward among them)
+    cli_kernel_checks(precompute[0], flash_records, temporal_records,
+                      train_records)
     stamp("precompute")
     with configuration(False):
         svd = svd_phase(flash_records)
         stamp("svd")
         *autoencoder, ae_fused = autoencoder_phase()
+        # the step pair's d 512 launches (forward with lse and plain, the
+        # backward) by the 1.5x rule
+        cli_kernel_checks(autoencoder[0], flash_records, temporal_records,
+                          train_records)
         stamp("autoencoder")
     for by_path, path_runs in (serve, engine, precompute, svd, autoencoder):
         cli_by_path.update(by_path)
@@ -6359,36 +6419,54 @@ def main():
     # the f32 route: a scored clip, the run's one seg panel (one stage-2
     # epoch), the CLI's stage e a clip (its f32 launches but stage 6's), a
     # precompute batch of 16 frames (the bigG vision tower at d = 104) and
-    # one validate run (its f32 UNet2D, UNet3D and SparseCtrl)
+    # one validate run (its f32 UNet2D, UNet3D and SparseCtrl), on the TF32
+    # register kernel; past d 128 on the TF32 column-split kernels, a
+    # precompute batch (the VAE encoder at d = 512) and an autoencoder step
+    # pair (the VAE's mid attention at d = 512: forwards, backwards)
+    from neurons_tpu_torch.ops.attention import BWD_ROUTES
     cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
     stage6 = scored_clip_launches(CLI_FRAMES)
+    ae = "autoencoder step"
 
-    def f32_upto_128(path):
-        return {k: n for k, n in cli_by_path[path]["flash_attn_fwd"].items()
-                if k[5] == "float32" and k[4] <= 128}
+    def f32_at(path, upto_128, kernel="flash_attn_fwd"):
+        return {k: n for k, n in cli_by_path[path][kernel].items()
+                if k[5] == "float32" and (k[4] <= 128) == upto_128}
 
+    reg, wide = ["flash_fwd_tf32_kernel"], ["flash_fwd_wide_tf32_kernel"]
+    routes = {"scored clip": reg, "seg panel": reg, "cli stage e": reg,
+              "precompute batch": reg, "validate run": reg,
+              "precompute batch d 512": wide, "autoencoder step pair": wide,
+              "autoencoder step pair, backward": [BWD_ROUTES[3]]}
     record["f32_route"] = f32_route_totals(
-        flash_records,
+        {**flash_records, **train_records[0]},
         [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
          ("seg panel", {k: n for k, n in train_by_shape["flash_attn_fwd"]
                         .items() if k[5] == "float32"}, 1),
          ("cli stage e", {k: n for k, n in cli_fwd.items()
                           if k[5] == "float32" and k not in stage6},
           runs["cli pipeline 35e6"]),
-         ("precompute batch", f32_upto_128("cli precompute"),
+         ("precompute batch", f32_at("cli precompute", True),
           runs["cli precompute"]),
-         ("validate run", f32_upto_128("cli validate"),
-          runs["cli validate"])])
-    log("f32 route (the flash forward on f32; s of launches x time): "
+         ("validate run", f32_at("cli validate", True),
+          runs["cli validate"]),
+         ("precompute batch d 512", f32_at("cli precompute", False),
+          runs["cli precompute"]),
+         ("autoencoder step pair", f32_at(ae, False), runs[ae])]
+    ) + f32_route_totals(
+        train_records[1],
+        [("autoencoder step pair, backward",
+          f32_at(ae, False, "flash_attn_bwd"), runs[ae])])
+    log("f32 route (the flash kernels on f32; s of launches x time): "
         + " | ".join(f"{t['path']} x{t['launches']:g} {t['routes']}: kernel "
                      f"{t['kernel_s']:.4f} (device {t['device_s']:.4f}) "
                      f"bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} "
                      f"library {t['library_s']:.4f}"
                      for t in record["f32_route"]))
-    if any(t["routes"] != ["flash_fwd_tf32_kernel"]
-           for t in record["f32_route"]):
-        raise AssertionError("an f32 path launched the flash forward off "
-                             "the TF32 register kernel")
+    off = [(t["path"], t["routes"]) for t in record["f32_route"]
+           if t["routes"] != routes[t["path"]]]
+    if off:
+        raise AssertionError(f"f32 paths launched off their TF32 kernels: "
+                             f"{off}")
     log("totals by the Pallas kernel replaced (a clip or a step; s): "
         + " | ".join(f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
                      f"{t['kernel_s']:.4f}" + (

@@ -79,11 +79,49 @@
 // 7). At D > 64 the resident tiles are read from shared memory at each use:
 // their fragments, held, would leave no registers for the f32 accumulators.
 //
-// The f32 (TF32) instances, which serve only the small card-vs-CPU checks,
-// and D > 128 (no path launches either) keep the first design
-// (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): WMMA, every tile product
-// staged through shared memory, the dK, dV and dQ accumulators in shared
-// memory, one tile in flight.
+// The f32 (TF32) instances at 128 < D <= 512 without a bias
+// (flash_bwd_dkdv_wide_tf32_kernel, flash_bwd_dq_wide_tf32_kernel) carry
+// the autoencoder trainer's generator step, [4, 1, 1024, 1024, 512] at the
+// VAE's mid attention, 2 launches a step. Every operand of the five
+// products (Q, K, V, g, P, dS*scale) is rounded to TF32 by cvt.rna, the
+// sums are f32, the probabilities take the accurate expf, as
+// `flash_attention_bwd_reference(..., tf32=True)` does. At 512 columns in
+// f32 the dK and dV accumulators of a key take 4 KB, so they are split by
+// columns across 8 warps (64 each), and so is the depth of S and dP:
+//  * Pass 1, dK/dV: one block per (b, h) and 16 keys (256 blocks at the
+//    trainer's shape). Warp w holds its 64 columns of K and V as TF32 A
+//    fragments (64 registers) and of dK and dV as f32 accumulators (64).
+//    Q, g, lse and delta of 16-query tiles come through a 3-stage cp.async
+//    ring, two tiles ahead (K and V are staged once in its last stage).
+//    Per tile each warp writes its columns' partials of S^T = K Q^T and
+//    dP^T = V g^T ([16 x 16] each, mma.sync m16n8k8, Q and g by ldmatrix
+//    and rounded in registers); after a barrier each of the 256 threads
+//    sums one element of each over the warps in warp order and writes P^T
+//    and dS^T*scale rounded to TF32 (zero past Tq and Tk); after a second
+//    barrier each warp adds P^T g into dV and (dS^T*scale) Q into dK on
+//    its columns (the key permutation of mma_sm80.cuh: A's k index t is
+//    query 2t, B's rows 2t and 2t + 1).
+//  * Pass 2, dQ: one block per (b, h) and 16 queries, Q and g held, K and V
+//    through the ring, the same partials of S and dP, dS*scale, and dQ +=
+//    (dS*scale) K on each warp's columns.
+// The elementwise steps run once an element, on the summed partials, not
+// on each warp's C fragments: the depth split that keeps Q or K in
+// registers leaves no warp the whole of S. Two barriers a tile; no
+// atomics, so a rerun gives equal bits. What bounds it: 10 Tq Tk D
+// operations (21.5 GFLOP at the trainer's shape, 43.4 us at 495 TF32
+// TFLOP/s) against 58.7 MB (17.5 us), so operations. As in the forward,
+// the traffic from L2 comes first: each 16-row block streams its head's
+// whole Q and g (pass 1) or K and V (pass 2), 1.07 GB a pass at the
+// trainer's shape, and the passes took 0.405 and 0.370 ms (H100 SXM at
+// 700 W; 0.79 ms in all against 1.21 for the backward of PyTorch's fused
+// attention): 2.7 and 2.9 TB/s of it.
+//
+// The first design (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel: WMMA,
+// every tile product staged through shared memory, the dK, dV and dQ
+// accumulators in shared memory, one tile in flight) is left for f32 at D
+// <= 128 (the small card-vs-CPU checks, the prior's f32 check, the tiny
+// f32 CLI chain), for a biased f32 launch past D = 128 (no path launches
+// one) and for any D past 512.
 
 #include "flash_common.cuh"
 #include "mma_sm80.cuh"
@@ -124,7 +162,8 @@ __device__ inline int row_of(int mode, int n, int r, int H) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 (TF32) and D > 128: the first design, WMMA through shared memory
+// The first design, WMMA through shared memory: f32 at D <= 128, biased f32
+// past it, and D > 512
 
 __host__ __device__ inline size_t smem_dkdv(int bq, int bk, int dp, int esize) {
   const int skew = esize == 2 ? 8 : 4;
@@ -1030,6 +1069,389 @@ flash_bwd_dbias_reg_kernel(Params p, int n_rep) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 (TF32) at 128 < D <= 512, unbiased: the accumulators and the depth of
+// S and dP split by columns across 8 warps
+
+constexpr int kXB = 16;              // rows a block owns (keys, then
+                                     // queries) and rows of a ring tile
+constexpr int kXThreads = 256;       // 8 warps, 64 columns of D each
+constexpr int kXWarps = kXThreads / 32;
+constexpr int kXDK = 512;            // the head dim padded in shared memory
+constexpr int kXLD = kXDK + 4;       // row stride in floats, as the forward's
+constexpr int kXStages = 3;          // ring tiles in flight: two ahead
+constexpr int kXTile = kXB * kXLD;   // floats of a [16][kXLD] tile
+// a ring stage: two operand tiles (pass 1: Q, g; pass 2: K, V), then
+// (pass 1) the 16 queries' lse and delta
+constexpr int kXStage = 2 * kXTile + 2 * kXB;
+constexpr int kXLDS = kXB + 8;       // row stride of the partials, P and dS
+constexpr int kXPart = kXWarps * kXB * kXLDS;  // floats of one partial set
+constexpr int kXSmem = 4 * (kXStages * kXStage + 2 * kXPart + 2 * kXB * kXLDS);
+static_assert(2 * kXTile <= kXStage, "the resident tiles are staged in the "
+                                     "last stage");
+static_assert(kXB * kXB == kXThreads, "one element of S a thread");
+
+// A warp's 64 columns of two resident [16][kXLD] tiles as TF32 A fragments
+// (8 k8 steps of the 16 rows each): x0 of `a`, x1 of `b`.
+__device__ __forceinline__ void hold_tf32(uint32_t (&x0)[8][4],
+                                          uint32_t (&x1)[8][4],
+                                          const float* a, const float* b,
+                                          int col0, int lane) {
+  const int off = (lane >> 2) * kXLD + col0 + (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const float* pa = a + off + ks * 8;
+    const float* pb = b + off + ks * 8;
+    x0[ks][0] = to_tf32(pa[0]);
+    x0[ks][1] = to_tf32(pa[8 * kXLD]);
+    x0[ks][2] = to_tf32(pa[4]);
+    x0[ks][3] = to_tf32(pa[8 * kXLD + 4]);
+    x1[ks][0] = to_tf32(pb[0]);
+    x1[ks][1] = to_tf32(pb[8 * kXLD]);
+    x1[ks][2] = to_tf32(pb[4]);
+    x1[ks][3] = to_tf32(pb[8 * kXLD + 4]);
+  }
+}
+
+// This warp's 64-column shares of c1 = A1 B1^T and c2 = A2 B2^T, [16 x 16]
+// each: A1, A2 the held fragments, B1, B2 two ring tiles [16][kXLD] (rows
+// the n index) read by ldmatrix and rounded to TF32 in registers; then
+// both written to the partial sets p1, p2 ([warp][16][kXLDS], C layout).
+__device__ __forceinline__ void two_partials(const uint32_t (&f1)[8][4],
+                                             const uint32_t (&f2)[8][4],
+                                             const float* b1, const float* b2,
+                                             float* p1, float* p2, int col0,
+                                             int warp, int lane) {
+  float c1[2][4], c2[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.f;
+  // this lane's ldmatrix row: matrix lane / 8 is (k8 step lane / 16, half
+  // (lane / 8) % 2) of 8 rows
+  const int lrow = (lane & 7) * kXLD + col0 + (lane >> 4) * 8 +
+                   ((lane >> 3) & 1) * 4;
+  const uint32_t a1 = smem_addr(b1 + lrow), a2 = smem_addr(b2 + lrow);
+#pragma unroll
+  for (int ks = 0; ks < 8; ks += 2)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t r1[4], r2[4];
+      ldmatrix_x4(r1, a1 + (j * 8 * kXLD + ks * 8) * 4);
+      ldmatrix_x4(r2, a2 + (j * 8 * kXLD + ks * 8) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        r1[e] = to_tf32(__uint_as_float(r1[e]));
+        r2[e] = to_tf32(__uint_as_float(r2[e]));
+      }
+      mma_tf32(c1[j], f1[ks], r1);
+      mma_tf32(c1[j], f1[ks + 1], r1 + 2);
+      mma_tf32(c2[j], f2[ks], r2);
+      mma_tf32(c2[j], f2[ks + 1], r2 + 2);
+    }
+  const int at = warp * kXB * kXLDS + (lane >> 2) * kXLDS + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    *reinterpret_cast<float2*>(p1 + at + j * 8) = make_float2(c1[j][0], c1[j][1]);
+    *reinterpret_cast<float2*>(p1 + at + 8 * kXLDS + j * 8) =
+        make_float2(c1[j][2], c1[j][3]);
+    *reinterpret_cast<float2*>(p2 + at + j * 8) = make_float2(c2[j][0], c2[j][1]);
+    *reinterpret_cast<float2*>(p2 + at + 8 * kXLDS + j * 8) =
+        make_float2(c2[j][2], c2[j][3]);
+  }
+}
+
+// acc += A B on this warp's 64 columns: A [16 x 16] from a [16][kXLDS]
+// tile already rounded to TF32, its k index t standing for column 2t and
+// t + 4 for 2t + 1 (the key permutation of mma_sm80.cuh), B the rows of a
+// ring tile [16][kXLD] (k x n), read as rows 2t and 2t + 1 and rounded to
+// TF32 in registers.
+__device__ __forceinline__ void product_cols(float (&acc)[8][4],
+                                             const float* a, const float* b,
+                                             int col0, int lane) {
+  const int g = lane >> 2, tl = lane & 3;
+  const uint32_t b_addr = smem_addr(b + 2 * tl * kXLD + col0 + g);
+#pragma unroll
+  for (int j = 0; j < kXB / 8; ++j) {
+    const float2 x0 = *reinterpret_cast<const float2*>(a + g * kXLDS + j * 8 + 2 * tl);
+    const float2 x1 =
+        *reinterpret_cast<const float2*>(a + (g + 8) * kXLDS + j * 8 + 2 * tl);
+    const uint32_t af[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                            __float_as_uint(x0.y), __float_as_uint(x1.y)};
+    uint32_t bf[8][2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      bf[n][0] = to_tf32(__uint_as_float(lds_b32(b_addr + (j * 8 * kXLD + n * 8) * 4)));
+      bf[n][1] = to_tf32(__uint_as_float(
+          lds_b32(b_addr + ((j * 8 + 1) * kXLD + n * 8) * 4)));
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma_tf32(acc[n], af, bf[n]);
+  }
+}
+
+// Write a warp's [16 x 64] f32 accumulator (rows row0 + lane / 4 and + 8,
+// columns col0 ..) to [n, D] rows at out; rows past n and columns past D
+// are not written.
+__device__ __forceinline__ void write_cols(float* out, const float (&acc)[8][4],
+                                           int row0, int n, int col0, int D,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    if (row >= n) continue;
+    float* orow = out + (long long)row * D;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int col = col0 + t * 8 + (lane & 3) * 2;
+      if (col >= D) continue;
+      const float v0 = acc[t][2 * r], v1 = acc[t][2 * r + 1];
+      if (col + 1 < D && (D & 1) == 0) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        orow[col] = v0;
+        if (col + 1 < D) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
+// The element of a [16 x 16] block this thread reduces: row rr, column cc.
+// A warp takes rows r and r + 2 (16 banks apart in a kXLDS-float row), so
+// its reads of the partials take one pass.
+__device__ __forceinline__ int reduce_row() {
+  const int warp = threadIdx.x >> 5;
+  return 4 * (warp >> 1) + (warp & 1) + 2 * ((threadIdx.x >> 4) & 1);
+}
+
+// Sum of the first nw warps' partials at offset `at`, in warp order.
+__device__ __forceinline__ float sum_partials(const float* part, int at,
+                                              int nw) {
+  float x = part[at];
+  for (int w = 1; w < nw; ++w) x += part[w * kXB * kXLDS + at];
+  return x;
+}
+
+// Pass 1: dK and dV of 16 keys of one (b, h). Warp w owns columns 64w ..
+// 64w + 63 of D: it holds K's and V's as TF32 A fragments (64 registers)
+// and the f32 dK and dV accumulators of those columns (64). Q, g, lse and
+// delta of each 16-query tile come through a 3-stage cp.async ring, two
+// tiles ahead. Per tile: each warp adds its columns' share of S^T = K Q^T
+// and dP^T = V g^T (keys x queries; Q and g by ldmatrix) and writes the
+// two partials; after a barrier every thread sums one element of each over
+// the warps in warp order, and writes P^T = exp(S^T*scale - lse) and
+// dS^T*scale = P^T (dP^T - delta) scale (zero past Tq and Tk) rounded to
+// TF32; after a second barrier (which also publishes the next tile) each
+// warp adds P^T g into dV and (dS^T*scale) Q into dK on its columns.
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_bwd_dkdv_wide_tf32_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [stage][Q, g, lse, delta]
+  float* sPartS = ring + kXStages * kXStage;
+  float* sPartP = sPartS + kXPart;
+  float* sP = sPartP + kXPart;   // P^T [16 keys][kXLDS]
+  float* sdS = sP + kXB * kXLDS;  // dS^T * scale
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (p.Tk + kXB - 1) / kXB;
+  const int k0 = (blockIdx.x % nk) * kXB;
+  const int bh = blockIdx.x / nk;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const float* lse = p.lse + (long long)bh * p.Tq;
+  const float* delta = p.delta + (long long)bh * p.Tq;
+  const int nq = (p.Tq + kXB - 1) / kXB;
+  const int nw = (D + 63) / 64;  // warps whose columns hold D
+  const bool active = warp < nw;
+  const int col0 = warp * 64;
+
+  auto stage_tile = [&](int tile) {
+    float* dst = ring + (tile % kXStages) * kXStage;
+    const int q0 = tile * kXB;
+    stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, dst, qg, p.q_st, q0,
+                                               p.Tq, D);
+    stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, dst + kXTile, gg,
+                                               p.g_st, q0, p.Tq, D);
+    if (threadIdx.x < 2 * kXB) {  // lse, then delta (zero past Tq)
+      const int i = threadIdx.x % kXB;
+      const float* src = threadIdx.x < kXB ? lse : delta;
+      const bool ok = q0 + i < p.Tq;
+      cp_async<4>(smem_addr(dst + 2 * kXTile + threadIdx.x),
+                  ok ? src + q0 + i : src, ok ? 4 : 0);
+    }
+  };
+
+  // K and V in the last stage until tile 2 comes; copy groups: K, V with
+  // tile 0, tile 1, then one a tile (empty past the last)
+  float* sK = ring + (kXStages - 1) * kXStage;
+  stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, sK, kg, p.k_st, k0, p.Tk,
+                                             D);
+  stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, sK + kXTile, vg, p.v_st,
+                                             k0, p.Tk, D);
+  stage_tile(0);
+  cp_async_commit();
+  if (nq > 1) stage_tile(1);
+  cp_async_commit();
+  cp_async_wait_mem<1>();
+  __syncthreads();
+
+  uint32_t kf[8][4], vf[8][4];
+  hold_tf32(kf, vf, sK, sK + kXTile, col0, lane);
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int rr = reduce_row(), cc = lane & 15;  // key rr, query cc
+  const bool key_ok = k0 + rr < p.Tk;
+
+  for (int t = 0; t < nq; ++t) {
+    const float* st = ring + (t % kXStages) * kXStage;
+    const int q0 = t * kXB;
+    if (active)
+      two_partials(kf, vf, st, st + kXTile, sPartS, sPartP, col0, warp, lane);
+    // the partials are whole; every warp is done with tile t - 1 (and K,
+    // V), whose stage takes tile t + 2
+    __syncthreads();
+    if (t + kXStages - 1 < nq) stage_tile(t + kXStages - 1);
+    cp_async_commit();
+    {
+      const int at = rr * kXLDS + cc;
+      const float s = sum_partials(sPartS, at, nw);
+      const float dp = sum_partials(sPartP, at, nw);
+      float pv = 0.f, ds = 0.f;
+      if (key_ok && q0 + cc < p.Tq) {
+        pv = expf(s * p.scale - st[2 * kXTile + cc]);
+        ds = pv * (dp - st[2 * kXTile + kXB + cc]) * p.scale;
+      }
+      sP[at] = __uint_as_float(to_tf32(pv));
+      sdS[at] = __uint_as_float(to_tf32(ds));
+    }
+    cp_async_wait_mem<1>();  // this thread's copies of tile t + 1 are in
+    // P^T and dS^T are whole, and so is tile t + 1
+    __syncthreads();
+    if (active) {
+      product_cols(dv, sP, st + kXTile, col0, lane);  // dV += P^T g
+      product_cols(dk, sdS, st, col0, lane);          // dK += dS^T Q
+    }
+  }
+
+  if (!active) return;
+  const long long out = (long long)bh * p.Tk * D;
+  write_cols(p.dk + out, dk, k0, p.Tk, col0, D, lane);
+  write_cols(p.dv + out, dv, k0, p.Tk, col0, D, lane);
+}
+
+// Pass 2: dQ of 16 queries of one (b, h). Warp w holds its 64 columns of Q
+// and g as TF32 A fragments and of dQ as an f32 accumulator; K and V tiles
+// of 16 keys come through the ring. Per tile: the partials of S = Q K^T and
+// dP = g V^T, summed by element in warp order after a barrier, dS*scale =
+// P (dP - delta) scale rounded to TF32, and after a second barrier dQ +=
+// (dS*scale) K on each warp's columns. Written once in f32.
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_bwd_dq_wide_tf32_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [stage][K, V]
+  float* sPartS = ring + kXStages * kXStage;
+  float* sPartP = sPartS + kXPart;
+  float* sdS = sPartP + kXPart;  // dS * scale [16 queries][kXLDS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kXB - 1) / kXB;
+  const int q0 = (blockIdx.x % nq) * kXB;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const int nk = (p.Tk + kXB - 1) / kXB;
+  const int nw = (D + 63) / 64;
+  const bool active = warp < nw;
+  const int col0 = warp * 64;
+  const int rr = reduce_row(), cc = lane & 15;  // query rr, key cc
+  const bool row_ok = q0 + rr < p.Tq;
+  const float lse_r = row_ok ? p.lse[(long long)bh * p.Tq + q0 + rr] : 0.f;
+  const float dlt_r = row_ok ? p.delta[(long long)bh * p.Tq + q0 + rr] : 0.f;
+
+  auto stage_tile = [&](int tile) {
+    float* dst = ring + (tile % kXStages) * kXStage;
+    stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, dst, kg, p.k_st,
+                                               tile * kXB, p.Tk, D);
+    stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, dst + kXTile, vg,
+                                               p.v_st, tile * kXB, p.Tk, D);
+  };
+  float* sQ = ring + (kXStages - 1) * kXStage;
+  stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq,
+                                             D);
+  stage_rows_f32<kXB, kXDK, kXLD, kXThreads>(p.vec, sQ + kXTile, gg, p.g_st,
+                                             q0, p.Tq, D);
+  stage_tile(0);
+  cp_async_commit();
+  if (nk > 1) stage_tile(1);
+  cp_async_commit();
+  cp_async_wait_mem<1>();
+  __syncthreads();
+
+  uint32_t qf[8][4], gf[8][4];
+  hold_tf32(qf, gf, sQ, sQ + kXTile, col0, lane);
+  float dq[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    const float* st = ring + (t % kXStages) * kXStage;
+    if (active)
+      two_partials(qf, gf, st, st + kXTile, sPartS, sPartP, col0, warp, lane);
+    __syncthreads();
+    if (t + kXStages - 1 < nk) stage_tile(t + kXStages - 1);
+    cp_async_commit();
+    {
+      const int at = rr * kXLDS + cc;
+      const float s = sum_partials(sPartS, at, nw);
+      const float dp = sum_partials(sPartP, at, nw);
+      float ds = 0.f;
+      if (row_ok && t * kXB + cc < p.Tk)
+        ds = expf(s * p.scale - lse_r) * (dp - dlt_r) * p.scale;
+      sdS[at] = __uint_as_float(to_tf32(ds));
+    }
+    cp_async_wait_mem<1>();
+    __syncthreads();
+    if (active) product_cols(dq, sdS, st, col0, lane);  // dQ += dS K
+  }
+
+  if (!active) return;
+  write_cols(static_cast<float*>(p.dq) + (long long)bh * p.Tq * D, dq, q0,
+             p.Tq, col0, D, lane);
+}
+
+cudaError_t launch_wide_tf32(Params p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wide_tf32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wide_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kXSmem);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)p.B * p.H;
+  const long long nk = (p.Tk + kXB - 1) / kXB, nq = (p.Tq + kXB - 1) / kXB;
+  flash_bwd_dkdv_wide_tf32_kernel<<<(unsigned)(bh * nk), kXThreads, kXSmem,
+                                    stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_tf32_kernel<<<(unsigned)(bh * nq), kXThreads, kXSmem,
+                                  stream>>>(p);
+  return cudaGetLastError();
+}
+
 // The padded head dim of the register kernels' instance for D, 0 past 128.
 inline int reg_dk(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128 : 0;
@@ -1126,8 +1548,9 @@ extern "C" {
 // 3 = one per (b, h). vec: the bytes every row of q, k, v and g can move in
 // (16, 8 or 4: D, the token strides and the pointers are multiples of it),
 // or 0 for element loads. g, lse and delta must not alias the outputs.
-// bf16 at D <= 128 launches the register kernels, anything else the WMMA
-// ones. Returns a cudaError_t (0 on success).
+// bf16 at D <= 128 launches the register kernels, unbiased f32 at 128 < D
+// <= 512 the TF32 column-split ones, anything else the WMMA ones. Returns a
+// cudaError_t (0 on success).
 int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, const void* bias,
                    void* dq, float* dk, float* dv, float* dbias,
@@ -1162,6 +1585,12 @@ int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
     p.bgran = bias ? bias_granule(bias, bias_sn, bias_sq, bias_mode) : 0;
     return (int)launch_reg(p, s);
   }
+  if (dtype == 0 && D > 128 && D <= kXDK && !bias) {
+    if (vec != 4 && vec != 8 && vec != 16)  // f32 rows move in 4-byte units
+      return (int)cudaErrorInvalidValue;
+    p.vec = vec;
+    return (int)launch_wide_tf32(p, s);
+  }
   p.vec = vec == 16;  // the WMMA kernels move 16 bytes or one element
   const int esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(p.DP, esize, max_block_smem(), &p.bq, &p.bk))
@@ -1169,13 +1598,21 @@ int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
   return (int)(dtype == 1 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
 }
 
-// The tiles (query rows, keys) and the larger shared-memory size of the two
-// kernels a launch at head dim D would use; 0 when no tile fits.
+// The tiles (query rows, keys) and the larger shared-memory size of the
+// kernels an unbiased launch at head dim D would use, and its kernels: 1
+// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the first design), 2 the
+// bf16 register kernels, 3 flash_bwd_dkdv_wide_tf32_kernel and
+// flash_bwd_dq_wide_tf32_kernel (f32); 0 when no tile fits.
 int flash_attn_bwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
   if (dtype == 1 && reg_dk(D)) {
     *bq = *bk = kRB;
     *smem = reg_smem(reg_dk(D));
-    return 1;
+    return 2;
+  }
+  if (dtype == 0 && D > 128 && D <= kXDK) {
+    *bq = *bk = kXB;
+    *smem = kXSmem;
+    return 3;
   }
   const int dp = (D + 15) / 16 * 16, esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(dp, esize, max_block_smem(), bq, bk)) return 0;

@@ -65,11 +65,43 @@
 // of rows 2t and 2t + 1. Key tiles are 64 keys, 32 at d = 128, where Q
 // (64 registers) and O (64) leave room for no more of S; D is padded to
 // 32, 64 or 128 (the f32 head dims launched) in shared memory only.
+//
+// The f32 instances at 128 < D <= 512 (flash_fwd_wide_tf32_kernel) carry
+// the VAE's d = 512 mid attention in f32: the autoencoder trainer's
+// [4, 1, 1024, 1024, 512] (with lse under autograd, plain in the
+// discriminator step) and precompute's VAE encoder, [16, 1, 784, 784,
+// 512]. The same TF32 contract (every operand rounded by cvt.rna, f32
+// sums, the JAX lse with the accurate expf). At 512 columns in f32 a row
+// of Q, K or V is 2 KB, so neither 64 rows of Q nor O (64 x 512 f32 = 128
+// KB) fits one warp's registers, and 64-row blocks would leave half the
+// card idle (64 blocks at the trainer's shape). The design: 32 query rows
+// a block (128 blocks there, 400 at precompute's), 8 warps, each owning 64
+// columns of D for all 32 rows: its slice of Q held as A fragments and of
+// O as an f32 register accumulator. S = Q K^T is split by depth the same
+// way: each warp multiplies its 64 columns and writes a [32 x 16] partial,
+// and the partials are summed through shared memory in warp order (a
+// fixed order, so a rerun gives equal bits) by the threads that then run
+// the online softmax, 8 lanes a row; P goes back to every warp through
+// shared memory. K and V tiles of 16 keys come through a 3-stage cp.async
+// ring two tiles ahead (Q is staged once in its last stage: 198 KB of
+// ring, 24 KB of partials); each warp reads only its own columns of a
+// tile, so its B fragments are rounded in registers. Two barriers a tile.
+// What bounds it: 4 Tq Tk D operations (8.6 GFLOP at the trainer's shape,
+// 17.4 us at 495 TF32 TFLOP/s) against 33.6 MB of device memory (10.0 us
+// at 3.35 TB/s), so operations. What the design runs into first is the
+// traffic from L2: each 32-row block streams its head's whole K and V (4
+// MB at the trainer's shape, 0.54 GB over the launch, 1.28 GB at
+// precompute's), and the two launches moved it at 2.8 and 2.3 TB/s (0.195
+// and 0.562 ms, H100 SXM at 700 W, against 0.283 and 0.729 for PyTorch's
+// fused attention). The 32 rows a block are what the registers
+// holding Q and O allow; a cluster sharing each tile by multicast would
+// cut the traffic.
+//
 // The first design (flash_fwd_kernel: one block of 4 warps per (b, h) and
 // query tile, WMMA products, S, P and the f32 O accumulator in shared
 // memory, BQ x BK the largest pair whose tiles fit the 227 KB a block may
-// use) is the route by shape for f32 past D = 128 (the card checks of the
-// VAE's d = 512 site) and for any D past 512.
+// use) is now the route only for D past 512, bf16 or f32; no path
+// launches it.
 //
 // What bounds it on an H100: at the clip's shapes attention does 4 Tq Tk D
 // operations against (2 Tq + 2 Tk) D esize bytes, so all but the short
@@ -1052,6 +1084,312 @@ cudaError_t launch_wide(Params p, int B, cudaStream_t stream) {
 
 inline bool wide_fits() { return max_block_smem() >= kWSmem; }
 
+// ---------------------------------------------------------------------------
+// f32 (TF32) at 128 < D <= 512: O and the depth of S = Q K^T split by
+// columns across 8 warps
+
+constexpr int kXBQ = 32, kXBK = 16;  // query rows a block, keys a tile
+constexpr int kXThreads = 256;       // 8 warps, 64 columns of D each
+constexpr int kXDK = 512;            // the head dim padded in shared memory
+// row stride in floats, 4 x an odd number: K's ldmatrix phases (8 rows of
+// 16 bytes) and V's scalar reads (rows 2t, column g) each hit 32 banks
+constexpr int kXLD = kXDK + 4;
+constexpr int kXStages = 3;          // K/V tiles in flight: two ahead
+constexpr int kXTile = kXBK * kXLD;  // floats of a K or V tile
+// row stride of the S partials and of P: rows r and r + 2 fall 16 banks
+// apart, so the reduction's float2 reads and the C fragments' float2
+// writes each take one pass a half-warp
+constexpr int kXLDS = kXBK + 8;
+constexpr int kXWarps = kXThreads / 32;
+constexpr int kXSmem = 4 * (kXStages * 2 * kXTile         // the K/V ring
+                            + kXWarps * kXBQ * kXLDS      // S partials
+                            + kXBQ * kXLDS + 2 * kXBQ);   // P, alpha, l
+static_assert(kXBQ * kXLD <= 2 * kXTile, "Q is staged in the last stage");
+static_assert(kXWarps * 64 == kXDK, "64 columns a warp");
+
+// The block: 32 query rows of one (b, h), 8 warps, warp w owning columns
+// 64w .. 64w + 63 of D. Q is staged once (in the ring's last stage) and
+// held as TF32 A fragments of the warp's 64 columns (2 m16 tiles x 8 k8
+// steps, 64 registers); O is the warp's [32 x 64] f32 register
+// accumulator (64 registers). K and V tiles of 16 keys come through a
+// 3-stage cp.async ring, two tiles ahead; each warp reads only its own 64
+// columns of them, so their B fragments are rounded to TF32 in registers
+// as they are loaded (each element once). Per key tile: each warp adds its
+// 64 columns' share of S = Q K^T (mma.sync m16n8k8, K by ldmatrix) and
+// writes the [32 x 16] partial to shared memory; after a barrier, every
+// thread sums one row's two keys over the warps in warp order (a fixed
+// order: a rerun gives equal bits), scales and biases them, and runs the
+// online softmax with the row's 8 lanes (3 shuffles), writing P rounded to
+// TF32 and the row's rescale factor; after a second barrier (which also
+// publishes the next K/V tile) each warp rescales O and adds P V on its 64
+// columns, P's A fragments read as (keys 2t, 2t + 1) pairs, V's B
+// fragments as rows 2t and 2t + 1 (the key permutation of mma_sm80.cuh).
+// Two barriers a tile. Warps whose columns lie past D (D < 449) sit out
+// the products. kBias, kLse as flash_fwd_kernel.
+template <bool kBias, bool kLse>
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_fwd_wide_tf32_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // stage s: K, then V
+  float* sQ = ring + (kXStages - 1) * 2 * kXTile;  // until tile 2 comes
+  float* sPart = ring + kXStages * 2 * kXTile;     // [warp][32][kXLDS]
+  float* sP = sPart + kXWarps * kXBQ * kXLDS;      // [32][kXLDS]
+  float* sAlpha = sP + kXBQ * kXLDS;
+  float* sL = sAlpha + kXBQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tl = lane & 3;
+  const int nq = (p.Tq + kXBQ - 1) / kXBQ;
+  const int q0 = (blockIdx.x % nq) * kXBQ;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* og = static_cast<float*>(p.o) + (long long)bh * p.Tq * D;
+  const int ntiles = (p.Tk + kXBK - 1) / kXBK;
+  const int nw = (D + 63) / 64;  // warps whose columns hold D
+  const bool active = warp < nw;
+  const int col0 = warp * 64;
+  auto stage_kv = [&](int tile) {  // K and V of `tile` into its stage
+    float* dst = ring + (tile % kXStages) * 2 * kXTile;
+    stage_rows_f32<kXBK, kXDK, kXLD, kXThreads>(p.vec, dst, kg, p.k_st,
+                                                tile * kXBK, p.Tk, D);
+    stage_rows_f32<kXBK, kXDK, kXLD, kXThreads>(p.vec, dst + kXTile, vg,
+                                                p.v_st, tile * kXBK, p.Tk, D);
+  };
+
+  // copy groups: Q with tile 0, tile 1, then one a tile (empty past the
+  // last), so at tile t the wait for all but the newest group is tile t + 1
+  stage_rows_f32<kXBQ, kXDK, kXLD, kXThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq,
+                                              D);
+  stage_kv(0);
+  cp_async_commit();
+  if (ntiles > 1) stage_kv(1);
+  cp_async_commit();
+  cp_async_wait_mem<1>();
+  __syncthreads();
+
+  uint32_t qf[2][8][4];  // this warp's columns of Q: 2 m16 tiles x 8 k8 steps
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const float* x = sQ + (mi * 16 + g) * kXLD + col0 + ks * 8 + tl;
+      qf[mi][ks][0] = to_tf32(x[0]);
+      qf[mi][ks][1] = to_tf32(x[8 * kXLD]);
+      qf[mi][ks][2] = to_tf32(x[4]);
+      qf[mi][ks][3] = to_tf32(x[8 * kXLD + 4]);
+    }
+  float o[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.f;
+
+  // the softmax's share of this thread: row rr, keys rc and rc + 1 of a
+  // tile. Warp w takes rows 4w .. 4w + 3, a half-warp rows r and r + 2;
+  // a row's 8 lanes share bits 3 and 4 of the lane
+  const int rr = 4 * warp + ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1);
+  const int rc = 2 * (lane & 7);
+  const float* brow = nullptr;
+  if (kBias && q0 + rr < p.Tq)
+    brow = static_cast<const float*>(p.bias) +
+           bias_slice(p.bias_mode, bh, p.H) * p.bias_sn +
+           (long long)(q0 + rr) * p.bias_sq;
+  float m_run = -INFINITY, l_run = 0.f;
+  // this lane's ldmatrix row of K: matrix lane / 8 is (k8 step lane / 16,
+  // half (lane / 8) % 2) of 8 keys
+  const int k_lane = (lane & 7) * kXLD + col0 + (lane >> 4) * 8 +
+                     ((lane >> 3) & 1) * 4;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const float* kt = ring + (t % kXStages) * 2 * kXTile;
+    const float* vt = kt + kXTile;
+    const int k0 = t * kXBK;
+
+    // this warp's share of S: its 64 columns of the depth
+    if (active) {
+      float s[2][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+      const uint32_t k_addr = smem_addr(kt + k_lane);
+#pragma unroll
+      for (int ks = 0; ks < 8; ks += 2) {
+        uint32_t r[2][4];  // K, rounded here: two k8 steps of 8 keys
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          ldmatrix_x4(r[j], k_addr + (j * 8 * kXLD + ks * 8) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) r[j][e] = to_tf32(__uint_as_float(r[j][e]));
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_tf32(s[mi][j], qf[mi][ks], r[j]);
+            mma_tf32(s[mi][j], qf[mi][ks + 1], r[j] + 2);
+          }
+      }
+      float* part = sPart + warp * kXBQ * kXLDS + g * kXLDS + 2 * tl;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *reinterpret_cast<float2*>(part + mi * 16 * kXLDS + j * 8) =
+              make_float2(s[mi][j][0], s[mi][j][1]);
+          *reinterpret_cast<float2*>(part + (mi * 16 + 8) * kXLDS + j * 8) =
+              make_float2(s[mi][j][2], s[mi][j][3]);
+        }
+    }
+    // the partials are whole; every warp is done with tile t - 1 (and Q),
+    // whose stage takes tile t + 2
+    __syncthreads();
+    if (t + kXStages - 1 < ntiles) stage_kv(t + kXStages - 1);
+    cp_async_commit();
+
+    // online softmax: the partials summed in warp order, row rr
+    {
+      const float* pr = sPart + rr * kXLDS + rc;
+      float2 x = *reinterpret_cast<const float2*>(pr);
+      for (int w = 1; w < nw; ++w) {
+        const float2 y = *reinterpret_cast<const float2*>(pr + w * kXBQ * kXLDS);
+        x.x += y.x;
+        x.y += y.y;
+      }
+      const int key = k0 + rc;
+      float s0 = x.x * p.scale, s1 = x.y * p.scale;
+      if (kBias && brow) {
+        if (key < p.Tk) s0 += brow[key];
+        if (key + 1 < p.Tk) s1 += brow[key + 1];
+      }
+      if (key >= p.Tk) s0 = -INFINITY;
+      if (key + 1 >= p.Tk) s1 = -INFINITY;
+      float mx = fmaxf(s0, s1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m_run, mx);
+      const float msafe = mn == -INFINITY ? 0.f : mn;  // no finite logit yet
+      const float alpha = kLse ? expf(m_run - msafe) : __expf(m_run - msafe);
+      const float e0 = kLse ? expf(s0 - msafe) : __expf(s0 - msafe);
+      const float e1 = kLse ? expf(s1 - msafe) : __expf(s1 - msafe);
+      float rs = e0 + e1;
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      l_run = l_run * alpha + rs;
+      m_run = mn;
+      *reinterpret_cast<float2*>(sP + rr * kXLDS + rc) = make_float2(
+          __uint_as_float(to_tf32(e0)), __uint_as_float(to_tf32(e1)));
+      if ((lane & 7) == 0) sAlpha[rr] = alpha;
+    }
+    cp_async_wait_mem<1>();  // this thread's copies of tile t + 1 are in
+    // P and the row factors are whole, and so is tile t + 1
+    __syncthreads();
+
+    // O = O * alpha + P V on this warp's 64 columns
+    if (active) {
+      float al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) al[i] = sAlpha[8 * i + g];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[mi][n][0] *= al[2 * mi];
+          o[mi][n][1] *= al[2 * mi];
+          o[mi][n][2] *= al[2 * mi + 1];
+          o[mi][n][3] *= al[2 * mi + 1];
+        }
+      const uint32_t v_addr = smem_addr(vt + 2 * tl * kXLD + col0 + g);
+#pragma unroll
+      for (int j = 0; j < kXBK / 8; ++j) {
+        uint32_t a[2][4];  // P: A's k index t is key 2t, t + 4 is key 2t + 1
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float2 x0 = *reinterpret_cast<const float2*>(
+              sP + (mi * 16 + g) * kXLDS + j * 8 + 2 * tl);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              sP + (mi * 16 + g + 8) * kXLDS + j * 8 + 2 * tl);
+          a[mi][0] = __float_as_uint(x0.x);
+          a[mi][1] = __float_as_uint(x1.x);
+          a[mi][2] = __float_as_uint(x0.y);
+          a[mi][3] = __float_as_uint(x1.y);
+        }
+        uint32_t bv[8][2];  // V rows 2t and 2t + 1, rounded here
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          bv[n][0] = to_tf32(__uint_as_float(
+              lds_b32(v_addr + (j * 8 * kXLD + n * 8) * 4)));
+          bv[n][1] = to_tf32(__uint_as_float(
+              lds_b32(v_addr + ((j * 8 + 1) * kXLD + n * 8) * 4)));
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_tf32(o[mi][n], a[mi], bv[n]);
+      }
+    }
+  }
+
+  if ((lane & 7) == 0) {
+    sL[rr] = l_run;
+    if (kLse && q0 + rr < p.Tq)
+      p.lse[(long long)bh * p.Tq + q0 + rr] = m_run + logf(fmaxf(l_run, 1e-30f));
+  }
+  __syncthreads();
+  if (!active) return;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = mi * 16 + 8 * r + g, row = q0 + rl;
+      if (row >= p.Tq) continue;
+      float* orow = og + (long long)row * D;
+      const float inv = 1.f / sL[rl];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = col0 + n * 8 + tl * 2;
+        if (col >= D) continue;
+        const float v0 = o[mi][n][2 * r] * inv, v1 = o[mi][n][2 * r + 1] * inv;
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+        } else {
+          orow[col] = v0;
+          if (col + 1 < D) orow[col + 1] = v1;
+        }
+      }
+    }
+}
+
+template <bool kBias, bool kLse>
+cudaError_t launch_wide_tf32_as(Params p, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_tf32_kernel<kBias, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.Tq + kXBQ - 1) / kXBQ) * B * p.H;
+  flash_fwd_wide_tf32_kernel<kBias, kLse><<<(unsigned)blocks, kXThreads,
+                                            kXSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wide_tf32(Params p, int B, cudaStream_t stream) {
+  if (p.bias)
+    return p.lse ? launch_wide_tf32_as<true, true>(p, B, stream)
+                 : launch_wide_tf32_as<true, false>(p, B, stream);
+  return p.lse ? launch_wide_tf32_as<false, true>(p, B, stream)
+               : launch_wide_tf32_as<false, false>(p, B, stream);
+}
+
 // Largest (BQ, BK) whose tiles fit the block's shared memory.
 bool pick_tiles(int dp, int esize, int max_smem, int* bq, int* bk) {
   static const int kTiles[][2] = {{64, 64}, {64, 32}, {32, 32}, {16, 32}, {16, 16}};
@@ -1125,6 +1463,11 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
       return (int)cudaErrorInvalidValue;
     return (int)launch_tf32(p, B, s);
   }
+  if (dtype == 0 && D <= kXDK) {
+    if (vec != 4 && vec != 8 && vec != 16)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wide_tf32(p, B, s);
+  }
   if (dtype == 1 && reg_dk(D, bias != nullptr)) {
     if (vec != 0 && vec != 4 && vec != 8 && vec != 16)
       return (int)cudaErrorInvalidValue;
@@ -1145,7 +1488,8 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
 // The tiles and shared memory an unbiased launch at head dim D would use,
 // and its kernel: 1 flash_fwd_kernel (the first design), 2
 // flash_fwd_reg_kernel (bf16), 3 flash_fwd_wide_kernel (bf16), 4
-// flash_fwd_tf32_kernel (f32); 0 when no tile fits.
+// flash_fwd_tf32_kernel (f32), 5 flash_fwd_wide_tf32_kernel (f32); 0 when
+// no tile fits.
 int flash_attn_fwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
   if (dtype == 0 && tf32_dk(D)) {
     *bq = kTBQ;
@@ -1153,6 +1497,12 @@ int flash_attn_fwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
     *smem = tf32_dk(D) == 32 ? Tf32Cfg<32>::kSmem
             : tf32_dk(D) == 64 ? Tf32Cfg<64>::kSmem : Tf32Cfg<128>::kSmem;
     return 4;
+  }
+  if (dtype == 0 && D <= kXDK) {
+    *bq = kXBQ;
+    *bk = kXBK;
+    *smem = kXSmem;
+    return 5;
   }
   if (dtype == 1 && reg_dk(D)) {
     *bq = kRBQ;

@@ -399,9 +399,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, bias, float(scale))
 
 
-# the forward's kernels by the code `flash_attn_fwd_tiles` returns
+# the forward's kernels by the code `flash_attn_fwd_tiles` returns, and
+# the backward's (its dK/dV and dQ passes) by `flash_attn_bwd_tiles`'s
 FWD_ROUTES = {1: "flash_fwd_kernel", 2: "flash_fwd_reg_kernel",
-              3: "flash_fwd_wide_kernel", 4: "flash_fwd_tf32_kernel"}
+              3: "flash_fwd_wide_kernel", 4: "flash_fwd_tf32_kernel",
+              5: "flash_fwd_wide_tf32_kernel"}
+BWD_ROUTES = {1: "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel",
+              2: "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel",
+              3: ("flash_bwd_dkdv_wide_tf32_kernel"
+                  "+flash_bwd_dq_wide_tf32_kernel")}
 
 
 def _tiles(d, dtype, kernel):
@@ -422,10 +428,19 @@ def flash_tiles(d: int, dtype: torch.dtype, kernel: str = "flash_attn_fwd"):
 
 
 def flash_route(d: int, dtype: torch.dtype) -> str:
-    """The forward's kernel for an unbiased launch at head dim d (f32 up to
-    d = 128: the TF32 register kernel; bf16 up to 128: the register kernel,
-    up to 512: the column-split one; else the first design)."""
+    """The forward's kernel for an unbiased launch at head dim d: f32 up to
+    d = 128 the TF32 register kernel, up to 512 the TF32 column-split one;
+    bf16 up to 128 the register kernel, up to 512 the column-split one.
+    The first design (`flash_fwd_kernel`) is left for d past 512 only."""
     return FWD_ROUTES[_tiles(d, dtype, "flash_attn_fwd")[0]]
+
+
+def flash_bwd_route(d: int, dtype: torch.dtype) -> str:
+    """The backward's kernels for an unbiased launch at head dim d: bf16 up
+    to d = 128 the register kernels, f32 at 128 < d <= 512 the TF32
+    column-split ones. The first design takes the rest: f32 up to d = 128,
+    a biased f32 launch past 128 (no path launches one) and d past 512."""
+    return BWD_ROUTES[_tiles(d, dtype, "flash_attn_bwd")[0]]
 
 
 @functools.lru_cache(maxsize=None)

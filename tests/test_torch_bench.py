@@ -285,3 +285,28 @@ def test_tf32_instances_are_read_and_gated():
         chip_smoke.tf32_instances(ptxas[:11] + [_ptxas(128, 1, 1, 255, 8)])
     with pytest.raises(AssertionError):  # an instance is missing
         chip_smoke.tf32_instances(ptxas[1:])
+
+
+def _wide_ptxas(name, registers, spill=0):
+    """One -Xptxas -v entry of a TF32 column-split kernel (mangled as nvcc
+    names it in an anonymous namespace)."""
+    return dict(source="flash_attn_fwd", function=(
+        f"_ZN50_GLOBAL__N__0_flash_attn_fwd_cu{len(name)}{name}ENS_6ParamsE"),
+        registers=registers, spill_stores=spill, spill_loads=spill)
+
+
+def test_wide_tf32_kernels_are_read_and_gated():
+    # the forward's four instances and the backward's two passes; the
+    # TF32 register kernel's instances are not among them
+    wide = ([_wide_ptxas(f"flash_fwd_wide_tf32_kernelILb{b}ELb{l}EE", 200)
+             for b in (0, 1) for l in (0, 1)]
+            + [_wide_ptxas("flash_bwd_dkdv_wide_tf32_kernel", 208),
+               _wide_ptxas("flash_bwd_dq_wide_tf32_kernel", 176)])
+    ptxas = wide + [_ptxas(64, 0, 0, 164)]
+    got = chip_smoke.wide_tf32_kernels(ptxas)
+    assert [i["function"] for i in got] == [f["function"] for f in wide]
+    with pytest.raises(AssertionError):  # one spills
+        chip_smoke.wide_tf32_kernels(
+            wide[:5] + [_wide_ptxas("flash_bwd_dq_wide_tf32_kernel", 255, 4)])
+    with pytest.raises(AssertionError):  # one is missing
+        chip_smoke.wide_tf32_kernels(ptxas[1:])

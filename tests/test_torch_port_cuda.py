@@ -825,7 +825,8 @@ def test_f32_route_at_the_metric_shapes(cuda, b, h, t, d):
 @pytest.mark.parametrize("d", [16, 32, 40, 52, 64, 80, 96, 128, 160, 512])
 def test_f32_route_by_head_dim(cuda, d):
     # the TF32 register kernel's instances pad d to 32, 64 or 128 (64 or 32
-    # keys a tile, rows of d + 4 floats, a 3-stage K/V ring)
+    # keys a tile, rows of d + 4 floats, a 3-stage K/V ring); past 128 the
+    # TF32 column-split kernel (32 rows, 16 keys a tile)
     route = attn.flash_route(d, torch.float32)
     if d <= 128:
         dk = 32 if d <= 32 else 64 if d <= 64 else 128
@@ -834,8 +835,92 @@ def test_f32_route_by_head_dim(cuda, d):
         assert attn.flash_tiles(d, torch.float32) == (
             64, bk, 3 * 2 * bk * (dk + 4) * 4)
     else:
-        assert route == "flash_fwd_kernel"
-    assert attn.flash_route(d, torch.bfloat16) != "flash_fwd_tf32_kernel"
+        assert route == "flash_fwd_wide_tf32_kernel"
+    assert attn.flash_route(d, torch.bfloat16) not in (
+        "flash_fwd_tf32_kernel", "flash_fwd_wide_tf32_kernel")
+
+
+# The f32 route past d 128: the TF32 column-split forward
+# (flash_fwd_wide_tf32_kernel) and, unbiased, backward
+# (flash_bwd_{dkdv,dq}_wide_tf32_kernel) up to d 512; the first design past
+# it. Shared memory: a 3-stage ring of 16-row tiles of 516 floats, 8 warps'
+# partials of S (and dP) and P (and dS)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 256, 512, 576])
+def test_f32_wide_routes_by_head_dim(cuda, d):
+    fwd = attn.flash_route(d, torch.float32)
+    bwd = attn.flash_bwd_route(d, torch.float32)
+    if d <= 512:
+        assert fwd == "flash_fwd_wide_tf32_kernel"
+        assert bwd == ("flash_bwd_dkdv_wide_tf32_kernel"
+                       "+flash_bwd_dq_wide_tf32_kernel")
+        ring = 3 * 2 * 16 * 516
+        assert attn.flash_tiles(d, torch.float32) == (
+            32, 16, 4 * (ring + 8 * 32 * 24 + 32 * 24 + 64))
+        assert attn.flash_tiles(d, torch.float32, "flash_attn_bwd") == (
+            16, 16, 4 * (ring + 3 * 32 + 2 * 8 * 16 * 24 + 2 * 16 * 24))
+    else:
+        assert fwd == "flash_fwd_kernel"
+        assert bwd == "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel"
+    assert attn.flash_bwd_route(64, torch.float32) == (
+        "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel")
+    assert attn.flash_bwd_route(64, torch.bfloat16) == (
+        "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel")
+
+
+@pytest.mark.cuda
+def test_f32_wide_forward_at_the_precompute_shape(cuda):
+    # precompute's VAE encoder: 16 frames of 784 tokens at d 512, no grad
+    g = torch.Generator("cuda").manual_seed(784)
+    q, k, v = (torch.randn((16, 1, 784, 512), generator=g, device="cuda")
+               for _ in range(3))
+    _check(q, k, v, torch.float32)
+
+
+# ragged head dims past 128 (a warp's 64 columns partly past D, the warps
+# past it idle): the forward with lse and the unbiased backward, and the
+# backward with multi-query k/v (per-head dk/dv summed by the wrapper)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 256, 384])
+def test_f32_wide_train_kernels_at_ragged_head_dims(cuda, d):
+    _check_train(2, 2, 150, 190, d, 2, None, torch.float32, seed=d)
+
+
+@pytest.mark.cuda
+def test_f32_wide_backward_multi_query(cuda):
+    _check_train(2, 3, 130, 140, 256, 1, None, torch.float32, seed=5)
+
+
+# the forward with lse past d 128 over multi-query k/v at d = 200, without
+# a bias and with each bias mode (a biased backward past 128 keeps the
+# first design; no path launches one)
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_shape", [None, (150, 140), (3, 150, 140),
+                                        (2, 3, 150, 140)],
+                         ids=["none", "shared", "per_head", "per_bh"])
+def test_f32_wide_forward_multi_query_bias_modes_with_lse(cuda, bias_shape):
+    g = torch.Generator("cuda").manual_seed(200)
+    q = torch.randn((2, 3, 150, 200), generator=g, device="cuda")
+    k, v = (torch.randn((2, 1, 140, 200), generator=g, device="cuda")
+            for _ in range(2))
+    bias = (torch.randn(bias_shape, generator=g, device="cuda")
+            if bias_shape else None)
+    _check_f32_lse(q, k, v, bias, 200 ** -0.5)
+
+
+@pytest.mark.cuda
+def test_f32_wide_backward_rerun_gives_equal_bits(cuda):
+    # the autoencoder step's launch: two passes, no atomics
+    g = torch.Generator("cuda").manual_seed(1024)
+    q, k, v, go = (torch.randn((4, 1, 1024, 512), generator=g, device="cuda")
+                   for _ in range(4))
+    out, lse = attn.flash_attention_fwd(q, k, v, return_lse=True)
+    first = attn.flash_attention_bwd(q, k, v, None, go, out, lse,
+                                     512 ** -0.5)
+    for _ in range(2):
+        again = attn.flash_attention_bwd(q, k, v, None, go, out, lse,
+                                         512 ** -0.5)
+        assert all(torch.equal(a, b) for a, b in zip(first[:3], again[:3]))
 
 
 # ragged rows: Tq and Tk of 1, 16 k + 1 and 197 (a tail tile of one key or
@@ -853,7 +938,7 @@ def test_f32_route_takes_ragged_rows(cuda, tq, tk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [52, 64])
+@pytest.mark.parametrize("d", [52, 64, 130, 131])
 def test_f32_route_takes_strided_head_views(cuda, d):
     # ViT's fused qkv: [B, T, 3 H D] split into strided [B, H, T, D] views
     g = torch.Generator("cuda").manual_seed(d)
@@ -908,7 +993,7 @@ def test_f32_route_multi_query_bias_modes_with_lse(cuda, bias_shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f32_route_fully_masked_tiles(cuda, d):
     # a bias of -inf over the whole first key tile and over the tail tile
     # (keys 128, 129): the running max starts at -inf and a tile adds

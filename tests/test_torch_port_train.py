@@ -113,6 +113,8 @@ BWD_CASES = {
     "ragged_513x514_d52": (2, 4, 513, 514, 52, 1, "hqk"),
     "nobias": (1, 2, 160, 192, 16, 2, None),
     "nobias_mq": (1, 2, 130, 150, 32, 1, None),
+    # the VAE's head dim (the f32 TF32 column-split route past d 128)
+    "nobias_d512": (2, 1, 130, 140, 512, 1, None),
 }
 
 
@@ -203,6 +205,32 @@ def test_plain_backward_bf16_matches_pallas_interpret(case):
         assert a.dtype == bf16 and w.dtype == jnp.bfloat16, name
         assert rel_err(a.float(), np.asarray(w, np.float32)) <= BF16_BWD_TOL, \
             name
+
+
+# the plain version at the precision of the kernels' f32 route (every
+# product's operands rounded to TF32) against the Pallas backward in
+# interpret mode (f32), the unbiased cases; TF32 keeps 10 mantissa bits
+@pytest.mark.parametrize("case", ["nobias", "nobias_mq", "nobias_d512"])
+def test_plain_tf32_backward_matches_pallas_interpret(case):
+    q, k, v, bias, g = _bwd_inputs(case)
+    assert bias is None
+    tq_, tk_, tv_ = t(q), t(k), t(v)
+    out, lse = tattn.attention_reference_tf32(tq_, tk_, tv_, return_lse=True)
+    scale = q.shape[-1] ** -0.5
+    got = tattn.flash_attention_bwd_reference(tq_, tk_, tv_, None, t(g), out,
+                                              lse, scale, tf32=True)
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if k.shape[1] != q.shape[1]:  # the JAX caller broadcasts, then sums
+        args[1:] = [jnp.broadcast_to(x, q.shape[:2] + x.shape[2:])
+                    for x in args[1:]]
+    want = list(jattn._flash_bwd_pallas(*args, jnp.asarray(g),
+                                        jnp.asarray(out.numpy()),
+                                        jnp.asarray(lse.numpy()), scale, True))
+    if k.shape[1] != q.shape[1]:
+        want[1:3] = [w.sum(axis=1, keepdims=True) for w in want[1:3]]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32, name
+        assert rel_err(a, w) <= 2.0 ** -8, name
 
 
 @pytest.mark.parametrize("case", sorted(BWD_CASES))

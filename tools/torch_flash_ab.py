@@ -14,9 +14,13 @@ shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
 stage-2 step's training sites (with lse, and the prior's bias); the
 forward's f32 (TF32) route ("f32") at every f32 shape of a path: stage 6's
 three classifier shapes, the DecoderVideo's three sizes of the seg panel
-(24 rows) and of the CLI's stage e (12 rows), and the prior's f32 check
-(bias and lse); the backward at the same four step sites (from the forward's out and lse, with
-a random output gradient); #6 at the clip's four motion-module levels
+(24 rows) and of the CLI's stage e (12 rows), the prior's f32 check
+(bias and lse), and past d 128 the VAE's d 512 in f32: the autoencoder
+step's [4, 1, 1024, 1024, 512] with lse (the generator step) and without
+(the discriminator step) and precompute's VAE encoder [16, 1, 784, 784,
+512]; the backward at the same four step sites (bf16, from the forward's
+out and lse, with a random output gradient) and ("bwd") at the
+autoencoder step's f32 d 512; #6 at the clip's four motion-module levels
 (bf16, 16 frames, 8 heads, no autograd); #7 in bf16 (bf16 GroupNorm
 parameters, as the bf16 models hold them) at every shape of the fused clip
 and the fused step; #8 in bf16 at every shape of the fused clip.
@@ -72,27 +76,46 @@ FLASH_STEP = [
     ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, 8, 4),
 ]
 
-# (site, (B, H, Tq, Tk, D, kv heads), bias shape, {path: launches}) of the
-# flash forward's f32 route: a scored clip (stage 6), a seg panel and the
-# stage e of a 2-clip CLI run (one DecoderVideo forward: 3 launches at 16 x
-# 16, 2 at 32 x 32, 2 at 64 x 64), the prior's f32 check (lse, one a check)
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape, lse, {path: launches})
+# of the flash forward's f32 route: a scored clip (stage 6), a seg panel
+# and the stage e of a 2-clip CLI run (one DecoderVideo forward: 3 launches
+# at 16 x 16, 2 at 32 x 32, 2 at 64 x 64), the prior's f32 check (lse, one
+# a check); past d 128, an autoencoder step pair (the VAE's two mid
+# attentions: with lse in the generator step, without in the
+# discriminator's) and precompute's VAE encoder (one a batch of 16 frames)
 FLASH_F32 = [
-    ("vit-b frame", (1, 12, 197, 197, 64, 12), None, {"scored clip": 288}),
-    ("videomae 6 frames", (1, 12, 588, 588, 64, 12), None,
+    ("vit-b frame", (1, 12, 197, 197, 64, 12), None, False,
+     {"scored clip": 288}),
+    ("videomae 6 frames", (1, 12, 588, 588, 64, 12), None, False,
      {"scored clip": 48}),
-    ("clip vit-l 6 frames", (6, 16, 257, 257, 64, 16), None,
+    ("clip vit-l 6 frames", (6, 16, 257, 257, 64, 16), None, False,
      {"scored clip": 24}),
-    ("decoder 16x16 panel", (24, 1, 256, 256, 128, 1), None, {"panel": 3}),
-    ("decoder 32x32 panel", (24, 1, 1024, 1024, 64, 1), None, {"panel": 2}),
-    ("decoder 64x64 panel", (24, 1, 4096, 4096, 32, 1), None, {"panel": 2}),
-    ("decoder 16x16 stage e", (12, 1, 256, 256, 128, 1), None,
+    ("decoder 16x16 panel", (24, 1, 256, 256, 128, 1), None, False,
+     {"panel": 3}),
+    ("decoder 32x32 panel", (24, 1, 1024, 1024, 64, 1), None, False,
+     {"panel": 2}),
+    ("decoder 64x64 panel", (24, 1, 4096, 4096, 32, 1), None, False,
+     {"panel": 2}),
+    ("decoder 16x16 stage e", (12, 1, 256, 256, 128, 1), None, False,
      {"stage e": 3}),
-    ("decoder 32x32 stage e", (12, 1, 1024, 1024, 64, 1), None,
+    ("decoder 32x32 stage e", (12, 1, 1024, 1024, 64, 1), None, False,
      {"stage e": 2}),
-    ("decoder 64x64 stage e", (12, 1, 4096, 4096, 32, 1), None,
+    ("decoder 64x64 stage e", (12, 1, 4096, 4096, 32, 1), None, False,
      {"stage e": 2}),
-    ("prior (train)", (10, 32, 513, 514, 52, 1), (32, 513, 514),
+    ("prior (train)", (10, 32, 513, 514, 52, 1), (32, 513, 514), True,
      {"prior check": 1}),
+    ("vae d512 ae (lse)", (4, 1, 1024, 1024, 512, 1), None, True,
+     {"ae step pair": 2}),
+    ("vae d512 ae", (4, 1, 1024, 1024, 512, 1), None, False,
+     {"ae step pair": 2}),
+    ("vae d512 encoder 16 frames", (16, 1, 784, 784, 512, 1), None, False,
+     {"precompute batch": 1}),
+]
+
+# (site, (B, H, Tq, Tk, D, kv heads), {path: launches}) of the flash
+# backward on f32 past d 128: the autoencoder's generator step
+FLASH_BWD_F32 = [
+    ("vae d512 ae", (4, 1, 1024, 1024, 512, 1), {"ae step pair": 2}),
 ]
 
 # ((N, Cin, H, W, Cout), launches a fused clip) of #8, 32 groups
@@ -252,7 +275,7 @@ def time_here(root: str, only: str):
             out[f"device flash {name} (train)"] = device_ms(fn, reps)
         del q, k, v
     if "all" in only or "f32" in only:
-        for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_F32:
+        for name, (b, h, tq, tk, d, hkv), bshape, lse, _ in FLASH_F32:
             q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
             k, v = (torch.randn((b, hkv, tk, d), generator=gen, device="cuda")
                     for _ in range(2))
@@ -260,7 +283,7 @@ def time_here(root: str, only: str):
                     if bshape else None)
             reps = 5 if b * h * tq * tk > 2e8 else 20
             fn = lambda: attn.flash_attention_fwd(  # noqa: E731
-                q, k, v, bias=bias, return_lse=bias is not None)
+                q, k, v, bias=bias, return_lse=lse)
             out[f"f32 {name}"] = cuda_ms(fn, reps)
             out[f"device f32 {name}"] = device_ms(fn, reps)
             out[f"profiled f32 {name}"] = sum(
@@ -282,6 +305,20 @@ def time_here(root: str, only: str):
             out[f"device bwd {name}"] = device_ms(fn, reps)
             for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd {name}: {kernel}"] = ms
+        for name, (b, h, tq, tk, d, hkv), _ in FLASH_BWD_F32:
+            q, g = (torch.randn((b, h, tq, d), generator=gen, device="cuda")
+                    for _ in range(2))
+            k, v = (torch.randn((b, hkv, tk, d), generator=gen, device="cuda")
+                    for _ in range(2))
+            scale = d ** -0.5
+            o, lse = attn.flash_attention_fwd(q, k, v, scale=scale,
+                                              return_lse=True)
+            fn = lambda: attn.flash_attention_bwd(  # noqa: E731
+                q, k, v, None, g, o, lse, scale)
+            out[f"bwd f32 {name}"] = cuda_ms(fn, 10)
+            out[f"device bwd f32 {name}"] = device_ms(fn, 10)
+            for kernel, ms in kernel_ms(fn, 10, "flash_bwd_").items():
+                out[f"device bwd f32 {name}: {kernel}"] = ms
         del q, k, v, g, o, lse
         torch.cuda.empty_cache()
     if "all" in only or "conv" in only:
@@ -325,8 +362,9 @@ def time_here(root: str, only: str):
 def totals(times):
     """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #6,
     #7, #8), over a step (flash forward, flash backward, #7) and over the
-    f32 route's paths (a scored clip, a seg panel, a 2-clip stage e), from
-    one run's times:
+    f32 route's paths (a scored clip, a seg panel, a 2-clip stage e, an
+    autoencoder step pair's forwards and backwards, a precompute batch's
+    VAE encoder), from one run's times:
     event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
@@ -341,11 +379,16 @@ def totals(times):
             sums[pre + "flash bwd step"] = sums.get(
                 pre + "flash bwd step", 0.0) + n_bwd * times.get(
                 f"{pre}bwd {name}", 0.0)
-        for name, _, _, paths in FLASH_F32:
+        for name, _, _, _, paths in FLASH_F32:
             for path, n in paths.items():
                 key = f"{pre}f32 {path}"
                 sums[key] = sums.get(key, 0.0) + n * times.get(
                     f"{pre}f32 {name}", 0.0)
+        for name, _, paths in FLASH_BWD_F32:
+            for path, n in paths.items():
+                key = f"{pre}bwd f32 {path}"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}bwd f32 {name}", 0.0)
         for (n, cin, h, w, cout), launches in CONV_CLIP:
             sums[pre + "conv fused clip"] = sums.get(
                 pre + "conv fused clip", 0.0) + launches * times.get(
