@@ -655,7 +655,9 @@ TRAIN_SHAPES = [
     ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None),
     ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None),
 ]
-TRAIN_F32_CHECKS = ["prior"]
+# every shape in f32 too: the f32 stage-2 step (`train_f32_phase`)
+# launches them all
+TRAIN_F32_CHECKS = [name for name, _, _ in TRAIN_SHAPES]
 GRADS = ("dq", "dk", "dv", "dbias")
 
 
@@ -685,6 +687,31 @@ def oracle_f64(q, k, v, bias, g, scale):
     want = {n: torch.cat(x) for n, x in parts.items()}
     want["dbias"] = dbias
     return want
+
+
+def plain_train_tf32(q, k, v, bias, g, scale):
+    """The plain version at the kernels' f32 precision (TF32 products),
+    forward and backward: {out, lse, dq, dk, dv, dbias}. Without a bias the
+    batch rows are independent, and it runs in chunks of rows whose f64
+    products (`_tf32_matmul`) take about 2 GB each."""
+    import torch
+    from neurons_tpu_torch.ops import attention as attn
+
+    b, h, tq, _ = q.shape
+    chunk = b if bias is not None else max(
+        1, int(2e9 // (8 * h * tq * k.shape[2])))
+    parts = {n: [] for n in ("out", "lse") + GRADS}
+    for s in range(0, b, chunk):
+        qs, ks, vs, gs = (x[s:s + chunk] for x in (q, k, v, g))
+        out, lse = attn.attention_reference_tf32(qs, ks, vs, scale, bias,
+                                                 return_lse=True)
+        grads = attn.flash_attention_bwd_reference(qs, ks, vs, bias, gs, out,
+                                                   lse, scale, tf32=True)
+        for n, x in zip(("out", "lse") + GRADS, (out, lse) + grads):
+            parts[n].append(x)
+        del out, lse, grads
+    return {n: None if x[0] is None else torch.cat(x)
+            for n, x in parts.items()}
 
 
 def train_kernel_phase(checks=None):
@@ -721,13 +748,12 @@ def train_kernel_phase(checks=None):
         torch.cuda.synchronize()
         tf32 = dt == torch.float32
         if tf32:
-            pout, plse = attn.attention_reference_tf32(q, k, v, scale, bias,
-                                                       return_lse=True)
+            plain = plain_train_tf32(q, k, v, bias, g, scale)
         else:
             pout, plse = attn.attention_reference_lse(q, k, v, bias, scale)
-        plain = dict(zip(GRADS, attn.flash_attention_bwd_reference(
-            q, k, v, bias, g, pout, plse, scale, tf32=tf32)),
-            out=pout, lse=plse)
+            plain = dict(zip(GRADS, attn.flash_attention_bwd_reference(
+                q, k, v, bias, g, pout, plse, scale)), out=pout, lse=plse)
+            del pout, plse
         errs = {}
         for n in ("out", "lse") + GRADS:
             if want[n] is None:
@@ -735,7 +761,7 @@ def train_kernel_phase(checks=None):
             errs[n] = ((got[n].double() - want[n]).abs().max().item(),
                        (plain[n].double() - want[n]).abs().max().item(),
                        bool(torch.isfinite(got[n]).all()))
-        del want, plain, pout, plse
+        del want, plain
         torch.cuda.empty_cache()
 
         # times: as the port calls each (TF32 products allowed for f32)
@@ -791,8 +817,9 @@ def train_kernel_phase(checks=None):
                          for n, (e, pe, _) in errs.items())
         bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
         fwd_route = attn.flash_route(d, dt)
-        # the route tables name unbiased launches: a biased f32 backward
-        # past d 128 keeps the first design
+        # the route tables name unbiased launches: up to d 128 a biased
+        # launch takes the same kernels (and a shared slice the dbias
+        # kernel too), a biased f32 backward past d 128 the first design
         bwd_route = (attn.BWD_ROUTES[1] if bias is not None and tf32
                      and d > 128 else attn.flash_bwd_route(d, dt))
         log(f"train {name:14s} {tname:8s} [{b},{h},{tq},{tk},{d}] kv heads "
@@ -2275,10 +2302,12 @@ GN_SILU_SYMBOLS = ("gn_silu_cluster_kernel", "gn_silu_stats_kernel",
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
 # the backward's passes: flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel
 # and, for the prior's per-head bias, flash_bwd_dbias_reg_kernel (bf16,
-# d <= 128); flash_bwd_dkdv_wide_tf32_kernel and
-# flash_bwd_dq_wide_tf32_kernel (f32 at 128 < d <= 512, unbiased);
-# flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the WMMA kernels of the
-# rest of f32 and of d > 512)
+# d <= 128); flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel and
+# flash_bwd_dbias_tf32_kernel (f32, d <= 128);
+# flash_bwd_dkdv_wide_tf32_kernel and flash_bwd_dq_wide_tf32_kernel (f32
+# at 128 < d <= 512, unbiased); flash_bwd_dkdv_kernel and
+# flash_bwd_dq_kernel (the WMMA first design: a biased f32 launch past
+# d 128, d > 512; no path launches either)
 FLASH_BWD_SYMBOLS = {"flash backward dk/dv": ("flash_bwd_dkdv_",),
                      "flash backward dq": ("flash_bwd_dq_",),
                      "flash backward dbias": ("flash_bwd_dbias_",)}
@@ -2323,6 +2352,16 @@ STEP_LAUNCHES = {
         (60, 1, 1024, 1024, 64, "bfloat16", ""): 4,
         (60, 1, 4096, 4096, 32, "bfloat16", ""): 4},
 }
+
+
+# launches of one full-width f32 stage-2 step (`bf16_autocast=False`, the
+# core in f32): STEP_LAUNCHES' shapes in float32
+STEP_LAUNCHES_F32 = {
+    kernel: {key[:5] + ("float32",) + key[6:]: n for key, n in shapes.items()}
+    for kernel, shapes in STEP_LAUNCHES.items()}
+F32_STEPS = 2  # timed fixed-batch f32 steps, after one warm-up step
+# the first design's kernels, which no f32 launch at d <= 128 may reach
+FIRST_DESIGN_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def stage2_batch(pcfg, gcfg, tcfg, gen):
@@ -2605,6 +2644,101 @@ def fused_train_steps(pcfg, gcfg, tcfg, spe, batch, draws, unfused_first,
                     **FLASH_BWD_SYMBOLS,
                     "gn_silu #7 (statistics + apply)": GN_SILU_SYMBOLS})
     del state, bundle, step
+    torch.cuda.empty_cache()
+    return {k: dict(v) for k, v in by_shape.items()}
+
+
+def train_f32_phase():
+    """Stage 2 at full width in f32: `TrainConfig(bf16_autocast=False)`,
+    the frozen core left in f32 (run_stage2's default `bf16_frozen_core=
+    False`), the seeded weights, batch and draws of the bf16 steps; one
+    warm-up and F32_STEPS timed fixed-batch steps of
+    `make_stage2_train_step`, each held to the launches counted from the
+    code (STEP_LAUNCHES_F32), the loss falling and the core bitwise
+    unchanged; ms a step and peak memory; then one profiled step, whose
+    flash backward must be the TF32 register kernels (no kernel of the
+    first design). Returns {kernel: launches by shape} of the 1 +
+    F32_STEPS steps."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neurons_tpu_torch import config
+    from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
+                                                 FLASH_FWD_LAUNCHES)
+    from neurons_tpu_torch.training import train_decoupler as td
+
+    # PyTorch's defaults, as a caller of the port gets them (earlier phases
+    # set both)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    pcfg, gcfg = config.PipelineConfig(), GPT2Config()
+    tcfg = config.replace(pcfg.train, bf16_autocast=False)
+    spe = tcfg.num_train_samples // tcfg.batch_size
+    counters = {"flash_attn_fwd": FLASH_FWD_LAUNCHES,
+                "flash_attn_bwd": FLASH_BWD_LAUNCHES}
+    bundle, state = td.init_stage2(pcfg.brain, pcfg.prior, pcfg.decoupler,
+                                   tcfg, gcfg, spe, seed=SEED)
+    n_core = sum(p.numel() for n, p in state.params.items() if td.is_core(n))
+    core_dtypes = {p.dtype for n, p in state.params.items() if td.is_core(n)}
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batch = stage2_batch(pcfg, gcfg, tcfg, gen)
+    draws = td.draw_stage2(bundle.diffusion, batch, pcfg.decoupler, gen)
+    step = td.make_stage2_train_step(bundle, tcfg, pcfg.decoupler, spe)
+    core0 = {n: p.clone() for n, p in state.params.items() if td.is_core(n)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_shape = {k: collections.Counter() for k in counters}
+    losses, times, per_step = [], [], []
+    for i in range(1 + F32_STEPS):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws, batch, 0, i, tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: dict(c.by_shape) for k, c in counters.items()})
+        for k, c in counters.items():
+            by_shape[k].update(c.by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    steady_ms = 1e3 * sum(times[1:]) / F32_STEPS
+    core_same = all(torch.equal(p, core0[n]) for n, p in state.params.items()
+                    if td.is_core(n))
+    launches_ok = all(s == STEP_LAUNCHES_F32 for s in per_step)
+    finite = all(torch.isfinite(torch.tensor(x)) for x in losses)
+    log(f"train f32 steps ({card_line()}): {n_core / 1e9:.3f} B frozen core "
+        f"in {sorted(str(d) for d in core_dtypes)}; ms/step "
+        f"{[round(1e3 * t, 1) for t in times]} (steady {steady_ms:.1f}, "
+        f"{F32_STEPS} steps after a warm-up); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; loss {[round(x, 4) for x in losses]}; "
+        f"launches per step "
+        f"{ {k: sum(v.values()) for k, v in per_step[-1].items()} } (as "
+        f"counted from the code: {launches_ok}); core bitwise unchanged "
+        f"{core_same}")
+    if not launches_ok:
+        raise AssertionError(f"f32 launches per step {per_step} differ from "
+                             f"the count from the code {STEP_LAUNCHES_F32}")
+    if not (finite and losses[-1] < losses[0] and core_same
+            and core_dtypes == {torch.float32}):
+        raise AssertionError("the full-width f32 train steps fail their "
+                             "checks")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, draws, batch, 0, 1 + F32_STEPS,
+                        tcfg.soft_temp_start)
+        torch.cuda.synchronize()
+    device_profile(prof, time.perf_counter() - t0,
+                   f"f32 stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
+                   {"flash forward": FLASH_FWD_SYMBOLS, **FLASH_BWD_SYMBOLS})
+    bwd = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
+    log(f"f32 step's flash backward kernels: {bwd}")
+    if any(name in key for key in bwd for name in FIRST_DESIGN_BWD):
+        raise AssertionError(f"the f32 step reached the first design's "
+                             f"backward: {bwd}")
+    del state, bundle, step, core0, draws, batch
     torch.cuda.empty_cache()
     return {k: dict(v) for k, v in by_shape.items()}
 
@@ -5903,10 +6037,11 @@ def microbench_phase():
 def kernels_record(flash_records, temporal_records, train_records, by_shape,
                    train_by_shape, gn_records, fused_by_shapes, f32_checks,
                    ptxas, runs, fast_by_shape, stage46_by_path,
-                   cli_by_path):
+                   cli_by_path, f32_step_by_shape):
     """The kernels JSON: one entry per (kernel, shape) of the main paths
     (the unfused clip's, then stage 2's, then the fast clip's, the "max"
-    preset, then stage 4's caption batch and stage 6's scored clip; for #7
+    preset, then stage 4's caption batch and stage 6's scored clip, then
+    the f32 stage-2 step's forward and backward; for #7
     and #8 the fused clip's, then the fused step's, then the fused
     autoencoder step's, f32); per
     kernel and path the sums of launches x time (kernel, bound, library);
@@ -6069,6 +6204,37 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "device_ms": rec["device_ms"],
         })
         groups.append(("flash_attn_bwd", "step", runs["step"]))
+    for kernel, records in (("flash_attn_fwd", fwd_records),
+                            ("flash_attn_bwd", train_records[1])):
+        bwd = kernel == "flash_attn_bwd"
+        for key, launches in sorted(f32_step_by_shape[kernel].items()):
+            b, h, tq, tk, d, dt, variant = key
+            rec = records.get(key)
+            if rec is None or dt != "float32":
+                raise AssertionError(f"the f32 stage-2 step launched "
+                                     f"{kernel} at {key}, a shape the kernel "
+                                     f"phase did not check")
+            entries.append({
+                "name": (f"{kernel}[{b}x{h}x{tq}x{tk}x{d} f32"
+                         + (f" {variant}" if variant else "") + " f32 step]"),
+                "route": "cuda",
+                "source": f"neurons_tpu_torch/csrc/{kernel}.cu",
+                "replaces": (("neurons_tpu/ops/attention.py:458" if variant
+                              else "neurons_tpu/ops/attention.py:276") if bwd
+                             else "neurons_tpu/ops/attention.py:185"
+                             if "bias" in variant else
+                             "neurons_tpu/ops/attention.py:137"
+                             if tk * 2 <= 4608 else
+                             "neurons_tpu/ops/attention.py:226"),
+                "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "device_ms": rec["device_ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+                **({"library_bwd_ms": rec["library_bwd_ms"]} if bwd else {}),
+            })
+            groups.append((kernel, "f32 step", runs["f32 step"]))
     for path, key, launches in (
             [("clip", k, n) for k, n in sorted(
                 by_shape["temporal_attn_fwd"].items())]
@@ -6180,8 +6346,8 @@ def f32_check_records(flash_records):
 
 
 def f32_route_totals(records, paths):
-    """The flash kernels' f32 route (the forward's TF32 register kernel at
-    d <= 128, the TF32 column-split forward and backward past it) over its
+    """The flash kernels' f32 route (the TF32 register forward and
+    backward at d <= 128, the TF32 column-split ones past it) over its
     paths, for one unit of each: `paths` is [(path, {shape key: launches},
     units the launches span)], the keys those of `records` (the forward's,
     or the backward's). Per path: launches and the sums of
@@ -6250,6 +6416,31 @@ def wide_tf32_kernels(ptxas):
     return wide
 
 
+def tf32_bwd_instances(ptxas):
+    """The TF32 register backward's instances in the -Xptxas -v summary
+    (the two passes at each padded head dim, biased or not, and the dbias
+    kernel at each), logged with their registers and spills; raises if one
+    is missing."""
+    import re
+    out = []
+    for f in ptxas:
+        m = re.search(
+            r"flash_bwd_(dkdv|dq|dbias)_tf32_kernelILi(\d+)E(Lb([01]))?",
+            f["function"])
+        if m:
+            out.append(dict(kernel=m.group(1), dk=int(m.group(2)),
+                            bias=m.group(4) != "0", registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    for i in sorted(out, key=lambda i: (i["dk"], i["kernel"], i["bias"])):
+        log(f"  tf32 backward {i['kernel']} d {i['dk']} bias {i['bias']}: "
+            f"{i['registers']} registers, spill stores {i['spill_stores']} "
+            f"B, loads {i['spill_loads']} B")
+    if len(out) != 15:
+        raise AssertionError(f"the TF32 register backward's instances: {out}")
+    return out
+
+
 def ptxas_summary(name):
     """Per kernel of csrc/<name>.cu, from nvcc's -Xptxas -v log: the
     registers a thread and the bytes of local-memory spill stores and
@@ -6311,6 +6502,7 @@ def main():
             f"{f.get('spill_loads', 0)} B")
     tf32_instances(ptxas)
     wide_tf32_kernels(ptxas)
+    tf32_bwd_instances(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}
 
@@ -6361,6 +6553,8 @@ def main():
     with configuration(False):
         train_by_shape, fused_train_by_shape, run0 = train_phase()
         stamp("stage-2 train")
+        f32_step_by_shape = train_f32_phase()
+        stamp("stage-2 train f32")
         t0 = time.perf_counter()
         nccl_world1_phase(run0)
         del run0
@@ -6402,12 +6596,12 @@ def main():
     runs = {"clip": CLIP_REQUESTS, "step": stage2_steps,
             "fast clip": CLIP_REQUESTS, "fused clip": CLIP_REQUESTS,
             "fused step": FIXED_STEPS, "fused autoencoder step": 1,
-            **stage46_runs, **cli_runs}
+            "f32 step": 1 + F32_STEPS, **stage46_runs, **cli_runs}
     record = kernels_record(flash_records, temporal_records, train_records,
                             clip_by_shape[False], train_by_shape, gn_records,
                             fused_by_shapes, f32_check_records(flash_records),
                             ptxas, runs, fast_by_config[FAST_PRESET],
-                            stage46_by_path, cli_by_path)
+                            stage46_by_path, cli_by_path, f32_step_by_shape)
     log("kernel totals (a clip or a step; s of launches x time): " + " | ".join(
         f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
         f"{t['kernel_s']:.4f}" + (f" (device {t['device_s']:.4f})"
@@ -6422,7 +6616,9 @@ def main():
     # one validate run (its f32 UNet2D, UNet3D and SparseCtrl), on the TF32
     # register kernel; past d 128 on the TF32 column-split kernels, a
     # precompute batch (the VAE encoder at d = 512) and an autoencoder step
-    # pair (the VAE's mid attention at d = 512: forwards, backwards)
+    # pair (the VAE's mid attention at d = 512: forwards, backwards); the
+    # f32 stage-2 step's forwards on the TF32 register kernel and its
+    # backwards on the TF32 register backward
     from neurons_tpu_torch.ops.attention import BWD_ROUTES
     cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
     stage6 = scored_clip_launches(CLI_FRAMES)
@@ -6436,7 +6632,8 @@ def main():
     routes = {"scored clip": reg, "seg panel": reg, "cli stage e": reg,
               "precompute batch": reg, "validate run": reg,
               "precompute batch d 512": wide, "autoencoder step pair": wide,
-              "autoencoder step pair, backward": [BWD_ROUTES[3]]}
+              "autoencoder step pair, backward": [BWD_ROUTES[3]],
+              "f32 step": reg, "f32 step, backward": [BWD_ROUTES[4]]}
     record["f32_route"] = f32_route_totals(
         {**flash_records, **train_records[0]},
         [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
@@ -6451,11 +6648,14 @@ def main():
           runs["cli validate"]),
          ("precompute batch d 512", f32_at("cli precompute", False),
           runs["cli precompute"]),
-         ("autoencoder step pair", f32_at(ae, False), runs[ae])]
+         ("autoencoder step pair", f32_at(ae, False), runs[ae]),
+         ("f32 step", f32_step_by_shape["flash_attn_fwd"], runs["f32 step"])]
     ) + f32_route_totals(
         train_records[1],
         [("autoencoder step pair, backward",
-          f32_at(ae, False, "flash_attn_bwd"), runs[ae])])
+          f32_at(ae, False, "flash_attn_bwd"), runs[ae]),
+         ("f32 step, backward", f32_step_by_shape["flash_attn_bwd"],
+          runs["f32 step"])])
     log("f32 route (the flash kernels on f32; s of launches x time): "
         + " | ".join(f"{t['path']} x{t['launches']:g} {t['routes']}: kernel "
                      f"{t['kernel_s']:.4f} (device {t['device_s']:.4f}) "

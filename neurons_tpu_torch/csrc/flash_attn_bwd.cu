@@ -116,12 +116,49 @@
 // 700 W; 0.79 ms in all against 1.21 for the backward of PyTorch's fused
 // attention): 2.7 and 2.9 TB/s of it.
 //
+// The f32 (TF32) instances at D <= 128, with and without a bias
+// (flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel,
+// flash_bwd_dbias_tf32_kernel) carry stage 2's f32 step (the prior's
+// [10, 32, 513, 514, 52] with its per-head bias over multi-query k/v, the
+// DecoderVideo's [60, 1, T, T, D] at d = 128, 64 and 32), the tiny f32 CLI
+// chain and the f32 card checks. They are the bf16 register design above on
+// mma.sync m16n8k8 with .tf32 operands, under the TF32 contract of the
+// column-split instances: Q, K, V, g rounded by cvt.rna once a tile in
+// shared memory (each thread its own copies after its cp.async wait), P
+// and dS*scale rounded in registers, f32 sums, the accurate expf.
+//  * Row stride D + 4 floats (D padded to 32, 64 or 128; 4 x an odd
+//    number): an ldmatrix phase of 8 rows and a k-major read of rows 2t and
+//    2t + 1 at column g each hit 32 distinct banks.
+//  * Every A operand is one ldmatrix x4 a k8 step from shared memory (the
+//    8-row x 4-float matrices: rows 0-7 and 8-15 of columns 0-3, then
+//    4-7); the n-major B operands (Q and g in S^T and dP^T, K and V in S
+//    and dP) are ldmatrix x4 of two k8 steps. Nothing resident is held in
+//    registers: dK and dV (or dQ) and S, dP take them (holding K and V at
+//    d <= 64, as bf16 does, measured no faster on an H100).
+//  * C is not A in TF32: P^T, dS^T and dS go from their C registers into A
+//    as a = (c0, c2, c1, c3), so the products over queries (dV, dK) and
+//    over keys (dQ) sum in a permuted order, and their k-major B operands
+//    (g and Q, K) are scalar reads of rows 2t and 2t + 1.
+//  * The depth of S and dP runs D's k8 steps (52: 7), the products over D
+//    its n8 tiles; past D the staged columns are zero.
+//  * Ring stages: the most blocks an SM first, then the deeper ring
+//    (tf32_stages): two stages where two blocks an SM fit (d <= 32; d <= 64
+//    unbiased), one where only that keeps two (d <= 64 biased: the prior,
+//    2.80-2.89 ms against 4.79 with two stages and one block), two at
+//    d = 128 unbiased (199 KB, one block), one at d = 128 biased.
+// Two passes (three with a shared bias slice), no atomics: equal bits on
+// a rerun. What bounds them: 10 Tq Tk D operations at 495 TF32 TFLOP/s
+// (the prior 0.089 ms, the decoder's 64 x 64 site 0.65 ms), while every
+// B fragment read from shared memory feeds one warp's 16 rows, twice the
+// bytes an operation of the bf16 design, and the passes run at 15-53
+// TFLOP/s: the prior took 2.95 ms (0.97, 0.94, 0.94 by pass; the first
+// design 13.7, the library's backward 2.58), the decoder's sites 0.23,
+// 0.95 and 6.04 ms (H100 SXM at 700 W).
+//
 // The first design (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel: WMMA,
 // every tile product staged through shared memory, the dK, dV and dQ
-// accumulators in shared memory, one tile in flight) is left for f32 at D
-// <= 128 (the small card-vs-CPU checks, the prior's f32 check, the tiny
-// f32 CLI chain), for a biased f32 launch past D = 128 (no path launches
-// one) and for any D past 512.
+// accumulators in shared memory, one tile in flight) is left for a biased
+// f32 launch past D = 128 and for any D past 512; no path launches either.
 
 #include "flash_common.cuh"
 #include "mma_sm80.cuh"
@@ -162,8 +199,8 @@ __device__ inline int row_of(int mode, int n, int r, int H) {
 }
 
 // ---------------------------------------------------------------------------
-// The first design, WMMA through shared memory: f32 at D <= 128, biased f32
-// past it, and D > 512
+// The first design, WMMA through shared memory: biased f32 past D = 128,
+// and D > 512
 
 __host__ __device__ inline size_t smem_dkdv(int bq, int bk, int dp, int esize) {
   const int skew = esize == 2 ? 8 : 4;
@@ -490,40 +527,41 @@ struct RegCfg {
 };
 
 // Copy the [64 queries x 64 keys] block at (q0, k0) of one [Tq, Tk] bias
-// slice (row stride sq) into a [64][kBLD] tile; queries past Tq and keys
-// past Tk are zero. kGran as stage_rows; the last copy of a ragged row
-// reads only the bytes left in it.
-template <int kGran>
-__device__ __forceinline__ void stage_bias(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long sq, int q0, int k0,
-                                           int Tq, int Tk) {
-  constexpr int E = kGran ? kGran / 2 : 1, per_row = kRB / E;
+// slice (row stride sq) into a [64][BLD] tile; queries past Tq and keys
+// past Tk are zero. kGran as stage_rows (0: bf16 only); the last copy of a
+// ragged row reads only the bytes left in it.
+template <typename T, int BLD, int kGran>
+__device__ __forceinline__ void stage_bias(T* dst, const T* src, long long sq,
+                                           int q0, int k0, int Tq, int Tk) {
+  constexpr int E = kGran ? kGran / (int)sizeof(T) : 1, per_row = kRB / E;
 #pragma unroll 1
   for (int i = threadIdx.x; i < kRB * per_row; i += kRThreads) {
     const int r = i / per_row, c = (i % per_row) * E;
     const int q = q0 + r, key = k0 + c;
     const bool ok = q < Tq && key < Tk;
     if constexpr (kGran == 0) {
-      dst[r * kBLD + c] = ok ? src[(long long)q * sq + key]
-                             : __float2bfloat16(0.f);
+      dst[r * BLD + c] = ok ? src[(long long)q * sq + key]
+                            : __float2bfloat16(0.f);
     } else {
-      cp_async<kGran>(smem_addr(dst + r * kBLD + c),
+      cp_async<kGran>(smem_addr(dst + r * BLD + c),
                       ok ? src + (long long)q * sq + key : src,
-                      ok ? min(kGran, 2 * (Tk - key)) : 0);
+                      ok ? min(kGran, (int)sizeof(T) * (Tk - key)) : 0);
     }
   }
 }
 
-__device__ __forceinline__ void stage_bias_any(int gran, __nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
+template <typename T, int BLD>
+__device__ __forceinline__ void stage_bias_any(int gran, T* dst, const T* src,
                                                long long sq, int q0, int k0,
                                                int Tq, int Tk) {
   switch (gran) {
-    case 16: stage_bias<16>(dst, src, sq, q0, k0, Tq, Tk); break;
-    case 8: stage_bias<8>(dst, src, sq, q0, k0, Tq, Tk); break;
-    case 4: stage_bias<4>(dst, src, sq, q0, k0, Tq, Tk); break;
-    default: stage_bias<0>(dst, src, sq, q0, k0, Tq, Tk); break;
+    case 16: stage_bias<T, BLD, 16>(dst, src, sq, q0, k0, Tq, Tk); break;
+    case 8: stage_bias<T, BLD, 8>(dst, src, sq, q0, k0, Tq, Tk); break;
+    case 4: stage_bias<T, BLD, 4>(dst, src, sq, q0, k0, Tq, Tk); break;
+    default:  // f32 rows always move in 4-byte copies
+      if constexpr (sizeof(T) == 2)
+        stage_bias<T, BLD, 0>(dst, src, sq, q0, k0, Tq, Tk);
+      break;
   }
 }
 
@@ -689,10 +727,11 @@ flash_bwd_dkdv_reg_kernel(Params p) {
     stage_row_stats(reinterpret_cast<float*>(dst + 2 * C::kTile), lse, delta,
                     q0, p.Tq);
     if constexpr (kBias)
-      stage_bias_any(p.bgran,
-                     reinterpret_cast<bf16*>(ring + s * C::kStage1 +
-                                             4 * C::kTile + 2 * kRB * 4),
-                     bg, p.bias_sq, q0, k0, p.Tq, p.Tk);
+      stage_bias_any<bf16, kBLD>(
+          p.bgran,
+          reinterpret_cast<bf16*>(ring + s * C::kStage1 + 4 * C::kTile +
+                                  2 * kRB * 4),
+          bg, p.bias_sq, q0, k0, p.Tq, p.Tk);
   };
 
   stage_rows_any<kRB, DK, kRThreads>(p.vec, sK, kg, p.k_st, k0, p.Tk, D);
@@ -828,8 +867,8 @@ flash_bwd_dq_reg_kernel(Params p) {
     stage_rows_any<kRB, DK, kRThreads>(p.vec, dst + C::kTile, vg, p.v_st, k0,
                                        p.Tk, D);
     if constexpr (kBias)
-      stage_bias_any(p.bgran, dst + 2 * C::kTile, bg, p.bias_sq, q0, k0, p.Tq,
-                     p.Tk);
+      stage_bias_any<bf16, kBLD>(p.bgran, dst + 2 * C::kTile, bg, p.bias_sq,
+                                 q0, k0, p.Tq, p.Tk);
   };
   stage_rows_any<kRB, DK, kRThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
   stage_rows_any<kRB, DK, kRThreads>(p.vec, sG, gg, p.g_st, q0, p.Tq, D);
@@ -978,9 +1017,9 @@ flash_bwd_dbias_reg_kernel(Params p, int n_rep) {
                     p.lse + (long long)bh * p.Tq,
                     p.delta + (long long)bh * p.Tq, q0, p.Tq);
   };
-  stage_bias_any(p.bgran, sB,
-                 static_cast<const bf16*>(p.bias) + n * p.bias_sn, p.bias_sq,
-                 q0, k0, p.Tq, p.Tk);
+  stage_bias_any<bf16, kBLD>(
+      p.bgran, sB, static_cast<const bf16*>(p.bias) + n * p.bias_sn,
+      p.bias_sq, q0, k0, p.Tq, p.Tk);
   load_row(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -1045,6 +1084,602 @@ flash_bwd_dbias_reg_kernel(Params p, int n_rep) {
         }
     }
     cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  float* dbg = p.dbias + (long long)n * p.Tq * p.Tk;
+  const bool pairs = (p.Tk & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    float* drow = dbg + (long long)(q0 + row_l + 8 * r) * p.Tk + k0;
+#pragma unroll
+    for (int j = 0; j < kRB / 8; ++j) {
+      const int kl = j * 8 + (lane & 3) * 2;
+      if (!key_ok[j][0]) continue;
+      if (key_ok[j][1] && pairs) {
+        *reinterpret_cast<float2*>(drow + kl) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      } else {
+        drow[kl] = acc[j][2 * r];
+        if (key_ok[j][1]) drow[kl + 1] = acc[j][2 * r + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 (TF32) at D <= 128: the bf16 register design on m16n8k8
+
+constexpr int kTBLD = kRB + 4;     // row stride of an f32 bias tile, floats
+constexpr int kSmemMax = 232448;   // shared memory a block may use
+constexpr int kSmemHalf = 115712;  // the same with two blocks an SM (228 KB
+                                   // an SM, 1 KB of it a block's own)
+constexpr int kTf32Round = 4;      // copies a thread rounds at once
+
+// Ring stages (bytes `stage` each, beside `fixed` bytes of resident tiles):
+// the most blocks an SM first, then the deeper ring. Two stages where two
+// blocks an SM still fit, one where only one stage lets two fit, else two
+// where they fit a block's limit.
+constexpr int tf32_stages(int fixed, int stage) {
+  return fixed + 2 * stage <= kSmemHalf   ? 2
+         : fixed + stage <= kSmemHalf     ? 1
+         : fixed + 2 * stage <= kSmemMax ? 2
+                                          : 1;
+}
+
+// Blocks an SM the passes are compiled for: four at D <= 32 unbiased (the
+// decoder's 64 x 64 site; 128 registers a thread, 56 KB of shared memory),
+// else one, which leaves ptxas all 255 registers (without a minimum it held
+// some instances to 168 and spilled; the dbias kernel takes one too). On
+// an H100 the passes at [60, 1, 4096, 4096, 32] took 5.86-5.95 ms against
+// 6.44-6.58 without the bound, at [60, 1, 1024, 1024, 64] 0.914 against
+// 0.985-0.988 (tools/torch_flash_bwd_variants.py).
+template <int DK, bool kBias>
+constexpr int kTf32MinBlocks = DK <= 32 && !kBias ? 4 : 1;
+
+template <int DK, bool kBias>  // DK: the head dim padded to 32, 64 or 128
+struct Tf32Cfg {
+  // row stride in floats, 4 x an odd number: an ldmatrix phase (8 rows of
+  // 16 bytes) and the k-major B reads (rows 2t and 2t + 1, column g) each
+  // hit 32 distinct banks
+  static constexpr int LD = DK + 4;
+  static constexpr int kTile = kRB * LD;  // floats of a [64][LD] tile
+  static constexpr int kBias4 = kBias ? 4 * kRB * kTBLD : 0;  // bytes
+  // pass 1: K and V resident; a stage holds Q, g, lse, delta and the bias
+  static constexpr int kStage1 = 4 * (2 * kTile + 2 * kRB) + kBias4;
+  static constexpr int kS1 = tf32_stages(8 * kTile, kStage1);
+  static constexpr int kSmem1 = 8 * kTile + kS1 * kStage1;
+  // pass 2: Q and g resident; a stage holds K, V and the bias
+  static constexpr int kStage2 = 8 * kTile + kBias4;
+  static constexpr int kS2 = tf32_stages(8 * kTile, kStage2);
+  static constexpr int kSmem2 = 8 * kTile + kS2 * kStage2;
+  // pass 3 (dbias): the bias tile resident; a stage holds one row's Q, g,
+  // K, V, lse and delta
+  static constexpr int kStage3 = 4 * (4 * kTile + 2 * kRB);
+  static constexpr int kS3 = tf32_stages(4 * kRB * kTBLD, kStage3);
+  static constexpr int kSmem3 = 4 * kRB * kTBLD + kS3 * kStage3;
+  static_assert(kSmem1 <= kSmemMax && kSmem2 <= kSmemMax &&
+                kSmem3 <= kSmemMax, "a block's shared memory");
+};
+
+// Float offsets of this lane's ldmatrix row address in a [rows][LD] f32
+// tile, and of its k-major B element. ldmatrix of 8 x 8 b16 matrices reads
+// 8-row x 4-float ones, lane l receiving element (l / 4, l % 4) of each:
+//   a:  an A fragment (16 rows x 8 columns) in one x4: the matrices are
+//       rows 0-7 and 8-15 of columns 0-3, then of columns 4-7;
+//   nt: the B fragments of two k8 steps of one n8 tile from [n][k] rows:
+//       columns 0-3, 4-7, 8-11, 12-15 of 8 rows;
+//   kt: a B element from [k][n] rows in the key permutation of
+//       mma_sm80.cuh, row 2t and column g (b1 is the row after).
+template <int LD>
+struct Tf32Lanes {
+  int a, nt, kt;
+  __device__ explicit Tf32Lanes(int lane)
+      : a(((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4),
+        nt((lane & 7) * LD + (lane >> 4) * 8 + ((lane >> 3) & 1) * 4),
+        kt(2 * (lane & 3) * LD + (lane >> 2)) {}
+};
+
+// One 16-row x kRC-column block of two scores, c1 = A1 B1^T and c2 =
+// A2 B2^T, over the first kd8 k8 steps of the head dim (D padded to 8):
+// A1, A2 the warp's 16 resident rows (an ldmatrix A fragment at a1, a2
+// each step), B1, B2 kRC rows of ring tiles at b1, b2 ([n][k], ldmatrix).
+// Byte addresses; the tiles are rounded to TF32 already.
+template <int DK>
+__device__ __forceinline__ void two_scores_tf32(float (&c1)[kRC / 8][4],
+                                                float (&c2)[kRC / 8][4],
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t b1, uint32_t b2,
+                                                int kd8) {
+  constexpr int LD = DK + 4;
+#pragma unroll
+  for (int j = 0; j < kRC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DK / 8; ks += 2) {
+    if (ks >= kd8) continue;
+    const bool two = ks + 1 < kd8;  // the pair's second step within D
+    uint32_t x1[2][4], x2[2][4];
+    ldmatrix_x4(x1[0], a1 + ks * 32);
+    ldmatrix_x4(x2[0], a2 + ks * 32);
+    if (two) {
+      ldmatrix_x4(x1[1], a1 + ks * 32 + 32);
+      ldmatrix_x4(x2[1], a2 + ks * 32 + 32);
+    }
+#pragma unroll
+    for (int j = 0; j < kRC / 8; ++j) {
+      const uint32_t off = (j * 8 * LD + ks * 8) * 4;
+      uint32_t r[4];
+      ldmatrix_x4(r, b1 + off);
+      mma_tf32(c1[j], x1[0], r);
+      if (two) mma_tf32(c1[j], x1[1], r + 2);
+      ldmatrix_x4(r, b2 + off);
+      mma_tf32(c2[j], x2[0], r);
+      if (two) mma_tf32(c2[j], x2[1], r + 2);
+    }
+  }
+}
+
+// A C fragment (c0, c1 at columns 2t, 2t + 1; c2, c3 the same 8 rows on)
+// rounded to TF32 as the A fragment of one k8 step, a = (c0, c2, c1, c3):
+// A's k index t stands for column 2t, t + 4 for column 2t + 1.
+__device__ __forceinline__ void c_to_a_tf32(uint32_t (&a)[4],
+                                            const float (&c)[4]) {
+  a[0] = to_tf32(c[0]);
+  a[1] = to_tf32(c[2]);
+  a[2] = to_tf32(c[1]);
+  a[3] = to_tf32(c[3]);
+}
+
+// acc += A B over the first nv8 n8 tiles of D: A the kRC / 8 A fragments of
+// c_to_a_tf32 (k8 step j), B kRC rows of a [k][n] tile read in their order:
+// step j's b0 from row 8j + 2t, b1 from row 8j + 2t + 1 (b: this lane's
+// byte address of row 2t, column g). B's reads go in groups of up to 8 n8
+// tiles ahead of their products (16 registers).
+template <int DK>
+__device__ __forceinline__ void product_d_tf32(float (&acc)[DK / 8][4],
+                                               const uint32_t (&a)[kRC / 8][4],
+                                               uint32_t b, int nv8) {
+  constexpr int LD = DK + 4, NO = DK / 8, NG = NO < 8 ? NO : 8;
+#pragma unroll
+  for (int j = 0; j < kRC / 8; ++j)
+#pragma unroll
+    for (int n0 = 0; n0 < NO; n0 += NG) {
+      if (n0 >= nv8) continue;
+      uint32_t bv[NG][2];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        if (n0 + n >= nv8) continue;
+        bv[n][0] = lds_b32(b + (j * 8 * LD + (n0 + n) * 8) * 4);
+        bv[n][1] = lds_b32(b + ((j * 8 + 1) * LD + (n0 + n) * 8) * 4);
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+        if (n0 + n < nv8) mma_tf32(acc[n0 + n], a[j], bv[n]);
+    }
+}
+
+// Pass 1: dK and dV of 64 keys of one (b, h), 16 keys a warp. K and V are
+// staged once and rounded to TF32 in shared memory; Q, g, lse, delta (and
+// the bias's [64 queries x 64 keys] block) of each 64-query tile come
+// through a ring of kS1 stages, Q and g rounded there once a tile, each
+// thread its own copies. Per 32-query chunk a warp computes S^T = K Q^T and
+// dP^T = V g^T into registers (K and V as ldmatrix A fragments, Q and g as
+// ldmatrix B fragments), P^T = exp(S^T*scale + bias^T - lse) with the
+// accurate expf and dS^T*scale = P^T (dP^T - delta) scale in place, rounds
+// both to TF32 as A fragments (c_to_a_tf32), and adds P^T g into dV and
+// (dS^T*scale) Q into dK (g and Q by scalar reads of rows 2t and 2t + 1).
+// dK and dV are f32 register accumulators over the query loop, written
+// once.
+template <int DK, bool kBias>
+__global__ void __launch_bounds__(kRThreads, (kTf32MinBlocks<DK, kBias>))
+flash_bwd_dkdv_tf32_kernel(Params p) {
+  using C = Tf32Cfg<DK, kBias>;
+  constexpr int LD = C::LD, S = C::kS1, kStage = C::kStage1 / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + C::kTile;
+  float* ring = sV + C::kTile;  // [S][Q, g, lse, delta, bias]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (p.Tk + kRB - 1) / kRB;
+  const int k0 = (blockIdx.x % nk) * kRB;
+  const int bh = blockIdx.x / nk;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const float* lse = p.lse + (long long)bh * p.Tq;
+  const float* delta = p.delta + (long long)bh * p.Tq;
+  const float* bg = kBias ? static_cast<const float*>(p.bias) +
+                                bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                          : nullptr;
+  const int nq = (p.Tq + kRB - 1) / kRB;
+
+  auto load_tile = [&](int s, int q0) {
+    float* dst = ring + s * kStage;
+    stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, dst, qg, p.q_st, q0, p.Tq,
+                                           D);
+    stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, dst + C::kTile, gg, p.g_st,
+                                           q0, p.Tq, D);
+    stage_row_stats(dst + 2 * C::kTile, lse, delta, q0, p.Tq);
+    if constexpr (kBias)
+      stage_bias_any<float, kTBLD>(p.bgran, dst + 2 * C::kTile + 2 * kRB, bg,
+                                   p.bias_sq, q0, k0, p.Tq, p.Tk);
+  };
+  auto round_tile = [&](float* tile) {
+    round_rows_tf32_any<kRB, DK, LD, kRThreads, kTf32Round>(p.vec, tile);
+  };
+
+  stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, sK, kg, p.k_st, k0, p.Tk, D);
+  stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, sV, vg, p.v_st, k0, p.Tk, D);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait_mem<0>();
+  round_tile(sK);
+  round_tile(sV);
+  round_tile(ring);
+  round_tile(ring + C::kTile);
+  __syncthreads();
+
+  const Tf32Lanes<LD> lo(lane);
+  // this warp's 16 keys: rows of K and V, the A operands of S^T and dP^T
+  const uint32_t ka = smem_addr(sK + warp * 16 * LD + lo.a);
+  const uint32_t va = smem_addr(sV + warp * 16 * LD + lo.a);
+  float dk[DK / 8][4], dv[DK / 8][4];
+#pragma unroll
+  for (int t = 0; t < DK / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+  const int kd8 = (D + 7) / 8;  // k8 steps of S and dP, n8 tiles of D
+  const int tl = lane & 3;
+  const int key_l = warp * 16 + (lane >> 2);  // this lane's keys: +0, +8
+  const bool key_ok[2] = {k0 + key_l < p.Tk, k0 + key_l + 8 < p.Tk};
+
+  for (int t = 0; t < nq; ++t) {
+    const int stg = S == 2 ? t & 1 : 0;
+    if (S == 2 && t + 1 < nq) load_tile(stg ^ 1, (t + 1) * kRB);
+    cp_async_commit();
+    const int q0 = t * kRB;
+    const float* st = ring + stg * kStage;
+    const uint32_t qs = smem_addr(st), gs = qs + 4 * C::kTile;
+    const float* s_lse = st + 2 * C::kTile;
+    const float* s_delta = s_lse + kRB;
+    const float* s_bias = s_lse + 2 * kRB;
+
+#pragma unroll 1
+    for (int qc = 0; qc < kRB; qc += kRC) {
+      // S^T = K Q^T and dP^T = V g^T: 16 keys x kRC queries
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores_tf32<DK>(s, dp, ka, va, qs + (qc * LD + lo.nt) * 4,
+                          gs + (qc * LD + lo.nt) * 4, kd8);
+      // P^T and dS^T*scale (column pair j: queries qc + 8j + 2t, + 1), as
+      // the TF32 A fragments of kRC / 8 k8 steps
+      uint32_t pa[kRC / 8][4], da[kRC / 8][4];
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j) {
+        const int ql = qc + j * 8 + tl * 2;
+        const float2 ls = *reinterpret_cast<const float2*>(s_lse + ql);
+        const float2 dl = *reinterpret_cast<const float2*>(s_delta + ql);
+        const bool q_ok[2] = {q0 + ql < p.Tq, q0 + ql + 1 < p.Tq};
+        float pe[4], de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1, r = e >> 1;
+          float x = s[j][e] * p.scale;
+          if constexpr (kBias) x += s_bias[(ql + c) * kTBLD + key_l + 8 * r];
+          const float pv =
+              key_ok[r] && q_ok[c] ? expf(x - (c ? ls.y : ls.x)) : 0.f;
+          pe[e] = pv;
+          de[e] = pv * (dp[j][e] - (c ? dl.y : dl.x)) * p.scale;
+        }
+        c_to_a_tf32(pa[j], pe);
+        c_to_a_tf32(da[j], de);
+      }
+      // dV += P^T g, dK += (dS^T*scale) Q
+      product_d_tf32<DK>(dv, pa, gs + (qc * LD + lo.kt) * 4, kd8);
+      product_d_tf32<DK>(dk, da, qs + (qc * LD + lo.kt) * 4, kd8);
+    }
+    if (S == 1) {  // every warp is done with the one stage
+      __syncthreads();
+      if (t + 1 < nq) load_tile(0, (t + 1) * kRB);
+      cp_async_commit();
+    }
+    cp_async_wait_mem<0>();
+    if (t + 1 < nq) {
+      float* next = ring + (S == 2 ? stg ^ 1 : 0) * kStage;
+      round_tile(next);
+      round_tile(next + C::kTile);
+    }
+    __syncthreads();
+  }
+
+  const long long out = (long long)bh * p.Tk * D;
+  write_rows<DK>(p.dk + out, dk, k0 + key_l, p.Tk, D, lane);
+  write_rows<DK>(p.dv + out, dv, k0 + key_l, p.Tk, D, lane);
+}
+
+// Pass 2: dQ of 64 queries of one (b, h), 16 queries a warp, and with a
+// bias of its own (one slice per (b, h)) the rows of dbias they own. Q and
+// g are staged once and rounded, lse and delta sit in registers, and K, V
+// (and the bias block) come through a ring of kS2 stages, K and V rounded
+// there once a tile. S and dP, then dS = P (dP - delta) in registers, and
+// dQ += (dS*scale) K with dS*scale as the A fragments of c_to_a_tf32 and
+// K by scalar reads of rows 2t and 2t + 1; dQ is an f32 register
+// accumulator written once.
+template <int DK, bool kBias>
+__global__ void __launch_bounds__(kRThreads, (kTf32MinBlocks<DK, kBias>))
+flash_bwd_dq_tf32_kernel(Params p) {
+  using C = Tf32Cfg<DK, kBias>;
+  constexpr int LD = C::LD, S = C::kS2, kStage = C::kStage2 / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sG = sQ + C::kTile;
+  float* ring = sG + C::kTile;  // [S][K, V, bias]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kRB - 1) / kRB;
+  const int q0 = (blockIdx.x % nq) * kRB;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nk = (p.Tk + kRB - 1) / kRB;
+  const int D = p.D;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.g_sb + h * p.g_sh;
+  const float* bg = kBias ? static_cast<const float*>(p.bias) +
+                                bias_slice(p.bias_mode, bh, p.H) * p.bias_sn
+                          : nullptr;
+  // dS is this block's dbias only where each (b, h) has its own slice;
+  // shared slices take theirs from flash_bwd_dbias_tf32_kernel
+  float* dbg = kBias && p.bias_mode == 3
+                   ? p.dbias + (long long)bh * p.Tq * p.Tk : nullptr;
+  const bool pairs = (p.Tk & 1) == 0;  // dbias rows start 8-byte aligned
+  const int tl = lane & 3;
+  const int row_l = warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
+  const int rows[2] = {q0 + row_l, q0 + row_l + 8};
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < p.Tq;
+    lse[r] = ok ? p.lse[(long long)bh * p.Tq + rows[r]] : 0.f;
+    dlt[r] = ok ? p.delta[(long long)bh * p.Tq + rows[r]] : 0.f;
+  }
+
+  auto load_tile = [&](int s, int k0) {
+    float* dst = ring + s * kStage;
+    stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, dst, kg, p.k_st, k0, p.Tk,
+                                           D);
+    stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, dst + C::kTile, vg, p.v_st,
+                                           k0, p.Tk, D);
+    if constexpr (kBias)
+      stage_bias_any<float, kTBLD>(p.bgran, dst + 2 * C::kTile, bg,
+                                   p.bias_sq, q0, k0, p.Tq, p.Tk);
+  };
+  auto round_tile = [&](float* tile) {
+    round_rows_tf32_any<kRB, DK, LD, kRThreads, kTf32Round>(p.vec, tile);
+  };
+  stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, sQ, qg, p.q_st, q0, p.Tq, D);
+  stage_rows_f32<kRB, DK, LD, kRThreads>(p.vec, sG, gg, p.g_st, q0, p.Tq, D);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait_mem<0>();
+  round_tile(sQ);
+  round_tile(sG);
+  round_tile(ring);
+  round_tile(ring + C::kTile);
+  __syncthreads();
+
+  const Tf32Lanes<LD> lo(lane);
+  // this warp's 16 queries: rows of Q and g, the A operands of S and dP
+  const uint32_t qa = smem_addr(sQ + warp * 16 * LD + lo.a);
+  const uint32_t ga = smem_addr(sG + warp * 16 * LD + lo.a);
+  float dq[DK / 8][4];
+#pragma unroll
+  for (int t = 0; t < DK / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
+  const int kd8 = (D + 7) / 8;
+
+  for (int t = 0; t < nk; ++t) {
+    const int stg = S == 2 ? t & 1 : 0;
+    if (S == 2 && t + 1 < nk) load_tile(stg ^ 1, (t + 1) * kRB);
+    cp_async_commit();
+    const int k0 = t * kRB;
+    const float* st = ring + stg * kStage;
+    const uint32_t ks_ = smem_addr(st), vs_ = ks_ + 4 * C::kTile;
+    const float* s_bias = st + 2 * C::kTile;
+
+#pragma unroll 1
+    for (int kc = 0; kc < kRB; kc += kRC) {
+      // S = Q K^T and dP = g V^T: 16 queries x kRC keys
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores_tf32<DK>(s, dp, qa, ga, ks_ + (kc * LD + lo.nt) * 4,
+                          vs_ + (kc * LD + lo.nt) * 4, kd8);
+      // dS*scale as TF32 A fragments (column pair j of S: keys k0 + kc +
+      // 8j + 2t, + 1); the unscaled dS into an own dbias slice
+      uint32_t da[kRC / 8][4];
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j) {
+        const int kl = kc + j * 8 + tl * 2, key = k0 + kl;
+        const bool key_ok[2] = {key < p.Tk, key + 1 < p.Tk};
+        float de[4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float2 bias2 = make_float2(0.f, 0.f);
+          if constexpr (kBias)
+            bias2 = *reinterpret_cast<const float2*>(
+                s_bias + (row_l + 8 * r) * kTBLD + kl);
+          const bool row_ok = rows[r] < p.Tq;
+          float ds[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = s[j][2 * r + c] * p.scale + (c ? bias2.y : bias2.x);
+            const float pv = row_ok && key_ok[c] ? expf(x - lse[r]) : 0.f;
+            ds[c] = pv * (dp[j][2 * r + c] - dlt[r]);
+            de[2 * r + c] = ds[c] * p.scale;
+          }
+          if (kBias && dbg && row_ok && key_ok[0]) {
+            float* at = dbg + (long long)rows[r] * p.Tk + key;
+            if (key_ok[1] && pairs) {
+              *reinterpret_cast<float2*>(at) = make_float2(ds[0], ds[1]);
+            } else {
+              at[0] = ds[0];
+              if (key_ok[1]) at[1] = ds[1];
+            }
+          }
+        }
+        c_to_a_tf32(da[j], de);
+      }
+      // dQ += (dS*scale) K
+      product_d_tf32<DK>(dq, da, ks_ + (kc * LD + lo.kt) * 4, kd8);
+    }
+    if (S == 1) {  // every warp is done with the one stage
+      __syncthreads();
+      if (t + 1 < nk) load_tile(0, (t + 1) * kRB);
+      cp_async_commit();
+    }
+    cp_async_wait_mem<0>();
+    if (t + 1 < nk) {
+      float* next = ring + (S == 2 ? stg ^ 1 : 0) * kStage;
+      round_tile(next);
+      round_tile(next + C::kTile);
+    }
+    __syncthreads();
+  }
+  write_rows<DK>(static_cast<float*>(p.dq) + (long long)bh * p.Tq * D, dq,
+                 rows[0], p.Tq, D, lane);
+}
+
+// Pass 3, a bias slice shared by several (b, h) rows (one for all rows, or
+// one per head): dbias of one [64 queries x 64 keys] tile of slice n, the
+// unscaled dS of each row that shares it summed in f32 registers in row
+// order and written once. Each row's Q, g, K, V tiles (rounded to TF32
+// there), lse and delta come through a ring of kS3 stages; the bias tile
+// is staged once and read into registers. Two products a row (S and dP).
+template <int DK>
+__global__ void __launch_bounds__(kRThreads, 1)
+flash_bwd_dbias_tf32_kernel(Params p, int n_rep) {
+  using C = Tf32Cfg<DK, true>;
+  constexpr int LD = C::LD, S = C::kS3, kStage = C::kStage3 / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sB = reinterpret_cast<float*>(smem);
+  float* ring = sB + kRB * kTBLD;  // [S][Q, g, K, V, lse, delta]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (p.Tq + kRB - 1) / kRB, nk = (p.Tk + kRB - 1) / kRB;
+  const int k0 = (blockIdx.x % nk) * kRB;
+  const int q0 = (blockIdx.x / nk % nq) * kRB;
+  const int n = blockIdx.x / (nk * nq);
+  const int D = p.D;
+
+  auto load_row = [&](int s, int rep) {
+    const int bh = row_of(p.bias_mode, n, rep, p.H);
+    const int b = bh / p.H, h = bh % p.H;
+    float* dst = ring + s * kStage;
+    stage_rows_f32<kRB, DK, LD, kRThreads>(
+        p.vec, dst, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
+        p.q_st, q0, p.Tq, D);
+    stage_rows_f32<kRB, DK, LD, kRThreads>(
+        p.vec, dst + C::kTile,
+        static_cast<const float*>(p.g) + b * p.g_sb + h * p.g_sh, p.g_st, q0,
+        p.Tq, D);
+    stage_rows_f32<kRB, DK, LD, kRThreads>(
+        p.vec, dst + 2 * C::kTile,
+        static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh, p.k_st, k0,
+        p.Tk, D);
+    stage_rows_f32<kRB, DK, LD, kRThreads>(
+        p.vec, dst + 3 * C::kTile,
+        static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh, p.v_st, k0,
+        p.Tk, D);
+    stage_row_stats(dst + 4 * C::kTile, p.lse + (long long)bh * p.Tq,
+                    p.delta + (long long)bh * p.Tq, q0, p.Tq);
+  };
+  auto round_row = [&](int s) {
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i)
+      round_rows_tf32_any<kRB, DK, LD, kRThreads, kTf32Round>(
+          p.vec, ring + s * kStage + i * C::kTile);
+  };
+  stage_bias_any<float, kTBLD>(
+      p.bgran, sB, static_cast<const float*>(p.bias) + n * p.bias_sn,
+      p.bias_sq, q0, k0, p.Tq, p.Tk);
+  load_row(0, 0);
+  cp_async_commit();
+  cp_async_wait_mem<0>();
+  round_row(0);
+  __syncthreads();
+
+  const Tf32Lanes<LD> lo(lane);
+  const int kd8 = (D + 7) / 8;
+  const int row_l = warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
+  const bool row_ok[2] = {q0 + row_l < p.Tq, q0 + row_l + 8 < p.Tq};
+  float bias[kRB / 8][4];  // this lane's bias values
+  bool key_ok[kRB / 8][2];
+#pragma unroll
+  for (int j = 0; j < kRB / 8; ++j) {
+    const int kl = j * 8 + (lane & 3) * 2;
+    key_ok[j][0] = k0 + kl < p.Tk;
+    key_ok[j][1] = k0 + kl + 1 < p.Tk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(sB + (row_l + 8 * r) * kTBLD + kl);
+      bias[j][2 * r] = bb.x;
+      bias[j][2 * r + 1] = bb.y;
+    }
+  }
+  float acc[kRB / 8][4];
+#pragma unroll
+  for (int j = 0; j < kRB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll 1
+  for (int rep = 0; rep < n_rep; ++rep) {
+    const int stg = S == 2 ? rep & 1 : 0;
+    if (S == 2 && rep + 1 < n_rep) load_row(stg ^ 1, rep + 1);
+    cp_async_commit();
+    const float* st = ring + stg * kStage;
+    const uint32_t qs = smem_addr(st), gs = qs + 4 * C::kTile,
+                   ks_ = qs + 8 * C::kTile, vs_ = qs + 12 * C::kTile;
+    const float* s_lse = st + 4 * C::kTile;
+    float lse[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse[r] = s_lse[row_l + 8 * r];
+      dlt[r] = s_lse[kRB + row_l + 8 * r];
+    }
+#pragma unroll
+    for (int kc = 0; kc < kRB; kc += kRC) {
+      float s[kRC / 8][4], dp[kRC / 8][4];
+      two_scores_tf32<DK>(s, dp, qs + (warp * 16 * LD + lo.a) * 4,
+                          gs + (warp * 16 * LD + lo.a) * 4,
+                          ks_ + (kc * LD + lo.nt) * 4,
+                          vs_ + (kc * LD + lo.nt) * 4, kd8);
+#pragma unroll
+      for (int j = 0; j < kRC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jt = kc / 8 + j, r = e >> 1, c = e & 1;
+          const float x = s[j][e] * p.scale + bias[jt][e];
+          const float pv =
+              row_ok[r] && key_ok[jt][c] ? expf(x - lse[r]) : 0.f;
+          acc[jt][e] += pv * (dp[j][e] - dlt[r]);
+        }
+    }
+    if (S == 1) {  // every warp is done with the one stage
+      __syncthreads();
+      if (rep + 1 < n_rep) load_row(0, rep + 1);
+      cp_async_commit();
+    }
+    cp_async_wait_mem<0>();
+    if (rep + 1 < n_rep) round_row(S == 2 ? stg ^ 1 : 0);
     __syncthreads();
   }
 
@@ -1474,14 +2109,15 @@ inline int reg_smem(int dk) {
   }
 }
 
-// The largest of 16, 8 and 4 bytes that the bias rows move in (the
-// pointer, the row stride and, with more than one slice, the slice stride
-// multiples of it), else 0.
-int bias_granule(const void* bias, long long sn, long long sq, int mode) {
+// The largest of 16, 8 and 4 bytes that the bias rows (elements of esize
+// bytes) move in (the pointer, the row stride and, with more than one
+// slice, the slice stride multiples of it), else 0.
+int bias_granule(const void* bias, long long sn, long long sq, int mode,
+                 int esize) {
   static const int kGrans[] = {16, 8, 4};
   for (int g : kGrans) {
-    if (reinterpret_cast<uintptr_t>(bias) % g == 0 && (2 * sq) % g == 0
-        && (mode == 1 || (2 * sn) % g == 0))
+    if (reinterpret_cast<uintptr_t>(bias) % g == 0 && (esize * sq) % g == 0
+        && (mode == 1 || (esize * sn) % g == 0))
       return g;
   }
   return 0;
@@ -1539,6 +2175,83 @@ cudaError_t launch_reg(Params p, cudaStream_t stream) {
   }
 }
 
+// The padded head dim of the TF32 register kernels' instance for D (the f32
+// head dims the paths launch: 32; 52 and 64; 128), 0 past 128.
+inline int tf32_dk(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
+
+// Shared memory of the largest of the TF32 register kernels at instance DK
+// (the passes, biased and unbiased, and the dbias kernel).
+template <int DK>
+constexpr int tf32_smem_as() {
+  using B = Tf32Cfg<DK, true>;
+  using U = Tf32Cfg<DK, false>;
+  const int a = B::kSmem1 > B::kSmem2 ? B::kSmem1 : B::kSmem2;
+  const int b = U::kSmem1 > U::kSmem2 ? U::kSmem1 : U::kSmem2;
+  const int c = a > b ? a : b;
+  return c > B::kSmem3 ? c : B::kSmem3;
+}
+
+inline int tf32_smem(int dk) {
+  switch (dk) {
+    case 32: return tf32_smem_as<32>();
+    case 64: return tf32_smem_as<64>();
+    default: return tf32_smem_as<128>();
+  }
+}
+
+template <int DK, bool kBias>
+cudaError_t launch_tf32_as(Params p, cudaStream_t stream) {
+  using C = Tf32Cfg<DK, kBias>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_tf32_kernel<DK, kBias>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<DK, kBias>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem2);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)p.B * p.H;
+  const long long nk = (p.Tk + kRB - 1) / kRB, nq = (p.Tq + kRB - 1) / kRB;
+  flash_bwd_dkdv_tf32_kernel<DK, kBias><<<(unsigned)(bh * nk), kRThreads,
+                                          C::kSmem1, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_tf32_kernel<DK, kBias><<<(unsigned)(bh * nq), kRThreads,
+                                        C::kSmem2, stream>>>(p);
+  err = cudaGetLastError();
+  if constexpr (kBias) {
+    if (err != cudaSuccess || p.bias_mode == 3) return err;
+    // a slice shared by all rows (mode 1) or by the B rows of a head (2)
+    const long long slices = p.bias_mode == 1 ? 1 : p.H;
+    err = cudaFuncSetAttribute(flash_bwd_dbias_tf32_kernel<DK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem3);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dbias_tf32_kernel<DK><<<(unsigned)(slices * nq * nk), kRThreads,
+                                      C::kSmem3, stream>>>(
+        p, (int)(bh / slices));
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+template <int DK>
+cudaError_t launch_tf32_dk(Params p, cudaStream_t stream) {
+  return p.bias ? launch_tf32_as<DK, true>(p, stream)
+                : launch_tf32_as<DK, false>(p, stream);
+}
+
+cudaError_t launch_tf32(Params p, cudaStream_t stream) {
+  switch (tf32_dk(p.D)) {
+    case 32: return launch_tf32_dk<32>(p, stream);
+    case 64: return launch_tf32_dk<64>(p, stream);
+    case 128: return launch_tf32_dk<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1548,9 +2261,10 @@ extern "C" {
 // 3 = one per (b, h). vec: the bytes every row of q, k, v and g can move in
 // (16, 8 or 4: D, the token strides and the pointers are multiples of it),
 // or 0 for element loads. g, lse and delta must not alias the outputs.
-// bf16 at D <= 128 launches the register kernels, unbiased f32 at 128 < D
-// <= 512 the TF32 column-split ones, anything else the WMMA ones. Returns a
-// cudaError_t (0 on success).
+// bf16 at D <= 128 launches the register kernels, f32 at D <= 128 the TF32
+// register kernels, unbiased f32 at 128 < D <= 512 the TF32 column-split
+// ones, anything else (a biased f32 launch past 128, D past 512) the WMMA
+// ones. Returns a cudaError_t (0 on success).
 int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, const void* bias,
                    void* dq, float* dk, float* dv, float* dbias,
@@ -1582,14 +2296,16 @@ int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && reg_dk(D)) {
     p.vec = vec;
-    p.bgran = bias ? bias_granule(bias, bias_sn, bias_sq, bias_mode) : 0;
+    p.bgran = bias ? bias_granule(bias, bias_sn, bias_sq, bias_mode, 2) : 0;
     return (int)launch_reg(p, s);
   }
-  if (dtype == 0 && D > 128 && D <= kXDK && !bias) {
+  if (dtype == 0 && (tf32_dk(D) || (D <= kXDK && !bias))) {
     if (vec != 4 && vec != 8 && vec != 16)  // f32 rows move in 4-byte units
       return (int)cudaErrorInvalidValue;
     p.vec = vec;
-    return (int)launch_wide_tf32(p, s);
+    if (!tf32_dk(D)) return (int)launch_wide_tf32(p, s);
+    p.bgran = bias ? bias_granule(bias, bias_sn, bias_sq, bias_mode, 4) : 0;
+    return (int)launch_tf32(p, s);
   }
   p.vec = vec == 16;  // the WMMA kernels move 16 bytes or one element
   const int esize = dtype == 1 ? 2 : 4;
@@ -1599,10 +2315,12 @@ int flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
 }
 
 // The tiles (query rows, keys) and the larger shared-memory size of the
-// kernels an unbiased launch at head dim D would use, and its kernels: 1
-// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the first design), 2 the
-// bf16 register kernels, 3 flash_bwd_dkdv_wide_tf32_kernel and
-// flash_bwd_dq_wide_tf32_kernel (f32); 0 when no tile fits.
+// kernels an unbiased launch at head dim D would use (for the register
+// instances, the largest of their kernels, the biased ones too), and its
+// kernels: 1 flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (the first
+// design), 2 the bf16 register kernels, 3 flash_bwd_dkdv_wide_tf32_kernel
+// and flash_bwd_dq_wide_tf32_kernel (f32 past 128), 4 the TF32 register
+// kernels (f32 up to 128); 0 when no tile fits.
 int flash_attn_bwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
   if (dtype == 1 && reg_dk(D)) {
     *bq = *bk = kRB;
@@ -1613,6 +2331,11 @@ int flash_attn_bwd_tiles(int D, int dtype, int* bq, int* bk, int* smem) {
     *bq = *bk = kXB;
     *smem = kXSmem;
     return 3;
+  }
+  if (dtype == 0 && tf32_dk(D)) {
+    *bq = *bk = kRB;
+    *smem = tf32_smem(tf32_dk(D));
+    return 4;
   }
   const int dp = (D + 15) / 16 * 16, esize = dtype == 1 ? 2 : 4;
   if (!pick_tiles(dp, esize, max_block_smem(), bq, bk)) return 0;

@@ -407,7 +407,8 @@ FWD_ROUTES = {1: "flash_fwd_kernel", 2: "flash_fwd_reg_kernel",
 BWD_ROUTES = {1: "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel",
               2: "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel",
               3: ("flash_bwd_dkdv_wide_tf32_kernel"
-                  "+flash_bwd_dq_wide_tf32_kernel")}
+                  "+flash_bwd_dq_wide_tf32_kernel"),
+              4: "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel"}
 
 
 def _tiles(d, dtype, kernel):
@@ -437,9 +438,12 @@ def flash_route(d: int, dtype: torch.dtype) -> str:
 
 def flash_bwd_route(d: int, dtype: torch.dtype) -> str:
     """The backward's kernels for an unbiased launch at head dim d: bf16 up
-    to d = 128 the register kernels, f32 at 128 < d <= 512 the TF32
-    column-split ones. The first design takes the rest: f32 up to d = 128,
-    a biased f32 launch past 128 (no path launches one) and d past 512."""
+    to d = 128 the register kernels, f32 up to d = 128 the TF32 register
+    kernels (biased too; a bias shared by several rows adds
+    `flash_bwd_dbias_tf32_kernel`, as bf16 adds its dbias kernel), f32 at
+    128 < d <= 512 the TF32 column-split ones. The first design takes the
+    rest: a biased f32 launch past 128 and d past 512 (no path launches
+    either)."""
     return BWD_ROUTES[_tiles(d, dtype, "flash_attn_bwd")[0]]
 
 

@@ -310,3 +310,27 @@ def test_wide_tf32_kernels_are_read_and_gated():
             wide[:5] + [_wide_ptxas("flash_bwd_dq_wide_tf32_kernel", 255, 4)])
     with pytest.raises(AssertionError):  # one is missing
         chip_smoke.wide_tf32_kernels(ptxas[1:])
+
+
+def test_tf32_bwd_instances_are_read():
+    # the TF32 register backward's passes at each padded head dim, biased
+    # or not, and its dbias kernel at each; neither the column-split
+    # kernels nor the bf16 register ones are among them
+    names = [f"flash_bwd_{k}_tf32_kernelILi{dk}ELb{b}EEEvNS_6ParamsE"
+             for dk in (32, 64, 128) for k in ("dkdv", "dq") for b in (0, 1)]
+    names += [f"flash_bwd_dbias_tf32_kernelILi{dk}EEEvNS_6ParamsEi"
+              for dk in (32, 64, 128)]
+    ptxas = [dict(source="flash_attn_bwd", registers=128 + i,
+                  function=f"_ZN50_GLOBAL__N__0_flash_attn_bwd_cu{len(n)}{n}",
+                  spill_stores=4 * (i == 3), spill_loads=4 * (i == 3))
+             for i, n in enumerate(names)]
+    others = [_wide_ptxas("flash_bwd_dkdv_wide_tf32_kernel", 208),
+              dict(source="flash_attn_bwd", registers=200, function=(
+                  "_ZN3_GLOBAL__N_125flash_bwd_dkdv_reg_kernelILi64ELb1EEEv"))]
+    got = chip_smoke.tf32_bwd_instances(ptxas + others)
+    assert sorted((i["kernel"], i["dk"], i["bias"]) for i in got) == sorted(
+        [(k, dk, b) for dk in (32, 64, 128) for k in ("dkdv", "dq")
+         for b in (False, True)] + [("dbias", dk, True) for dk in (32, 64, 128)])
+    assert [i["spill_stores"] for i in got].count(4) == 1
+    with pytest.raises(AssertionError):  # an instance is missing
+        chip_smoke.tf32_bwd_instances(ptxas[1:] + others)

@@ -398,31 +398,62 @@ def test_forward_bias_modes_with_lse(cuda, d, bias_shape):
     _check_train(2, 3, 150, 140, d, 3, bias_shape, torch.bfloat16)
 
 
-# the bf16 backward's register instances (head dims padded to 32, 64, 96,
-# 128) at head dims off them, unbiased and with a per-head bias over
-# multi-query k/v, ragged Tq and Tk
+# the backward's register instances (bf16: head dims padded to 32, 64,
+# 96, 128; f32, the TF32 ones: 32, 64, 128) at head dims off them,
+# unbiased and with a per-head bias over multi-query k/v, ragged Tq and Tk
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("biased", [False, True], ids=["nobias", "per_head"])
-@pytest.mark.parametrize("d", [16, 40, 80, 96])
-def test_backward_at_every_head_dim(cuda, d, biased):
+@pytest.mark.parametrize("d", [16, 40, 52, 80, 96, 128])
+def test_backward_at_every_head_dim(cuda, d, biased, dtype):
     _check_train(2, 3, 150, 190, d, 1 if biased else 3,
-                 (3, 150, 190) if biased else None, torch.bfloat16, seed=d)
+                 (3, 150, 190) if biased else None, getattr(torch, dtype),
+                 seed=d)
 
 
-# rows that move in 8, 4 or 2 bytes (d = 52 and 50 contiguous, d = 52
-# from rows of 53), and an odd Tk, whose bias rows move element by element
+# rows that move in 16, 8, 4 or (bf16) 2 bytes (d = 52 and 50 contiguous,
+# d = 52 from rows of 53 or 54), and an odd Tk, whose bias rows move
+# element by element (bf16) or in 4-byte copies (f32)
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("d,row,tk", [(52, 52, 140), (50, 50, 140),
-                                      (52, 53, 140), (40, 40, 131)])
-def test_backward_takes_rows_off_16_bytes(cuda, d, row, tk):
-    _check_train(2, 2, 77, tk, d, 1, (2, 77, tk), torch.bfloat16, seed=12,
-                 row=row)
+                                      (52, 53, 140), (52, 54, 140),
+                                      (40, 40, 131)])
+def test_backward_takes_rows_off_16_bytes(cuda, d, row, tk, dtype):
+    _check_train(2, 2, 77, tk, d, 1, (2, 77, tk), getattr(torch, dtype),
+                 seed=12, row=row)
 
 
+# the prior's [10, 32, 513, 514, 52] multi-query with its per-head bias,
+# in bf16 and in f32 (stage 2's f32 step)
 @pytest.mark.cuda
-def test_train_kernels_at_the_prior_shape(cuda):
-    # the prior's [10, 32, 513, 514, 52] multi-query with its per-head bias
-    _check_train(10, 32, 513, 514, 52, 1, (32, 513, 514), torch.bfloat16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_kernels_at_the_prior_shape(cuda, dtype):
+    _check_train(10, 32, 513, 514, 52, 1, (32, 513, 514),
+                 getattr(torch, dtype))
+
+
+# the f32 backward with a bias slice shared by several rows (its dbias
+# summed over them by the dbias pass in row order) and per (b, h) gives
+# equal bits on every rerun
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_shape", [(129, 130), (4, 129, 130),
+                                        (3, 4, 129, 130)],
+                         ids=["shared", "per_head", "per_bh"])
+def test_f32_backward_rerun_gives_equal_bits_with_a_bias(cuda, bias_shape):
+    g = torch.Generator("cuda").manual_seed(129)
+    q, go = (torch.randn((3, 4, 129, 52), generator=g, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((3, 1, 130, 52), generator=g, device="cuda")
+            for _ in range(2))
+    bias = torch.randn(bias_shape, generator=g, device="cuda")
+    out, lse = attn.flash_attention_fwd(q, k, v, bias=bias, return_lse=True)
+    first = attn.flash_attention_bwd(q, k, v, bias, go, out, lse, 52 ** -0.5)
+    assert all(bool(torch.isfinite(x).all()) for x in first)
+    for _ in range(3):
+        again = attn.flash_attention_bwd(q, k, v, bias, go, out, lse,
+                                         52 ** -0.5)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
@@ -863,9 +894,68 @@ def test_f32_wide_routes_by_head_dim(cuda, d):
         assert fwd == "flash_fwd_kernel"
         assert bwd == "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel"
     assert attn.flash_bwd_route(64, torch.float32) == (
-        "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel")
+        "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel")
     assert attn.flash_bwd_route(64, torch.bfloat16) == (
         "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel")
+
+
+def _tf32_bwd_smem(dk, biased):
+    # shared memory of the TF32 register backward's kernels at instance dk
+    # (csrc/flash_attn_bwd.cu, Tf32Cfg): [64][dk + 4] f32 tiles, a bias
+    # block [64][68], the ring stages chosen by tf32_stages
+    tile, bias = 4 * 64 * (dk + 4), 4 * 64 * 68 if biased else 0
+
+    def stages(fixed, stage):
+        half, full = 115712, 232448
+        return (2 if fixed + 2 * stage <= half else
+                1 if fixed + stage <= half else
+                2 if fixed + 2 * stage <= full else 1)
+
+    s1 = 2 * tile + 512 + bias
+    s2 = 2 * tile + bias
+    s3 = 4 * tile + 512
+    out = [2 * tile + stages(2 * tile, s1) * s1,
+           2 * tile + stages(2 * tile, s2) * s2]
+    if biased:
+        out.append(4 * 64 * 68 + stages(4 * 64 * 68, s3) * s3)
+    return out
+
+
+# The f32 backward up to d 128 is the TF32 register design at every head
+# dim, biased or not: the route and tiles, and the kernels a launch runs
+# (under torch.profiler), none of them the first design's
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_shape", [None, (150, 140), (3, 150, 140),
+                                        (2, 3, 150, 140)],
+                         ids=["none", "shared", "per_head", "per_bh"])
+@pytest.mark.parametrize("d", [16, 52, 64, 128])
+def test_f32_backward_routes_and_tiles_by_head_dim(cuda, d, bias_shape):
+    from torch.profiler import ProfilerActivity, profile
+    assert attn.flash_bwd_route(d, torch.float32) == (
+        "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel")
+    dk = 32 if d <= 32 else 64 if d <= 64 else 128
+    smem = max(_tf32_bwd_smem(dk, True) + _tf32_bwd_smem(dk, False))
+    assert attn.flash_tiles(d, torch.float32, "flash_attn_bwd") == (
+        64, 64, smem)
+    assert smem <= 232448
+    g = torch.Generator("cuda").manual_seed(d)
+    q, go = (torch.randn((2, 3, 150, d), generator=g, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((2, 1, 140, d), generator=g, device="cuda")
+            for _ in range(2))
+    bias = (torch.randn(bias_shape, generator=g, device="cuda")
+            if bias_shape else None)
+    out, lse = attn.flash_attention_fwd(q, k, v, bias=bias, return_lse=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attn.flash_attention_bwd(q, k, v, bias, go, out, lse, d ** -0.5)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+    want = {"flash_bwd_dkdv_tf32_kernel", "flash_bwd_dq_tf32_kernel"}
+    if bias_shape is not None and len(bias_shape) < 4:  # a shared slice
+        want.add("flash_bwd_dbias_tf32_kernel")
+    if names:  # the profiler traced the card
+        assert {n for w in want for n in names if w in n} == names, names
+        assert all(any(w in n for n in names) for w in want), names
 
 
 @pytest.mark.cuda

@@ -209,26 +209,37 @@ def test_plain_backward_bf16_matches_pallas_interpret(case):
 
 # the plain version at the precision of the kernels' f32 route (every
 # product's operands rounded to TF32) against the Pallas backward in
-# interpret mode (f32), the unbiased cases; TF32 keeps 10 mantissa bits
-@pytest.mark.parametrize("case", ["nobias", "nobias_mq", "nobias_d512"])
+# interpret mode (f32): the unbiased cases, and the biased ones (a shared,
+# a per-head over multi-query k/v, a per-(b, h) slice, the prior's ragged
+# 513 x 514 at d = 52) against the biased kernel, dbias too; TF32 keeps
+# 10 mantissa bits
+@pytest.mark.parametrize("case", ["nobias", "nobias_mq", "nobias_d512", "qk",
+                                  "hqk_mq", "bhqk", "ragged_513x514_d52"])
 def test_plain_tf32_backward_matches_pallas_interpret(case):
     q, k, v, bias, g = _bwd_inputs(case)
-    assert bias is None
     tq_, tk_, tv_ = t(q), t(k), t(v)
-    out, lse = tattn.attention_reference_tf32(tq_, tk_, tv_, return_lse=True)
+    tb = None if bias is None else t(bias)
+    out, lse = tattn.attention_reference_tf32(tq_, tk_, tv_, bias=tb,
+                                              return_lse=True)
     scale = q.shape[-1] ** -0.5
-    got = tattn.flash_attention_bwd_reference(tq_, tk_, tv_, None, t(g), out,
+    got = tattn.flash_attention_bwd_reference(tq_, tk_, tv_, tb, t(g), out,
                                               lse, scale, tf32=True)
     args = [jnp.asarray(x) for x in (q, k, v)]
-    if k.shape[1] != q.shape[1]:  # the JAX caller broadcasts, then sums
-        args[1:] = [jnp.broadcast_to(x, q.shape[:2] + x.shape[2:])
-                    for x in args[1:]]
-    want = list(jattn._flash_bwd_pallas(*args, jnp.asarray(g),
-                                        jnp.asarray(out.numpy()),
-                                        jnp.asarray(lse.numpy()), scale, True))
-    if k.shape[1] != q.shape[1]:
-        want[1:3] = [w.sum(axis=1, keepdims=True) for w in want[1:3]]
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+    rest = (jnp.asarray(g), jnp.asarray(out.numpy()),
+            jnp.asarray(lse.numpy()), scale, True)
+    if bias is not None:
+        want = jattn._flash_bwd_pallas_bias(*args, jnp.asarray(bias), *rest)
+    else:
+        if k.shape[1] != q.shape[1]:  # the JAX caller broadcasts, then sums
+            args[1:] = [jnp.broadcast_to(x, q.shape[:2] + x.shape[2:])
+                        for x in args[1:]]
+        want = list(jattn._flash_bwd_pallas(*args, *rest)) + [None]
+        if k.shape[1] != q.shape[1]:
+            want[1:3] = [w.sum(axis=1, keepdims=True) for w in want[1:3]]
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None
+            continue
         assert a.dtype == torch.float32, name
         assert rel_err(a, w) <= 2.0 ** -8, name
 

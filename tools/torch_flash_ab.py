@@ -20,7 +20,9 @@ step's [4, 1, 1024, 1024, 512] with lse (the generator step) and without
 (the discriminator step) and precompute's VAE encoder [16, 1, 784, 784,
 512]; the backward at the same four step sites (bf16, from the forward's
 out and lse, with a random output gradient) and ("bwd") at the
-autoencoder step's f32 d 512; #6 at the clip's four motion-module levels
+autoencoder step's f32 d 512 and at the f32 stage-2 step's four sites
+(the prior's bias; the DecoderVideo's three sizes); #6 at the clip's four
+motion-module levels
 (bf16, 16 frames, 8 heads, no autograd); #7 in bf16 (bf16 GroupNorm
 parameters, as the bf16 models hold them) at every shape of the fused clip
 and the fused step; #8 in bf16 at every shape of the fused clip.
@@ -112,10 +114,16 @@ FLASH_F32 = [
      {"precompute batch": 1}),
 ]
 
-# (site, (B, H, Tq, Tk, D, kv heads), {path: launches}) of the flash
-# backward on f32 past d 128: the autoencoder's generator step
+# (site, (B, H, Tq, Tk, D, kv heads), bias shape, {path: launches}) of the
+# flash backward on f32: past d 128 the autoencoder's generator step; up to
+# d 128 the f32 stage-2 step (bf16_autocast off: the prior and the
+# DecoderVideo's three sizes, the launches of STEP_LAUNCHES)
 FLASH_BWD_F32 = [
-    ("vae d512 ae", (4, 1, 1024, 1024, 512, 1), {"ae step pair": 2}),
+    ("vae d512 ae", (4, 1, 1024, 1024, 512, 1), None, {"ae step pair": 2}),
+    ("prior", (10, 32, 513, 514, 52, 1), (32, 513, 514), {"f32 step": 6}),
+    ("decoder 16x16", (60, 1, 256, 256, 128, 1), None, {"f32 step": 6}),
+    ("decoder 32x32", (60, 1, 1024, 1024, 64, 1), None, {"f32 step": 4}),
+    ("decoder 64x64", (60, 1, 4096, 4096, 32, 1), None, {"f32 step": 4}),
 ]
 
 # ((N, Cin, H, W, Cout), launches a fused clip) of #8, 32 groups
@@ -305,21 +313,24 @@ def time_here(root: str, only: str):
             out[f"device bwd {name}"] = device_ms(fn, reps)
             for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd {name}: {kernel}"] = ms
-        for name, (b, h, tq, tk, d, hkv), _ in FLASH_BWD_F32:
+        for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_BWD_F32:
             q, g = (torch.randn((b, h, tq, d), generator=gen, device="cuda")
                     for _ in range(2))
             k, v = (torch.randn((b, hkv, tk, d), generator=gen, device="cuda")
                     for _ in range(2))
+            bias = (torch.randn(bshape, generator=gen, device="cuda")
+                    if bshape else None)
             scale = d ** -0.5
-            o, lse = attn.flash_attention_fwd(q, k, v, scale=scale,
+            o, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
                                               return_lse=True)
             fn = lambda: attn.flash_attention_bwd(  # noqa: E731
-                q, k, v, None, g, o, lse, scale)
-            out[f"bwd f32 {name}"] = cuda_ms(fn, 10)
-            out[f"device bwd f32 {name}"] = device_ms(fn, 10)
-            for kernel, ms in kernel_ms(fn, 10, "flash_bwd_").items():
+                q, k, v, bias, g, o, lse, scale)
+            reps = 5 if b * h * tq * tk > 2e8 else 10
+            out[f"bwd f32 {name}"] = cuda_ms(fn, reps)
+            out[f"device bwd f32 {name}"] = device_ms(fn, reps)
+            for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd f32 {name}: {kernel}"] = ms
-        del q, k, v, g, o, lse
+        del q, k, v, g, o, lse, bias
         torch.cuda.empty_cache()
     if "all" in only or "conv" in only:
         for (n, cin, h, w, cout), _ in CONV_CLIP:
@@ -364,7 +375,7 @@ def totals(times):
     #7, #8), over a step (flash forward, flash backward, #7) and over the
     f32 route's paths (a scored clip, a seg panel, a 2-clip stage e, an
     autoencoder step pair's forwards and backwards, a precompute batch's
-    VAE encoder), from one run's times:
+    VAE encoder, an f32 stage-2 step's backwards), from one run's times:
     event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
@@ -384,7 +395,7 @@ def totals(times):
                 key = f"{pre}f32 {path}"
                 sums[key] = sums.get(key, 0.0) + n * times.get(
                     f"{pre}f32 {name}", 0.0)
-        for name, _, paths in FLASH_BWD_F32:
+        for name, _, _, paths in FLASH_BWD_F32:
             for path, n in paths.items():
                 key = f"{pre}bwd f32 {path}"
                 sums[key] = sums.get(key, 0.0) + n * times.get(
