@@ -36,7 +36,8 @@ Phases, in order:
      at the kernel's precision (bf16 operands; for f32, operands rounded
      to TF32 as the kernel rounds them). The
      temporal-attention kernel at its four stage-5 shapes and their four
-     gated ones in bf16 (and one in f32), against the float64 result on
+     gated ones in bf16 (and the four in f32, validate's levels, on the
+     pipelined f32 route), against the float64 result on
      the same inputs, by the same 1.5x rule. Times: kernel (by CUDA events
      and its device time: `device_ms`), plain version, one
      PyTorch library call (scaled_dot_product_attention, a yardstick the
@@ -349,7 +350,10 @@ TEMPORAL_SHAPES = [
     ("motion 8x8 gated", (16, 64, 1280)),
     ("motion 4x4 gated", (16, 16, 1280)),
 ]
-TEMPORAL_F32_CHECKS = ["motion 32x32"]
+# validate runs the four levels in f32 at the CFG batch (its one-clip
+# levels come in as CLI checks)
+TEMPORAL_F32_CHECKS = ["motion 32x32", "motion 16x16", "motion 8x8",
+                       "motion 4x4"]
 
 
 def log(msg):
@@ -627,7 +631,8 @@ def temporal_phase(checks=None):
         ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
         tname = str(dt).split(".")[-1]
         log(f"temporal {name:13s} {tname:8s} [{bf},{d},{c}] F={f} H={h} "
-            f"route {plan.route}, warps {plan.warps}, smem {plan.smem} B  "
+            f"route {plan.route}, warps {plan.warps} ({plan.split} a "
+            f"unit), smem {plan.smem} B  "
             f"max_abs_err {err:.3e} (plain {plain_err:.3e})  kernel_ms "
             f"{kernel_ms:.4f} (device {kernel_dev_ms:.4f}) plain_ms "
             f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
@@ -2313,6 +2318,7 @@ FLASH_BWD_SYMBOLS = {"flash backward dk/dv": ("flash_bwd_dkdv_",),
                      "flash backward dbias": ("flash_bwd_dbias_",)}
 PROFILE_KERNELS = {"flash": FLASH_FWD_SYMBOLS,
                    "temporal": ("temporal_tc_kernel",
+                                "temporal_f32_kernel",
                                 "temporal_fwd_kernel"),
                    "gn_silu #7": GN_SILU_SYMBOLS,
                    "gn_silu_conv #8 (statistics + conv)": (
@@ -6667,6 +6673,13 @@ def main():
     if off:
         raise AssertionError(f"f32 paths launched off their TF32 kernels: "
                              f"{off}")
+    # every f32 temporal launch (validate's, the tiny chain's) on the
+    # pipelined f32 route
+    off = [(r["site"], r["route"]) for key, r in temporal_records.items()
+           if key[5] == "float32" and r["route"] != "f32 pipelined"]
+    if off:
+        raise AssertionError(f"f32 temporal launches off the pipelined f32 "
+                             f"route: {off}")
     log("totals by the Pallas kernel replaced (a clip or a step; s): "
         + " | ".join(f"{t['kernel']} {t['path']} x{t['launches']:g}: kernel "
                      f"{t['kernel_s']:.4f}" + (

@@ -26,7 +26,7 @@
 // only then computed, so no copy overlapped any compute, and the products
 // were scalar f32 FMAs fed from shared memory.
 //
-// Two routes, chosen per call:
+// Three routes, chosen per call:
 //
 // Tensor-core route (temporal_tc_kernel: bf16, F <= 16, hd % 8 == 0,
 // hd <= 160, 16-byte aligned rows; every launch of the clip). A persistent
@@ -47,9 +47,58 @@
 //   unit's q tile and written back as 16-byte row runs (padded query rows
 //   are not written).
 //
-// Warp route (temporal_fwd_kernel: f32, 16 < F <= 32, and rows that are not
-// whole 16-byte units). One warp owns one (b, pixel, head) unit; a block
-// holds up to four warps on consecutive units. A warp
+// f32 route (temporal_f32_kernel: f32, F <= 16, hd % 4 == 0, 4 <= hd <=
+// 160, 16-byte aligned rows; every f32 launch of validate and of the tiny
+// CLI chain). It replaces the warp route there. In f32 the work is F / 4
+// operations a byte (4 at F = 16), a fifth of what the card's 67 TFLOP/s
+// of f32 FMAs could do at 3.35 TB/s, so it is bound by bytes, and by
+// latency where a level has few units. What the design does about the
+// warp route's four limits:
+//   1. Loads that overlapped nothing: a persistent block of 4 warps walks
+//      tiles of W consecutive units (one run of W * hd floats in each
+//      frame, as on the tensor-core route) through a 2-stage cp.async ring
+//      of 16-byte copies, so the next tile loads while this one is
+//      computed; each thread's copies of a usual tile are a table set once.
+//      Two stages measured 2% faster over a validate run than three (3
+//      blocks an SM against 2; PERF.md); 8 warps on 320-float runs slower.
+//   2. Occupancy starved by shared memory: a tile holds at most 160 floats
+//      of each frame (4 units at hd <= 40, 2 at hd <= 80, 1 at hd <= 160),
+//      so a stage is 3 x [16 frames][164] floats (the + 4 makes 41 16-byte
+//      units a row, odd, so row-strided reads hit distinct banks) and a
+//      block 62,976 bytes at every hd: three blocks an SM, hd 160 included.
+//      Rows of frames F..15 are zeroed once and never written.
+//   3. Too few units at the small levels: the 4 warps split the tile's W
+//      units by query rows, 4 / W warps a unit (R, F32Split) each taking
+//      16 / R rows through S, the softmax and P V, sharing the unit's K
+//      and V tiles with nothing recomputed. The split goes with hd because
+//      the levels do: hd 160 is the 8x8 and 4x4 levels, 128-1024 units a
+//      launch, fewer tiles than the card's 396 resident blocks at 4x4, so
+//      four warps share each unit there; hd 40 and 80 have 2048-16384
+//      units, enough tiles at one and two warps a unit (splitting them a
+//      level earlier, 2 and 4 warps, measured 4% slower over validate).
+//   4. Serial arithmetic from shared memory: the products are f32 FMAs
+//      from register tiles. Lane (r, n) of a warp holds the logits of 2,
+//      1 or 1 rows against 4, 4 or 2 keys (R = 1, 2, 4) and reads 16 bytes
+//      of q and of k at a time: 6, 5 or 3 loads, each one conflict-free
+//      request (k reads broadcast across the row groups), for 32, 16 or 8
+//      FMAs. Each logit is four partial sums, one per element of a 16-byte
+//      chunk, over the chunks in order, added as (p0 + p1) + (p2 + p3).
+//      The softmax runs on the logits in registers (max and sum across
+//      the row's NK lanes by xor shuffles; keys past F get p = 0), each
+//      lane gathers its rows' 16 weights by shuffles, and O = P V takes
+//      16-byte chunks of V (broadcast across the row groups) into f32 FMAs
+//      over the keys in order, written straight from registers as 16-byte
+//      stores (query rows past F are not written).
+// Every q.k product is an exact f32 product, summed in f32, as in the JAX
+// kernel's f32 path and the plain version. A 3-term TF32 tensor-core split
+// (hi.hi + hi.lo + lo.hi) was not built: the arithmetic is not what bounds
+// the route, and the split drops lo.lo and rounds lo, about 2^-21 of each
+// product where an FMA keeps 2^-24.
+//
+// Warp route (temporal_fwd_kernel: 16 < F <= 32, and rows that are not
+// whole 16-byte units, bf16 or f32; no path launches it). One warp owns
+// one (b, pixel, head) unit; a block holds up to four warps on
+// consecutive units. A warp
 //   1. stages the F x hd slices of q, k and v in its shared memory (16-byte
 //      loads where hd and C allow, else element by element, both coalesced
 //      along hd), rows padded to an odd number of 16-byte units so that the
@@ -61,7 +110,7 @@
 //   4. forms P V in f32, one lane per (row, 16-byte chunk of hd), stages the
 //      output in the q buffer and writes it back along hd as in 1.
 //
-// Both routes set their launch attributes and read the card's limits once
+// Each route sets its launch attributes and reads the card's limits once
 // per kernel instance and device, not on every call.
 
 #include <cuda_runtime.h>
@@ -526,7 +575,7 @@ temporal_tc_kernel(TcParams p) {
 // A kernel instance's launch attributes, set once per device.
 struct InstanceCache {
   std::atomic<bool> ready[kMaxDevices];
-  int value[kMaxDevices];  // blocks an SM x SMs (tensor-core route)
+  int value[kMaxDevices];  // e.g. blocks an SM x SMs
   std::mutex mutex;
 };
 
@@ -548,29 +597,37 @@ cudaError_t cached(InstanceCache& cache, Init init, int* value) {
   return cudaSuccess;
 }
 
-template <int HD>
-cudaError_t launch_tc(TcParams p, cudaStream_t stream) {
-  using S = TcShape<HD>;
-  static InstanceCache cache;
-  int resident = 0;  // blocks the card holds at once
-  cudaError_t err = cached(
+// Blocks of a persistent kernel the card holds at once (its shared-memory
+// attribute set first), read once per kernel instance and device.
+template <typename Kernel>
+cudaError_t resident_blocks(InstanceCache& cache, Kernel kernel, int threads,
+                            int smem, int* resident) {
+  return cached(
       cache,
-      [](int dev, int* out) {
+      [=](int dev, int* out) {
         cudaError_t e = cudaFuncSetAttribute(
-            temporal_tc_kernel<HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         int sms = 0, per_sm = 0;
         if (e == cudaSuccess)
           e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
         if (e == cudaSuccess)
-          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, temporal_tc_kernel<HD>, S::W * 32, S::SMEM);
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            threads, smem);
         if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
         *out = sms * per_sm;
         return e;
       },
-      &resident);
+      resident);
+}
+
+template <int HD>
+cudaError_t launch_tc(TcParams p, cudaStream_t stream) {
+  using S = TcShape<HD>;
+  static InstanceCache cache;
+  int resident = 0;
+  cudaError_t err = resident_blocks(cache, temporal_tc_kernel<HD>, S::W * 32,
+                                    S::SMEM, &resident);
   if (err != cudaSuccess) return err;
   p.tiles = (p.units + S::W - 1) / S::W;
   const int grid = std::min(p.tiles, resident);
@@ -605,6 +662,271 @@ constexpr TcPlan tc_plan(int hd) {
     return hd == HD ? TcPlan{TcShape<HD>::W, TcShape<HD>::SMEM}
                     : tc_plan<HD + 8>(hd);
   }
+}
+
+// ---- f32 route -------------------------------------------------------------
+
+constexpr int kF32Frames = 16;  // frames padded to 16 rows
+constexpr int kF32Warps = 4;    // warps a block
+constexpr int kF32Run = 160;    // floats a tile holds of each frame
+constexpr int kF32Ld = kF32Run + 4;  // 41 16-byte units a row: odd
+constexpr int kF32Stages = 2;
+constexpr int kF32Tensor = kF32Frames * kF32Ld;  // floats of q, k or v
+constexpr int kF32Stage = 3 * kF32Tensor;
+constexpr int kF32Smem = kF32Stages * kF32Stage * 4;  // bytes a block
+// 16-byte copies a thread of one tensor of a tile (16 x 40 at most)
+constexpr int kF32Copies = kF32Frames * kF32Run / 4 / (kF32Warps * 32);
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int units;  // B * D * H; the route takes tensors under 2^31 elements
+  int DH;     // units of one batch row b
+  int DC;     // elements between frames
+  int tiles;  // ceil(units / units a tile)
+  int F, hd;
+  float scale;
+};
+
+// R warps a unit, each taking 16 / R query rows; W = 4 / R units a tile.
+// A warp's lanes are NR row groups x NK key groups: lane (r, n) holds
+// the logits of rows r + NR i (i < RPL) against keys n + NK m (m < KPL).
+template <int R>
+struct F32Split {
+  static constexpr int W = kF32Warps / R;
+  static constexpr int M = kF32Frames / R;
+  static constexpr int NR = R == 4 ? 4 : 8;
+  static constexpr int NK = 32 / NR;
+  static constexpr int RPL = M / NR;
+  static constexpr int KPL = kF32Frames / NK;
+};
+
+// units of a tile by head dim: a tile holds at most kF32Run floats of each
+// frame, so 4 units at hd <= 40, 2 at hd <= 80 and 1 at hd <= 160
+int f32_split(int hd) { return hd <= 40 ? 1 : hd <= 80 ? 2 : 4; }
+
+bool f32_route(int F, int hd, int dtype, int vec) {
+  return dtype == 0 && vec && F <= kF32Frames && hd % 4 == 0 &&
+         hd <= kF32Run;
+}
+
+__device__ __forceinline__ int f32_unit_base(const F32Params& p, int u) {
+  const int b = u / p.DH;
+  return b * p.F * p.DC + (u - b * p.DH) * p.hd;
+}
+
+// A thread's copies of one tensor of a tile whose W units are one run of
+// W * hd floats in each frame (every tile within a batch row): offsets
+// from the run's frame-0 start (-1: none) and into the tensor's tile.
+struct F32CopyTable {
+  int src[kF32Copies], dst[kF32Copies];
+
+  __device__ void init(const F32Params& p, int W) {
+    const int run = W * p.hd / 4;  // 16-byte chunks of a frame's run
+#pragma unroll
+    for (int k = 0; k < kF32Copies; ++k) {
+      const int i = threadIdx.x + k * kF32Warps * 32;
+      const int f = i / run, c = i - f * run;
+      src[k] = f < p.F ? f * p.DC + 4 * c : -1;
+      dst[k] = f * kF32Ld + 4 * c;
+    }
+  }
+};
+
+// q, k, v of the tile's units into one stage, 16 bytes a copy
+template <int W>
+__device__ __forceinline__ void f32_issue(const F32Params& p,
+                                          const F32CopyTable& tab, int tile,
+                                          float* stage) {
+  const int u0 = tile * W;
+  const int b0 = u0 / p.DH, r0 = u0 - b0 * p.DH;
+  const uint32_t to = smem_addr(stage);
+  if (r0 + W <= p.DH && u0 + W <= p.units) {  // the usual tile
+    const int base = b0 * p.F * p.DC + r0 * p.hd;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const float* src = (t == 0 ? p.q : t == 1 ? p.k : p.v) + base;
+#pragma unroll
+      for (int k = 0; k < kF32Copies; ++k)
+        if (tab.src[k] >= 0)
+          cp_async<16>(to + 4 * (t * kF32Tensor + tab.dst[k]),
+                       src + tab.src[k], 16);
+    }
+    return;
+  }
+  // the last tile, or one that crosses into the next batch row
+  const int chunks = p.hd / 4, row = W * chunks, per = p.F * row;
+  for (int i = threadIdx.x; i < 3 * per; i += kF32Warps * 32) {
+    const int t = i / per, f = i % per / row, w = i % row / chunks,
+              c = i % chunks;
+    if (u0 + w >= p.units) continue;
+    const float* src = t == 0 ? p.q : t == 1 ? p.k : p.v;
+    cp_async<16>(to + 4 * (t * kF32Tensor + f * kF32Ld + w * p.hd + 4 * c),
+                 src + f32_unit_base(p, u0 + w) + f * p.DC + 4 * c, 16);
+  }
+}
+
+// One warp: query rows row0 .. row0 + 16 / R - 1 of one unit whose q, k,
+// v tiles (rows of stride kF32Ld) are sq, sk, sv; out is the unit's
+// frame-0 row. Every product is an f32 FMA from registers.
+template <int R>
+__device__ __forceinline__ void f32_rows(const F32Params& p, const float* sq,
+                                         const float* sk, const float* sv,
+                                         float* out, int row0, int lane) {
+  using S = F32Split<R>;
+  constexpr int RPL = S::RPL, KPL = S::KPL, NR = S::NR, NK = S::NK;
+  const int rg = lane / NK, kg = lane % NK;
+
+  // S = Q K^T: four partial sums a logit, one per element of a 16-byte
+  // chunk, each over the chunks in order
+  float acc[RPL][KPL][4] = {};
+  const float* qrow = sq + (row0 + rg) * kF32Ld;
+  const float* krow = sk + kg * kF32Ld;
+  for (int e = 0; e < p.hd; e += 4) {
+    float4 qv[RPL], kv[KPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(qrow + i * NR * kF32Ld + e);
+#pragma unroll
+    for (int m = 0; m < KPL; ++m)
+      kv[m] = *reinterpret_cast<const float4*>(krow + m * NK * kF32Ld + e);
+#pragma unroll
+    for (int i = 0; i < RPL; ++i)
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) {
+        acc[i][m][0] = fmaf(qv[i].x, kv[m].x, acc[i][m][0]);
+        acc[i][m][1] = fmaf(qv[i].y, kv[m].y, acc[i][m][1]);
+        acc[i][m][2] = fmaf(qv[i].z, kv[m].z, acc[i][m][2]);
+        acc[i][m][3] = fmaf(qv[i].w, kv[m].w, acc[i][m][3]);
+      }
+  }
+
+  // softmax over each row's keys, spread over the NK lanes of its row
+  // group (keys past F get p = 0), then every lane gathers its rows' 16
+  // weights
+  float pw[RPL][kF32Frames];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    float s[KPL], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      s[m] = kg + m * NK < p.F
+                 ? ((acc[i][m][0] + acc[i][m][1]) +
+                    (acc[i][m][2] + acc[i][m][3])) * p.scale
+                 : -INFINITY;
+      mx = fmaxf(mx, s[m]);
+    }
+#pragma unroll
+    for (int x = 1; x < NK; x *= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      s[m] = expf(s[m] - mx);
+      sum += s[m];
+    }
+#pragma unroll
+    for (int x = 1; x < NK; x *= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, x);
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) s[m] = s[m] / sum;
+#pragma unroll
+    for (int j = 0; j < kF32Frames; ++j)
+      pw[i][j] = __shfl_sync(0xffffffffu, s[j / NK], rg * NK + j % NK);
+  }
+
+  // O = P V, lane (r, n) taking 16-byte chunks n, n + NK, ... of its rows,
+  // the keys in order (pad rows of V are zero, their weights 0); query
+  // rows past F are not written
+  for (int c = kg; c < p.hd / 4; c += NK) {
+    float4 o[RPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < kF32Frames; ++j) {
+      const float4 vv =
+          *reinterpret_cast<const float4*>(sv + j * kF32Ld + 4 * c);
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        o[i].x = fmaf(pw[i][j], vv.x, o[i].x);
+        o[i].y = fmaf(pw[i][j], vv.y, o[i].y);
+        o[i].z = fmaf(pw[i][j], vv.z, o[i].z);
+        o[i].w = fmaf(pw[i][j], vv.w, o[i].w);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const int row = row0 + rg + i * NR;
+      if (row < p.F)
+        *reinterpret_cast<float4*>(out + row * p.DC + 4 * c) = o[i];
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kF32Warps * 32)
+temporal_f32_kernel(F32Params p) {
+  using S = F32Split<R>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grid = gridDim.x;
+  F32CopyTable copies;
+  copies.init(p, S::W);
+
+  // zero the rows of frames F..15 once: no copy writes them
+  if (p.F < kF32Frames) {
+    const int n = (kF32Frames - p.F) * kF32Ld / 4;  // 16-byte units a tensor
+    for (int i = threadIdx.x; i < kF32Stages * 3 * n; i += kF32Warps * 32)
+      reinterpret_cast<float4*>(smem + i / n * kF32Tensor +
+                                p.F * kF32Ld)[i % n] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int st = 0; st < kF32Stages - 1; ++st) {
+    const int tile = blockIdx.x + st * grid;
+    if (tile < p.tiles) f32_issue<S::W>(p, copies, tile, smem + st * kF32Stage);
+    cp_async_commit();
+  }
+  const int w = warp / R, row0 = warp % R * S::M;
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += grid) {
+    // refill the stage the previous iteration freed
+    const int ahead = tile + (kF32Stages - 1) * grid;
+    if (ahead < p.tiles)
+      f32_issue<S::W>(p, copies, ahead,
+                      smem + (stage + kF32Stages - 1) % kF32Stages * kF32Stage);
+    cp_async_commit();
+    cp_async_wait_mem<kF32Stages - 1>();  // this tile's copies have landed
+    __syncthreads();
+    const int u = tile * S::W + w;
+    if (u < p.units) {
+      const float* base = smem + stage * kF32Stage + w * p.hd;
+      f32_rows<R>(p, base, base + kF32Tensor, base + 2 * kF32Tensor,
+                  p.o + f32_unit_base(p, u), row0, lane);
+    }
+    __syncthreads();  // the stage is free for the copies of a later tile
+    stage = (stage + 1) % kF32Stages;
+  }
+  cp_async_wait<0>();
+}
+
+template <int R>
+cudaError_t launch_f32(F32Params p, cudaStream_t stream) {
+  static InstanceCache cache;
+  int resident = 0;
+  cudaError_t err = resident_blocks(cache, temporal_f32_kernel<R>,
+                                    kF32Warps * 32, kF32Smem, &resident);
+  if (err != cudaSuccess) return err;
+  constexpr int W = F32Split<R>::W;
+  p.tiles = (p.units + W - 1) / W;
+  const int grid = std::min(p.tiles, resident);
+  temporal_f32_kernel<R>
+      <<<(unsigned)grid, kF32Warps * 32, kF32Smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 // ---- warp route ------------------------------------------------------------
@@ -699,6 +1021,23 @@ int temporal_attn_fwd(const void* q, const void* k, const void* v, void* o,
     p.scale = scale;
     return (int)dispatch_tc<8>(hd, p, s);
   }
+  if (f32_route(F, hd, dtype, vec) && BF * D * C < 0x7fffffffLL) {
+    F32Params p;
+    p.q = static_cast<const float*>(q);
+    p.k = static_cast<const float*>(k);
+    p.v = static_cast<const float*>(v);
+    p.o = static_cast<float*>(o);
+    p.units = (int)units;
+    p.DH = (int)(D * H);
+    p.DC = (int)(D * C);
+    p.F = F;
+    p.hd = hd;
+    p.scale = scale;
+    const int split = f32_split(hd);
+    return (int)(split == 1   ? launch_f32<1>(p, s)
+                 : split == 2 ? launch_f32<2>(p, s)
+                              : launch_f32<4>(p, s));
+  }
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.D = D;
@@ -713,17 +1052,25 @@ int temporal_attn_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // How a launch at (F, hd, dtype, vec) runs, for tensors under 2^31
-// elements (larger ones take the warp route): route 1 = tensor cores, 0 =
-// warp route; warps a block; shared-memory bytes a block. Returns 0 when it
-// cannot launch.
+// elements (larger ones take the warp route): route 1 = tensor cores, 2 =
+// the f32 route, 0 = warp route; warps a block; shared-memory bytes a
+// block; warps a unit. Returns 0 when it cannot launch.
 int temporal_attn_fwd_plan(int F, int hd, int dtype, int vec, int* route,
-                           int* warps, int* smem) {
+                           int* warps, int* smem, int* split) {
   if (F <= 0 || F > kMaxFrames || hd <= 0) return 0;
+  *split = 1;
   if (tc_route(F, hd, dtype, vec)) {
     const TcPlan tp = tc_plan<8>(hd);
     *route = 1;
     *warps = tp.warps;
     *smem = tp.smem;
+    return 1;
+  }
+  if (f32_route(F, hd, dtype, vec)) {
+    *route = 2;
+    *warps = kF32Warps;
+    *smem = kF32Smem;
+    *split = f32_split(hd);
     return 1;
   }
   Params p;

@@ -8,8 +8,10 @@ head by head. `temporal_attention_fwd` takes a CPU tensor to
 `temporal_attention_reference` and a CUDA tensor to
 csrc/temporal_attn_fwd.cu, which replaces the Pallas kernel
 `_temporal_kernel`: its tensor-core route for bf16 with F <= 16 and head
-dims that are whole 16-byte rows (every launch of the clip), its warp
-route for the rest (`temporal_plan` says which). It never falls back.
+dims that are whole 16-byte rows (every launch of the clip), its
+pipelined f32 route for f32 with F <= 16 and such head dims up to 160
+(every f32 launch of validate and of the tiny CLI chain), its warp route
+for the rest (`temporal_plan` says which). It never falls back.
 `temporal_attention`, the entry point, runs that forward alone when
 autograd does not record, and
 otherwise through `TemporalAttentionFn`, the JAX package's custom VJP:
@@ -153,10 +155,14 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return temporal_attention_fwd(q, k, v, n_frames, heads, scale)
 
 
+ROUTES = {1: "tensor cores", 2: "f32 pipelined", 0: "warp"}
+
+
 class TemporalPlan(NamedTuple):
-    route: str  # "tensor cores" or "warp"
+    route: str  # a value of ROUTES
     warps: int  # a block
     smem: int   # bytes a block
+    split: int  # warps a (pixel, head) unit, each taking 16 / split rows
 
 
 def temporal_plan(n_frames: int, head_dim: int,
@@ -165,16 +171,14 @@ def temporal_plan(n_frames: int, head_dim: int,
     (the allocator's) whose hd is a whole number of 16-byte units where
     it can be."""
     lib = _library()
-    route, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = [ctypes.c_int() for _ in range(4)]
     vec = int(head_dim % (16 // dtype.itemsize) == 0)
     if not lib.temporal_attn_fwd_plan(n_frames, head_dim, _DTYPE_CODE[dtype],
-                                      vec, ctypes.byref(route),
-                                      ctypes.byref(warps),
-                                      ctypes.byref(smem)):
+                                      vec, *map(ctypes.byref, out)):
         raise ValueError(f"temporal_attn_fwd cannot launch at F={n_frames}, "
                          f"hd={head_dim}")
-    return TemporalPlan("tensor cores" if route.value else "warp",
-                        warps.value, smem.value)
+    route, warps, smem, split = (x.value for x in out)
+    return TemporalPlan(ROUTES[route], warps, smem, split)
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,7 +188,7 @@ def _library() -> ctypes.CDLL:
     lib.temporal_attn_fwd.argtypes = ([ptr] * 4 + [i64] * 2 + [i32] * 3
                                       + [ctypes.c_float, i32, i32, ptr])
     lib.temporal_attn_fwd.restype = i32
-    lib.temporal_attn_fwd_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 3
+    lib.temporal_attn_fwd_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 4
     lib.temporal_attn_fwd_plan.restype = i32
     lib.temporal_attn_error_string.argtypes = [i32]
     lib.temporal_attn_error_string.restype = ctypes.c_char_p

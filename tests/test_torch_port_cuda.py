@@ -13,9 +13,9 @@ does not hang on which precision cuBLAS picks for a TF32-allowed GEMM.
 
 The temporal kernel's oracle: its max error against the float64 result on
 the same (bf16- or f32-valued) inputs is no worse than 1.5x the plain
-version's at that dtype, on both routes (tensor cores, warp). The
-GroupNorm+SiLU and GroupNorm+SiLU+conv kernels are held the same way, #7 on
-each of its paths (one cluster launch, statistics then apply); the plain conv on f32 input is
+version's at that dtype, on each route (tensor cores, f32 pipelined,
+warp). The GroupNorm+SiLU and GroupNorm+SiLU+conv kernels are held the
+same way, #7 on each of its paths (one cluster launch, statistics then apply); the plain conv on f32 input is
 `gn_silu_conv_reference_tf32` (the kernel multiplies in TF32)."""
 
 import pytest
@@ -198,22 +198,33 @@ def test_temporal_kernel_matches_plain(cuda, dtype, hd, f, h):
 
 
 @pytest.mark.cuda
-def test_temporal_kernel_at_a_path_shape(cuda):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_temporal_kernel_at_a_path_shape(cuda, dtype):
     # the UNet3D's 16x16 motion modules, CFG batch: [(2 x 16), 256, 640]
-    _check_temporal(32, 256, 640, 16, 8, torch.bfloat16)
+    # (the clip in bf16, validate in f32)
+    _check_temporal(32, 256, 640, 16, 8, getattr(torch, dtype))
 
 
 # (F, hd, dtype) -> route: bf16 with F <= 16 and 16-byte head rows takes
-# the tensor cores; f32, F = 24 and hd = 4 keep the warp route
+# the tensor cores; f32 with F <= 16 and 16-byte head rows up to hd 160
+# (validate's and the tiny chain's) the pipelined f32 route; F = 24, hd 4
+# in bf16 and hd 2 or 168 in f32 keep the warp route
 TEMPORAL_ROUTES = [(16, 8, "bfloat16", "tensor cores"),
                    (16, 40, "bfloat16", "tensor cores"),
                    (16, 80, "bfloat16", "tensor cores"),
                    (16, 160, "bfloat16", "tensor cores"),
                    (4, 40, "bfloat16", "tensor cores"),
-                   (16, 40, "float32", "warp"),
+                   (16, 40, "float32", "f32 pipelined"),
+                   (16, 80, "float32", "f32 pipelined"),
+                   (16, 160, "float32", "f32 pipelined"),
+                   (4, 4, "float32", "f32 pipelined"),
+                   (4, 8, "float32", "f32 pipelined"),
+                   (12, 44, "float32", "f32 pipelined"),
                    (24, 40, "bfloat16", "warp"),
                    (24, 40, "float32", "warp"),
-                   (16, 4, "bfloat16", "warp")]
+                   (16, 4, "bfloat16", "warp"),
+                   (16, 2, "float32", "warp"),
+                   (16, 168, "float32", "warp")]
 
 
 @pytest.mark.cuda
@@ -226,13 +237,33 @@ def test_temporal_routes(cuda, f, hd, dtype, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("level", [(32, 1024, 320), (32, 64, 1280),
-                                   (32, 16, 1280)], ids=str)
-def test_temporal_kernel_at_the_other_path_levels(cuda, level):
+                                   (32, 16, 1280), (16, 16, 1280)], ids=str)
+def test_temporal_kernel_at_the_other_path_levels(cuda, level, dtype):
     # the UNet3D's 32x32, 8x8 and 4x4 motion modules (CFG batch, 16
-    # frames, 8 heads): many tiles a persistent block, so the copy ring
-    # wraps; the 4x4 level has fewer tiles than resident blocks
-    _check_temporal(*level, 16, 8, torch.bfloat16)
+    # frames, 8 heads; the clip in bf16, validate in f32) and the 4x4
+    # level of one clip: many tiles a persistent block, so the copy ring
+    # wraps; the 4x4 levels have fewer tiles than resident blocks
+    _check_temporal(*level, 16, 8, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [(32, 1024, 320), (32, 256, 640),
+                                   (32, 16, 1280), (16, 64, 8)], ids=str)
+def test_temporal_f32_route_reruns_bitwise(cuda, level):
+    # validate's levels and the tiny chain's [16, 64, 8] (F 4, 2 heads):
+    # each output's sums run in a fixed order, so a rerun gives equal bits
+    bf, d, c = level
+    f, h = (4, 2) if c == 8 else (16, 8)
+    assert ta.temporal_plan(f, c // h, torch.float32).route == "f32 pipelined"
+    g = torch.Generator("cuda").manual_seed(5)
+    q, k, v = (torch.randn((bf, d, c), generator=g, device="cuda")
+               for _ in range(3))
+    scale = (c // h) ** -0.5
+    first = ta.temporal_attention_fwd(q, k, v, f, h, scale)
+    again = ta.temporal_attention_fwd(q, k, v, f, h, scale)
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

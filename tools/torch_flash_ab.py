@@ -23,7 +23,8 @@ out and lse, with a random output gradient) and ("bwd") at the
 autoencoder step's f32 d 512 and at the f32 stage-2 step's four sites
 (the prior's bias; the DecoderVideo's three sizes); #6 at the clip's four
 motion-module levels
-(bf16, 16 frames, 8 heads, no autograd); #7 in bf16 (bf16 GroupNorm
+(bf16, 16 frames, 8 heads, no autograd) and at validate's eight (f32, the
+CFG batch and one clip); #7 in bf16 (bf16 GroupNorm
 parameters, as the bf16 models hold them) at every shape of the fused clip
 and the fused step; #8 in bf16 at every shape of the fused clip.
 Each shape gets two times, each the mean over 20 launches (5 at the
@@ -151,6 +152,16 @@ TEMPORAL_CLIP = [("motion 32x32", (32, 1024, 320)),
                  ("motion 8x8", (32, 64, 1280)),
                  ("motion 4x4", (32, 16, 1280))]
 TEMPORAL_LAUNCHES = 300
+# (site, ((B F), D, C), launches a validate run) of #6 in f32: validate's
+# UNet3D at the CFG batch (420 launches a level) and at one clip (80)
+TEMPORAL_F32 = [("validate 32x32", (32, 1024, 320), 420),
+                ("validate 16x16", (32, 256, 640), 420),
+                ("validate 8x8", (32, 64, 1280), 420),
+                ("validate 4x4", (32, 16, 1280), 420),
+                ("validate 32x32, 1 clip", (16, 1024, 320), 80),
+                ("validate 16x16, 1 clip", (16, 256, 640), 80),
+                ("validate 8x8, 1 clip", (16, 64, 1280), 80),
+                ("validate 4x4, 1 clip", (16, 16, 1280), 80)]
 
 # (x shape, launches a fused clip, launches a fused step) of #7, 32 groups,
 # as chip_smoke.py's record counts them
@@ -351,6 +362,14 @@ def time_here(root: str, only: str):
                 q, k, v, 16, 8, scale)
             out[f"temporal {name}"] = cuda_ms(fn, 20)
             out[f"device temporal {name}"] = device_ms(fn, 20)
+        for name, (bf, d, c), _ in TEMPORAL_F32:
+            q, k, v = (torch.randn((bf, d, c), generator=gen, device="cuda")
+                       for _ in range(3))
+            scale = (c // 8) ** -0.5
+            fn = lambda: ta.temporal_attention_fwd(  # noqa: E731
+                q, k, v, 16, 8, scale)
+            out[f"temporal f32 {name}"] = cuda_ms(fn, 20)
+            out[f"device temporal f32 {name}"] = device_ms(fn, 20)
         del q, k, v
         torch.cuda.empty_cache()
     if "all" in only or "gnsilu" in only:
@@ -375,7 +394,8 @@ def totals(times):
     #7, #8), over a step (flash forward, flash backward, #7) and over the
     f32 route's paths (a scored clip, a seg panel, a 2-clip stage e, an
     autoencoder step pair's forwards and backwards, a precompute batch's
-    VAE encoder, an f32 stage-2 step's backwards), from one run's times:
+    VAE encoder, an f32 stage-2 step's backwards) and over a validate
+    run's f32 #6, from one run's times:
     event times, and ("device ...") the profiler's device times."""
     sums = {}
     for pre in ("", "device "):
@@ -408,6 +428,10 @@ def totals(times):
             sums[pre + "temporal clip"] = sums.get(
                 pre + "temporal clip", 0.0) + TEMPORAL_LAUNCHES * times.get(
                 f"{pre}temporal {name}", 0.0)
+        for name, _, n in TEMPORAL_F32:
+            sums[pre + "temporal f32 validate"] = sums.get(
+                pre + "temporal f32 validate", 0.0) + n * times.get(
+                f"{pre}temporal f32 {name}", 0.0)
     for pre in ("", "device ", "library "):
         for shape, n_clip, n_step in GN_SHAPES:
             ms = times.get(f"{pre}gnsilu {','.join(map(str, shape))}", 0.0)

@@ -39,32 +39,33 @@ SHAPES = {
 }
 
 
-def build(sources):
-    """Build {name: source text} into EXP/variants/lib<name>.so at once;
-    returns {name: ctypes library}."""
+def build(sources, stem="flash_attn_bwd",
+          kernel=r"flash_bwd_\w+?_tf32_kernel\w*?"):
+    """Build {name: source text} into EXP/variants/lib<stem>_<name>.so at
+    once, printing the registers and spills of each kernel whose mangled
+    name matches `kernel` (a regex); returns {name: ctypes library}."""
     from neurons_tpu_torch.ops import cuda_build
     out = REPO / "EXP" / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        (out / f"{name}.cu").write_text(src)
+        (out / f"{stem}_{name}.cu").write_text(src)
         procs[name] = subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I",
-             str(cuda_build.CSRC_DIR), "-o", str(out / f"lib{name}.so"),
-             str(out / f"{name}.cu")],
+             str(cuda_build.CSRC_DIR), "-o", str(out / f"lib{stem}_{name}.so"),
+             str(out / f"{stem}_{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
     logs = {name: p.communicate()[0] for name, p in procs.items()}
     print(f"built {sorted(sources)} in {time.perf_counter() - t0:.1f} s")
     libs = {}
-    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     for name, log in logs.items():
         if procs[name].returncode != 0:
             raise SystemExit(f"{name} failed to build:\n{log[-4000:]}")
         fn = None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\w*?(flash_bwd_\w+?_tf32"
-                          r"_kernel\w*?)(ENS|EEEv)", line)
+            m = re.search(rf"Compiling entry function '\w*?({kernel})"
+                          r"(ENS|EEEv)", line)
             if m:
                 fn, spills = m.group(1), "no spill line"
             m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)",
@@ -75,13 +76,7 @@ def build(sources):
             if m and fn:
                 print(f"  {name} {fn}: {m.group(1)} registers, {spills}")
                 fn = None
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i64] * 14 + [i32] * 6
-                                       + [ctypes.c_float, i32, i32, ptr])
-        lib.flash_attn_bwd.restype = i32
-        lib.flash_attn_bwd_error_string.argtypes = [i32]
-        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(str(out / f"lib{stem}_{name}.so"))
     return libs
 
 
@@ -107,6 +102,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     libs = build(sources)
+    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    for lib in libs.values():
+        lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i64] * 14 + [i32] * 6
+                                       + [ctypes.c_float, i32, i32, ptr])
+        lib.flash_attn_bwd.restype = i32
+        lib.flash_attn_bwd_error_string.argtypes = [i32]
+        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     own = attn._library
     gen = torch.Generator("cuda").manual_seed(0)
     order = list(sources) + list(reversed(sources))
