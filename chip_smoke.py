@@ -29,19 +29,26 @@ Phases, in order:
      at stage 4's BLIP-2 vision shape (bf16, heads of 88, 257 tokens) and
      stage 6's three classifier shapes (f32: ViT-B's 197 tokens,
      VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), each with the kernel
-     it routes to (f32 up to d = 128: the TF32 register kernel, past it up
-     to 512 the TF32 column-split kernels, whose instances' registers and
-     spills, 0 bytes required, are logged after the build), against an f32
-     reference; its error must be no worse than 1.5x the plain version's
-     at the kernel's precision (bf16 operands; for f32, operands rounded
-     to TF32 as the kernel rounds them). The
+     it routes to (bf16 at d 32-128: the wgmma kernel,
+     csrc/flash_attn_fwd_sm90.cu, whose twelve instances' registers and
+     spills are logged after the build; f32 up to d = 128: the TF32
+     register kernel, past it up to 512 the TF32 column-split kernels,
+     whose instances' registers and spills, 0 bytes required, are logged
+     too), against an f32 reference; its error must be no worse than 1.5x
+     the plain version's at the kernel's precision (bf16 operands; for
+     f32, operands rounded to TF32 as the kernel rounds them), and a rerun
+     must give equal bits. Every launch of the run is held to the kernel
+     `attn.flash_route` names for its shape (`FlashRoutes`: at every reset
+     of the forward's launch counter and at each phase's end, whose line
+     gives the launches by kernel so far). The
      temporal-attention kernel at its four stage-5 shapes and their four
      gated ones in bf16 (and the four in f32, validate's levels, on the
      pipelined f32 route), against the float64 result on
      the same inputs, by the same 1.5x rule. Times: kernel (by CUDA events
      and its device time: `device_ms`), plain version, one
      PyTorch library call (scaled_dot_product_attention, a yardstick the
-     port never calls), and the bound max(ops / peak, bytes / 3.35 TB/s).
+     port never calls), and the bound max(ops / peak, bytes / 3.35 TB/s),
+     beside it the exponentials' (Tq Tk of them at EX2_PER_S).
      Then the training kernels at every stage-2 shape (the prior's biased
      multi-query attention, the DecoderVideo's three sizes), in bf16 (and
      the prior's in f32): the forward with log-sum-exp and the backward, against float64
@@ -285,6 +292,8 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_TF32_FLOPS = 495e12    # dense TF32
 PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+EX2_PER_S = 3.9e12          # MUFU ex2 a second (16 a clock an SM; FA3,
+                            # Shah et al. 2024, arXiv 2407.08608)
 PLAIN_LOGITS_BYTES = 8 * 2**30  # the plain attention's f32 logits a call
 SEED = 0
 CLIP_REQUESTS = 1   # full-width clips a configuration (was 2: cut to keep
@@ -479,6 +488,71 @@ def attention_bwd_bound(b, h, tq, tk, d, esize, peak_flops, hkv, bias_elems):
     return _bound(10.0 * b * h * tq * tk * d, nbytes, peak_flops)
 
 
+class FlashRoutes:
+    """The flash forward's launches by kernel over the run. `check` holds
+    every launch the forward's counter holds (since its last reset) to the
+    kernel `flash_route` names for the launch's shape key (every path's
+    launches are on 16-byte rows), so the launches by kernel are the
+    counts from the code by shape, mapped by `flash_route`; it raises
+    otherwise. `install` runs it at every reset of the counter."""
+
+    def __init__(self):
+        import collections
+        self.totals = collections.Counter()
+        self.seen = collections.Counter()
+
+    def check(self):
+        import collections
+        import torch
+        from neurons_tpu_torch.ops import attention as attn
+        c = attn.FLASH_FWD_LAUNCHES
+        want = collections.Counter()
+        for key, n in c.by_shape.items():
+            d, dt, variant = key[4], key[5], key[6]
+            want[(attn.flash_route(d, getattr(torch, dt),
+                                   biased="bias" in variant), key)] += n
+        if want != c.by_route:
+            off = {k: (n, want.get(k, 0)) for k, n in c.by_route.items()
+                   if want.get(k, 0) != n}
+            raise AssertionError(f"flash forward launches off the kernel "
+                                 f"flash_route names (launched, named): "
+                                 f"{dict(list(off.items())[:8])}")
+        for (route, _), n in (c.by_route - self.seen).items():
+            self.totals[route] += n
+        self.seen = collections.Counter(c.by_route)
+
+    def install(self):
+        import collections
+        from neurons_tpu_torch.ops import attention as attn
+        c = attn.FLASH_FWD_LAUNCHES
+        reset = c.reset
+
+        def checked_reset():
+            self.check()
+            reset()
+            self.seen = collections.Counter()
+
+        c.reset = checked_reset
+
+
+FLASH_ROUTES = FlashRoutes()
+
+
+def exp_bound_ms(b, h, tq, tk):
+    """The least time of a forward's Tq Tk exponentials a (b, h) on the
+    MUFU unit (EX2_PER_S), in ms: beside the products' bound where the
+    head dim is small (d <= 64 at bf16's rate)."""
+    return 1e3 * b * h * tq * tk / EX2_PER_S
+
+
+def flash_source(rec):
+    """The source of the kernel a flash forward record's launches took."""
+    from neurons_tpu_torch.ops import attention as attn
+    return ("neurons_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
+            if rec["route"] == attn.WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_fwd.cu")
+
+
 def flash_phase(checks=None):
     """Flash kernel vs plain version at every shape of the clip (or at
     `checks`, [(site, (B, H, Tq, Tk, D), dtype)]). Returns {shape:
@@ -508,6 +582,7 @@ def flash_phase(checks=None):
         torch.backends.cudnn.allow_tf32 = False
         qx, kx, vx = q.to(dt), k.to(dt), v.to(dt)
         got = attn.flash_attention_fwd(qx, kx, vx)
+        rerun_same = torch.equal(got, attn.flash_attention_fwd(qx, kx, vx))
         torch.cuda.synchronize()
         # where the plain version's f32 logits of the whole launch pass
         # PLAIN_LOGITS_BYTES, the errors are taken on its first batch row
@@ -544,11 +619,17 @@ def flash_phase(checks=None):
         bound_ms, bound_by = attention_bound(
             b, h, tq, tk, d, qx.element_size(),
             PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS)
-        bq, bk, smem = attn.flash_tiles(d, dt)
         route = attn.flash_route(d, dt)
+        if route == attn.WGMMA_ROUTE:
+            plan = attn.wgmma_plan(d)
+            bq, bk, smem = plan[0], plan[1], plan[5]
+        else:
+            bq, bk, smem = attn.flash_tiles(d, dt)
+        exp_ms = exp_bound_ms(b, h, tq, tk)
         # the kernel's error <= 1.5x the plain version's at its precision,
-        # as in tests/test_torch_port_cuda.py
-        ok = bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
+        # as in tests/test_torch_port_cuda.py; a rerun gives equal bits
+        ok = (bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err
+              and rerun_same)
         tname = str(dt).split(".")[-1]
         log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] {route} "
             f"tiles {bq}x{bk} smem {smem} B  max_abs_err {err:.3e} "
@@ -557,17 +638,19 @@ def flash_phase(checks=None):
                if rows < b else "")
             + f")  kernel_ms {kernel_ms:.4f} (device "
             f"{kernel_dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
-            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})  "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+            f"exponentials {exp_ms:.4f})  rerun bitwise {rerun_same}  "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees at {name} {tname}: "
-                                 f"{err:.3e} > 1.5 x {plain_err:.3e}")
+                                 f"{err:.3e} > 1.5 x {plain_err:.3e} or a "
+                                 f"rerun differs ({rerun_same})")
         records[(b, h, tq, tk, d, tname, "")] = dict(
             site=name, max_abs_err=err, plain_err=plain_err, err_rows=rows,
             ms=kernel_ms,
             device_ms=kernel_dev_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            route=route)
+            exp_bound_ms=exp_ms, route=route)
         del q, k, v, want, got, plain, qx, kx, vx
     torch.cuda.empty_cache()
     return records
@@ -747,6 +830,10 @@ def train_kernel_phase(checks=None):
         want = oracle_f64(q, k, v, bias, g, scale)
         out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
                                             return_lse=True)
+        out2, lse2 = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                              return_lse=True)
+        fwd_rerun_same = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del out2, lse2
         got = dict(zip(GRADS, attn.flash_attention_bwd(q, k, v, bias, g, out,
                                                        lse, scale)),
                    out=out, lse=lse)
@@ -816,12 +903,13 @@ def train_kernel_phase(checks=None):
                                             hkv, nbias, lse=True)
         bwd_bound, bwd_by = attention_bwd_bound(b, h, tq, tk, d, esize, peak,
                                                 hkv, nbias)
-        ok = all(fin and err <= 1.5 * perr for err, perr, fin in errs.values())
+        ok = fwd_rerun_same and all(fin and err <= 1.5 * perr
+                                    for err, perr, fin in errs.values())
         tname = str(dt).split(".")[-1]
         err_s = " ".join(f"{n} {e:.3e} (plain {pe:.3e})"
                          for n, (e, pe, _) in errs.items())
         bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
-        fwd_route = attn.flash_route(d, dt)
+        fwd_route = attn.flash_route(d, dt, biased=bias is not None)
         # the route tables name unbiased launches: up to d 128 a biased
         # launch takes the same kernels (and a shared slice the dbias
         # kernel too), a biased f32 backward past d 128 the first design
@@ -831,7 +919,9 @@ def train_kernel_phase(checks=None):
             f"{hkv} bias {bshape}  max_abs_err {err_s}  fwd+lse {fwd_route} "
             f"kernel_ms {fwd_ms:.4f} (device {fwd_dev_ms:.4f}) plain_ms "
             f"{fwd_plain_ms:.4f} library_ms {fwd_lib_ms:.4f} bound_ms "
-            f"{fwd_bound:.4f} ({fwd_by})  bwd {bwd_route} tiles {bq}x{bk} "
+            f"{fwd_bound:.4f} ({fwd_by}; exponentials "
+            f"{exp_bound_ms(b, h, tq, tk):.4f}) rerun bitwise "
+            f"{fwd_rerun_same}  bwd {bwd_route} tiles {bq}x{bk} "
             f"smem {smem} B kernel_ms {bwd_ms:.4f} (device "
             f"{bwd_dev_ms:.4f}) plain_ms {bwd_plain_ms:.4f} library_ms "
             f"{bwd_lib_ms:.4f} (fwd+bwd) library_bwd_ms "
@@ -839,14 +929,15 @@ def train_kernel_phase(checks=None):
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"training kernels disagree at {name} "
-                                 f"{tname}: {errs}")
+                                 f"{tname}: {errs}; forward rerun bitwise "
+                                 f"{fwd_rerun_same}")
         key = (b, h, tq, tk, d, tname)
         fwd_records[key + ("bias+lse" if bias is not None else "lse",)] = dict(
             site=f"{name} (train)", max_abs_err=max(errs["out"][0],
                                                     errs["lse"][0]),
             ms=fwd_ms, device_ms=fwd_dev_ms, plain_ms=fwd_plain_ms,
             library_ms=fwd_lib_ms, bound_ms=fwd_bound, bound_by=fwd_by,
-            route=fwd_route)
+            exp_bound_ms=exp_bound_ms(b, h, tq, tk), route=fwd_route)
         bwd_records[key + ("bias" if bias is not None else "",)] = dict(
             site=f"{name} (train)",
             max_abs_err=max(errs[n][0] for n in GRADS if n in errs),
@@ -1420,6 +1511,7 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
     the code. Returns ({kernel: launches by shape}, the request context,
     the last request's s, the first request's (artifacts, video))."""
     import torch
+    from neurons_tpu_torch.ops import attention as attn
     from neurons_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
     from neurons_tpu_torch.ops.temporal_attention import \
         TEMPORAL_ATTN_LAUNCHES
@@ -1478,6 +1570,13 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
             k for k in expected if fused)):
         if totals[kernel] == 0:
             raise AssertionError(f"the {name} clip launched no {kernel}")
+    wgmma = sum(n for (route, _), n in FLASH_FWD_LAUNCHES.by_route.items()
+                if route == attn.WGMMA_ROUTE)
+    log(f"slice {name}: flash launches on {attn.WGMMA_ROUTE} {wgmma} of "
+        f"{totals['flash_attn_fwd']}")
+    if wgmma == 0:
+        raise AssertionError(f"the {name} clip launched no "
+                             f"{attn.WGMMA_ROUTE}")
     return by_shape, ctx, per_request[-1], first
 
 
@@ -6077,7 +6176,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                      + (f" {variant}" if variant else "")
                      + (" fast clip]" if path == "fast clip" else "]")),
             "route": "cuda",
-            "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
+            "source": flash_source(rec), "kernel": rec["route"],
             "replaces": ("neurons_tpu/ops/attention.py:185"
                          if "bias" in variant else
                          "neurons_tpu/ops/attention.py:137" if whole_kv
@@ -6104,7 +6203,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                          + ("bf16" if dt == "bfloat16" else "f32")
                          + f" {path}]"),
                 "route": "cuda",
-                "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
+                "source": flash_source(rec), "kernel": rec["route"],
                 "replaces": "neurons_tpu/ops/attention.py:137",  # whole KV
                 "launches": launches,
                 "max_abs_err": rec["max_abs_err"],
@@ -6126,7 +6225,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                          + ("bf16" if dt == "bfloat16" else "f32")
                          + (f" {variant}" if variant else "") + f" {path}]"),
                 "route": "cuda",
-                "source": "neurons_tpu_torch/csrc/flash_attn_fwd.cu",
+                "source": flash_source(rec), "kernel": rec["route"],
                 "replaces": ("neurons_tpu/ops/attention.py:185"
                              if "bias" in variant else
                              "neurons_tpu/ops/attention.py:137"
@@ -6261,7 +6360,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "launches": launches,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "device_ms": rec["device_ms"],
-            "route": rec["route"], "plain_ms": rec["plain_ms"],
+            "kernel": rec["route"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
@@ -6447,6 +6546,35 @@ def tf32_bwd_instances(ptxas):
     return out
 
 
+def wgmma_instances(ptxas):
+    """The wgmma forward's instances in the -Xptxas -v summary (six column
+    blocks by head dim, with and without lse), logged with their registers
+    and spills, and whether ptxas serialized their products (C7513 in the
+    build log); raises if one is missing."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      f["function"])
+        if m:
+            out.append(dict(bw=int(m.group(1)), nb=int(m.group(2)),
+                            lse=m.group(3) == "1", registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum("(C7513)" in line for line in cuda_build.log_path(
+        "flash_attn_fwd_sm90").read_text().splitlines())
+    for i in sorted(out, key=lambda i: (i["bw"] * i["nb"], i["lse"])):
+        log(f"  wgmma instance d {i['bw'] * i['nb']} ({i['nb']} x {i['bw']} "
+            f"columns) lse {i['lse']}: {i['registers']} registers, spill "
+            f"stores {i['spill_stores']} B, loads {i['spill_loads']} B")
+    log(f"  wgmma instances with serialized products (ptxas C7513): "
+        f"{serialized}")
+    if len(out) != 12:
+        raise AssertionError(f"the wgmma forward's instances: {out}")
+    return out
+
+
 def ptxas_summary(name):
     """Per kernel of csrc/<name>.cu, from nvcc's -Xptxas -v log: the
     registers a thread and the bytes of local-memory spill stores and
@@ -6509,12 +6637,16 @@ def main():
     tf32_instances(ptxas)
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
+    wgmma_instances(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}
+    FLASH_ROUTES.install()
 
     def stamp(name):  # seconds from the start at the end of each phase
         done_at[name] = time.perf_counter() - t_start
-        log(f"phase {name} done at {done_at[name]:.1f} s")
+        FLASH_ROUTES.check()
+        log(f"phase {name} done at {done_at[name]:.1f} s; flash forward "
+            f"launches by kernel so far {dict(FLASH_ROUTES.totals)}")
 
     flash_records = flash_phase()
     temporal_records = temporal_phase()
@@ -6688,6 +6820,13 @@ def main():
                      + f" bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} "
                      f"library {t['library_s']:.4f}"
                      for t in record["totals_by_tpu_kernel"]))
+    from neurons_tpu_torch.ops import attention as attn
+    FLASH_ROUTES.check()
+    log(f"flash forward launches by kernel over the run (each launch on the "
+        f"kernel flash_route names for its shape): "
+        f"{dict(FLASH_ROUTES.totals)}")
+    if not FLASH_ROUTES.totals[attn.WGMMA_ROUTE]:
+        raise AssertionError(f"no launch of {attn.WGMMA_ROUTE}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

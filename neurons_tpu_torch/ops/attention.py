@@ -7,6 +7,7 @@ layout, and routes as the JAX package does:
 
   * without autograd (inference): unmasked, unbiased attention with
     Tq, Tk >= 128 goes to `flash_attention_fwd` (csrc/flash_attn_fwd.cu,
+    and for bf16 at d 32-128 on 16-byte rows csrc/flash_attn_fwd_sm90.cu,
     replacing the Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
     UNet2D/UNet3D self- and cross-attention, the DecoderVideo AttnBlock, the
     VAE mid-block attention. Biased attention (the prior's relative-position
@@ -42,7 +43,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # incremented by flash_attention_fwd / flash_attention_bwd where they launch
 # their kernels, and nowhere else; keyed by (B, H, Tq, Tk, D, dtype,
 # variant): the forward's variant is "", "lse", "bias" or "bias+lse", the
-# backward's "" or "bias"
+# backward's "" or "bias"; the forward's `by_route` also by the kernel
+# (`flash_route`) of each launch
 FLASH_FWD_LAUNCHES = LaunchCounter()
 FLASH_BWD_LAUNCHES = LaunchCounter()
 
@@ -290,21 +292,35 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
     vec = _granule(d, q.element_size(), strides, (q, k, v))
-    lib = _library("flash_attn_fwd")
+    route = flash_route(d, q.dtype, biased=bias is not None,
+                        aligned=vec == 16 and scale > 0 and _tma_strides(
+                            strides, (b, h, tq) + (b, k.shape[1], tk) * 2,
+                            q.element_size()))
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bias_ptr, None if lse is None else lse.data_ptr(), *strides,
-            *bias_strides, mode, b, h, tq, tk, d, float(scale),
-            _DTYPE_CODE[q.dtype], vec, stream)
-    _raise_on(err, lib.flash_attn_error_string, "flash_attn_fwd", q, k)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if route == WGMMA_ROUTE:
+        lib = _library("flash_attn_fwd_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse_ptr, *strides, b, h, k.shape[1], tq, tk, d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_fwd_sm90_error_string,
+                  "flash_attn_fwd_sm90", q, k)
+    else:
+        lib = _library("flash_attn_fwd")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bias_ptr, lse_ptr, *strides, *bias_strides, mode, b, h, tq,
+                tk, d, float(scale), _DTYPE_CODE[q.dtype], vec, stream)
+        _raise_on(err, lib.flash_attn_error_string, "flash_attn_fwd", q, k)
     variant = "+".join(["bias"] * (bias is not None) + ["lse"] * return_lse)
     FLASH_FWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
-                            variant))
+                            variant), route)
     return (out, lse) if return_lse else out
 
 
@@ -428,12 +444,79 @@ def flash_tiles(d: int, dtype: torch.dtype, kernel: str = "flash_attn_fwd"):
     return _tiles(d, dtype, kernel)[1]
 
 
-def flash_route(d: int, dtype: torch.dtype) -> str:
-    """The forward's kernel for an unbiased launch at head dim d: f32 up to
-    d = 128 the TF32 register kernel, up to 512 the TF32 column-split one;
-    bf16 up to 128 the register kernel, up to 512 the column-split one.
-    The first design (`flash_fwd_kernel`) is left for d past 512 only."""
+def wgmma_plan(d: int):
+    """(BQ, BK, BW, NB, ring stages, shared-memory bytes) of the wgmma
+    kernel's instance at head dim d, as the library reports it; None where
+    no instance serves d."""
+    lib = _library("flash_attn_fwd_sm90")
+    out = [ctypes.c_int() for _ in range(6)]
+    if not lib.flash_attn_fwd_sm90_plan(d, *map(ctypes.byref, out)):
+        return None
+    return tuple(o.value for o in out)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
+                aligned: bool = True) -> str:
+    """The forward's kernel for a launch at head dim d (by default an
+    unbiased one whose rows, strides and pointers are 16-byte multiples,
+    as every launch of the paths is, with a positive scale): bf16 at the
+    head dims `wgmma_blocks` serves the wgmma kernel (csrc/
+    flash_attn_fwd_sm90.cu); f32 up to d = 128 the TF32 register kernel,
+    up to 512 the TF32 column-split one; the rest of bf16 up to 128 the
+    register kernel (biased past d 96 the column-split one), up to 512 the
+    column-split one. The first design (`flash_fwd_kernel`) is left for d
+    past 512 only."""
+    if (dtype == torch.bfloat16 and not biased and aligned
+            and wgmma_blocks(d) is not None):
+        return WGMMA_ROUTE
+    if dtype == torch.bfloat16 and biased and 96 < d <= 512:
+        return FWD_ROUTES[3]
     return FWD_ROUTES[_tiles(d, dtype, "flash_attn_fwd")[0]]
+
+
+# The wgmma kernel's instances by head dim: (BW, NB), NB column blocks of
+# BW bf16, each one swizzled shared-memory row of 2 BW bytes (the swizzle
+# mode), the head dim padded to BW * NB (csrc/flash_attn_fwd_sm90.cu:
+# column_blocks). No instance at d 56, 104 or 112 (no path launches them):
+# the register kernel takes them.
+WGMMA_ROUTE = "flash_fwd_wgmma_kernel"
+
+
+def wgmma_blocks(d: int):
+    """(BW, NB) of the wgmma instance serving head dim d, or None."""
+    if d < 32 or d > 128 or d % 8:
+        return None
+    if d <= 32:
+        return 32, 1
+    if d <= 48:
+        return 16, 3
+    if d == 64:
+        return 64, 1
+    if 64 < d <= 80:
+        return 16, 5
+    if 80 < d <= 96:
+        return 32, 3
+    if d >= 120:
+        return 64, 2
+    return None
+
+
+def wgmma_tiles(d: int):
+    """(BQ, BK, ring stages) of the wgmma instance at head dim d (WgCfg): 3
+    consumer warpgroups of 64 query rows up to d 64, 2 past it; 128 keys a
+    tile up to d 80, 64 past it; 2 stages."""
+    bw, nb = wgmma_blocks(d)
+    dk = bw * nb
+    return (192 if dk <= 64 else 128), (128 if dk <= 80 else 64), 2
+
+
+def _tma_strides(strides, extents, esize) -> bool:
+    """Every stride over batch, head and token (q's, k's, v's) a multiple
+    of 16 bytes where its extent passes 1 (a TMA map's strides); the rows
+    and pointers are `_granule`'s."""
+    return all(st * esize % 16 == 0 or n == 1
+               for st, n in zip(strides, extents))
 
 
 def flash_bwd_route(d: int, dtype: torch.dtype) -> str:
@@ -449,9 +532,22 @@ def flash_bwd_route(d: int, dtype: torch.dtype) -> str:
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
+    return _bind(cuda_build.load(name), name)
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """`lib` (a build of csrc/<name>.cu) with its C functions' types set."""
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]  # B..D, scale, dtype, vec, stream
+    if name == "flash_attn_fwd_sm90":
+        lib.flash_attn_fwd_sm90.argtypes = ([ptr] * 5 + [i64] * 9 + [i32] * 6
+                                            + [ctypes.c_float, ptr])
+        lib.flash_attn_fwd_sm90.restype = i32
+        lib.flash_attn_fwd_sm90_error_string.argtypes = [i32]
+        lib.flash_attn_fwd_sm90_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_fwd_sm90_plan.argtypes = [i32] + [ctypes.POINTER(i32)] * 6
+        lib.flash_attn_fwd_sm90_plan.restype = i32
+        return lib
     if name == "flash_attn_fwd":
         lib.flash_attn_fwd.argtypes = ([ptr] * 6 + [i64] * 11 + [i32]
                                        + tail)

@@ -33,8 +33,9 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """A kernel wrapper's launches, in total and by shape key; the wrapper
-    adds one where it launches its kernel, and nowhere else."""
+    """A kernel wrapper's launches, in total and by shape key (and, for a
+    wrapper with several kernels, by (route, key)); the wrapper adds one
+    where it launches its kernel, and nowhere else."""
 
     def __init__(self):
         self.reset()
@@ -42,10 +43,13 @@ class LaunchCounter:
     def reset(self):
         self.total = 0
         self.by_shape = collections.Counter()
+        self.by_route = collections.Counter()
 
-    def add(self, key):
+    def add(self, key, route=None):
         self.total += 1
         self.by_shape[key] += 1
+        if route is not None:
+            self.by_route[(route, key)] += 1
 
 
 def on_device(device):

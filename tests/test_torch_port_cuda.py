@@ -167,6 +167,140 @@ def test_kernel_at_the_svd_full_resolution_rows(cuda):
         assert err <= 1.5 * plain_err, err
 
 
+# The bf16 wgmma route (csrc/flash_attn_fwd_sm90.cu): every launched shape
+# class of the paths (B and H cut where the class stays the same: the
+# per-(b, h) work and its ragged last query block and key tile are kept),
+# with lse at the stage-2 step's sites; the route each launch took, its
+# error (1.5x the plain version's), a rerun's bits
+WGMMA_SHAPES = [
+    # (B, H, Tq, Tk, D, lse)
+    (2, 2, 2304, 2304, 64, False),   # UNet self 48x48, SVD 36x64
+    (2, 2, 2304, 256, 64, False),    # UNet cross 48x48
+    (2, 3, 576, 576, 64, False),     # UNet self 24x24, SVD 18x32
+    (2, 3, 576, 256, 64, False),     # UNet cross 24x24
+    (4, 3, 144, 144, 64, False),     # SVD mid 9x16
+    (6, 1, 256, 256, 128, False),    # DecoderVideo 16x16
+    (6, 1, 1024, 1024, 64, False),   # DecoderVideo 32x32
+    (6, 1, 4096, 4096, 32, False),   # DecoderVideo 64x64
+    (4, 2, 1024, 1024, 40, False),   # UNet3D 32x32
+    (4, 2, 256, 256, 80, False),     # UNet3D 16x16
+    (2, 4, 257, 257, 88, False),     # BLIP-2's vision tower
+    (6, 1, 256, 256, 128, True),     # the stage-2 step's forward
+    (6, 1, 1024, 1024, 64, True),
+    (6, 1, 4096, 4096, 32, True),
+    # ragged rows and keys at the narrow column blocks, a single row
+    (1, 3, 130, 257, 40, False), (2, 2, 257, 300, 88, True),
+    (1, 2, 1, 5, 64, False), (1, 2, 200, 129, 128, True),
+]
+
+
+def _route_of_last_launch(before):
+    grown = [r for (r, key), n in attn.FLASH_FWD_LAUNCHES.by_route.items()
+             if n != before.get((r, key), 0)]
+    assert len(grown) == 1, grown
+    return grown[0]
+
+
+def _check_wgmma(q, k, v, lse=False):
+    before = dict(attn.FLASH_FWD_LAUNCHES.by_route)
+    got = attn.flash_attention_fwd(q, k, v, return_lse=lse)
+    torch.cuda.synchronize()
+    assert _route_of_last_launch(before) == attn.WGMMA_ROUTE
+    again = attn.flash_attention_fwd(q, k, v, return_lse=lse)
+    out, out2 = (got[0], again[0]) if lse else (got, again)
+    assert torch.equal(out, out2) and (not lse or torch.equal(got[1], again[1]))
+    args = [x.double() for x in (q, k, v)]
+    want, want_lse = attn.attention_reference_lse(*args)
+    plain, plain_lse = attn.attention_reference_lse(q, k, v)
+    err = (out.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    print(f"wgmma {tuple(q.shape)} k {tuple(k.shape)} lse {lse}: err "
+          f"{err:.3e}, plain {plain_err:.3e}, ratio "
+          f"{err / max(plain_err, 1e-30):.3f}")
+    assert err <= 1.5 * plain_err, err
+    if lse:
+        err = (got[1].double() - want_lse).abs().max().item()
+        plain_err = (plain_lse.double() - want_lse).abs().max().item()
+        print(f"  lse: err {err:.3e}, plain {plain_err:.3e}")
+        assert err <= 1.5 * plain_err, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGMMA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_route_at_every_launched_shape_class(cuda, shape):
+    b, h, tq, tk, d, lse = shape
+    g = torch.Generator("cuda").manual_seed(tq + tk + d)
+    q = torch.randn((b, h, tq, d), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((b, h, tk, d), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    _check_wgmma(q, k, v, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 88])
+def test_wgmma_route_reads_split_views_in_place(cuda, d):
+    # the models' split: [B, T, 3 H D] chunked and viewed as [B, H, T, D]
+    # (token stride 3 H D, head stride D): the tensor maps read the view
+    g = torch.Generator("cuda").manual_seed(d)
+    b, t, h = 2, 300, 3
+    x = torch.randn((b, t, 3 * h * d), generator=g, device="cuda").bfloat16()
+    q, k, v = (y.reshape(b, t, h, d).transpose(1, 2) for y in x.chunk(3, -1))
+    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    _check_wgmma(q, k, v)
+
+
+@pytest.mark.cuda
+def test_wgmma_route_takes_multi_query_kv(cuda):
+    # k/v with one head: a head extent of 1 read at coordinate 0
+    g = torch.Generator("cuda").manual_seed(3)
+    q = torch.randn((2, 4, 300, 64), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((2, 1, 270, 64), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    _check_wgmma(q, k, v, lse=True)
+
+
+@pytest.mark.cuda
+def test_flash_route_names_the_kernel_each_launch_takes(cuda):
+    g = torch.Generator("cuda").manual_seed(4)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    rows52 = rand(1, 2, 150, 56)[..., :52]  # 104-byte rows: not TMA's
+    cases = [
+        # (q, k, v, bias, route)
+        (rand(1, 2, 150, 64),) * 3 + (None, attn.WGMMA_ROUTE),
+        (rand(1, 2, 150, 88),) * 3 + (None, attn.WGMMA_ROUTE),
+        (rows52,) * 3 + (None, "flash_fwd_reg_kernel"),
+        (rand(1, 2, 150, 56),) * 3 + (None, "flash_fwd_reg_kernel"),
+        (rand(1, 2, 150, 64),) * 3 + (rand(2, 150, 150),
+                                      "flash_fwd_reg_kernel"),
+        (rand(1, 2, 150, 64, dtype=torch.float32),) * 3
+        + (None, "flash_fwd_tf32_kernel"),
+        (rand(1, 1, 150, 512),) * 3 + (None, "flash_fwd_wide_kernel"),
+    ]
+    for q, k, v, bias, route in cases:
+        before = dict(attn.FLASH_FWD_LAUNCHES.by_route)
+        attn.flash_attention_fwd(q, k, v, bias=bias)
+        took = _route_of_last_launch(before)
+        aligned = attn._granule(q.shape[-1], q.element_size(),
+                                (q.stride(2),), (q,)) == 16
+        assert took == route == attn.flash_route(
+            q.shape[-1], q.dtype, biased=bias is not None, aligned=aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 40, 48, 64, 72, 80, 88, 96, 120, 128])
+def test_wgmma_plan_matches_the_python_tables(cuda, d):
+    bw, nb = attn.wgmma_blocks(d)
+    bq, bk, stages = attn.wgmma_tiles(d)
+    plan = attn.wgmma_plan(d)
+    assert plan[:5] == (bq, bk, bw, nb, stages)
+    assert plan[5] <= 232448
+    assert attn.wgmma_plan(56) is None and attn.wgmma_plan(24) is None
+
+
 def _check_temporal(bf, d, c, f, h, dtype, seed=2):
     g = torch.Generator("cuda").manual_seed(seed)
     q, k, v = (torch.randn((bf, d, c), generator=g, device="cuda").to(dtype)

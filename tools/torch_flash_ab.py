@@ -10,7 +10,8 @@ OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
 checkout runs in its own process (it builds its own kernels), in the order
 other, this, this, other. Shapes: the flash forward at every attention
-shape of the full-width clip (bf16, no bias, no log-sum-exp) and at the
+shape of the full-width clip, of an SVD clip, of the fast clip's gated
+steps and of a caption batch (bf16, no bias, no log-sum-exp) and at the
 stage-2 step's training sites (with lse, and the prior's bias); the
 forward's f32 (TF32) route ("f32") at every f32 shape of a path: stage 6's
 three classifier shapes, the DecoderVideo's three sizes of the seg panel
@@ -34,10 +35,13 @@ kernel's), and ("device") on CUDA events around the same launches queued
 behind a kernel that keeps the card busy until the host has enqueued them
 all (every launch of a call and the backward wrapper's own small kernels
 included); for the backward also each of its kernels by name under
-torch.profiler, and for #7 the library composite F.silu(F.group_norm(...))
-by events. The last lines give, per shape, each run's ms, and for each
-kernel the sum of launches x ms over a clip (and a step) for each run;
-with --json the whole record also goes to PATH.
+torch.profiler, for #7 the library composite F.silu(F.group_norm(...))
+by events, and for the bf16 forward at d <= 128 the library's fused
+attention by device time, the bound and the exponentials' bound, and at
+two shapes the host's microseconds to enqueue one call (`host_us`). The
+last lines give, per shape, each run's ms, and for each kernel the sum of
+launches x ms over a clip (and a step) for each run; with --json the
+whole record also goes to PATH.
 """
 
 from __future__ import annotations
@@ -67,6 +71,24 @@ FLASH_CLIP = [
     ("unet3d self 16x16", (32, 8, 256, 256, 80), 175),
     ("vae 16 frames 32x32", (16, 1, 1024, 1024, 512), 2),
     ("vae keyframe 32x32", (1, 1, 1024, 1024, 512), 1),
+]
+
+# (site, (B, H, Tq, Tk, D), launches a path) of the other bf16 forward
+# launches at d <= 128 (inference): an SVD clip's VideoUNet self-attention
+# (14 frames, the CFG batch of 28 rows, 25 steps; `svd_launches` in
+# chip_smoke.py), the fast clip's gated steps (the CFG batch collapsed to
+# one clip; launches as chip_smoke.py's "max" fast clip counts them) and a
+# caption batch's BLIP-2 vision tower (39 layers, heads of 88)
+FLASH_OTHER = [
+    ("svd 72x128", (28, 5, 9216, 9216, 64), {"svd clip": 125}),
+    ("svd 36x64", (28, 10, 2304, 2304, 64), {"svd clip": 125}),
+    ("svd 18x32", (28, 20, 576, 576, 64), {"svd clip": 125}),
+    ("svd 9x16", (28, 20, 144, 144, 64), {"svd clip": 25}),
+    ("unet self 48x48 gated", (1, 10, 2304, 2304, 64), {}),
+    ("unet self 24x24 gated", (1, 20, 576, 576, 64), {}),
+    ("unet3d self 32x32 gated", (16, 8, 1024, 1024, 40), {}),
+    ("unet3d self 16x16 gated", (16, 8, 256, 256, 80), {}),
+    ("blip2 vision 16x16+cls", (8, 16, 257, 257, 88), {"caption batch": 39}),
 ]
 
 # (site, (B, H, Tq, Tk, D, kv heads), bias shape, forward launches a step,
@@ -234,6 +256,34 @@ def device_ms(fn, reps: int) -> float:
     raise SystemExit("device_ms: the host never got ahead of the card")
 
 
+def host_us(fn, reps: int) -> float:
+    """The host's time to enqueue one call of fn(), in us: `reps` calls
+    queued behind a kernel that keeps the card busy, so none waits on it
+    (the wrapper's checks, allocation and launch)."""
+    import time
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2.0e9 * max(1e-3, reps * 200e-6)))
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    return 1e6 * took / reps
+
+
+def attention_bounds(b, h, tq, tk, d):
+    """(bound, exponentials' bound) of a bf16 forward in ms on an H100:
+    max(4 Tq Tk D / 989 TFLOP/s, q, k, v and the output's bytes / 3.35
+    TB/s), and Tq Tk ex2 at 3.9 T/s (the MUFU unit)."""
+    ops = 4.0 * b * h * tq * tk * d
+    nbytes = 2 * (2 * b * h * tq * d + 2 * b * h * tk * d)
+    return (1e3 * max(ops / 989e12, nbytes / 3.35e12),
+            1e3 * b * h * tq * tk / 3.9e12)
+
+
 def kernel_ms(fn, reps: int, prefix: str):
     """{kernel: device ms per call} of the kernels whose names start with
     `prefix` (the name up to its template arguments), under
@@ -278,12 +328,20 @@ def time_here(root: str, only: str):
 
     out = {}
     if "all" in only or "flash" in only:
-        for name, (b, h, tq, tk, d), _ in FLASH_CLIP:
+        for name, (b, h, tq, tk, d), _ in FLASH_CLIP + FLASH_OTHER:
             q, k, v = rand(b, h, tq, d), rand(b, h, tk, d), rand(b, h, tk, d)
             reps = 5 if tq * tk > 10_000_000 else 20
             fn = lambda: attn.flash_attention_fwd(q, k, v)  # noqa: E731
             out[f"flash {name}"] = cuda_ms(fn, reps)
             out[f"device flash {name}"] = device_ms(fn, reps)
+            if d <= 128:  # the yardsticks of the bf16 route at d <= 128
+                out[f"library flash {name}"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), reps)
+                (out[f"bound flash {name}"],
+                 out[f"exp bound flash {name}"]) = attention_bounds(
+                    b, h, tq, tk, d)
+            if name in ("unet self 48x48", "unet cross 24x24"):
+                out[f"host us flash {name}"] = host_us(fn, 200)
         for name, (b, h, tq, tk, d, hkv), bshape, _, _ in FLASH_STEP:
             q, k, v = rand(b, h, tq, d), rand(b, hkv, tk, d), rand(b, hkv, tk, d)
             bias = rand(*bshape) if bshape else None
@@ -293,6 +351,7 @@ def time_here(root: str, only: str):
             out[f"flash {name} (train)"] = cuda_ms(fn, reps)
             out[f"device flash {name} (train)"] = device_ms(fn, reps)
         del q, k, v
+        torch.cuda.empty_cache()
     if "all" in only or "f32" in only:
         for name, (b, h, tq, tk, d, hkv), bshape, lse, _ in FLASH_F32:
             q = torch.randn((b, h, tq, d), generator=gen, device="cuda")
@@ -391,7 +450,8 @@ def time_here(root: str, only: str):
 
 def totals(times):
     """Sum of launches x ms over a clip (flash d <= 128, flash d = 512, #6,
-    #7, #8), over a step (flash forward, flash backward, #7) and over the
+    #7, #8), over an SVD clip's and a caption batch's bf16 flash
+    launches at d <= 128, over a step (flash forward, flash backward, #7) and over the
     f32 route's paths (a scored clip, a seg panel, a 2-clip stage e, an
     autoencoder step pair's forwards and backwards, a precompute batch's
     VAE encoder, an f32 stage-2 step's backwards) and over a validate
@@ -404,6 +464,11 @@ def totals(times):
                          else "flash clip d<=128")
             sums[key] = sums.get(key, 0.0) + n * times.get(
                 f"{pre}flash {name}", 0.0)
+        for name, _, paths in FLASH_OTHER:
+            for path, n in paths.items():
+                key = f"{pre}flash {path}"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}flash {name}", 0.0)
         for name, _, _, n, n_bwd in FLASH_STEP:
             sums[pre + "flash step"] = sums.get(pre + "flash step", 0.0) \
                 + n * times.get(f"{pre}flash {name} (train)", 0.0)
@@ -432,6 +497,17 @@ def totals(times):
             sums[pre + "temporal f32 validate"] = sums.get(
                 pre + "temporal f32 validate", 0.0) + n * times.get(
                 f"{pre}temporal f32 {name}", 0.0)
+    for pre in ("library ", "bound ", "exp bound "):
+        for name, (_, _, _, _, d), n in FLASH_CLIP:
+            if d <= 128:
+                key = pre + "flash clip d<=128"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}flash {name}", 0.0)
+        for name, _, paths in FLASH_OTHER:
+            for path, n in paths.items():
+                key = f"{pre}flash {path}"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}flash {name}", 0.0)
     for pre in ("", "device ", "library "):
         for shape, n_clip, n_step in GN_SHAPES:
             ms = times.get(f"{pre}gnsilu {','.join(map(str, shape))}", 0.0)

@@ -76,6 +76,10 @@ def build(sources, stem="flash_attn_bwd",
             if m and fn:
                 print(f"  {name} {fn}: {m.group(1)} registers, {spills}")
                 fn = None
+        serialized = sum("(C7513)" in line for line in log.splitlines())
+        if serialized:  # ptxas waits after every wgmma of those kernels
+            print(f"  {name}: wgmma serialized (ptxas C7513) in "
+                  f"{serialized} kernels")
         libs[name] = ctypes.CDLL(str(out / f"lib{stem}_{name}.so"))
     return libs
 

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time edited copies of csrc/flash_attn_fwd_sm90.cu (the bf16 wgmma flash
+forward) against the checkout's own source on one CUDA card, at every
+bf16 forward shape at d <= 128 of the paths, beside the register kernel
+(csrc/flash_attn_fwd.cu) and the library's fused attention.
+
+    python3 tools/torch_flash_fwd_variants.py [--variant NAME OLD NEW ...]
+        [--only svd,clip,gated,caption,step]
+
+Each variant is the checkout's source with every occurrence of the text
+OLD (at least one) replaced by NEW, e.g. another tile, ring depth or
+warpgroup count in `WgCfg`; a NAME given twice applies both edits. Every
+source ("base" the checkout's own) is built with the package's nvcc
+flags, all at once, into the git-ignored EXP/variants/ and loaded in place
+of the package's library for `flash_attention_fwd`. Per shape the
+variants run in turns (base, v1, ..., v1, base); each prints its device
+time a call (`device_ms` of tools/torch_flash_ab.py) and whether its
+output equals base's bit for bit; the register kernel (called through its
+library at the same shape) and `scaled_dot_product_attention` are timed
+once a shape the same way. A variant's `-Xptxas -v` registers and spills
+are printed after the build; the last lines sum each variant's turns, the
+register kernel and the library over an SVD clip, a clip, a caption batch
+and a stage-2 step's forwards.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tools"))
+
+from torch_flash_ab import (FLASH_CLIP, FLASH_OTHER, FLASH_STEP,  # noqa: E402
+                            device_ms)
+from torch_flash_bwd_variants import build  # noqa: E402
+
+
+def shapes(only):
+    """[(group, site, (B, H, Tq, Tk, D), lse, {path: launches})]."""
+    out = []
+    for site, shape, n in FLASH_CLIP:
+        if shape[-1] <= 128:
+            out.append(("clip", site, shape, False, {"clip": n}))
+    for site, shape, paths in FLASH_OTHER:
+        group = ("svd" if site.startswith("svd") else "caption"
+                 if site.startswith("blip2") else "gated")
+        out.append((group, site, shape, False, paths))
+    for site, (b, h, tq, tk, d, _), bias, n, _ in FLASH_STEP:
+        if bias is None:  # the prior's biased forward keeps the register kernel
+            out.append(("step", site + " (lse)", (b, h, tq, tk, d), True,
+                        {"step": n}))
+    return [s for s in out if s[0] in only]
+
+
+def register_fwd(attn, q, k, v, lse):
+    """The register kernel (flash_fwd_reg_kernel) at q's shape, called
+    through its library: 16-byte rows, no bias."""
+    import torch
+    b, h, tq, d = q.shape
+    out = torch.empty_like(q)
+    lse_t = (torch.empty((b, h, tq), device=q.device, dtype=torch.float32)
+             if lse else None)
+    strides = ((q.stride(0), q.stride(1), q.stride(2))
+               + attn._kv_strides(k, h) + attn._kv_strides(v, h))
+    err = attn._library("flash_attn_fwd").flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+        None if lse_t is None else lse_t.data_ptr(), *strides, 0, 0, 0, b, h,
+        tq, k.shape[2], d, d ** -0.5, 1, 16,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"register kernel failed: CUDA error {err}")
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variant", nargs=3, action="append", default=[],
+                    metavar=("NAME", "OLD", "NEW"))
+    ap.add_argument("--only", default="svd,clip,gated,caption,step")
+    args = ap.parse_args()
+    import torch
+    import torch.nn.functional as F
+    from neurons_tpu_torch.ops import attention as attn
+    from neurons_tpu_torch.ops import cuda_build
+
+    base = (cuda_build.CSRC_DIR / "flash_attn_fwd_sm90.cu").read_text()
+    sources = {"base": base}
+    for name, old, new in args.variant:
+        src = sources.get(name, base)
+        if old not in src:
+            raise SystemExit(f"{name}: the text to replace is not in the "
+                             f"source")
+        sources[name] = src.replace(old, new)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    libs = build(sources, "flash_attn_fwd_sm90",
+                 r"flash_fwd_wgmma_kernelILi\d+ELi\d+ELb[01]")
+    libs = {name: attn._bind(lib, "flash_attn_fwd_sm90")
+            for name, lib in libs.items()}
+    own = attn._library
+    cuda_build.build(["flash_attn_fwd"])
+    gen = torch.Generator("cuda").manual_seed(0)
+    order = list(sources) + list(reversed(sources))
+    sums = {}
+    current = ["base"]
+
+    def library(name):
+        return libs[current[0]] if name == "flash_attn_fwd_sm90" else own(name)
+
+    for group, site, (b, h, tq, tk, d), lse, paths in shapes(
+            set(args.only.split(","))):
+        q, k, v = (torch.randn((b, h, t, d), generator=gen,
+                               device="cuda").bfloat16()
+                   for t in (tq, tk, tk))
+        reps = 5 if tq * tk > 10_000_000 else 20
+        times = {}
+        ref = None
+        try:
+            attn._library = library
+            for turn, name in enumerate(order):
+                current[0] = name
+
+                def fn():
+                    return attn.flash_attention_fwd(q, k, v, return_lse=lse)
+
+                got = fn()
+                got = got[0] if lse else got
+                ref = got if ref is None else ref
+                ms = device_ms(fn, reps)
+                times.setdefault(name, []).append(ms)
+                print(f"{site:26s} [{b},{h},{tq},{tk},{d}]{' lse' if lse else ''} "
+                      f"{name:10s} device {ms:.4f} ms; equal bits to base "
+                      f"{torch.equal(got, ref)}", flush=True)
+        finally:
+            attn._library = own
+        times["register"] = [device_ms(
+            lambda: register_fwd(attn, q, k, v, lse), reps)]
+        times["library"] = [device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), reps)]
+        print(f"{site:26s} register kernel {times['register'][0]:.4f} ms, "
+              f"library {times['library'][0]:.4f} ms", flush=True)
+        for name, ms in times.items():
+            for path, n in paths.items():
+                sums.setdefault(path, {}).setdefault(name, 0.0)
+                sums[path][name] += n * sum(ms) / len(ms) / 1e3
+        del q, k, v, ref, got
+        torch.cuda.empty_cache()
+    for path, by_name in sums.items():
+        print(f"{path}: s of launches x device time (mean of turns): "
+              + ", ".join(f"{name} {s:.4f}" for name, s in by_name.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
