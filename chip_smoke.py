@@ -16,8 +16,10 @@ phase, which the script starts itself.)
 The fused-norm configuration is the JAX package's: NEURONS_TPU_FUSED_NORM=1
 (every GroupNorm+SiLU through kernel #7, csrc/gn_silu.cu) and
 NEURONS_TPU_FUSED_GNCONV=1 (the res blocks' GN -> SiLU -> 3x3 conv pairs
-through kernel #8, csrc/gn_silu_conv.cu). The script sets and unsets both
-itself, whatever the environment holds.
+through kernel #8: bf16 on wgmma, csrc/gn_silu_conv_sm90.cu, where TMA can
+address the map, which every launch of the fused clip can; the staged-halo
+and TF32 kernels of csrc/gn_silu_conv.cu otherwise). The script sets and
+unsets both itself, whatever the environment holds.
 
 Phases, in order:
   1. the card's name and power limit (nvidia-smi), then the build of every
@@ -258,7 +260,11 @@ Phases, in order:
      card busy while the host enqueues them (`device_ms`): the plain events
      measure the host's cost per call where it exceeds the device's work),
      plain version, the library composite (`F.silu(F.group_norm(...))`, then
-     `F.conv2d` for #8) and the bound; #7's launch plan per shape.
+     `F.conv2d` for #8) and the bound; #7's launch plan per shape, #8's
+     kernel and plan per shape and a rerun bitwise; #8's staged-halo
+     kernel, which no fused-clip launch takes, at each bf16 key with x
+     off a 16-byte boundary and at HALO_CONV_MAPS, by the same rule and
+     bitwise on rerun.
 Then one line of per-kernel totals for one clip or one step (launches x
 time summed: kernel by events and, for #6-#8, by device time, bound,
 library call), which gives the redesign order from one run, one line of
@@ -1577,6 +1583,19 @@ def clip_run(models, pcfg, fused: bool, n_requests: int = CLIP_REQUESTS):
     if wgmma == 0:
         raise AssertionError(f"the {name} clip launched no "
                              f"{attn.WGMMA_ROUTE}")
+    if fused:  # each #8 launch on the kernel conv_route names for its shape
+        from collections import Counter
+
+        from neurons_tpu_torch.ops import fused_conv as fc
+        conv_routes = Counter()
+        for (route, key), n in fc.GN_SILU_CONV_LAUNCHES.by_route.items():
+            conv_routes[route] += n
+            if route != fc.conv_route(*key[:5], getattr(torch, key[6])):
+                raise AssertionError(f"#8 launched {route} at {key}")
+        log(f"slice {name}: #8 launches by kernel {dict(conv_routes)}")
+        if conv_routes[fc.WGMMA_CONV_ROUTE] != totals["gn_silu_conv"]:
+            raise AssertionError(f"the {name} clip's #8 launches left "
+                                 f"{fc.WGMMA_CONV_ROUTE}: {conv_routes}")
     return by_shape, ctx, per_request[-1], first
 
 
@@ -3241,6 +3260,15 @@ def chained_tiny_check():
 GN_OPS_PER_ELEMENT = 12
 
 
+# Maps of real inputs that #8's wgmma kernel cannot take, so its staged-halo
+# kernel does: the UNet3D's 1280-channel levels of a 256 x 512 clip (8 x 16
+# latents; 16 x 8 portrait), whose halo box would be taller than the map,
+# and of a 256 x 384 clip (8 x 12 and 4 x 6: rows off 8 pixels, samples not
+# dividing the tile); N, Cin, H, W, Cout.
+HALO_CONV_MAPS = [(32, 1280, 8, 16, 1280), (32, 1280, 16, 8, 1280),
+                  (32, 1280, 8, 12, 1280), (32, 1280, 4, 6, 1280)]
+
+
 def gn_kernel_phase(shapes7, shapes8):
     """Kernels #7 (GroupNorm+SiLU) and #8 (GroupNorm+SiLU+3x3 conv) at every
     (shape, dtype) key the fused clip and the fused step launched, against
@@ -3251,7 +3279,10 @@ def gn_kernel_phase(shapes7, shapes8):
     input read once and each output written once: #7 max(12 f32 ops an
     element / 67 TFLOP/s, x + y + GroupNorm parameters / 3.35 TB/s); #8
     max(2 * M * Cout * 9 * Cin / 989 TFLOP/s, x + W + y + parameters /
-    3.35 TB/s). Returns ({key: record} of #7, of #8)."""
+    3.35 TB/s). #8's staged-halo kernel, which no launch of the fused clip
+    takes, is held the same way (`halo_check`) at each bf16 key with x one
+    element off a 16-byte boundary and at HALO_CONV_MAPS. Returns
+    ({key: record} of #7, of #8, of the staged-halo kernel)."""
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import fused_conv as fc
@@ -3282,7 +3313,44 @@ def gn_kernel_phase(shapes7, shapes8):
                     library_ms=library_ms, bound_ms=bound[0],
                     bound_by=bound[1])
 
-    records7, records8 = {}, {}
+    def halo_check(label, args, want, plain):
+        """The staged-halo kernel on `args` (a map the wgmma kernel cannot
+        take): one launch on that route, within 1.5x the plain version's
+        error against float64 `want`, a rerun bitwise."""
+        x, cout = args[0], args[3].shape[0]
+        n, cin, h, w = x.shape
+        route = fc.conv_route(n, cin, h, w, cout, x.dtype,
+                              fc._sm_count(x.device),
+                              aligned=x.data_ptr() % 16 == 0)
+        launch = (fc.HALO_CONV_ROUTE, (n, cin, h, w, cout, args[5],
+                                       str(x.dtype).split(".")[-1]))
+        before = fc.GN_SILU_CONV_LAUNCHES.by_route[launch]
+        got = fc.gn_silu_conv_fwd(*args)
+        torch.cuda.synchronize()
+        launched = fc.GN_SILU_CONV_LAUNCHES.by_route[launch] - before
+        same = torch.equal(got, fc.gn_silu_conv_fwd(*args))
+        kernel = lambda: fc.gn_silu_conv_fwd(*args)  # noqa: E731
+        ms, dev_ms = cuda_ms(kernel, 10), device_ms(kernel, 10)
+        err = (got.double() - want).abs().max().item()
+        plain_err = (plain.double() - want).abs().max().item()
+        # the C plan is x's on a 16-byte boundary; off it, no 16-byte loads
+        plan = dict(fc.conv_plan(n, cin, h, w, cout))
+        plan["vec"] &= int(x.data_ptr() % 16 == 0)
+        ok = (route == fc.HALO_CONV_ROUTE and launched == 1 and same
+              and bool(torch.isfinite(got).all()) and err <= 1.5 * plain_err)
+        log(f"gn_silu_conv {label} {route} (x at {x.data_ptr() % 16} B past "
+            f"16) plan {plan}  max_abs_err "
+            f"{err:.3e} (plain {plain_err:.3e})  kernel_ms {ms:.4f} (device "
+            f"{dev_ms:.4f})  rerun bitwise {same}  {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(
+                f"the staged-halo #8 kernel at {label}: route {route}, "
+                f"launches {launched}, rerun bitwise {same}, error "
+                f"{err:.3e} against 1.5 x {plain_err:.3e}")
+        return dict(max_abs_err=err, plain_err=plain_err, ms=ms,
+                    device_ms=dev_ms, route=route)
+
+    records7, records8, halo = {}, {}, {}
     for key in sorted(shapes7):
         *xshape, groups, tname = key
         gen = torch.Generator("cuda").manual_seed(SEED)
@@ -3327,6 +3395,7 @@ def gn_kernel_phase(shapes7, shapes8):
             *(a.double() for a in args[:5]), groups, 1e-5)
         got = fc.gn_silu_conv_fwd(*args)
         torch.cuda.synchronize()
+        rerun_same = torch.equal(got, fc.gn_silu_conv_fwd(*args))
         plain = fc.gn_silu_conv_reference(*args)
         kernel = lambda: fc.gn_silu_conv_fwd(*args)  # noqa: E731
         times = [cuda_ms(kernel, 10), device_ms(kernel, 10)] + [
@@ -3341,13 +3410,45 @@ def gn_kernel_phase(shapes7, shapes8):
                                                        got)),
                        PEAK_BF16_FLOPS if dt == torch.bfloat16
                        else PEAK_TF32_FLOPS)
-        if dt == torch.bfloat16:
-            log(f"gn_silu_conv {key} plan {fc.conv_plan(n, cin, h, w, cout)}")
+        route = fc.conv_route(n, cin, h, w, cout, dt)
+        plan = (fc.conv_plan_sm90(n, cin, h, w, cout,
+                                  fc._sm_count(x.device))
+                if route == fc.WGMMA_CONV_ROUTE
+                else fc.conv_plan(n, cin, h, w, cout)
+                if route == fc.HALO_CONV_ROUTE else None)
+        log(f"gn_silu_conv {key} {route} plan {plan and dict(plan)} rerun "
+            f"bitwise "
+            f"{rerun_same}")
+        if not rerun_same:
+            raise AssertionError(f"#8 ({route}) reruns differ at {key}")
         records8[key] = record("gn_silu_conv", key, got, want, plain, *times,
                                bound)
+        records8[key]["route"] = route
+        if dt == torch.bfloat16:  # the same inputs, x 2 bytes off 16
+            off = torch.empty(x.numel() + 8, dtype=dt, device="cuda")[
+                1:1 + x.numel()].view(x.shape).copy_(x)
+            halo[key + ("x offset",)] = halo_check(
+                f"{key} x offset", (off,) + args[1:], want, plain)
+            del off
         del x, cw, want, got, plain, args
         torch.cuda.empty_cache()
-    return records7, records8
+    for shape in HALO_CONV_MAPS:
+        n, cin, h, w, cout = shape
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        x, gw, gb = inputs(gen, (n, cin, h, w), torch.bfloat16)
+        cw = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+              / (9 * cin) ** 0.5).to(torch.bfloat16)
+        cb = (0.1 * torch.randn((cout,), generator=gen, device="cuda")
+              ).to(torch.bfloat16)
+        args = (x, gw, gb, cw, cb, 32, 1e-5)
+        want = fc.gn_silu_conv_reference(
+            *(a.double() for a in args[:5]), 32, 1e-5)
+        key = shape + (32, "bfloat16")
+        halo[key] = halo_check(key, args, want,
+                               fc.gn_silu_conv_reference(*args))
+        del x, cw, want, args
+        torch.cuda.empty_cache()
+    return records7, records8, halo
 
 
 # --- stages 4 and 6 -----------------------------------------------------------
@@ -6365,10 +6466,14 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "library_ms": rec["library_ms"],
         })
         groups.append(("temporal_attn_fwd", path, runs[path]))
+    from neurons_tpu_torch.ops import fused_conv as fc
     sources = {"gn_silu": ("neurons_tpu_torch/csrc/gn_silu.cu",
                            "neurons_tpu/ops/fused_norm.py:102"),
                "gn_silu_conv": ("neurons_tpu_torch/csrc/gn_silu_conv.cu",
-                                "neurons_tpu/ops/fused_conv.py:91")}
+                                "neurons_tpu/ops/fused_conv.py:91"),
+               fc.WGMMA_CONV_ROUTE: (
+                   "neurons_tpu_torch/csrc/gn_silu_conv_sm90.cu",
+                   "neurons_tpu/ops/fused_conv.py:91")}
     for path, shapes in fused_by_shapes:
         for kernel, records in zip(("gn_silu", "gn_silu_conv"), gn_records):
             for key, launches in sorted(shapes[kernel].items()):
@@ -6384,14 +6489,16 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                 else:
                     shape = "x".join(map(str, key[:4])) + f"->{key[4]}"
                 dt = "bf16" if key[-1] == "bfloat16" else "f32"
+                src = sources.get(rec.get("route"), sources[kernel])
                 entries.append({
                     "name": f"{kernel}[{shape} G{key[-2]} {dt} {path}]",
                     "route": "cuda",
-                    "source": sources[kernel][0],
-                    "replaces": sources[kernel][1],
+                    "source": src[0],
+                    "replaces": src[1],
                     "launches": launches,
                     "max_abs_err": rec["max_abs_err"],
                     "ms": rec["ms"], "device_ms": rec["device_ms"],
+                    **({"kernel": rec["route"]} if "route" in rec else {}),
                     "plain_ms": rec["plain_ms"],
                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
@@ -6575,6 +6682,36 @@ def wgmma_instances(ptxas):
     return out
 
 
+def wgmma_conv_instances(ptxas):
+    """The wgmma conv kernel's instances in the -Xptxas -v summary (N
+    tiles 16, 160, 256), logged with their registers and spills, and
+    whether ptxas serialized their products (C7513 in the build log);
+    raises if one is missing, spills, or was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    out = []
+    for f in ptxas:
+        m = re.search(r"gn_silu_conv_wgmma_kernelILi(\d+)EE", f["function"])
+        if m:
+            out.append(dict(bn=int(m.group(1)), registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum("(C7513)" in line for line in cuda_build.log_path(
+        "gn_silu_conv_sm90").read_text().splitlines())
+    for i in sorted(out, key=lambda i: i["bn"]):
+        log(f"  wgmma conv instance N tile {i['bn']}: {i['registers']} "
+            f"registers, spill stores {i['spill_stores']} B, loads "
+            f"{i['spill_loads']} B")
+    log(f"  wgmma conv instances with serialized products (ptxas C7513): "
+        f"{serialized}")
+    if sorted(i["bn"] for i in out) != [16, 160, 256]:
+        raise AssertionError(f"the wgmma conv kernel's instances: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the wgmma conv kernel spills or was "
+                             f"serialized: {out}, C7513 x {serialized}")
+    return out
+
+
 def ptxas_summary(name):
     """Per kernel of csrc/<name>.cu, from nvcc's -Xptxas -v log: the
     registers a thread and the bytes of local-memory spill stores and
@@ -6638,6 +6775,7 @@ def main():
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
     wgmma_instances(ptxas)
+    wgmma_conv_instances(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}
     FLASH_ROUTES.install()

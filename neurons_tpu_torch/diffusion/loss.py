@@ -60,7 +60,9 @@ def standard_diffusion_loss(denoise: Callable, x: torch.Tensor,
     b = x.shape[0]
     if sigmas is None:
         sigmas = sigma_sampler(b, generator, x.device)
-    sigmas = sigmas.to(x.device, x.dtype)
+    # f32 as the reference's sampler gives them: a bf16 x promotes the
+    # noised input, the denoiser's sigmas and the loss to f32, as in jnp
+    sigmas = sigmas.to(x.device, torch.float32)
     sig_b = sigmas.reshape((-1,) + (1,) * (x.dim() - 1))
     if noise is None:
         noise = torch.randn(x.shape, generator=generator, device=x.device,

@@ -272,9 +272,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the scale). With `return_lse` also the log-sum-exp [B, H, Tq] f32 of the
     scaled and biased logits (the JAX convention m + log(max(l, 1e-30))).
 
-    CUDA tensors launch csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the
-    same type; any strides over batch, head and token, unit stride over D).
-    CPU tensors compute the plain version."""
+    CUDA tensors launch the kernel `flash_route` names: bf16 unbiased at
+    d 32-128 on 16-byte rows csrc/flash_attn_fwd_sm90.cu (wgmma, TMA), the
+    rest csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the same type;
+    any strides over batch, head and token, unit stride over D). CPU
+    tensors compute the plain version."""
     _check_operands(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -803,10 +803,14 @@ def test_gn_silu_conv_kernel_tiles(cuda, shape):
 
 @pytest.mark.cuda
 def test_gn_silu_conv_split_is_deterministic(cuda):
-    # the 4x4 level splits its input channels across blocks; the 32x32
-    # level fills the card without; a split call gives the same bits twice
-    assert fc.conv_plan(32, 1280, 4, 4, 1280)["splits"] > 1
-    assert fc.conv_plan(32, 320, 32, 32, 320)["splits"] == 1
+    # the 4x4 level splits its input channels across the wgmma kernel's
+    # blocks; the 32x32 level fills the card without; a split call gives
+    # the same bits twice
+    sms = fc._sm_count(torch.device("cuda"))
+    assert fc.conv_route(32, 1280, 4, 4, 1280, torch.bfloat16, sms) \
+        == fc.WGMMA_CONV_ROUTE
+    assert fc.conv_plan_sm90(32, 1280, 4, 4, 1280, sms)["splits"] > 1
+    assert fc.conv_plan_sm90(32, 320, 32, 32, 320, sms)["splits"] == 1
     x, gw, gb, g = _gn_inputs(32, 1280, 4, 4, 0.0, 8)
     cw = torch.randn((1280, 1280, 3, 3), generator=g, device="cuda") / 107.0
     cb = 0.1 * torch.randn((1280,), generator=g, device="cuda")
@@ -818,10 +822,160 @@ def test_gn_silu_conv_split_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+def test_halo_conv_split_is_deterministic(cuda):
+    # the staged-halo kernel (36-pixel samples: no wgmma plan) splits 960
+    # input channels over its blocks and reduces them in a fixed order
+    shape = (2, 960, 6, 6, 320)
+    assert fc.conv_route(*shape, torch.bfloat16) == fc.HALO_CONV_ROUTE
+    assert fc.conv_plan(*shape)["splits"] > 1
+    assert _conv_route_launches(shape, fc.HALO_CONV_ROUTE, seed=9) == 1
+    x, gw, gb, g = _gn_inputs(*shape[:4], 0.0, 9)
+    cw = torch.randn((320, 960, 3, 3), generator=g, device="cuda") / 93.0
+    args = [t.to(torch.bfloat16) for t in (x, gw, gb, cw)] + [None]
+    assert torch.equal(fc.gn_silu_conv_fwd(*args, 32, 1e-5),
+                       fc.gn_silu_conv_fwd(*args, 32, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16, 64),
+                                   (32, 1280, 4, 4, 1280)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_halo_conv_takes_x_off_16_bytes(cuda, shape):
+    # a wgmma-route map with x one element past a 16-byte boundary (TMA
+    # cannot address it) launches the staged-halo kernel, within 1.5x the
+    # plain version's error against float64 and bitwise on a rerun
+    n, cin, h, w, cout = shape
+    x, gw, gb, g = _gn_inputs(n, cin, h, w, 0.0, 14)
+    cw = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") \
+        / (9 * cin) ** 0.5
+    cb = 0.1 * torch.randn((cout,), generator=g, device="cuda")
+    x, gw, gb, cw, cb = (t.to(torch.bfloat16) for t in (x, gw, gb, cw, cb))
+    off = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")[
+        1:1 + x.numel()].view(x.shape).copy_(x)
+    assert off.data_ptr() % 16 != 0
+    assert fc.conv_route(*shape, torch.bfloat16, aligned=False) \
+        == fc.HALO_CONV_ROUTE
+    key = (fc.HALO_CONV_ROUTE, shape + (32, "bfloat16"))
+    before = fc.GN_SILU_CONV_LAUNCHES.by_route[key]
+    got = fc.gn_silu_conv_fwd(off, gw, gb, cw, cb, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert fc.GN_SILU_CONV_LAUNCHES.by_route[key] == before + 1
+    assert torch.equal(got, fc.gn_silu_conv_fwd(off, gw, gb, cw, cb, 32,
+                                                1e-5))
+    want = fc.gn_silu_conv_reference(*(t.double() for t in (x, gw, gb, cw,
+                                                             cb)), 32, 1e-5)
+    plain = fc.gn_silu_conv_reference(x, gw, gb, cw, cb, 32, 1e-5)
+    _report(f"staged-halo gn_silu_conv, x off 16 bytes, {shape}",
+            (got.double() - want).abs().max().item(),
+            (plain.double() - want).abs().max().item())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_gn_silu_conv_kernel_large_mean(cuda, dtype):
     _check_gn_silu_conv(2, 64, 12, 12, 64, 32, getattr(torch, dtype),
                         mean=100.0)
+
+
+# The wgmma kernel (csrc/gn_silu_conv_sm90.cu) at every shape of the fused
+# clip, on the route conv_route names, with a rerun giving equal bits
+CONV_CLIP_SHAPES = [
+    (2, 320, 48, 48, 640), (2, 320, 96, 96, 4), (2, 320, 96, 96, 320),
+    (2, 640, 24, 24, 1280), (2, 640, 48, 48, 640), (2, 640, 96, 96, 320),
+    (2, 960, 48, 48, 640), (2, 960, 96, 96, 320), (2, 1280, 24, 24, 1280),
+    (2, 1280, 48, 48, 640), (2, 1920, 24, 24, 1280), (2, 1920, 48, 48, 640),
+    (2, 2560, 24, 24, 1280), (32, 320, 16, 16, 640), (32, 320, 32, 32, 320),
+    (32, 640, 8, 8, 1280), (32, 640, 16, 16, 640), (32, 640, 32, 32, 320),
+    (32, 960, 16, 16, 640), (32, 960, 32, 32, 320), (32, 1280, 4, 4, 1280),
+    (32, 1280, 8, 8, 1280), (32, 1280, 16, 16, 640), (32, 1920, 8, 8, 1280),
+    (32, 1920, 16, 16, 640), (32, 2560, 4, 4, 1280), (32, 2560, 8, 8, 1280)]
+
+
+def _conv_route_launches(shape, route, groups=32, **kw):
+    key = (route, tuple(shape) + (groups, "bfloat16"))
+    before = fc.GN_SILU_CONV_LAUNCHES.by_route[key]
+    _check_gn_silu_conv(*shape, groups, torch.bfloat16, **kw)
+    return fc.GN_SILU_CONV_LAUNCHES.by_route[key] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_CLIP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_conv_clip_shapes(cuda, shape):
+    assert fc.conv_route(*shape, torch.bfloat16) == fc.WGMMA_CONV_ROUTE
+    assert _conv_route_launches(shape, fc.WGMMA_CONV_ROUTE) == 1
+    x, gw, gb, g = _gn_inputs(*shape[:4], 0.0, 12)
+    cw = torch.randn((shape[4], shape[1], 3, 3), generator=g,
+                     device="cuda") / (9 * shape[1]) ** 0.5
+    args = [t.to(torch.bfloat16) for t in (x, gw, gb, cw)] + [None]
+    assert torch.equal(fc.gn_silu_conv_fwd(*args, 32, 1e-5),
+                       fc.gn_silu_conv_fwd(*args, 32, 1e-5))
+
+
+# One shape each side of the wgmma route's boundaries: rows of 8 pixels
+# (rows mode, a tile 16 rows) against whole samples of 64 pixels, and a
+# map of 16 rows of 8 (the halo box would be taller than the map) on the
+# staged-halo kernel; rows of 12 and 20 pixels (TMA cannot address them)
+# and 36-pixel samples (they do not divide the tile) on it too; Cout 24 on
+# the N tile of 160 and 170 on the one of 256; Cin off the 32-channel
+# chunk; an odd count of pixel tiles in either mode (5 tiles of a 24x24 map,
+# one tile of 3 of its 8 samples at 4x4: the persistent grid's last tile
+# partial)
+CONV_ROUTE_SHAPES = [
+    ((1, 64, 32, 8, 64), fc.WGMMA_CONV_ROUTE),
+    ((1, 64, 16, 8, 64), fc.HALO_CONV_ROUTE),
+    ((4, 64, 8, 8, 64), fc.WGMMA_CONV_ROUTE),
+    ((2, 64, 12, 12, 64), fc.HALO_CONV_ROUTE),
+    ((1, 64, 20, 20, 64), fc.HALO_CONV_ROUTE),
+    ((2, 64, 6, 6, 64), fc.HALO_CONV_ROUTE),
+    ((2, 80, 24, 24, 24), fc.WGMMA_CONV_ROUTE),
+    ((3, 40, 16, 16, 170), fc.WGMMA_CONV_ROUTE),
+    ((1, 64, 24, 24, 64), fc.WGMMA_CONV_ROUTE),
+    ((3, 64, 4, 4, 64), fc.WGMMA_CONV_ROUTE),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_ROUTE_SHAPES,
+                         ids=lambda c: "x".join(map(str, c[0])))
+def test_wgmma_conv_route_boundaries(cuda, case):
+    shape, route = case
+    assert fc.conv_route(*shape, torch.bfloat16) == route
+    assert _conv_route_launches(shape, route, groups=8) == 1
+
+
+@pytest.mark.cuda
+def test_wgmma_conv_large_mean(cuda):
+    # the centred statistics on the wgmma route
+    shape = (2, 64, 16, 16, 64)
+    assert fc.conv_route(*shape, torch.bfloat16) == fc.WGMMA_CONV_ROUTE
+    assert _conv_route_launches(shape, fc.WGMMA_CONV_ROUTE, mean=100.0) == 1
+
+
+@pytest.mark.cuda
+def test_wgmma_conv_refuses_a_plan_that_does_not_fit(cuda, monkeypatch):
+    # the C entry point recomputes the plan's shared memory and tiles and
+    # returns an error where the wrapper's plan disagrees: a raise, not a
+    # launch; so does the wrapper for a weight of the wrong shape
+    x, gw, gb, g = _gn_inputs(2, 64, 16, 16, 0.0, 13)
+    cw = 0.1 * torch.randn((64, 64, 3, 3), generator=g, device="cuda")
+    args = [t.to(torch.bfloat16) for t in (x, gw, gb, cw)] + [None]
+    good = fc.conv_plan_sm90(2, 64, 16, 16, 64, fc._sm_count(x.device))
+    for key, value in (("smem", good["smem"] + 16), ("rb", good["rb"] - 1),
+                       ("cps", 0)):
+        bad = dict(good, **{key: value})
+        monkeypatch.setattr(fc, "conv_plan_sm90", lambda *a, **k: bad)
+        before = fc.GN_SILU_CONV_LAUNCHES.total
+        with pytest.raises(RuntimeError, match="gn_silu_conv_wgmma_kernel"):
+            fc.gn_silu_conv_fwd(*args, 32, 1e-5)
+        assert fc.GN_SILU_CONV_LAUNCHES.total == before
+    # a conv weight of the wrong shape is refused before any launch
+    monkeypatch.undo()
+    bad_w = torch.zeros((64, 63, 3, 3), device="cuda", dtype=torch.bfloat16)
+    before = fc.GN_SILU_CONV_LAUNCHES.total
+    with pytest.raises(ValueError, match="conv weight"):
+        fc.gn_silu_conv_fwd(args[0], args[1], args[2], bad_w, None, 32, 1e-5)
+    assert fc.GN_SILU_CONV_LAUNCHES.total == before
 
 
 @pytest.mark.cuda

@@ -116,10 +116,9 @@ def _denoise_pair():
     return j, t
 
 
-@pytest.mark.parametrize("sampler", ["discrete", "edm"])
-@pytest.mark.parametrize("loss_type", ["l2", "l1"])
-@pytest.mark.parametrize("offset", [0.0, 0.1])
-def test_standard_diffusion_loss_matches_jax(sampler, loss_type, offset):
+def _check_diffusion_loss(sampler, loss_type, offset, dtype):
+    """The port's loss on JAX's draws (rebuilt from its key splits) against
+    JAX's, on x in `dtype`; both denoisers record their inputs' types."""
     x = np.random.default_rng(2).standard_normal((4, 3, 6, 6)).astype(
         np.float32)
     key = jax.random.PRNGKey(3)
@@ -127,30 +126,63 @@ def test_standard_diffusion_loss_matches_jax(sampler, loss_type, offset):
              else jloss.edm_sigma_sampler())
     tsamp = (tloss.discrete_sigma_sampler() if sampler == "discrete"
              else tloss.edm_sigma_sampler())
-    jd, td = _denoise_pair()
+    jd0, td0 = _denoise_pair()
+    seen = {}
+
+    def jd(xn, s):
+        seen["jax"] = (str(xn.dtype), str(s.dtype))
+        return jd0(xn, s)
+
+    def td(xn, s):
+        seen["torch"] = (str(xn.dtype).split(".")[-1],
+                         str(s.dtype).split(".")[-1])
+        return td0(xn, s)
+
     w_j = (lambda s: 1.0 / (s + 1.0)) if offset else None
     w_t = (lambda s: 1.0 / (s + 1.0)) if offset else None
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
     want = float(jloss.standard_diffusion_loss(
-        jd, jnp.asarray(x), key, jsamp, loss_type, offset, w_j))
-    # JAX's draws, rebuilt from its key splits
+        jd, jx, key, jsamp, loss_type, offset, w_j))
+    # JAX's draws, rebuilt from its key splits (noise and offset in x's type)
     k_sig, k_n, k_off = jax.random.split(key, 3)
     sig = np.array(jsamp(k_sig, 4))
-    noise = np.array(jax.random.normal(k_n, x.shape))
-    off = np.array(jax.random.normal(k_off, (4, 1, 1, 1)))
+    noise, off = (torch.from_numpy(np.array(
+        jax.random.normal(k, shape, jx.dtype).astype(jnp.float32))).to(
+            tx.dtype) for k, shape in ((k_n, x.shape), (k_off, (4, 1, 1, 1))))
     got = float(tloss.standard_diffusion_loss(
-        td, torch.from_numpy(x), tsamp, loss_type, offset, w_t,
-        sigmas=torch.from_numpy(sig), noise=torch.from_numpy(noise),
-        offset=torch.from_numpy(off)))
+        td, tx, tsamp, loss_type, offset, w_t,
+        sigmas=torch.from_numpy(sig), noise=noise, offset=off))
     assert want != 0.0
+    # the denoiser sees f32 noised input and f32 sigmas in both, whatever
+    # x's type (bf16 x times f32 sigmas promotes)
+    assert seen["jax"] == seen["torch"] == ("float32", "float32"), seen
     np.testing.assert_allclose(got, want, rtol=TOL)
     # drawn from a generator when not given: finite, and reproducible
     g1 = tloss.standard_diffusion_loss(
-        td, torch.from_numpy(x), tsamp, loss_type, offset, w_t,
+        td, tx, tsamp, loss_type, offset, w_t,
         generator=torch.Generator().manual_seed(7))
     g2 = tloss.standard_diffusion_loss(
-        td, torch.from_numpy(x), tsamp, loss_type, offset, w_t,
+        td, tx, tsamp, loss_type, offset, w_t,
         generator=torch.Generator().manual_seed(7))
     assert torch.isfinite(g1) and float(g1) == float(g2)
+
+
+@pytest.mark.parametrize("sampler", ["discrete", "edm"])
+@pytest.mark.parametrize("loss_type", ["l2", "l1"])
+@pytest.mark.parametrize("offset", [0.0, 0.1])
+def test_standard_diffusion_loss_matches_jax(sampler, loss_type, offset):
+    _check_diffusion_loss(sampler, loss_type, offset, "float32")
+
+
+@pytest.mark.parametrize("sampler", ["discrete", "edm"])
+@pytest.mark.parametrize("loss_type", ["l2", "l1"])
+@pytest.mark.parametrize("offset", [0.0, 0.1])
+def test_standard_diffusion_loss_matches_jax_bf16(sampler, loss_type,
+                                                  offset):
+    # bf16 x: the sigmas stay f32 as the reference's, so the noised input,
+    # the denoiser's sigmas and the loss are f32 in both
+    _check_diffusion_loss(sampler, loss_type, offset, "bfloat16")
 
 
 @pytest.fixture(scope="module")

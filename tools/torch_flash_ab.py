@@ -36,7 +36,10 @@ behind a kernel that keeps the card busy until the host has enqueued them
 all (every launch of a call and the backward wrapper's own small kernels
 included); for the backward also each of its kernels by name under
 torch.profiler, for #7 the library composite F.silu(F.group_norm(...))
-by events, and for the bf16 forward at d <= 128 the library's fused
+by events, for #8 the library composite F.conv2d(F.silu(F.group_norm(
+...))) by device time and the bound (2 M Cout 9 Cin at 989 TFLOP/s, or
+x, the weights and y at 3.35 TB/s), and for the bf16 forward at d <= 128
+the library's fused
 attention by device time, the bound and the exponentials' bound, and at
 two shapes the host's microseconds to enqueue one call (`host_us`). The
 last lines give, per shape, each run's ms, and for each kernel the sum of
@@ -410,8 +413,19 @@ def time_here(root: str, only: str):
             cb = 0.1 * rand(cout)
             fn = lambda: fc.gn_silu_conv_fwd(  # noqa: E731
                 x, gw, gb, cw, cb, 32, 1e-5)
-            out[f"conv {n},{cin},{h},{w}->{cout}"] = cuda_ms(fn, 20)
-            out[f"device conv {n},{cin},{h},{w}->{cout}"] = device_ms(fn, 20)
+            key = f"{n},{cin},{h},{w}->{cout}"
+            out[f"conv {key}"] = cuda_ms(fn, 20)
+            out[f"device conv {key}"] = device_ms(fn, 20)
+            # the yardsticks: the library composite by device time, and the
+            # bound (each input read once, y written once)
+            out[f"library conv {key}"] = device_ms(
+                lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw, gb, 1e-5)),
+                                 cw, cb, padding=1), 20)
+            out[f"bound conv {key}"] = 1e3 * max(
+                2.0 * n * h * w * cout * 9 * cin / 989e12,
+                2.0 * (x.numel() + 2 * cin + cw.numel() + cout
+                       + n * cout * h * w) / 3.35e12)
+            del x, cw
         torch.cuda.empty_cache()
     if "all" in only or "temporal" in only:
         for name, (bf, d, c) in TEMPORAL_CLIP:
@@ -497,6 +511,11 @@ def totals(times):
             sums[pre + "temporal f32 validate"] = sums.get(
                 pre + "temporal f32 validate", 0.0) + n * times.get(
                 f"{pre}temporal f32 {name}", 0.0)
+    for pre in ("library ", "bound "):
+        for (n, cin, h, w, cout), launches in CONV_CLIP:
+            sums[pre + "conv fused clip"] = sums.get(
+                pre + "conv fused clip", 0.0) + launches * times.get(
+                f"{pre}conv {n},{cin},{h},{w}->{cout}", 0.0)
     for pre in ("library ", "bound ", "exp bound "):
         for name, (_, _, _, _, d), n in FLASH_CLIP:
             if d <= 128:
