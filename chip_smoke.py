@@ -59,7 +59,13 @@ Phases, in order:
      forward, then `flash_attention_bwd_reference` at the kernel's
      precision); library = scaled_dot_product_attention forward (+
      backward, and the backward alone through autograd.grad of one
-     forward), the float bias as attn_mask;
+     forward), the float bias as attn_mask. The backward at the
+     DecoderVideo's sizes takes the bf16 wgmma kernels
+     (csrc/flash_attn_bwd_sm90.cu, whose six instances' registers, spills,
+     0 bytes required, and serialized products are logged after the
+     build), the prior's biased d 52 the register kernels; a rerun gives
+     equal bits. Every backward launch of the run is held to the kernels
+     `attn.flash_bwd_route` names for its shape, as the forward's are;
   3. small check, unfused then fused: the tiny stage-3 pipeline (f32,
      attention sites of 256 and 1024 tokens, so the flash kernel runs) and
      the tiny stage-5 `reconstruct_video` (16x16 latents: flash at 256
@@ -495,42 +501,50 @@ def attention_bwd_bound(b, h, tq, tk, d, esize, peak_flops, hkv, bias_elems):
 
 
 class FlashRoutes:
-    """The flash forward's launches by kernel over the run. `check` holds
-    every launch the forward's counter holds (since its last reset) to the
-    kernel `flash_route` names for the launch's shape key (every path's
-    launches are on 16-byte rows), so the launches by kernel are the
-    counts from the code by shape, mapped by `flash_route`; it raises
-    otherwise. `install` runs it at every reset of the counter."""
+    """The flash forward's (or, `backward`, the backward's) launches by
+    kernel over the run. `check` holds every launch the counter holds
+    (since its last reset) to the kernels `flash_route` (`flash_bwd_route`)
+    names for the launch's shape key (every path's launches are on 16-byte
+    rows), so the launches by kernel are the counts from the code by shape,
+    mapped by the route function; it raises otherwise. `install` runs it at
+    every reset of the counter."""
 
-    def __init__(self):
+    def __init__(self, backward=False):
         import collections
+        self.backward = backward
         self.totals = collections.Counter()
         self.seen = collections.Counter()
+
+    def counter(self):
+        from neurons_tpu_torch.ops import attention as attn
+        return (attn.FLASH_BWD_LAUNCHES if self.backward
+                else attn.FLASH_FWD_LAUNCHES)
 
     def check(self):
         import collections
         import torch
         from neurons_tpu_torch.ops import attention as attn
-        c = attn.FLASH_FWD_LAUNCHES
+        c = self.counter()
+        name, route = (("backward", attn.flash_bwd_route) if self.backward
+                       else ("forward", attn.flash_route))
         want = collections.Counter()
         for key, n in c.by_shape.items():
             d, dt, variant = key[4], key[5], key[6]
-            want[(attn.flash_route(d, getattr(torch, dt),
-                                   biased="bias" in variant), key)] += n
+            want[(route(d, getattr(torch, dt), biased="bias" in variant),
+                  key)] += n
         if want != c.by_route:
             off = {k: (n, want.get(k, 0)) for k, n in c.by_route.items()
                    if want.get(k, 0) != n}
-            raise AssertionError(f"flash forward launches off the kernel "
-                                 f"flash_route names (launched, named): "
+            raise AssertionError(f"flash {name} launches off the kernels "
+                                 f"its route names (launched, named): "
                                  f"{dict(list(off.items())[:8])}")
-        for (route, _), n in (c.by_route - self.seen).items():
-            self.totals[route] += n
+        for (r, _), n in (c.by_route - self.seen).items():
+            self.totals[r] += n
         self.seen = collections.Counter(c.by_route)
 
     def install(self):
         import collections
-        from neurons_tpu_torch.ops import attention as attn
-        c = attn.FLASH_FWD_LAUNCHES
+        c = self.counter()
         reset = c.reset
 
         def checked_reset():
@@ -542,6 +556,7 @@ class FlashRoutes:
 
 
 FLASH_ROUTES = FlashRoutes()
+FLASH_BWD_ROUTES = FlashRoutes(backward=True)
 
 
 def exp_bound_ms(b, h, tq, tk):
@@ -557,6 +572,14 @@ def flash_source(rec):
     return ("neurons_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
             if rec["route"] == attn.WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd.cu")
+
+
+def flash_bwd_source(rec):
+    """The source of the kernels a flash backward record's launches took."""
+    from neurons_tpu_torch.ops import attention as attn
+    return ("neurons_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
+            if rec["route"] == attn.BWD_WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_bwd.cu")
 
 
 def flash_phase(checks=None):
@@ -843,6 +866,10 @@ def train_kernel_phase(checks=None):
         got = dict(zip(GRADS, attn.flash_attention_bwd(q, k, v, bias, g, out,
                                                        lse, scale)),
                    out=out, lse=lse)
+        again = attn.flash_attention_bwd(q, k, v, bias, g, out, lse, scale)
+        bwd_rerun_same = all(torch.equal(a, got[n])
+                             for a, n in zip(again, GRADS) if a is not None)
+        del again
         torch.cuda.synchronize()
         tf32 = dt == torch.float32
         if tf32:
@@ -909,34 +936,40 @@ def train_kernel_phase(checks=None):
                                             hkv, nbias, lse=True)
         bwd_bound, bwd_by = attention_bwd_bound(b, h, tq, tk, d, esize, peak,
                                                 hkv, nbias)
-        ok = fwd_rerun_same and all(fin and err <= 1.5 * perr
-                                    for err, perr, fin in errs.values())
+        ok = fwd_rerun_same and bwd_rerun_same and all(
+            fin and err <= 1.5 * perr for err, perr, fin in errs.values())
         tname = str(dt).split(".")[-1]
         err_s = " ".join(f"{n} {e:.3e} (plain {pe:.3e})"
                          for n, (e, pe, _) in errs.items())
-        bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
         fwd_route = attn.flash_route(d, dt, biased=bias is not None)
-        # the route tables name unbiased launches: up to d 128 a biased
-        # launch takes the same kernels (and a shared slice the dbias
-        # kernel too), a biased f32 backward past d 128 the first design
-        bwd_route = (attn.BWD_ROUTES[1] if bias is not None and tf32
-                     and d > 128 else attn.flash_bwd_route(d, dt))
+        # a biased launch up to d 128 on the register kernels adds the
+        # dbias kernel for a shared slice
+        bwd_route = attn.flash_bwd_route(d, dt, biased=bias is not None)
+        if bwd_route == attn.BWD_WGMMA_ROUTE:
+            rows1, rows2, bq, bk, *_, smem1, smem2 = attn.wgmma_bwd_plan(d)
+            tiles = (f"blocks {rows1}k/{rows2}q, tiles {bq}q/{bk}k smem "
+                     f"{smem1}/{smem2} B")
+        else:
+            bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
+            tiles = f"tiles {bq}x{bk} smem {smem} B"
         log(f"train {name:14s} {tname:8s} [{b},{h},{tq},{tk},{d}] kv heads "
             f"{hkv} bias {bshape}  max_abs_err {err_s}  fwd+lse {fwd_route} "
             f"kernel_ms {fwd_ms:.4f} (device {fwd_dev_ms:.4f}) plain_ms "
             f"{fwd_plain_ms:.4f} library_ms {fwd_lib_ms:.4f} bound_ms "
             f"{fwd_bound:.4f} ({fwd_by}; exponentials "
             f"{exp_bound_ms(b, h, tq, tk):.4f}) rerun bitwise "
-            f"{fwd_rerun_same}  bwd {bwd_route} tiles {bq}x{bk} "
-            f"smem {smem} B kernel_ms {bwd_ms:.4f} (device "
+            f"{fwd_rerun_same}  bwd {bwd_route} rerun bitwise "
+            f"{bwd_rerun_same} {tiles} kernel_ms {bwd_ms:.4f} (device "
             f"{bwd_dev_ms:.4f}) plain_ms {bwd_plain_ms:.4f} library_ms "
             f"{bwd_lib_ms:.4f} (fwd+bwd) library_bwd_ms "
-            f"{bwd_lib_only_ms:.4f} bound_ms {bwd_bound:.4f} ({bwd_by})  "
+            f"{bwd_lib_only_ms:.4f} bound_ms {bwd_bound:.4f} ({bwd_by}; "
+            f"exponentials {2 * exp_bound_ms(b, h, tq, tk):.4f})  "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"training kernels disagree at {name} "
                                  f"{tname}: {errs}; forward rerun bitwise "
-                                 f"{fwd_rerun_same}")
+                                 f"{fwd_rerun_same}, backward "
+                                 f"{bwd_rerun_same}")
         key = (b, h, tq, tk, d, tname)
         fwd_records[key + ("bias+lse" if bias is not None else "lse",)] = dict(
             site=f"{name} (train)", max_abs_err=max(errs["out"][0],
@@ -2423,9 +2456,11 @@ GN_SILU_SYMBOLS = ("gn_silu_cluster_kernel", "gn_silu_stats_kernel",
 # flash_fwd_tf32_kernel, flash_fwd_wide_tf32_kernel, flash_fwd_kernel; #8's
 # halo, split-reduce and TF32 kernels)
 FLASH_FWD_SYMBOLS = ("flash_fwd_",)
-# the backward's passes: flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel
-# and, for the prior's per-head bias, flash_bwd_dbias_reg_kernel (bf16,
-# d <= 128); flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel and
+# the backward's passes: flash_bwd_dkdv_wgmma_kernel and
+# flash_bwd_dq_wgmma_kernel (bf16 unbiased at d 32, 64, 128);
+# flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel and, for the prior's
+# per-head bias, flash_bwd_dbias_reg_kernel (the rest of bf16 at d <= 128);
+# flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel and
 # flash_bwd_dbias_tf32_kernel (f32, d <= 128);
 # flash_bwd_dkdv_wide_tf32_kernel and flash_bwd_dq_wide_tf32_kernel (f32
 # at 128 < d <= 512, unbiased); flash_bwd_dkdv_kernel and
@@ -2558,11 +2593,14 @@ def train_phase():
     counted run, the same of the fused steps, the counted run's result for
     `nccl_world1_phase`: its trained tensors, each tag's bytes and its last
     epoch's metrics)."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch import config
     from neurons_tpu_torch.data import cc2017
     from neurons_tpu_torch.models.gpt2 import GPT2Config
+    from neurons_tpu_torch.ops import attention as attn
     from neurons_tpu_torch.ops.attention import (FLASH_BWD_LAUNCHES,
                                                  FLASH_FWD_LAUNCHES)
     from neurons_tpu_torch.models.neurons import NeuronsDecoupler
@@ -2651,7 +2689,7 @@ def train_phase():
               if not td.is_core(n)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times, per_step = [], [], []
+    losses, times, per_step, bwd_routes = [], [], [], []
     for i in range(FIXED_STEPS):
         for c in counters.values():
             c.reset()
@@ -2661,6 +2699,7 @@ def train_phase():
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         per_step.append({k: dict(c.by_shape) for k, c in counters.items()})
+        bwd_routes.append(dict(FLASH_BWD_LAUNCHES.by_route))
         if i == 0:
             first = {k: float(metrics[k]) for k in ("loss",) + td.LOSS_TERMS}
     peak = torch.cuda.max_memory_allocated()
@@ -2684,6 +2723,16 @@ def train_phase():
     if not launches_ok:
         raise AssertionError(f"launches per step {per_step} differ from the "
                              f"count predicted from the code {STEP_LAUNCHES}")
+    # every DecoderVideo backward (bf16, unbiased) on the wgmma kernels
+    decoder = {(attn.BWD_WGMMA_ROUTE, key): n for key, n
+               in STEP_LAUNCHES["flash_attn_bwd"].items() if not key[6]}
+    off = [r for r in bwd_routes
+           if {k: n for k, n in r.items() if not k[1][6]} != decoder]
+    log(f"train steps: DecoderVideo backward launches by kernel a step "
+        f"{bwd_routes[-1]}")
+    if off:
+        raise AssertionError(f"DecoderVideo backward launches off "
+                             f"{attn.BWD_WGMMA_ROUTE}: {off[0]}")
     if not (losses[-1] < losses[0] and core_same
             and set(with_grad) <= set(moved) and len(moved) > 0):
         raise AssertionError("the full-width train steps fail their checks")
@@ -2696,6 +2745,13 @@ def train_phase():
                    f"stage-2 step (unprofiled steady {steady_ms:.1f} ms)",
                    {"flash forward": FLASH_FWD_SYMBOLS,
                     **FLASH_BWD_SYMBOLS})
+    bwd = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
+    log(f"stage-2 step's flash backward kernels: {bwd}")
+    # the register kernels only for the prior's biased launches
+    if (not any("flash_bwd_dkdv_wgmma_kernel" in k for k in bwd)
+            or any(re.search(r"_reg_kernel<\d+, false>", k) for k in bwd)):
+        raise AssertionError(f"the bf16 step's DecoderVideo backward off the "
+                             f"wgmma kernels: {bwd}")
     del state, bundle, core0, train0, step
     torch.cuda.empty_cache()
     with configuration(True):
@@ -6353,7 +6409,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                          + ("bf16" if dt == "bfloat16" else "f32")
                          + (f" {variant}" if variant else "") + f" {path}]"),
                 "route": "cuda",
-                "source": "neurons_tpu_torch/csrc/flash_attn_bwd.cu",
+                "source": flash_bwd_source(rec), "kernel": rec["route"],
                 "replaces": ("neurons_tpu/ops/attention.py:458" if variant
                              else "neurons_tpu/ops/attention.py:276"),
                 "launches": launches,
@@ -6398,7 +6454,7 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
             "name": (f"flash_attn_bwd[{b}x{h}x{tq}x{tk}x{d} bf16"
                      + (f" {variant}]" if variant else "]")),
             "route": "cuda",
-            "source": "neurons_tpu_torch/csrc/flash_attn_bwd.cu",
+            "source": flash_bwd_source(rec), "kernel": rec["route"],
             "replaces": ("neurons_tpu/ops/attention.py:458" if variant
                          else "neurons_tpu/ops/attention.py:276"),
             "launches": launches,
@@ -6682,6 +6738,42 @@ def wgmma_instances(ptxas):
     return out
 
 
+def wgmma_bwd_instances(ptxas, build_log=None):
+    """The wgmma backward's instances in the -Xptxas -v summary (the dK/dV
+    and dQ passes at d 32, 64 and 128), logged with their registers and
+    spills, and whether ptxas serialized their products (a C751x line in
+    `build_log`, by default the source's nvcc log); raises if one is
+    missing, spills, or was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    if build_log is None:
+        build_log = cuda_build.log_path("flash_attn_bwd_sm90").read_text()
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_bwd_(dkdv|dq)_wgmma_kernelILi(\d+)EE",
+                      f["function"])
+        if m:
+            out.append(dict(kernel=m.group(1), d=int(m.group(2)),
+                            registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum("wgmma.mma_async instructions are serialized" in line
+                     for line in build_log.splitlines())
+    for i in sorted(out, key=lambda i: (i["d"], i["kernel"])):
+        log(f"  wgmma backward {i['kernel']} d {i['d']}: {i['registers']} "
+            f"registers, spill stores {i['spill_stores']} B, loads "
+            f"{i['spill_loads']} B")
+    log(f"  wgmma backward instances with serialized products (ptxas "
+        f"C751x): {serialized}")
+    if sorted((i["d"], i["kernel"]) for i in out) != [
+            (d, k) for d in (32, 64, 128) for k in ("dkdv", "dq")]:
+        raise AssertionError(f"the wgmma backward's instances: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the wgmma backward spills or was serialized: "
+                             f"{out}, C7513 x {serialized}")
+    return out
+
+
 def wgmma_conv_instances(ptxas):
     """The wgmma conv kernel's instances in the -Xptxas -v summary (N
     tiles 16, 160, 256), logged with their registers and spills, and
@@ -6775,16 +6867,20 @@ def main():
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
     wgmma_instances(ptxas)
+    wgmma_bwd_instances(ptxas)
     wgmma_conv_instances(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}
     FLASH_ROUTES.install()
+    FLASH_BWD_ROUTES.install()
 
     def stamp(name):  # seconds from the start at the end of each phase
         done_at[name] = time.perf_counter() - t_start
         FLASH_ROUTES.check()
-        log(f"phase {name} done at {done_at[name]:.1f} s; flash forward "
-            f"launches by kernel so far {dict(FLASH_ROUTES.totals)}")
+        FLASH_BWD_ROUTES.check()
+        log(f"phase {name} done at {done_at[name]:.1f} s; flash launches by "
+            f"kernel so far: forward {dict(FLASH_ROUTES.totals)}, backward "
+            f"{dict(FLASH_BWD_ROUTES.totals)}")
 
     flash_records = flash_phase()
     temporal_records = temporal_phase()
@@ -6960,11 +7056,15 @@ def main():
                      for t in record["totals_by_tpu_kernel"]))
     from neurons_tpu_torch.ops import attention as attn
     FLASH_ROUTES.check()
-    log(f"flash forward launches by kernel over the run (each launch on the "
-        f"kernel flash_route names for its shape): "
-        f"{dict(FLASH_ROUTES.totals)}")
-    if not FLASH_ROUTES.totals[attn.WGMMA_ROUTE]:
-        raise AssertionError(f"no launch of {attn.WGMMA_ROUTE}")
+    FLASH_BWD_ROUTES.check()
+    log(f"flash launches by kernel over the run (each launch on the kernels "
+        f"flash_route and flash_bwd_route name for its shape): forward "
+        f"{dict(FLASH_ROUTES.totals)}, backward "
+        f"{dict(FLASH_BWD_ROUTES.totals)}")
+    for routes, name in ((FLASH_ROUTES, attn.WGMMA_ROUTE),
+                         (FLASH_BWD_ROUTES, attn.BWD_WGMMA_ROUTE)):
+        if not routes.totals[name]:
+            raise AssertionError(f"no launch of {name}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

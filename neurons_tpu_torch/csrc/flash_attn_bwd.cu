@@ -37,9 +37,13 @@
 // with its bias and dbias), except the decoder's 16x16 site at d = 128
 // (0.005 ms of operations, 0.008 ms of bytes).
 //
-// Design of the bf16 instances at D <= 128, every launch of the paths
-// (flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel,
-// flash_bwd_dbias_reg_kernel): every product is
+// Design of the bf16 instances at D <= 128 (flash_bwd_dkdv_reg_kernel,
+// flash_bwd_dq_reg_kernel, flash_bwd_dbias_reg_kernel). The unbiased
+// launches at d 32, 64 and 128 on 16-byte rows (the DecoderVideo's) take
+// the wgmma kernels of flash_attn_bwd_sm90.cu; these keep the prior's
+// biased launches (d 52, its shared per-head slice adding the dbias
+// kernel), rows and strides off 16 bytes, and head dims no wgmma instance
+// serves. Every product is
 // mma.sync m16n8k16 into f32 registers, and the elementwise steps between
 // products run on the C fragments in place, never through shared memory.
 //  * Pass 1, dK/dV: one block of 4 warps per (b, h) and 64 keys, 16 keys a

@@ -61,10 +61,6 @@
 // ex2.approx. Sums run in a fixed order with no atomics: a rerun gives
 // equal bits.
 
-#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-
 #include "sm90.cuh"
 
 namespace {
@@ -100,27 +96,6 @@ struct WgParams {
   int H, Hkv, Tq, Tk, D;
   float scale, scale_log2;
 };
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The descriptors of one tile's product, computed ahead of the product's
-// fence and pinned there (and so are the scale-d flags): a register an
-// asynchronous product reads must not be defined between the fence and
-// the product, or ptxas waits after every product of the kernel (C7513).
-template <int N>
-__device__ __forceinline__ void pin(uint64_t* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(d[i])::"memory");
-}
 
 // S = Q K^T over one key tile: k16 step ks reads 16 columns of Q and K
 // (K-major: SBO = 8 rows), inside column block ks * 16 / BW
@@ -378,48 +353,6 @@ inline void column_blocks(int D, int* bw, int* nb) {
   else if (D >= 120) { *bw = 64; *nb = 2; }
 }
 
-constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
-
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
-
-// the 4-D map (D, T, H, B) of a bf16 tensor with element strides st, sh,
-// sb, boxes of BW columns x `rows` tokens, swizzled by the box's row width
-int encode(CUtensorMap* map, const void* ptr, int D, int T, int Hx, int B,
-           long long st, long long sh, long long sb, int bw, int rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
-  if (enc == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)Hx,
-                              (cuuint64_t)B};
-  // bytes; a dimension of extent 1 is only read at 0, so any legal stride
-  cuuint64_t strides[3] = {(cuuint64_t)(2 * st), (cuuint64_t)(2 * sh),
-                           (cuuint64_t)(2 * sb)};
-  for (int i = 0; i < 3; ++i)
-    if (dims[i + 1] == 1) strides[i] = 16;
-  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : bw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
-}
-
 // f(WgCfg<BW, NB>{}) for the instance serving D; -1 where none does
 template <class F>
 int with_config(int D, F&& f) {
@@ -477,9 +410,14 @@ int flash_attn_fwd_sm90(const void* q, const void* k, const void* v, void* o,
   const int err = with_config(D, [&](auto cfg) {
     using C = decltype(cfg);
     CUtensorMap mq, mk, mv;
-    int e = encode(&mq, q, D, Tq, H, B, q_st, q_sh, q_sb, C::BW, C::kBQ);
-    if (!e) e = encode(&mk, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, C::BW, C::kBK);
-    if (!e) e = encode(&mv, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, C::BW, C::kBK);
+    int e = encode_tokens(&mq, q, D, Tq, H, B, q_st, q_sh, q_sb, C::BW,
+                          C::kBQ);
+    if (!e)
+      e = encode_tokens(&mk, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, C::BW,
+                        C::kBK);
+    if (!e)
+      e = encode_tokens(&mv, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, C::BW,
+                        C::kBK);
     if (e) return e;
     return (int)(lse ? launch_as<C, true>(mq, mk, mv, p, B, s)
                      : launch_as<C, false>(mq, mk, mv, p, B, s));

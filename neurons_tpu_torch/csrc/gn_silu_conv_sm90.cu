@@ -84,10 +84,6 @@
 // the res-block convs are bound by operations, the UNet head's Cout = 4 by
 // bytes. The times stand in PERF.md.
 
-#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-
 #include <algorithm>
 
 #define GN_STATS_NAME(kernel) gn_conv_stats_##kernel
@@ -348,16 +344,6 @@ __device__ __forceinline__ void activate(const Sm90Params& p, const Geo& g,
   __syncwarp();  // the warp converged again before its next aligned op
 }
 
-// The descriptors of one group's products, computed ahead of the group's
-// fence and pinned there (and so is the scale-d flag): a register an
-// asynchronous product reads must not be defined between the fence and
-// the product, or ptxas waits after every product of the kernel (C7513).
-template <int N>
-__device__ __forceinline__ void pin(uint64_t* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(d[i])::"memory");
-}
-
 // A consumer thread of the kernel below (warpgroups 0 and 1).
 template <int BN>
 __device__ __forceinline__ void consume(const Sm90Params& p, unsigned char* sB,
@@ -614,38 +600,6 @@ gn_silu_conv_sm90_reduce_kernel(const float* __restrict__ ws, int splits,
 
 // ---------------------------------------------------------------------------
 // host side
-
-constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
-
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
-
-// a 4-D bf16 map: dims (innermost first), byte strides of dims 1..3, the
-// box and its swizzle
-int encode(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box,
-           CUtensorMapSwizzle swizzle) {
-  PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
-  if (enc == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
-}
 
 inline int round_up(long long v, int to) { return (int)((v + to - 1) / to * to); }
 

@@ -1,9 +1,10 @@
 // Hopper's own building blocks in inline PTX (sm_90a), for the kernels
-// that run on them (flash_attn_fwd_sm90.cu, gn_silu_conv_sm90.cu):
-// mbarriers with their phase waits, TMA tile loads (cp.async.bulk.tensor)
-// that complete on an mbarrier, warpgroup matrix products
-// (wgmma.mma_async) with their shared-memory descriptors, fence / commit /
-// wait, and the register moves between warpgroups (setmaxnreg).
+// that run on them (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu,
+// gn_silu_conv_sm90.cu): mbarriers with their phase waits, TMA tile loads
+// (cp.async.bulk.tensor) that complete on an mbarrier and the host's
+// tensor-map encoder, warpgroup matrix products (wgmma.mma_async) with
+// their shared-memory descriptors, fence / commit / wait, and the register
+// moves between warpgroups (setmaxnreg).
 //
 // The wgmma accumulator of m64nNk16 (f32), per warpgroup of 128 threads:
 // warp w owns rows 16w..16w + 15 and, within it, lane l (g = l / 4,
@@ -33,6 +34,9 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +119,59 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
+
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// a 4-D bf16 map: dims (innermost first), byte strides of dims 1..3, the
+// box and its swizzle; 0, or kEncodeError + the CUresult of a failure
+inline int encode(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
+  if (enc == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+// the map (D, T, H, B) of a bf16 [B, H, T, D] tensor with element strides
+// st, sh, sb over token, head and batch: boxes of bw columns x `rows`
+// tokens, swizzled by the box's row width (2 bw bytes); TMA fills a box
+// past T and D with zeros
+inline int encode_tokens(CUtensorMap* map, const void* ptr, int D, int T,
+                         int Hx, int B, long long st, long long sh,
+                         long long sb, int bw, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)Hx,
+                              (cuuint64_t)B};
+  // bytes; a dimension of extent 1 is only read at 0, so any legal stride
+  cuuint64_t strides[3] = {(cuuint64_t)(2 * st), (cuuint64_t)(2 * sh),
+                           (cuuint64_t)(2 * sb)};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = 16;
+  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)rows, 1, 1};
+  return encode(map, ptr, dims, strides, box,
+                bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : bw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
 // ---------------------------------------------------------------------------
 // registers
 
@@ -168,6 +225,27 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The descriptors of a group of products, computed ahead of the group's
+// fence and pinned there (and so are the scale-d flags): a register an
+// asynchronous product reads must not be defined between the fence and
+// the product, or ptxas waits after every product of the kernel (C7513).
+template <int N>
+__device__ __forceinline__ void pin(uint64_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // m64nNk16, f32 += bf16 x bf16. ss: A and B from shared memory, both

@@ -17,8 +17,9 @@ layout, and routes as the JAX package does:
     attention with multi-query k/v (the prior), go to `flash_attention`, an
     autograd Function whose forward also writes the log-sum-exp (the biased
     forward replaces `_flash_kernel_smallkv_bias`) and whose backward is
-    `flash_attention_bwd` (csrc/flash_attn_bwd.cu, replacing
-    `_flash_bwd_kernel` and `_flash_bwd_bias_kernel`);
+    `flash_attention_bwd` (csrc/flash_attn_bwd.cu, and for bf16 without a
+    bias at d 32, 64 and 128 on 16-byte rows csrc/flash_attn_bwd_sm90.cu,
+    replacing `_flash_bwd_kernel` and `_flash_bwd_bias_kernel`);
   * short rows (< 128 tokens) and masked attention (GPT-2's causal mask)
     take `attention_reference`.
 
@@ -43,8 +44,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # incremented by flash_attention_fwd / flash_attention_bwd where they launch
 # their kernels, and nowhere else; keyed by (B, H, Tq, Tk, D, dtype,
 # variant): the forward's variant is "", "lse", "bias" or "bias+lse", the
-# backward's "" or "bias"; the forward's `by_route` also by the kernel
-# (`flash_route`) of each launch
+# backward's "" or "bias"; `by_route` also by the kernels of each launch
+# (`flash_route`, `flash_bwd_route`)
 FLASH_FWD_LAUNCHES = LaunchCounter()
 FLASH_BWD_LAUNCHES = LaunchCounter()
 
@@ -313,12 +314,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   "flash_attn_fwd_sm90", q, k)
     else:
         lib = _library("flash_attn_fwd")
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+        with cuda_build.on_device(q.device):
             err = lib.flash_attn_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bias_ptr, lse_ptr, *strides, *bias_strides, mode, b, h, tq,
-                tk, d, float(scale), _DTYPE_CODE[q.dtype], vec, stream)
+                tk, d, float(scale), _DTYPE_CODE[q.dtype], vec,
+                torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(err, lib.flash_attn_error_string, "flash_attn_fwd", q, k)
     variant = "+".join(["bias"] * (bias is not None) + ["lse"] * return_lse)
     FLASH_FWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
@@ -333,10 +334,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output and log-sum-exp; dbias is None without a bias. Multi-query k/v
     get their gradients summed over heads, in f32.
 
-    CUDA tensors launch csrc/flash_attn_bwd.cu: delta = sum(g * out) is
-    taken here in f32, as the JAX package takes it outside its kernel; the
-    kernels write dq in q's type, per-(b, h) dk/dv and dbias in f32, which
-    are summed and cast here. CPU tensors compute
+    CUDA tensors launch the kernels `flash_bwd_route` names: bf16 unbiased
+    at d 32, 64 and 128 on 16-byte rows csrc/flash_attn_bwd_sm90.cu (wgmma,
+    TMA), the rest csrc/flash_attn_bwd.cu. For the register kernels delta =
+    sum(g * out) is taken here in f32, as the JAX package takes it outside
+    its kernel (the wgmma kernels take it in their dQ pass); the kernels
+    write dq in q's type, per-(b, h) dk/dv and dbias in f32 (the wgmma
+    kernels dk and dv in q's type unless k/v are multi-query), which are
+    summed and cast here. CPU tensors compute
     `flash_attention_bwd_reference`."""
     _check_operands(q, k, v)
     if q.device.type == "cpu":
@@ -348,9 +353,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lse.shape) != (b, h, tq) or tuple(g.shape) != (b, h, tq, d):
         raise ValueError(f"lse {tuple(lse.shape)} / g {tuple(g.shape)} do "
                          f"not fit q {tuple(q.shape)}")
-    delta = (g.float() * out.float()).sum(-1).contiguous()
     lse = lse.float().contiguous()
     g = g.to(q.dtype).contiguous()
+    out = out.contiguous()
     strides = ((q.stride(0), q.stride(1), q.stride(2))
                + _kv_strides(k, h) + _kv_strides(v, h)
                + (g.stride(0), g.stride(1), g.stride(2)))
@@ -361,22 +366,47 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dbias = torch.empty(bias3.shape, dtype=torch.float32,
                             device=q.device)
     vec = _granule(d, q.element_size(), strides, (q, k, v, g))
-    lib = _library("flash_attn_bwd")
+    hkv = k.shape[1]
+    route = flash_bwd_route(
+        d, q.dtype, biased=bias is not None,
+        aligned=(vec == 16 and scale > 0 and out.dtype == q.dtype
+                 and out.data_ptr() % 16 == 0 and _tma_strides(
+                     strides, (b, h, tq) + (b, hkv, tk) * 2 + (b, h, tq),
+                     q.element_size())))
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
-    dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32, device=q.device)
-              for _ in range(2))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), *strides,
-            *bias_strides, mode, b, h, tq, tk, d, float(scale),
-            _DTYPE_CODE[q.dtype], vec, stream)
-    _raise_on(err, lib.flash_attn_bwd_error_string, "flash_attn_bwd", q, k)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if route == BWD_WGMMA_ROUTE:
+        kv_dtype = torch.float32 if hkv != h else q.dtype
+        dk, dv = (torch.empty((b, h, tk, d), dtype=kv_dtype, device=q.device)
+                  for _ in range(2))
+        lib = _library("flash_attn_bwd_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_bwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
+                b, h, hkv, tq, tk, d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_bwd_sm90_error_string,
+                  "flash_attn_bwd_sm90", q, k)
+    else:
+        torch.sum(g.float() * out.float(), -1, out=delta)
+        dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+        lib = _library("flash_attn_bwd")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(),
+                None if dbias is None else dbias.data_ptr(), *strides,
+                *bias_strides, mode, b, h, tq, tk, d, float(scale),
+                _DTYPE_CODE[q.dtype], vec,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_bwd_error_string, "flash_attn_bwd", q,
+                  k)
     FLASH_BWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
-                            "bias" if bias is not None else ""))
+                            "bias" if bias is not None else ""), route)
     if k.shape[1] != h:  # multi-query: the shared row's gradient
         dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
     if dbias is not None:
@@ -521,15 +551,60 @@ def _tma_strides(strides, extents, esize) -> bool:
                for st, n in zip(strides, extents))
 
 
-def flash_bwd_route(d: int, dtype: torch.dtype) -> str:
-    """The backward's kernels for an unbiased launch at head dim d: bf16 up
-    to d = 128 the register kernels, f32 up to d = 128 the TF32 register
-    kernels (biased too; a bias shared by several rows adds
-    `flash_bwd_dbias_tf32_kernel`, as bf16 adds its dbias kernel), f32 at
-    128 < d <= 512 the TF32 column-split ones. The first design takes the
-    rest: a biased f32 launch past 128 and d past 512 (no path launches
-    either)."""
+@functools.lru_cache(maxsize=None)
+def flash_bwd_route(d: int, dtype: torch.dtype, biased: bool = False,
+                    aligned: bool = True) -> str:
+    """The backward's kernels for a launch at head dim d (by default an
+    unbiased one whose rows, strides and pointers are 16-byte multiples,
+    with a positive scale), decided from shapes and strides only: bf16
+    unbiased and aligned at d 32, 64 and 128 the wgmma kernels (csrc/
+    flash_attn_bwd_sm90.cu); the rest of bf16 up to d = 128 the register
+    kernels (a bias shared by several rows adds
+    `flash_bwd_dbias_reg_kernel`); f32 up to d = 128 the TF32 register
+    kernels (biased too, with `flash_bwd_dbias_tf32_kernel` for a shared
+    slice), unbiased f32 at 128 < d <= 512 the TF32 column-split ones. The
+    first design takes the rest: a biased f32 launch past 128 and d past
+    512 (no path launches either)."""
+    if (dtype == torch.bfloat16 and not biased and aligned
+            and d in WGMMA_BWD_DIMS):
+        return BWD_WGMMA_ROUTE
+    if dtype == torch.bfloat16 and 0 < d <= 128:  # flash_attn_bwd's reg_dk
+        return BWD_ROUTES[2]
+    if dtype == torch.float32 and biased and d > 128:
+        return BWD_ROUTES[1]
     return BWD_ROUTES[_tiles(d, dtype, "flash_attn_bwd")[0]]
+
+
+# The wgmma backward's instances (csrc/flash_attn_bwd_sm90.cu: BwdCfg): one
+# column block of min(d, 64) bf16 at d 32 and 64, two of 64 at d 128; no
+# other head dim (no backward of the paths launches one).
+BWD_WGMMA_ROUTE = "flash_bwd_dkdv_wgmma_kernel+flash_bwd_dq_wgmma_kernel"
+WGMMA_BWD_DIMS = (32, 64, 128)
+
+
+def wgmma_bwd_tiles(d: int):
+    """(keys a dK/dV block, queries a dQ block, queries a dK/dV ring tile,
+    keys a dQ ring tile, BW, NB, ring stages) of the wgmma backward's
+    instance at head dim d (BwdCfg): consumer warpgroups of 64 rows, 3 in
+    the dK/dV pass at d 32 and in the dQ pass up to d 64, else 2 (at d 128
+    both on the dK/dV block's 64 keys, one for dV, one for dK); ring tiles
+    of 64 rows; 2 stages."""
+    if d not in WGMMA_BWD_DIMS:
+        raise ValueError(f"no wgmma backward instance at head dim {d}")
+    bw = min(d, 64)
+    return ({32: 192, 64: 128}.get(d, 64), 192 if d <= 64 else 128, 64, 64,
+            bw, d // bw, 2)
+
+
+def wgmma_bwd_plan(d: int):
+    """The wgmma backward's plan at head dim d as the library reports it:
+    `wgmma_bwd_tiles` and each pass's shared-memory bytes; None where no
+    instance serves d."""
+    lib = _library("flash_attn_bwd_sm90")
+    out = [ctypes.c_int() for _ in range(9)]
+    if not lib.flash_attn_bwd_sm90_plan(d, *map(ctypes.byref, out)):
+        return None
+    return tuple(o.value for o in out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -541,6 +616,15 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """`lib` (a build of csrc/<name>.cu) with its C functions' types set."""
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]  # B..D, scale, dtype, vec, stream
+    if name == "flash_attn_bwd_sm90":
+        lib.flash_attn_bwd_sm90.argtypes = ([ptr] * 10 + [i64] * 12
+                                            + [i32] * 6 + [ctypes.c_float, ptr])
+        lib.flash_attn_bwd_sm90.restype = i32
+        lib.flash_attn_bwd_sm90_error_string.argtypes = [i32]
+        lib.flash_attn_bwd_sm90_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_bwd_sm90_plan.argtypes = [i32] + [ctypes.POINTER(i32)] * 9
+        lib.flash_attn_bwd_sm90_plan.restype = i32
+        return lib
     if name == "flash_attn_fwd_sm90":
         lib.flash_attn_fwd_sm90.argtypes = ([ptr] * 5 + [i64] * 9 + [i32] * 6
                                             + [ctypes.c_float, ptr])

@@ -334,3 +334,33 @@ def test_tf32_bwd_instances_are_read():
     assert [i["spill_stores"] for i in got].count(4) == 1
     with pytest.raises(AssertionError):  # an instance is missing
         chip_smoke.tf32_bwd_instances(ptxas[1:] + others)
+
+
+def test_wgmma_bwd_instances_are_read_and_gated():
+    # the wgmma backward's two passes at d 32, 64 and 128 (mangled as nvcc
+    # names them in an anonymous namespace, CUtensorMap arguments and all);
+    # neither the register backward nor the wgmma forward is among them
+    names = [f"flash_bwd_{k}_wgmma_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_"
+             f"NS_9BwdParamsE" for d in (32, 64, 128) for k in ("dkdv", "dq")]
+    ptxas = [dict(source="flash_attn_bwd_sm90", registers=168 - 40 * (i < 3),
+                  function=f"_ZN55_GLOBAL__N__0_flash_attn_bwd_sm90_cu"
+                           f"{len(n)}{n}", spill_stores=0, spill_loads=0)
+             for i, n in enumerate(names)]
+    others = [dict(source="flash_attn_bwd", registers=200, function=(
+        "_ZN3_GLOBAL__N_125flash_bwd_dkdv_reg_kernelILi64ELb1EEEv")),
+        dict(source="flash_attn_fwd_sm90", registers=168, function=(
+            "_ZN3_GLOBAL__N_122flash_fwd_wgmma_kernelILi64ELi1ELb1EEEv"))]
+    got = chip_smoke.wgmma_bwd_instances(ptxas + others, build_log="")
+    assert sorted((i["d"], i["kernel"]) for i in got) == sorted(
+        (d, k) for d in (32, 64, 128) for k in ("dkdv", "dq"))
+    with pytest.raises(AssertionError):  # an instance is missing
+        chip_smoke.wgmma_bwd_instances(ptxas[1:], build_log="")
+    with pytest.raises(AssertionError):  # an instance spills
+        chip_smoke.wgmma_bwd_instances(
+            ptxas[:5] + [dict(ptxas[5], spill_stores=8, spill_loads=8)],
+            build_log="")
+    serialized = ("ptxas info    : (C7512) Potential Performance Loss: "
+                  "wgmma.mma_async instructions are serialized due to "
+                  "insufficient register resources for the function")
+    with pytest.raises(AssertionError):  # ptxas serialized the products
+        chip_smoke.wgmma_bwd_instances(ptxas, build_log=serialized)

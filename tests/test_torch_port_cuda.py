@@ -455,7 +455,8 @@ def test_temporal_kernel_refuses_what_it_does_not_take(cuda):
 # as the JAX package's, or TF32 products for f32) for out, lse, dq, dk, dv
 # and dbias. The backward sums in a fixed order (no atomics), so a rerun
 # gives the same bits.
-def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None):
+def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None,
+                 route=None):
     # row: q, k, v and the output gradient are read from token rows of
     # `row` elements (the first d of each), so the kernels' row copies
     # take 8-, 4-byte or element loads
@@ -470,6 +471,16 @@ def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None):
     q, k, v = rows(b, h, tq, d), rows(b, hkv, tk, d), rows(b, hkv, tk, d)
     bias = rand(*bias_shape) if bias_shape else None
     go = rows(b, h, tq, d)
+    _check_train_on(q, k, v, bias, go, route)
+
+
+def _check_train_on(q, k, v, bias, go, route=None):
+    # the kernels' forward and backward on these tensors against the plain
+    # path, both against float64 autograd; `route`: the backward's kernels
+    # the launch must take
+    (b, h, tq, d), (hkv, tk) = q.shape, k.shape[1:3]
+    bias_shape = None if bias is None else tuple(bias.shape)
+    dtype = q.dtype
     scale = d ** -0.5
     ins = [x.double().requires_grad_() for x in (q, k, v)]
     bias64 = bias.double().requires_grad_() if bias is not None else None
@@ -482,6 +493,7 @@ def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None):
     want.update(out=want_out.detach(), lse=want_lse.detach())
 
     fwd0, bwd0 = attn.FLASH_FWD_LAUNCHES.total, attn.FLASH_BWD_LAUNCHES.total
+    routes0 = dict(attn.FLASH_BWD_LAUNCHES.by_route)
     out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
                                         return_lse=True)
     got = dict(zip(("dq", "dk", "dv", "dbias"), attn.flash_attention_bwd(
@@ -489,6 +501,9 @@ def _check_train(b, h, tq, tk, d, hkv, bias_shape, dtype, seed=3, row=None):
     torch.cuda.synchronize()
     assert attn.FLASH_FWD_LAUNCHES.total == fwd0 + 1
     assert attn.FLASH_BWD_LAUNCHES.total == bwd0 + 1
+    (took,) = [r for (r, key), n in attn.FLASH_BWD_LAUNCHES.by_route.items()
+               if n != routes0.get((r, key), 0)]
+    assert route is None or took == route, (took, route)
     again = attn.flash_attention_bwd(q, k, v, bias, go, out, lse, scale)
     assert all(torch.equal(a, got[n]) for a, n in zip(again, got)
                if a is not None)
@@ -619,6 +634,66 @@ def test_f32_backward_rerun_gives_equal_bits_with_a_bias(cuda, bias_shape):
         again = attn.flash_attention_bwd(q, k, v, bias, go, out, lse,
                                          52 ** -0.5)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# The bf16 wgmma backward (csrc/flash_attn_bwd_sm90.cu): the stage-2 step's
+# DecoderVideo sites (B cut: the per-(b, h) work and its blocks stay), a
+# ragged multi-query case, Tq != Tk at each head dim, each held by
+# `_check_train` (1.5x the plain version's error against float64, a
+# rerun's bits) on the route it took
+WGMMA_BWD_SHAPES = [
+    # (B, H, Tq, Tk, D, kv heads)
+    (6, 1, 256, 256, 128, 1),    # DecoderVideo 16x16
+    (4, 1, 1024, 1024, 64, 1),   # DecoderVideo 32x32
+    (2, 1, 4096, 4096, 32, 1),   # DecoderVideo 64x64
+    (2, 4, 513, 514, 64, 1),     # ragged, multi-query
+    (1, 3, 300, 200, 128, 3),
+    (2, 2, 70, 130, 32, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGMMA_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_backward_at_every_launched_shape_class(cuda, shape):
+    _check_train(*shape, None, torch.bfloat16, seed=sum(shape),
+                 route=attn.BWD_WGMMA_ROUTE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_wgmma_backward_reads_split_views_in_place(cuda, d):
+    # the models' split: [B, T, 3 H D] chunked and viewed as [B, H, T, D]
+    # (token stride 3 H D, head stride D): the tensor maps read the views
+    g = torch.Generator("cuda").manual_seed(d)
+    b, t, h = 2, 300, 2
+    x, go = (torch.randn((b, t, n * h * d), generator=g, device="cuda")
+             .bfloat16() for n in (3, 1))
+    q, k, v = (y.reshape(b, t, h, d).transpose(1, 2) for y in x.chunk(3, -1))
+    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    _check_train_on(q, k, v, None, go.reshape(b, t, h, d).transpose(1, 2),
+                    route=attn.BWD_WGMMA_ROUTE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,row", [(64, 68), (32, 36), (96, 96)])
+def test_backward_off_tma_takes_the_register_kernels(cuda, d, row):
+    # 136- and 72-byte token strides (8-byte granules: no TMA map) and d 96
+    # (no wgmma instance) keep the register kernels
+    _check_train(2, 2, 150, 190, d, 2, None, torch.bfloat16, seed=row,
+                 row=row, route="flash_bwd_dkdv_reg_kernel+"
+                 "flash_bwd_dq_reg_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_wgmma_bwd_plan_matches_the_python_tables(cuda, d):
+    plan = attn.wgmma_bwd_plan(d)
+    assert plan[:7] == attn.wgmma_bwd_tiles(d)
+    assert max(plan[7:]) <= 232448
+    # the host's rule for the register kernels (flash_bwd_route, off the
+    # wgmma route) is the library's
+    assert attn._tiles(d, torch.bfloat16, "flash_attn_bwd")[0] == 2
 
 
 @pytest.mark.cuda
@@ -1214,7 +1289,8 @@ def test_f32_wide_routes_by_head_dim(cuda, d):
         assert bwd == "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel"
     assert attn.flash_bwd_route(64, torch.float32) == (
         "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel")
-    assert attn.flash_bwd_route(64, torch.bfloat16) == (
+    assert attn.flash_bwd_route(64, torch.bfloat16) == attn.BWD_WGMMA_ROUTE
+    assert attn.flash_bwd_route(64, torch.bfloat16, aligned=False) == (
         "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel")
 
 

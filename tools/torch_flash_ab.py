@@ -35,7 +35,10 @@ kernel's), and ("device") on CUDA events around the same launches queued
 behind a kernel that keeps the card busy until the host has enqueued them
 all (every launch of a call and the backward wrapper's own small kernels
 included); for the backward also each of its kernels by name under
-torch.profiler, for #7 the library composite F.silu(F.group_norm(...))
+torch.profiler and, at the bf16 step sites, the library's backward alone
+(autograd.grad of one scaled_dot_product_attention) by device time and
+the bound (10 Tq Tk D at 989 TFLOP/s, or the bytes) beside the two
+passes' exponentials, for #7 the library composite F.silu(F.group_norm(...))
 by events, for #8 the library composite F.conv2d(F.silu(F.group_norm(
 ...))) by device time and the bound (2 M Cout 9 Cin at 989 TFLOP/s, or
 x, the weights and y at 3.35 TB/s), and for the bf16 forward at d <= 128
@@ -287,6 +290,18 @@ def attention_bounds(b, h, tq, tk, d):
             1e3 * b * h * tq * tk / 3.9e12)
 
 
+def attention_bwd_bounds(b, h, tq, tk, d, hkv, bias_elems):
+    """(bound, exponentials' bound) of a bf16 backward in ms on an H100:
+    max(10 Tq Tk D / 989 TFLOP/s, q, k, v, g, the f32 lse (and the bias)
+    read and dq, dk, dv (and the f32 dbias) written / 3.35 TB/s), and the
+    two passes' 2 Tq Tk ex2 at 3.9 T/s (the MUFU unit)."""
+    ops = 10.0 * b * h * tq * tk * d
+    nbytes = (2 * (3 * b * h * tq * d + 4 * b * hkv * tk * d + bias_elems)
+              + 4 * b * h * tq + 4 * bias_elems)
+    return (1e3 * max(ops / 989e12, nbytes / 3.35e12),
+            1e3 * 2 * b * h * tq * tk / 3.9e12)
+
+
 def kernel_ms(fn, reps: int, prefix: str):
     """{kernel: device ms per call} of the kernels whose names start with
     `prefix` (the name up to its template arguments), under
@@ -386,6 +401,22 @@ def time_here(root: str, only: str):
             out[f"device bwd {name}"] = device_ms(fn, reps)
             for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd {name}: {kernel}"] = ms
+            # the yardsticks: the library's backward alone (its forward
+            # once, outside the timer; k/v materialised over the heads, the
+            # bias as attn_mask) by device time, and the bound
+            lib_in = [x.detach().expand(b, h, -1, d).contiguous()
+                      .requires_grad_() for x in (q, k, v)]
+            lib_bias = None if bias is None else bias.detach().requires_grad_()
+            lib_out = F.scaled_dot_product_attention(
+                *lib_in, attn_mask=lib_bias, scale=scale)
+            wrt = lib_in + ([] if lib_bias is None else [lib_bias])
+            out[f"library bwd {name}"] = device_ms(
+                lambda: torch.autograd.grad(lib_out, wrt, g,
+                                            retain_graph=True), reps)
+            (out[f"bound bwd {name}"],
+             out[f"exp bound bwd {name}"]) = attention_bwd_bounds(
+                b, h, tq, tk, d, hkv, 0 if bias is None else bias.numel())
+            del lib_in, lib_bias, lib_out, wrt
         for name, (b, h, tq, tk, d, hkv), bshape, _ in FLASH_BWD_F32:
             q, g = (torch.randn((b, h, tq, d), generator=gen, device="cuda")
                     for _ in range(2))
@@ -483,12 +514,17 @@ def totals(times):
                 key = f"{pre}flash {path}"
                 sums[key] = sums.get(key, 0.0) + n * times.get(
                     f"{pre}flash {name}", 0.0)
-        for name, _, _, n, n_bwd in FLASH_STEP:
+        for name, _, bias, n, n_bwd in FLASH_STEP:
             sums[pre + "flash step"] = sums.get(pre + "flash step", 0.0) \
                 + n * times.get(f"{pre}flash {name} (train)", 0.0)
             sums[pre + "flash bwd step"] = sums.get(
                 pre + "flash bwd step", 0.0) + n_bwd * times.get(
                 f"{pre}bwd {name}", 0.0)
+            # the DecoderVideo's sites (#4) apart from the prior's (#5)
+            if bias is None:
+                sums[pre + "flash bwd #4 step"] = sums.get(
+                    pre + "flash bwd #4 step", 0.0) + n_bwd * times.get(
+                    f"{pre}bwd {name}", 0.0)
         for name, _, _, _, paths in FLASH_F32:
             for path, n in paths.items():
                 key = f"{pre}f32 {path}"
@@ -517,6 +553,11 @@ def totals(times):
                 pre + "conv fused clip", 0.0) + launches * times.get(
                 f"{pre}conv {n},{cin},{h},{w}->{cout}", 0.0)
     for pre in ("library ", "bound ", "exp bound "):
+        for name, _, bias, _, n_bwd in FLASH_STEP:
+            for key in ("flash bwd step",) + (("flash bwd #4 step",)
+                                              if bias is None else ()):
+                sums[pre + key] = sums.get(pre + key, 0.0) + n_bwd * \
+                    times.get(f"{pre}bwd {name}", 0.0)
         for name, (_, _, _, _, d), n in FLASH_CLIP:
             if d <= 128:
                 key = pre + "flash clip d<=128"

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time edited copies of csrc/flash_attn_bwd.cu against the checkout's own
-source on one CUDA card, at the f32 stage-2 step's backward shapes.
+source on one CUDA card, at the f32 stage-2 step's backward shapes (or,
+with --source flash_attn_bwd_sm90, of the bf16 wgmma backward at the bf16
+step's DecoderVideo shapes).
 
     python3 tools/torch_flash_bwd_variants.py --variant NAME OLD NEW [...]
         [--shapes prior,decoder_16,decoder_32,decoder_64]
+        [--source flash_attn_bwd|flash_attn_bwd_sm90]
 
 Each variant is the checkout's source with every occurrence of the text
 OLD (at least one) replaced by NEW, e.g. another ring-stage rule or
-launch bound. Every source ("base" the checkout's own) is built with the
+launch bound; a NAME given twice applies both edits. Every source ("base" the checkout's own) is built with the
 package's nvcc flags, all at once, into the git-ignored EXP/variants/ and
 loaded in place of the package's library for `flash_attention_bwd`. Per
 shape the variants run in turns (base, v1, ..., v1, base); each prints
@@ -76,9 +79,10 @@ def build(sources, stem="flash_attn_bwd",
             if m and fn:
                 print(f"  {name} {fn}: {m.group(1)} registers, {spills}")
                 fn = None
-        serialized = sum("(C7513)" in line for line in log.splitlines())
+        serialized = sum("wgmma.mma_async instructions are serialized" in line
+                         for line in log.splitlines())
         if serialized:  # ptxas waits after every wgmma of those kernels
-            print(f"  {name}: wgmma serialized (ptxas C7513) in "
+            print(f"  {name}: wgmma serialized (ptxas C751x) in "
                   f"{serialized} kernels")
         libs[name] = ctypes.CDLL(str(out / f"lib{stem}_{name}.so"))
     return libs
@@ -88,41 +92,44 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", nargs=3, action="append", default=[],
                     metavar=("NAME", "OLD", "NEW"))
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--shapes", default=None)
+    ap.add_argument("--source", default="flash_attn_bwd",
+                    choices=["flash_attn_bwd", "flash_attn_bwd_sm90"])
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch.ops import attention as attn
     from neurons_tpu_torch.ops import cuda_build
 
-    base = (cuda_build.CSRC_DIR / "flash_attn_bwd.cu").read_text()
+    stem = args.source
+    sm90 = stem == "flash_attn_bwd_sm90"
+    dtype = torch.bfloat16 if sm90 else torch.float32
+    shapes = args.shapes or ("decoder_16,decoder_32,decoder_64" if sm90
+                             else ",".join(SHAPES))
+    base = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
     sources = {"base": base}
     for name, old, new in args.variant:
-        if old not in base:
+        src = sources.get(name, base)
+        if old not in src:
             raise SystemExit(f"{name}: the text to replace is not in the "
                              f"source")
-        sources[name] = base.replace(old, new)
+        sources[name] = src.replace(old, new)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    libs = build(sources)
-    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    for lib in libs.values():
-        lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i64] * 14 + [i32] * 6
-                                       + [ctypes.c_float, i32, i32, ptr])
-        lib.flash_attn_bwd.restype = i32
-        lib.flash_attn_bwd_error_string.argtypes = [i32]
-        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+    libs = build(sources, stem, r"flash_bwd_\w+?_wgmma_kernel\w*?" if sm90
+                 else r"flash_bwd_\w+?_tf32_kernel\w*?")
+    libs = {name: attn._bind(lib, stem) for name, lib in libs.items()}
     own = attn._library
     gen = torch.Generator("cuda").manual_seed(0)
     order = list(sources) + list(reversed(sources))
-    for shape in args.shapes.split(","):
+    for shape in shapes.split(","):
         b, h, tq, tk, d, hkv, bshape = SHAPES[shape]
         q, g = (torch.randn((b, h, tq, d), generator=gen, device="cuda")
-                for _ in range(2))
+                .to(dtype) for _ in range(2))
         k, v = (torch.randn((b, hkv, tk, d), generator=gen, device="cuda")
-                for _ in range(2))
-        bias = (torch.randn(bshape, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        bias = (torch.randn(bshape, generator=gen, device="cuda").to(dtype)
                 if bshape else None)
         out, lse = attn.flash_attention_fwd(q, k, v, bias=bias,
                                             return_lse=True)
@@ -130,7 +137,7 @@ def main():
         try:
             for name in order:
                 attn._library = (lambda lib: lambda n: lib if
-                                 n == "flash_attn_bwd" else own(n))(libs[name])
+                                 n == stem else own(n))(libs[name])
 
                 def fn():
                     return attn.flash_attention_bwd(q, k, v, bias, g, out,
