@@ -33,7 +33,10 @@ Phases, in order:
      VideoMAE's 588, CLIP ViT-L's 257 for 6 frames), each with the kernel
      it routes to (bf16 at d 32-128: the wgmma kernel,
      csrc/flash_attn_fwd_sm90.cu, whose twelve instances' registers and
-     spills are logged after the build; f32 up to d = 128: the TF32
+     spills are logged after the build; bf16 at d 512: the wide wgmma
+     kernel, csrc/flash_attn_fwd_wide_sm90.cu, its key parts' combine
+     kernel where the plan splits the keys, its registers, spills and
+     serialized products gated after the build; f32 up to d = 128: the TF32
      register kernel, past it up to 512 the TF32 column-split kernels,
      whose instances' registers and spills, 0 bytes required, are logged
      too), against an f32 reference; its error must be no worse than 1.5x
@@ -337,6 +340,10 @@ FLASH_SHAPES = [
 # the TF32 register kernel, the VAE's d = 512 over 4096 tokens on the TF32
 # column-split one (no clip launches either in f32)
 F32_CHECKS = ["unet cross 48x48", "vae blurry 64x64"]
+# the VAE's d 512 shapes at which flash_fwd_wide_kernel, which the paths'
+# d 512 launches left for the wide wgmma kernel, is held to the plain
+# version all the same (`column_split_check`)
+COLUMN_SPLIT_CHECKS = ["vae blurry 64x64", "vae keyframe 96x96"]
 # the stage-2 seg panels' launches (`make_stage2_seg_panel_fn`, min(4, B) =
 # 4 clips of 6 frames, f32 as the JAX package's panel runs, no grad): the
 # DecoderVideo's three sizes at 24 rows; the prior's biased forward takes
@@ -530,8 +537,9 @@ class FlashRoutes:
         want = collections.Counter()
         for key, n in c.by_shape.items():
             d, dt, variant = key[4], key[5], key[6]
-            want[(route(d, getattr(torch, dt), biased="bias" in variant),
-                  key)] += n
+            kw = {} if self.backward else {"lse": "lse" in variant}
+            want[(route(d, getattr(torch, dt), biased="bias" in variant,
+                        **kw), key)] += n
         if want != c.by_route:
             off = {k: (n, want.get(k, 0)) for k, n in c.by_route.items()
                    if want.get(k, 0) != n}
@@ -559,6 +567,17 @@ FLASH_ROUTES = FlashRoutes()
 FLASH_BWD_ROUTES = FlashRoutes(backward=True)
 
 
+def sdpa_backend(q, k, v) -> str:
+    """The backend scaled_dot_product_attention (the library yardstick)
+    picks for q, k, v: flash attention takes no head dim past 256."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except (AttributeError, ImportError, RuntimeError, ValueError):
+        return "unknown"
+
+
 def exp_bound_ms(b, h, tq, tk):
     """The least time of a forward's Tq Tk exponentials a (b, h) on the
     MUFU unit (EX2_PER_S), in ms: beside the products' bound where the
@@ -571,6 +590,8 @@ def flash_source(rec):
     from neurons_tpu_torch.ops import attention as attn
     return ("neurons_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
             if rec["route"] == attn.WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_fwd_wide_sm90.cu"
+            if rec["route"] == attn.WIDE_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd.cu")
 
 
@@ -580,6 +601,54 @@ def flash_bwd_source(rec):
     return ("neurons_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
             if rec["route"] == attn.BWD_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_bwd.cu")
+
+
+def column_split_check(name, qx, kx, vx, want, plain_err, rows):
+    """flash_fwd_wide_kernel (the bf16 column-split forward, which keeps
+    the biased, lse and unaligned launches) on qx, kx, vx copied into rows
+    of 1032 bytes (516 columns, a token stride TMA cannot take): one launch
+    on that route, within 1.5x the bf16 plain version's error against
+    `want` (on the first `rows` batch rows), a rerun bitwise. Its launches
+    are taken out of the forward's counter again, so that it counts the
+    paths' launches alone."""
+    import collections
+    import torch
+    from neurons_tpu_torch.ops import attention as attn
+
+    def padded(x):
+        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + 4,), dtype=x.dtype,
+                          device=x.device)
+        buf[..., :x.shape[-1]] = x
+        return buf[..., :x.shape[-1]]
+
+    b, h, tq, d = qx.shape
+    q, k, v = padded(qx), padded(kx), padded(vx)
+    route = "flash_fwd_wide_kernel"
+    key = (route, (b, h, tq, kx.shape[2], d, "bfloat16", ""))
+    c = attn.FLASH_FWD_LAUNCHES
+    saved = (c.total, collections.Counter(c.by_shape),
+             collections.Counter(c.by_route))
+    try:
+        got = attn.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        launched = c.by_route[key] - saved[2][key]
+        same = torch.equal(got, attn.flash_attention_fwd(q, k, v))
+        dev_ms = device_ms(lambda: attn.flash_attention_fwd(q, k, v), 5)
+    finally:
+        c.total, c.by_shape, c.by_route = saved
+    err = (got[:rows].float() - want).abs().max().item()
+    ok = (launched == 1 and same and bool(torch.isfinite(got).all())
+          and err <= 1.5 * plain_err)
+    log(f"flash {name:20s} bfloat16 [{b},{h},{tq},{kx.shape[2]},{d}] "
+        f"{route} on 1032-byte rows (launches {launched})  max_abs_err "
+        f"{err:.3e} (plain {plain_err:.3e})  device_ms {dev_ms:.4f}  "
+        f"rerun bitwise {same}  {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{route} disagrees at {name}: {launched} "
+                             f"launches, {err:.3e} > 1.5 x {plain_err:.3e} "
+                             f"or a rerun differs ({same})")
+    del q, k, v, got
+    return dict(max_abs_err=err, plain_err=plain_err, device_ms=dev_ms)
 
 
 def flash_phase(checks=None):
@@ -649,9 +718,13 @@ def flash_phase(checks=None):
             b, h, tq, tk, d, qx.element_size(),
             PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS)
         route = attn.flash_route(d, dt)
+        parts = ""
         if route == attn.WGMMA_ROUTE:
             plan = attn.wgmma_plan(d)
             bq, bk, smem = plan[0], plan[1], plan[5]
+        elif route == attn.WIDE_WGMMA_ROUTE:
+            bq, bk, _, _, smem = attn.wide_wgmma_plan()
+            parts = f" key parts {attn.wide_wgmma_parts(b, h, tq, tk)[0]}"
         else:
             bq, bk, smem = attn.flash_tiles(d, dt)
         exp_ms = exp_bound_ms(b, h, tq, tk)
@@ -661,13 +734,14 @@ def flash_phase(checks=None):
               and rerun_same)
         tname = str(dt).split(".")[-1]
         log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{tk},{d}] {route} "
-            f"tiles {bq}x{bk} smem {smem} B  max_abs_err {err:.3e} "
+            f"tiles {bq}x{bk}{parts} smem {smem} B  max_abs_err {err:.3e} "
             f"(plain {plain_err:.3e}"
             + (f"; on row 0 of {b}, the plain version timed a row at a time"
                if rows < b else "")
             + f")  kernel_ms {kernel_ms:.4f} (device "
             f"{kernel_dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
-            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+            f"{library_ms:.4f} ({sdpa_backend(qx, kx, vx)}) bound_ms "
+            f"{bound_ms:.4f} ({bound_by}; "
             f"exponentials {exp_ms:.4f})  rerun bitwise {rerun_same}  "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
@@ -680,6 +754,9 @@ def flash_phase(checks=None):
             device_ms=kernel_dev_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             exp_bound_ms=exp_ms, route=route)
+        if dt == torch.bfloat16 and name in COLUMN_SPLIT_CHECKS:
+            records[(b, h, tq, tk, d, tname, "")]["column_split"] = (
+                column_split_check(name, qx, kx, vx, want, plain_err, rows))
         del q, k, v, want, got, plain, qx, kx, vx
     torch.cuda.empty_cache()
     return records
@@ -6738,6 +6815,39 @@ def wgmma_instances(ptxas):
     return out
 
 
+def wide_wgmma_kernels(ptxas, build_log=None):
+    """The wide wgmma forward (csrc/flash_attn_fwd_wide_sm90.cu) in the
+    -Xptxas -v summary: its one instance and the key parts' combine
+    kernel, logged with their registers and spills, and whether ptxas
+    serialized the instance's products (a C751x line in `build_log`, by
+    default the source's nvcc log); raises if one is missing, spills, or
+    was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    if build_log is None:
+        build_log = cuda_build.log_path("flash_attn_fwd_wide_sm90").read_text()
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_fwd_wide_(wgmma|combine)_kernel", f["function"])
+        if m:
+            out.append(dict(kernel=m.group(1), registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum("wgmma.mma_async instructions are serialized" in line
+                     for line in build_log.splitlines())
+    for i in out:
+        log(f"  wide wgmma {i['kernel']}: {i['registers']} registers, spill "
+            f"stores {i['spill_stores']} B, loads {i['spill_loads']} B")
+    log(f"  wide wgmma kernels with serialized products (ptxas C751x): "
+        f"{serialized}")
+    if sorted(i["kernel"] for i in out) != ["combine", "wgmma"]:
+        raise AssertionError(f"the wide wgmma forward's kernels: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the wide wgmma forward spills or was "
+                             f"serialized: {out}, C751x x {serialized}")
+    return out
+
+
 def wgmma_bwd_instances(ptxas, build_log=None):
     """The wgmma backward's instances in the -Xptxas -v summary (the dK/dV
     and dQ passes at d 32, 64 and 128), logged with their registers and
@@ -6867,6 +6977,7 @@ def main():
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
     wgmma_instances(ptxas)
+    wide_wgmma_kernels(ptxas)
     wgmma_bwd_instances(ptxas)
     wgmma_conv_instances(ptxas)
     del libs
@@ -7062,9 +7173,17 @@ def main():
         f"{dict(FLASH_ROUTES.totals)}, backward "
         f"{dict(FLASH_BWD_ROUTES.totals)}")
     for routes, name in ((FLASH_ROUTES, attn.WGMMA_ROUTE),
+                         (FLASH_ROUTES, attn.WIDE_WGMMA_ROUTE),
                          (FLASH_BWD_ROUTES, attn.BWD_WGMMA_ROUTE)):
         if not routes.totals[name]:
             raise AssertionError(f"no launch of {name}")
+    # every d 512 launch of the paths (bf16 inference, f32 on TF32) is off
+    # the column-split bf16 kernel, which keeps biased, lse and unaligned
+    # launches only
+    if FLASH_ROUTES.totals["flash_fwd_wide_kernel"]:
+        raise AssertionError(
+            f"{FLASH_ROUTES.totals['flash_fwd_wide_kernel']} launches on "
+            f"flash_fwd_wide_kernel")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

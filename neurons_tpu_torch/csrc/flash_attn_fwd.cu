@@ -39,9 +39,12 @@
 // fragments (instances for 32, 48, 64, 80, 96, 128), and P V runs the real
 // D's n8 tiles (40 = 5, 52 = 7).
 //
-// The bf16 instances at 128 < D <= 512 (flash_fwd_wide_kernel; the VAE's
-// d = 512 sites, and biased launches at 96 < D <= 128, none on the paths,
-// whose register instance spilled): O (64 rows x 512 f32 = 128 KB) cannot sit in one warp's
+// The bf16 instances at 128 < D <= 512 (flash_fwd_wide_kernel): launches
+// with a bias or the lse, rows or strides that are not 16-byte multiples
+// and head dims between multiples of 64, and biased launches at 96 < D <=
+// 128, whose register instance spilled; no path launches any of them (the
+// VAE's unbiased d = 512 sites take flash_fwd_wide_wgmma_kernel,
+// flash_attn_fwd_wide_sm90.cu). O (64 rows x 512 f32 = 128 KB) cannot sit in one warp's
 // registers, so it is split by columns across 8 warps, 64 columns each, in
 // registers. S and P are computed once a 32-key tile and shared through
 // shared memory (each warp one 16 x 16 piece of S; 4 lanes a row for the

@@ -1,10 +1,11 @@
 // Hopper's own building blocks in inline PTX (sm_90a), for the kernels
-// that run on them (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu,
-// gn_silu_conv_sm90.cu): mbarriers with their phase waits, TMA tile loads
-// (cp.async.bulk.tensor) that complete on an mbarrier and the host's
-// tensor-map encoder, warpgroup matrix products (wgmma.mma_async) with
-// their shared-memory descriptors, fence / commit / wait, and the register
-// moves between warpgroups (setmaxnreg).
+// that run on them (flash_attn_fwd_sm90.cu, flash_attn_fwd_wide_sm90.cu,
+// flash_attn_bwd_sm90.cu, gn_silu_conv_sm90.cu): mbarriers with their
+// phase waits, TMA tile loads (cp.async.bulk.tensor) that complete on an
+// mbarrier and the host's tensor-map encoder, warpgroup matrix products
+// (wgmma.mma_async) with their shared-memory descriptors, fence / commit /
+// wait, named barriers, and the register moves between warpgroups
+// (setmaxnreg).
 //
 // The wgmma accumulator of m64nNk16 (f32), per warpgroup of 128 threads:
 // warp w owns rows 16w..16w + 15 and, within it, lane l (g = l / 4,
@@ -103,6 +104,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - t0 > 4000000000ull) __trap();
 }
 
+// the block's named barrier `id` (1..15; 0 is __syncthreads') over
+// `threads` threads, whole warps
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// makes the block's generic-proxy writes to shared memory visible to the
+// async proxy (TMA, wgmma)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 
@@ -116,6 +129,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a box of the 5-D tensor `map` at coordinates (c0 innermost .. c4)
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -135,15 +160,16 @@ PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   return fn;
 }
 
-// a 4-D bf16 map: dims (innermost first), byte strides of dims 1..3, the
-// box and its swizzle; 0, or kEncodeError + the CUresult of a failure
+// a bf16 map of `rank` (4 by default) dims (innermost first), byte strides
+// of dims 1.., the box and its swizzle; 0, or kEncodeError + the CUresult
+// of a failure
 inline int encode(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
                   const cuuint64_t* strides, const cuuint32_t* box,
-                  CUtensorMapSwizzle swizzle) {
+                  CUtensorMapSwizzle swizzle, int rank = 4) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
   if (enc == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                          const_cast<void*>(ptr), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -170,6 +196,25 @@ inline int encode_tokens(CUtensorMap* map, const void* ptr, int D, int T,
                 bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                 : bw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// the map (64, T, D / 64, H, B) of a bf16 [B, H, T, D] tensor, D a multiple
+// of 64, with element strides st, sh, sb over token, head and batch: D
+// split into column blocks of 64, so that one box of 64 columns x `rows`
+// tokens x every block writes the blocks one after another in shared
+// memory ([D / 64][rows][64]), each row of 128 bytes swizzled
+inline int encode_token_blocks(CUtensorMap* map, const void* ptr, int D,
+                               int T, int Hx, int B, long long st,
+                               long long sh, long long sb, int rows) {
+  const cuuint64_t dims[5] = {64, (cuuint64_t)T, (cuuint64_t)(D / 64),
+                              (cuuint64_t)Hx, (cuuint64_t)B};
+  cuuint64_t strides[4] = {(cuuint64_t)(2 * st), 128, (cuuint64_t)(2 * sh),
+                           (cuuint64_t)(2 * sb)};
+  for (int i = 0; i < 4; ++i)
+    if (dims[i + 1] == 1) strides[i] = 16;
+  const cuuint32_t box[5] = {64, (cuuint32_t)rows, (cuuint32_t)(D / 64), 1,
+                             1};
+  return encode(map, ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B, 5);
 }
 
 // ---------------------------------------------------------------------------
@@ -249,7 +294,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // m64nNk16, f32 += bf16 x bf16. ss: A and B from shared memory, both
-// K-major; rs: A from registers, B MN-major (transposed). scale_d = 0
+// K-major; rs: A from registers, B MN-major (transposed); rk: A from
+// registers, B K-major. scale_d = 0
 // overwrites d. ss0 is ss with d written only (pass zero = 0): d's
 // registers are no input of the product, so code that redefines them while
 // another product is in flight does not make ptxas serialize the products.
@@ -274,6 +320,33 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  // rk: A from registers, B K-major (rk0: d written only)
+  static __device__ __forceinline__ void rk(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rk0(float* d, const uint32_t* a,
+                                             uint64_t db, int zero) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+          "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(zero));
+  }
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t db, int scale_d) {
     asm volatile(

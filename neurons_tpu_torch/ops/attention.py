@@ -7,8 +7,9 @@ layout, and routes as the JAX package does:
 
   * without autograd (inference): unmasked, unbiased attention with
     Tq, Tk >= 128 goes to `flash_attention_fwd` (csrc/flash_attn_fwd.cu,
-    and for bf16 at d 32-128 on 16-byte rows csrc/flash_attn_fwd_sm90.cu,
-    replacing the Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
+    and for bf16 on 16-byte rows at d 32-128 csrc/flash_attn_fwd_sm90.cu,
+    at 128 < d <= 512 csrc/flash_attn_fwd_wide_sm90.cu, replacing the
+    Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
     UNet2D/UNet3D self- and cross-attention, the DecoderVideo AttnBlock, the
     VAE mid-block attention. Biased attention (the prior's relative-position
     bias) stays on the plain path, as the JAX package keeps its inference
@@ -273,10 +274,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the scale). With `return_lse` also the log-sum-exp [B, H, Tq] f32 of the
     scaled and biased logits (the JAX convention m + log(max(l, 1e-30))).
 
-    CUDA tensors launch the kernel `flash_route` names: bf16 unbiased at
-    d 32-128 on 16-byte rows csrc/flash_attn_fwd_sm90.cu (wgmma, TMA), the
-    rest csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the same type;
-    any strides over batch, head and token, unit stride over D). CPU
+    CUDA tensors launch the kernel `flash_route` names: bf16 unbiased on
+    16-byte rows at d 32-128 csrc/flash_attn_fwd_sm90.cu (wgmma, TMA), and
+    without the lse at 128 < d <= 512 csrc/flash_attn_fwd_wide_sm90.cu
+    (wgmma, TMA; where `wide_wgmma_parts` splits the keys into parts, one
+    launch of the route is the kernel and its combine),
+    the rest csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the same
+    type; any strides over batch, head and token, unit stride over D). CPU
     tensors compute the plain version."""
     _check_operands(q, k, v)
     if scale is None:
@@ -298,7 +302,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route = flash_route(d, q.dtype, biased=bias is not None,
                         aligned=vec == 16 and scale > 0 and _tma_strides(
                             strides, (b, h, tq) + (b, k.shape[1], tk) * 2,
-                            q.element_size()))
+                            q.element_size()),
+                        lse=return_lse)
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -312,6 +317,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(err, lib.flash_attn_fwd_sm90_error_string,
                   "flash_attn_fwd_sm90", q, k)
+    elif route == WIDE_WGMMA_ROUTE:
+        parts, part_tiles, units = wide_wgmma_parts(b, h, tq, tk)
+        grid = min(units, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        scratch = wide_wgmma_scratch(b, h, tq, tk, d)
+        work = (torch.empty(scratch, dtype=torch.uint8, device=q.device)
+                if scratch else None)
+        lib = _library("flash_attn_fwd_wide_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_fwd_wide_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if work is None else work.data_ptr(),
+                0 if work is None else work.numel(), *strides, b, h,
+                k.shape[1], tq, tk, d, parts, part_tiles, grid, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_fwd_wide_sm90_error_string,
+                  "flash_attn_fwd_wide_sm90", q, k)
     else:
         lib = _library("flash_attn_fwd")
         with cuda_build.on_device(q.device):
@@ -489,21 +511,29 @@ def wgmma_plan(d: int):
 
 @functools.lru_cache(maxsize=None)
 def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
-                aligned: bool = True) -> str:
+                aligned: bool = True, lse: bool = False) -> str:
     """The forward's kernel for a launch at head dim d (by default an
-    unbiased one whose rows, strides and pointers are 16-byte multiples,
-    as every launch of the paths is, with a positive scale): bf16 at the
-    head dims `wgmma_blocks` serves the wgmma kernel (csrc/
-    flash_attn_fwd_sm90.cu); f32 up to d = 128 the TF32 register kernel,
-    up to 512 the TF32 column-split one; the rest of bf16 up to 128 the
-    register kernel (biased past d 96 the column-split one), up to 512 the
-    column-split one. The first design (`flash_fwd_kernel`) is left for d
-    past 512 only."""
-    if (dtype == torch.bfloat16 and not biased and aligned
-            and wgmma_blocks(d) is not None):
-        return WGMMA_ROUTE
-    if dtype == torch.bfloat16 and biased and 96 < d <= 512:
+    unbiased one without the lse whose rows, strides and pointers are
+    16-byte multiples, as every inference launch of the paths is, with a
+    positive scale): bf16 at the head dims `wgmma_blocks` serves the wgmma
+    kernel (csrc/flash_attn_fwd_sm90.cu), and without the lse at 128 < d
+    <= 512, d a multiple of 64, the wide wgmma kernel (csrc/
+    flash_attn_fwd_wide_sm90.cu); f32
+    up to d = 128 the TF32 register kernel, up to 512 the TF32
+    column-split one; the rest of bf16 up to 128 the register kernel
+    (biased past d 96 the column-split one), up to 512 the column-split
+    one (biased, with the lse, off TMA's alignment, or at a d between
+    multiples of 64). The first design
+    (`flash_fwd_kernel`) is left for d past 512 only."""
+    if dtype == torch.bfloat16 and not biased and aligned:
+        if wgmma_blocks(d) is not None:
+            return WGMMA_ROUTE
+        if not lse and 128 < d <= 512 and d % 64 == 0:
+            return WIDE_WGMMA_ROUTE
+    if dtype == torch.bfloat16 and 96 < d <= 512 and (biased or d > 128):
         return FWD_ROUTES[3]
+    if dtype == torch.float32 and 128 < d <= 512:
+        return FWD_ROUTES[5]
     return FWD_ROUTES[_tiles(d, dtype, "flash_attn_fwd")[0]]
 
 
@@ -541,6 +571,65 @@ def wgmma_tiles(d: int):
     bw, nb = wgmma_blocks(d)
     dk = bw * nb
     return (192 if dk <= 64 else 128), (128 if dk <= 80 else 64), 2
+
+
+# The wide wgmma kernel (csrc/flash_attn_fwd_wide_sm90.cu: WideCfg): units
+# of 64 query rows in two consumer warpgroups that split O's 512 columns,
+# WIDE_BK keys a tile in a 2-stage ring of 8 column blocks of 64 bf16 (128
+# swizzled bytes a row), dealt to a grid of at most one block an SM; where
+# the units are few the keys split into parts (`wide_wgmma_parts`, at most
+# WIDE_MAX_PARTS), merged by its combine kernel. The card tests hold these to the library's own
+# (`wide_wgmma_plan`).
+WIDE_WGMMA_ROUTE = "flash_fwd_wide_wgmma_kernel"
+WIDE_COMBINE = "flash_fwd_wide_combine_kernel"
+WIDE_BQ, WIDE_BK, WIDE_STAGES, WIDE_MAX_PARTS = 64, 32, 2, 8
+# the key parts' cost model: the SMs a wave of blocks fills; each part past
+# the first costs 1 / WIDE_PART_COST_DEN of a wave; each part at least
+# WIDE_MIN_PART_TILES key tiles
+WIDE_SMS, WIDE_PART_COST_DEN, WIDE_MIN_PART_TILES = 132, 20, 8
+
+
+def wide_wgmma_parts(b: int, h: int, tq: int, tk: int):
+    """(parts, key tiles a part, units) of the wide wgmma kernel at a
+    shape, from the shape alone (a unit: 64 query rows of one (b, h) and
+    one part of the keys): one part where the query blocks fill two waves
+    of 132 SMs (the parts' f32 O would cost more traffic than the last
+    wave's idle SMs), else the parts P, at most 8 and each at least 8
+    tiles, that minimise waves(P) / P + (P - 1) / 20 (the units over 132
+    SMs rounded up, in integers times 840; the first P of equal cost),
+    then the tiles a part and the parts that leave none empty. The
+    wrapper passes them to the kernel, with a grid of at most one block
+    an SM, and the kernel checks that they cover the keys."""
+    nq = -(-tq // WIDE_BQ)
+    blocks = nq * b * h
+    ntiles = -(-tk // WIDE_BK)
+    most = (1 if blocks >= 2 * WIDE_SMS
+            else max(1, min(WIDE_MAX_PARTS, ntiles // WIDE_MIN_PART_TILES)))
+    parts, best = 1, None
+    for n in range(1, most + 1):
+        waves = -(-blocks * n // WIDE_SMS)
+        cost = 840 * WIDE_PART_COST_DEN * waves // n + 840 * (n - 1)
+        if best is None or cost < best:
+            parts, best = n, cost
+    per = -(-ntiles // parts)
+    parts = -(-ntiles // per)
+    return parts, per, blocks * parts
+
+
+def wide_wgmma_scratch(b: int, h: int, tq: int, tk: int, d: int) -> int:
+    """The wide wgmma kernel's scratch bytes at a shape: each part's f32
+    O and each row's (max, sum); 0 with one part."""
+    parts = wide_wgmma_parts(b, h, tq, tk)[0]
+    return 0 if parts == 1 else parts * b * h * tq * (4 * d + 8)
+
+
+def wide_wgmma_plan():
+    """(BQ, BK, ring stages, the most key parts, shared-memory bytes) of
+    the wide wgmma kernel, as the library reports them."""
+    lib = _library("flash_attn_fwd_wide_sm90")
+    out = [ctypes.c_int() for _ in range(5)]
+    lib.flash_attn_fwd_wide_sm90_plan(*map(ctypes.byref, out))
+    return tuple(o.value for o in out)
 
 
 def _tma_strides(strides, extents, esize) -> bool:
@@ -624,6 +713,16 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.flash_attn_bwd_sm90_error_string.restype = ctypes.c_char_p
         lib.flash_attn_bwd_sm90_plan.argtypes = [i32] + [ctypes.POINTER(i32)] * 9
         lib.flash_attn_bwd_sm90_plan.restype = i32
+        return lib
+    if name == "flash_attn_fwd_wide_sm90":
+        lib.flash_attn_fwd_wide_sm90.argtypes = ([ptr] * 5 + [i64] * 10
+                                                 + [i32] * 9
+                                                 + [ctypes.c_float, ptr])
+        lib.flash_attn_fwd_wide_sm90.restype = i32
+        lib.flash_attn_fwd_wide_sm90_error_string.argtypes = [i32]
+        lib.flash_attn_fwd_wide_sm90_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_fwd_wide_sm90_plan.argtypes = [ctypes.POINTER(i32)] * 5
+        lib.flash_attn_fwd_wide_sm90_plan.restype = None
         return lib
     if name == "flash_attn_fwd_sm90":
         lib.flash_attn_fwd_sm90.argtypes = ([ptr] * 5 + [i64] * 9 + [i32] * 6

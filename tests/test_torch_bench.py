@@ -364,3 +364,37 @@ def test_wgmma_bwd_instances_are_read_and_gated():
                   "insufficient register resources for the function")
     with pytest.raises(AssertionError):  # ptxas serialized the products
         chip_smoke.wgmma_bwd_instances(ptxas, build_log=serialized)
+
+
+def test_wide_wgmma_instances_are_read_and_gated():
+    # the wide wgmma forward's instance and its key parts' combine kernel
+    # (mangled as nvcc names them in its anonymous namespace); neither the
+    # d <= 128 wgmma forward nor the column-split kernels are among them
+    ns = "_ZN60_GLOBAL__N__7a32da72_27_flash_attn_fwd_wide_sm90_cu_2e576f74"
+    ptxas = [
+        dict(source="flash_attn_fwd_wide_sm90", registers=246,
+             function=ns + "27flash_fwd_wide_wgmma_kernelINS_7WideCfgILi32E"
+             "EEEEv14CUtensorMap_stS3_S3_NS_10WideParamsE",
+             spill_stores=0, spill_loads=0),
+        dict(source="flash_attn_fwd_wide_sm90", registers=40,
+             function=ns + "29flash_fwd_wide_combine_kernelEPKfPK6float2P13"
+             "__nv_bfloat16xiif", spill_stores=0, spill_loads=0)]
+    others = [dict(source="flash_attn_fwd", registers=200, function=(
+        "_ZN3_GLOBAL__N_121flash_fwd_wide_kernelILb0ELb0EEEvNS_6ParamsE")),
+        _wide_ptxas("flash_fwd_wide_tf32_kernel", 208),
+        dict(source="flash_attn_fwd_sm90", registers=168, function=(
+            "_ZN3_GLOBAL__N_122flash_fwd_wgmma_kernelILi64ELi1ELb0EEEv"))]
+    got = chip_smoke.wide_wgmma_kernels(ptxas + others, build_log="")
+    assert [(i["kernel"], i["registers"]) for i in got] == [
+        ("wgmma", 246), ("combine", 40)]
+    with pytest.raises(AssertionError):  # the combine kernel is missing
+        chip_smoke.wide_wgmma_kernels(ptxas[:1] + others, build_log="")
+    with pytest.raises(AssertionError):  # the instance spills
+        chip_smoke.wide_wgmma_kernels(
+            [dict(ptxas[0], spill_stores=64, spill_loads=64), ptxas[1]],
+            build_log="")
+    serialized = ("ptxas info    : (C7512) Potential Performance Loss: "
+                  "wgmma.mma_async instructions are serialized due to "
+                  "insufficient register resources for the function")
+    with pytest.raises(AssertionError):  # ptxas serialized the products
+        chip_smoke.wide_wgmma_kernels(ptxas, build_log=serialized)

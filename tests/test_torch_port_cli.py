@@ -50,7 +50,14 @@ from neurons_tpu_torch.training import loop as tloop
 from test_real_layout import hf_root  # noqa: F401  (a fixture)
 from test_torch_port_import import assert_equal_trees, seeded
 from test_torch_port_keyframe import slice_parts
-from torch_port_utils import rel_err, t
+from torch_port_utils import ensure_jax_native_io, rel_err, t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_codec():
+    """The JAX package's native codec whole before this module's tests
+    reach it (`torch_port_utils.ensure_jax_native_io`)."""
+    ensure_jax_native_io()
 
 
 @pytest.fixture(autouse=True, scope="module")

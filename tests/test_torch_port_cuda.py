@@ -268,8 +268,9 @@ def test_flash_route_names_the_kernel_each_launch_takes(cuda):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     rows52 = rand(1, 2, 150, 56)[..., :52]  # 104-byte rows: not TMA's
+    rows512 = rand(1, 1, 150, 516)[..., :512]  # 1032-byte rows: not TMA's
     cases = [
-        # (q, k, v, bias, route)
+        # (q, k, v, bias, route[, lse])
         (rand(1, 2, 150, 64),) * 3 + (None, attn.WGMMA_ROUTE),
         (rand(1, 2, 150, 88),) * 3 + (None, attn.WGMMA_ROUTE),
         (rows52,) * 3 + (None, "flash_fwd_reg_kernel"),
@@ -278,16 +279,25 @@ def test_flash_route_names_the_kernel_each_launch_takes(cuda):
                                       "flash_fwd_reg_kernel"),
         (rand(1, 2, 150, 64, dtype=torch.float32),) * 3
         + (None, "flash_fwd_tf32_kernel"),
-        (rand(1, 1, 150, 512),) * 3 + (None, "flash_fwd_wide_kernel"),
+        (rand(1, 1, 150, 512),) * 3 + (None, attn.WIDE_WGMMA_ROUTE),
+        (rand(1, 1, 150, 512),) * 3 + (None, "flash_fwd_wide_kernel", True),
+        (rand(1, 1, 150, 512),) * 3 + (rand(150, 150),
+                                       "flash_fwd_wide_kernel"),
+        (rows512,) * 3 + (None, "flash_fwd_wide_kernel"),
+        (rand(1, 1, 150, 136),) * 3 + (None, "flash_fwd_wide_kernel"),
+        (rand(1, 1, 150, 512, dtype=torch.float32),) * 3
+        + (None, "flash_fwd_wide_tf32_kernel"),
     ]
-    for q, k, v, bias, route in cases:
+    for q, k, v, bias, route, *lse in cases:
+        lse = bool(lse and lse[0])
         before = dict(attn.FLASH_FWD_LAUNCHES.by_route)
-        attn.flash_attention_fwd(q, k, v, bias=bias)
+        attn.flash_attention_fwd(q, k, v, bias=bias, return_lse=lse)
         took = _route_of_last_launch(before)
         aligned = attn._granule(q.shape[-1], q.element_size(),
                                 (q.stride(2),), (q,)) == 16
         assert took == route == attn.flash_route(
-            q.shape[-1], q.dtype, biased=bias is not None, aligned=aligned)
+            q.shape[-1], q.dtype, biased=bias is not None, aligned=aligned,
+            lse=lse)
 
 
 @pytest.mark.cuda
@@ -299,6 +309,122 @@ def test_wgmma_plan_matches_the_python_tables(cuda, d):
     assert plan[:5] == (bq, bk, bw, nb, stages)
     assert plan[5] <= 232448
     assert attn.wgmma_plan(56) is None and attn.wgmma_plan(24) is None
+
+
+def _check_wide(q, k, v):
+    # the wide wgmma route (csrc/flash_attn_fwd_wide_sm90.cu): its launch,
+    # equal bits on a rerun (the parts' combine in a fixed order), and the
+    # 1.5x rule against f64 beside the bf16 plain version
+    before = dict(attn.FLASH_FWD_LAUNCHES.by_route)
+    got = attn.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert _route_of_last_launch(before) == attn.WIDE_WGMMA_ROUTE
+    assert torch.equal(got, attn.flash_attention_fwd(q, k, v))
+    want = attn.attention_reference(*(x.double() for x in (q, k, v)))
+    plain = attn.attention_reference(q, k, v)
+    err = (got.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    print(f"wide wgmma {tuple(q.shape)} k {tuple(k.shape)} parts "
+          f"{attn.wide_wgmma_parts(*q.shape[:3], k.shape[2])[0]}: err "
+          f"{err:.3e}, plain {plain_err:.3e}, ratio "
+          f"{err / max(plain_err, 1e-30):.3f}")
+    assert bool(torch.isfinite(got).all())
+    assert err <= 1.5 * plain_err, err
+
+
+# every d 512 shape class the paths launch on the wide wgmma route (the
+# VAE's mid attention: 96^2 in 4 key parts, 64^2 in 2, the video decode's
+# 16 rows of 32^2 in one, the keyframe's 32^2 in 4, SVD's temporal decoder
+# in one over 7.6 waves)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 9216), (1, 4096), (16, 1024),
+                                   (1, 1024), (7, 9216)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_wide_wgmma_at_every_launched_shape_class(cuda, shape):
+    b, t = shape
+    g = torch.Generator("cuda").manual_seed(t + b)
+    q, k, v = (torch.randn((b, 1, t, 512), generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    _check_wide(q, k, v)
+
+
+# ragged rows and keys (a partial query block, a last key tile of 1 to 31
+# keys, several parts), head
+# dims between 128 and 512 (multiples of 64: column blocks past D never
+# loaded), and multi-query k/v
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d", [
+    (1, 1, 1, 200, 333, 512), (1, 1, 1, 130, 1000, 512),
+    (2, 1, 1, 64, 257, 512), (1, 2, 1, 150, 600, 512),
+    (1, 1, 1, 150, 500, 192), (2, 2, 2, 140, 300, 320),
+    (1, 1, 1, 100, 700, 384)])
+def test_wide_wgmma_ragged_and_narrower(cuda, b, h, hkv, tq, tk, d):
+    g = torch.Generator("cuda").manual_seed(tq * tk + d)
+    q = torch.randn((b, h, tq, d), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((b, hkv, tk, d), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    _check_wide(q, k, v)
+
+
+@pytest.mark.cuda
+def test_wide_wgmma_reads_the_models_views_in_place(cuda):
+    # the VAE's q, k, v: one nn.Linear output [B, T, 3 * 512] split and
+    # viewed as [B, 1, T, 512] ([:, None]), read through its strides
+    g = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn((2, 1100, 3 * 512), generator=g,
+                    device="cuda").bfloat16()
+    q, k, v = (y[:, None] for y in x.split(512, dim=-1))
+    assert not q.is_contiguous() and q.stride(2) == 3 * 512
+    _check_wide(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 9216, 9216), (1, 1, 4096, 4096),
+                                   (16, 1, 1024, 1024), (1, 1, 1024, 1024),
+                                   (7, 1, 9216, 9216), (2, 1, 9216, 9216),
+                                   (1, 1, 130, 1000), (3, 2, 777, 5000)])
+def test_wide_wgmma_plan_matches_the_python_tables(cuda, shape):
+    # the library's constants are the host's; the kernel takes the host's
+    # parts and grid, gives equal bits whatever grid deals the units, and
+    # refuses parts that leave keys out or a part empty, or a grid past
+    # the units
+    plan = attn.wide_wgmma_plan()
+    assert plan[:4] == (attn.WIDE_BQ, attn.WIDE_BK, attn.WIDE_STAGES,
+                        attn.WIDE_MAX_PARTS)
+    assert plan[4] <= 232448
+    b, h, tq, tk = shape
+    parts, per, units = attn.wide_wgmma_parts(*shape)
+    ntiles = -(-tk // attn.WIDE_BK)
+    assert 1 <= parts <= attn.WIDE_MAX_PARTS
+    assert (parts - 1) * per < ntiles <= parts * per
+    assert units == -(-tq // attn.WIDE_BQ) * b * h * parts
+    lib = attn._library("flash_attn_fwd_wide_sm90")
+    g = torch.Generator("cuda").manual_seed(tq + tk)
+    x = torch.randn((b, h, max(tq, tk), 512), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    work = torch.empty(max(attn.wide_wgmma_scratch(*shape, 512), 16),
+                       dtype=torch.uint8, device="cuda")
+    strides = (x.stride(0), x.stride(1), x.stride(2)) * 3
+
+    def launch(n, per_part, grid, out):
+        return lib.flash_attn_fwd_wide_sm90(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(),
+            work.data_ptr(), work.numel(), *strides, b, h, h, tq, tk, 512,
+            n, per_part, grid, 0.05, torch.cuda.current_stream().cuda_stream)
+
+    outs = []
+    for grid in sorted({1, min(units, 132), units}):
+        outs.append(torch.empty((b, h, tq, 512), device="cuda",
+                                dtype=torch.bfloat16))
+        assert launch(parts, per, grid, outs[-1]) == 0
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    out = outs[0]
+    assert launch(parts, per - 1, units, out) != 0      # keys left out
+    assert launch(parts + 1, per, units, out) != 0      # the last part empty
+    assert launch(attn.WIDE_MAX_PARTS + 1, 1, units, out) != 0
+    assert launch(parts, per, units + 1, out) != 0
+    assert launch(parts, per, 0, out) != 0
 
 
 def _check_temporal(bf, d, c, f, h, dtype, seed=2):

@@ -28,10 +28,17 @@ from neurons_tpu_torch.interop.from_jax import load_jax_params
 from neurons_tpu_torch.models import clip as tclip
 from neurons_tpu_torch.models import vit as tvit
 from neurons_tpu_torch.pipelines import io as tio
-from torch_port_utils import randomize, rel_err
+from torch_port_utils import ensure_jax_native_io, randomize, rel_err
 from test_torch_port_caption import assert_trees_equal
 
 TOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_codec():
+    """The JAX package's native codec whole before this module's tests
+    reach it (`torch_port_utils.ensure_jax_native_io`)."""
+    ensure_jax_native_io()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -16,9 +16,17 @@ from neurons_tpu.pipelines import io as jio
 from neurons_tpu_torch import cli as tcli
 from neurons_tpu_torch import native_io as tnative
 from neurons_tpu_torch.pipelines import io as tio
+from torch_port_utils import ensure_jax_native_io
 
 SUBJ = 2
 CAPTIONS = ["a dog runs", "two  people / talk", ""]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_codec():
+    """The JAX package's native codec whole before this module's tests
+    reach it (`torch_port_utils.ensure_jax_native_io`)."""
+    ensure_jax_native_io()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,11 +23,21 @@ import pytest
 import torch
 
 from neurons_tpu import serving as jserving
+from neurons_tpu import native_io as jnative
+from neurons_tpu_torch import native_io as tnative
 from neurons_tpu_torch import serving as tserving
+from torch_port_utils import ensure_jax_native_io
 
 N_VOX = 16
 F, H, W = 2, 4, 4
 PACKAGES = {"jax": jserving, "port": tserving}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_codec():
+    """The JAX package's native codec whole before this module's tests
+    reach it (`torch_port_utils.ensure_jax_native_io`)."""
+    ensure_jax_native_io()
 
 
 @pytest.fixture(params=sorted(PACKAGES))
@@ -186,6 +196,14 @@ def test_stats_deques_are_bounded(srvmod):
 
 
 def test_gif_bytes_equal_across_packages():
+    # both packages on their native codec: a comparison against the JAX
+    # package's imageio fallback would say nothing of the port's bytes
+    why = ensure_jax_native_io()
+    assert why is None, f"the JAX package's native GIF codec: {why}"
+    assert jnative.available(), (
+        "neurons_tpu.native_io did not load native/libneurons_io.so")
+    assert tnative.available(), (
+        "neurons_tpu_torch.native_io did not build or load its codec")
     video = np.random.default_rng(3).uniform(size=(2, 3, 3, 8, 8)).astype(
         np.float32)
     assert tserving._encode_gif(video) == jserving._encode_gif(video)

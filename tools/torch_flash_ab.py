@@ -10,7 +10,8 @@ OTHER_ROOT is a second checkout of the repository, e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Each
 checkout runs in its own process (it builds its own kernels), in the order
 other, this, this, other. Shapes: the flash forward at every attention
-shape of the full-width clip, of an SVD clip, of the fast clip's gated
+shape of the full-width clip, of an SVD clip (its VideoUNet at d 64, its
+VAE encoder and temporal decoder at d 512), of the fast clip's gated
 steps and of a caption batch (bf16, no bias, no log-sum-exp) and at the
 stage-2 step's training sites (with lse, and the prior's bias); the
 forward's f32 (TF32) route ("f32") at every f32 shape of a path: stage 6's
@@ -41,10 +42,12 @@ the bound (10 Tq Tk D at 989 TFLOP/s, or the bytes) beside the two
 passes' exponentials, for #7 the library composite F.silu(F.group_norm(...))
 by events, for #8 the library composite F.conv2d(F.silu(F.group_norm(
 ...))) by device time and the bound (2 M Cout 9 Cin at 989 TFLOP/s, or
-x, the weights and y at 3.35 TB/s), and for the bf16 forward at d <= 128
-the library's fused
-attention by device time, the bound and the exponentials' bound, and at
-two shapes the host's microseconds to enqueue one call (`host_us`). The
+x, the weights and y at 3.35 TB/s), and for the bf16 forward the
+library's fused attention by device time (the backend it picks named on
+a line of its own: flash attention takes no head dim past 256), the bound
+and the exponentials' bound, at d 512 each kernel of the route by name
+under torch.profiler (the key parts' combine apart), and at two shapes
+the host's microseconds to enqueue one call (`host_us`). The
 last lines give, per shape, each run's ms, and for each kernel the sum of
 launches x ms over a clip (and a step) for each run; with --json the
 whole record also goes to PATH.
@@ -60,6 +63,9 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import sdpa_backend  # noqa: E402
 
 # (site, (B, H, Tq, Tk, D), launches a clip) of the unfused clip's flash
 # forward (inference: no bias, no lse)
@@ -80,11 +86,12 @@ FLASH_CLIP = [
 ]
 
 # (site, (B, H, Tq, Tk, D), launches a path) of the other bf16 forward
-# launches at d <= 128 (inference): an SVD clip's VideoUNet self-attention
+# launches (inference): at d <= 128 an SVD clip's VideoUNet self-attention
 # (14 frames, the CFG batch of 28 rows, 25 steps; `svd_launches` in
 # chip_smoke.py), the fast clip's gated steps (the CFG batch collapsed to
 # one clip; launches as chip_smoke.py's "max" fast clip counts them) and a
-# caption batch's BLIP-2 vision tower (39 layers, heads of 88)
+# caption batch's BLIP-2 vision tower (39 layers, heads of 88); at d 512
+# an SVD clip's VAE attention
 FLASH_OTHER = [
     ("svd 72x128", (28, 5, 9216, 9216, 64), {"svd clip": 125}),
     ("svd 36x64", (28, 10, 2304, 2304, 64), {"svd clip": 125}),
@@ -95,6 +102,11 @@ FLASH_OTHER = [
     ("unet3d self 32x32 gated", (16, 8, 1024, 1024, 40), {}),
     ("unet3d self 16x16 gated", (16, 8, 256, 256, 80), {}),
     ("blip2 vision 16x16+cls", (8, 16, 257, 257, 88), {"caption batch": 39}),
+    # an SVD clip's d 512 launches: the VAE encoder's mid attention on the
+    # conditioning frame, the temporal decoder's spatial one a chunk of 7
+    ("svd vae encoder 72x128", (1, 1, 9216, 9216, 512), {"svd clip": 1}),
+    ("svd decoder 7 frames 72x128", (7, 1, 9216, 9216, 512),
+     {"svd clip": 2}),
 ]
 
 # (site, (B, H, Tq, Tk, D, kv heads), bias shape, forward launches a step,
@@ -319,8 +331,9 @@ def kernel_ms(fn, reps: int, prefix: str):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-            m = re.search(r"\b(\w+)(<[^(]*>)?\(", e.key)
-            key = m.group(1) + (m.group(2) or "") if m else e.key
+            name = e.key.replace("(anonymous namespace)::", "")
+            m = re.search(r"\b(\w+)(<[^(]*>)?\(", name)
+            key = m.group(1) + (m.group(2) or "") if m else name
             if key.startswith(prefix):
                 per[key] = per.get(key, 0.0) + us / 1e3 / reps
     return per
@@ -344,7 +357,7 @@ def time_here(root: str, only: str):
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    out = {}
+    out, backends = {}, {}
     if "all" in only or "flash" in only:
         for name, (b, h, tq, tk, d), _ in FLASH_CLIP + FLASH_OTHER:
             q, k, v = rand(b, h, tq, d), rand(b, h, tk, d), rand(b, h, tk, d)
@@ -352,12 +365,17 @@ def time_here(root: str, only: str):
             fn = lambda: attn.flash_attention_fwd(q, k, v)  # noqa: E731
             out[f"flash {name}"] = cuda_ms(fn, reps)
             out[f"device flash {name}"] = device_ms(fn, reps)
-            if d <= 128:  # the yardsticks of the bf16 route at d <= 128
-                out[f"library flash {name}"] = device_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v), reps)
-                (out[f"bound flash {name}"],
-                 out[f"exp bound flash {name}"]) = attention_bounds(
-                    b, h, tq, tk, d)
+            # the yardsticks: the library's fused attention by device time
+            # (its backend named), the bound and the exponentials' bound
+            out[f"library flash {name}"] = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), reps)
+            backends[name] = sdpa_backend(q, k, v)
+            (out[f"bound flash {name}"],
+             out[f"exp bound flash {name}"]) = attention_bounds(
+                b, h, tq, tk, d)
+            if d > 128:  # each kernel of the d 512 route (a combine apart)
+                for kernel, ms in kernel_ms(fn, reps, "flash_fwd_").items():
+                    out[f"device flash {name}: {kernel}"] = ms
             if name in ("unet self 48x48", "unet cross 24x24"):
                 out[f"host us flash {name}"] = host_us(fn, 200)
         for name, (b, h, tq, tk, d, hkv), bshape, _, _ in FLASH_STEP:
@@ -490,7 +508,7 @@ def time_here(root: str, only: str):
                 lambda: F.silu(F.group_norm(x, 32, gw, gb, 1e-5)), reps)
             del x
         torch.cuda.empty_cache()
-    print(json.dumps(out))
+    print(json.dumps({"times": out, "sdpa backends": backends}))
 
 
 def totals(times):
@@ -559,10 +577,10 @@ def totals(times):
                 sums[pre + key] = sums.get(pre + key, 0.0) + n_bwd * \
                     times.get(f"{pre}bwd {name}", 0.0)
         for name, (_, _, _, _, d), n in FLASH_CLIP:
-            if d <= 128:
-                key = pre + "flash clip d<=128"
-                sums[key] = sums.get(key, 0.0) + n * times.get(
-                    f"{pre}flash {name}", 0.0)
+            key = pre + ("flash clip d=512" if d > 128
+                         else "flash clip d<=128")
+            sums[key] = sums.get(key, 0.0) + n * times.get(
+                f"{pre}flash {name}", 0.0)
         for name, _, paths in FLASH_OTHER:
             for path, n in paths.items():
                 key = f"{pre}flash {path}"
@@ -595,7 +613,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    runs = []
+    runs, backends = [], {}
     for label, root in (("other", other), ("this", str(REPO)),
                         ("this", str(REPO)), ("other", other)):
         res = subprocess.run([sys.executable, __file__, "--time", root,
@@ -605,7 +623,12 @@ def main():
             sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
             raise SystemExit(f"{label} run at {root} failed "
                              f"(exit {res.returncode})")
-        runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append((label, rec["times"]))
+        backends = rec["sdpa backends"]
+    if backends:
+        print("the library's sdpa backend by site: " + ", ".join(
+            f"{site} {name}" for site, name in backends.items()), flush=True)
     # the kernels by name may differ between the checkouts
     names = list(dict.fromkeys(n for _, times in runs for n in times))
     for name in names:
@@ -621,8 +644,8 @@ def main():
     if args.json:
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"card": card, "runs": runs, "sums": sums},
-                                  indent=1))
+        out.write_text(json.dumps({"card": card, "runs": runs, "sums": sums,
+                                   "sdpa backends": backends}, indent=1))
 
 
 if __name__ == "__main__":

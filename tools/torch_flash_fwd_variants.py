@@ -2,10 +2,25 @@
 """Time edited copies of csrc/flash_attn_fwd_sm90.cu (the bf16 wgmma flash
 forward) against the checkout's own source on one CUDA card, at every
 bf16 forward shape at d <= 128 of the paths, beside the register kernel
-(csrc/flash_attn_fwd.cu) and the library's fused attention.
+(csrc/flash_attn_fwd.cu) and the library's fused attention; or, with
+--source flash_attn_fwd_wide_sm90, of the wide wgmma forward at every d
+512 shape of the paths (a clip's and an SVD clip's VAE attention) beside
+the column-split kernel it replaced (flash_fwd_wide_kernel) and the
+library.
 
     python3 tools/torch_flash_fwd_variants.py [--variant NAME OLD NEW ...]
         [--only svd,clip,gated,caption,step]
+        [--source flash_attn_fwd_sm90|flash_attn_fwd_wide_sm90]
+        [--preset expf|block_a_unit ...] [--check]
+
+The wide kernel's variants are edits of its constants (kWideBK; kSGroup)
+or of its code (S over the whole depth in each warpgroup, parts of the
+tile walk removed), and the edits named in WIDE_PRESETS (--preset NAME):
+"expf", the exponentials on expf in place of ex2.approx of one FFMA, and
+"block_a_unit", a grid of one block a (query block, key part) unit in
+place of at most one block an SM that deals the units among them in
+turn; --check holds each variant's output at each shape to the f64 plain
+version within 1.5x the bf16 plain version's error.
 
 Each variant is the checkout's source with every occurrence of the text
 OLD (at least one) replaced by NEW, e.g. another tile, ring depth or
@@ -40,6 +55,22 @@ from torch_flash_ab import (FLASH_CLIP, FLASH_OTHER, FLASH_STEP,  # noqa: E402
 from torch_flash_bwd_variants import build  # noqa: E402
 
 
+# Named edits of csrc/flash_attn_fwd_wide_sm90.cu: [(OLD, NEW)], each OLD
+# replaced wherever it occurs
+WIDE_PRESETS = {
+    "expf": [
+        ("alpha[r] = ex2_approx(", "alpha[r] = expf("),
+        ("const float x = ex2_approx(", "const float x = expf("),
+        ("w[q] = exp2f(", "w[q] = expf("),
+        ("p.scale_log2 = scale * 1.4426950408889634f;",
+         "p.scale_log2 = scale;"),
+    ],
+    "block_a_unit": [
+        ("kernel<<<(unsigned)grid,", "kernel<<<(unsigned)units,"),
+    ],
+}
+
+
 def shapes(only):
     """[(group, site, (B, H, Tq, Tk, D), lse, {path: launches})]."""
     out = []
@@ -49,7 +80,8 @@ def shapes(only):
     for site, shape, paths in FLASH_OTHER:
         group = ("svd" if site.startswith("svd") else "caption"
                  if site.startswith("blip2") else "gated")
-        out.append((group, site, shape, False, paths))
+        if shape[-1] <= 128:
+            out.append((group, site, shape, False, paths))
     for site, (b, h, tq, tk, d, _), bias, n, _ in FLASH_STEP:
         if bias is None:  # the prior's biased forward keeps the register kernel
             out.append(("step", site + " (lse)", (b, h, tq, tk, d), True,
@@ -77,18 +109,107 @@ def register_fwd(attn, q, k, v, lse):
     return out
 
 
+def wide_shapes(only):
+    """[(group, site, (B, H, Tq, Tk, D), {path: launches})] of the d 512
+    launches."""
+    out = [("clip", site, shape, {"clip": n})
+           for site, shape, n in FLASH_CLIP if shape[-1] > 128]
+    out += [("svd", site, shape, paths) for site, shape, paths in FLASH_OTHER
+            if shape[-1] > 128]
+    return [s for s in out if s[0] in only]
+
+
+def run_wide(args, sources):
+    """The wide wgmma kernel's variants in turns at each d 512 shape, beside
+    the column-split kernel and the library; per variant the kernels' own
+    device times under torch.profiler too."""
+    import torch
+    import torch.nn.functional as F
+    from neurons_tpu_torch.ops import attention as attn
+    from torch_flash_ab import kernel_ms
+
+    stem = "flash_attn_fwd_wide_sm90"
+    libs = build(sources, stem, r"flash_fwd_wide_\w+?_kernel\w*?")
+    libs = {name: attn._bind(lib, stem) for name, lib in libs.items()}
+    own = attn._library
+    gen = torch.Generator("cuda").manual_seed(0)
+    order = list(sources) + list(reversed(sources))
+    sums = {}
+    for group, site, (b, h, tq, tk, d), paths in wide_shapes(
+            set(args.only.split(","))):
+        q, k, v = (torch.randn((b, h, t, d), generator=gen,
+                               device="cuda").bfloat16()
+                   for t in (tq, tk, tk))
+        reps = 5 if tq * tk > 10_000_000 else 20
+        want = plain_err = None
+        if args.check:
+            want = attn.attention_reference(*(x.double() for x in (q, k, v)))
+            plain_err = (attn.attention_reference(q, k, v).double()
+                         - want).abs().max().item()
+        times = {}
+        try:
+            for turn, name in enumerate(order):
+                attn._library = (lambda lib: lambda n: lib if n == stem
+                                 else own(n))(libs[name])
+
+                def fn():
+                    return attn.flash_attention_fwd(q, k, v)
+
+                got = fn()
+                err = ""
+                if want is not None and turn < len(sources):
+                    e = (got.double() - want).abs().max().item()
+                    err = (f"; err {e:.3e} (plain {plain_err:.3e}, "
+                           f"{'OK' if e <= 1.5 * plain_err else 'FAIL'})")
+                ms = device_ms(fn, reps)
+                times.setdefault(name, []).append(ms)
+                per = (kernel_ms(fn, reps, "flash_fwd_")
+                       if turn < len(sources) else {})
+                print(f"{site:28s} [{b},{h},{tq},{tk},{d}] {name:10s} device "
+                      f"{ms:.4f} ms"
+                      + "".join(f"; {kn.split('<')[0]} {t:.4f}"
+                                for kn, t in per.items()) + err, flush=True)
+        finally:
+            attn._library = own
+        times["column split"] = [device_ms(
+            lambda: register_fwd(attn, q, k, v, False), reps)]
+        times["library"] = [device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), reps)]
+        print(f"{site:28s} flash_fwd_wide_kernel "
+              f"{times['column split'][0]:.4f} ms, library "
+              f"{times['library'][0]:.4f} ms", flush=True)
+        for name, ms in times.items():
+            for path, n in paths.items():
+                sums.setdefault(path, {}).setdefault(name, 0.0)
+                sums[path][name] += n * sum(ms) / len(ms) / 1e3
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    for path, by_name in sums.items():
+        print(f"{path}: s of d 512 launches x device time (mean of turns): "
+              + ", ".join(f"{name} {s:.4f}" for name, s in by_name.items()))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", nargs=3, action="append", default=[],
                     metavar=("NAME", "OLD", "NEW"))
-    ap.add_argument("--only", default="svd,clip,gated,caption,step")
+    ap.add_argument("--preset", action="append", default=[],
+                    choices=sorted(WIDE_PRESETS))
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--source", default="flash_attn_fwd_sm90",
+                    choices=["flash_attn_fwd_sm90", "flash_attn_fwd_wide_sm90"])
+    ap.add_argument("--check", action="store_true")
     args = ap.parse_args()
+    wide = args.source == "flash_attn_fwd_wide_sm90"
+    if args.only is None:
+        args.only = "clip,svd" if wide else "svd,clip,gated,caption,step"
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import attention as attn
     from neurons_tpu_torch.ops import cuda_build
 
-    base = (cuda_build.CSRC_DIR / "flash_attn_fwd_sm90.cu").read_text()
+    base = (cuda_build.CSRC_DIR / f"{args.source}.cu").read_text()
     sources = {"base": base}
     for name, old, new in args.variant:
         src = sources.get(name, base)
@@ -96,9 +217,19 @@ def main():
             raise SystemExit(f"{name}: the text to replace is not in the "
                              f"source")
         sources[name] = src.replace(old, new)
+    for name in args.preset:
+        src = base
+        for old, new in WIDE_PRESETS[name]:
+            if old not in src:
+                raise SystemExit(f"{name}: {old!r} is not in the source")
+            src = src.replace(old, new)
+        sources[name] = src
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
+    if wide:
+        cuda_build.build(["flash_attn_fwd"])
+        return run_wide(args, sources)
     libs = build(sources, "flash_attn_fwd_sm90",
                  r"flash_fwd_wgmma_kernelILi\d+ELi\d+ELb[01]")
     libs = {name: attn._bind(lib, "flash_attn_fwd_sm90")
