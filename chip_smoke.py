@@ -66,8 +66,11 @@ Phases, in order:
      DecoderVideo's sizes takes the bf16 wgmma kernels
      (csrc/flash_attn_bwd_sm90.cu, whose six instances' registers, spills,
      0 bytes required, and serialized products are logged after the
-     build), the prior's biased d 52 the register kernels; a rerun gives
-     equal bits. Every backward launch of the run is held to the kernels
+     build), the prior's biased d 52 the head-bias wgmma kernels
+     (csrc/flash_attn_fwd_bias_sm90.cu, csrc/flash_attn_bwd_bias_sm90.cu,
+     their nine instances logged the same way), and the register kernels
+     they replaced are held at the prior's shape through 108-byte rows; a
+     rerun gives equal bits. Every backward launch of the run is held to the kernels
      `attn.flash_bwd_route` names for its shape, as the forward's are;
   3. small check, unfused then fused: the tiny stage-3 pipeline (f32,
      attention sites of 256 and 1024 tokens, so the flash kernel runs) and
@@ -511,8 +514,9 @@ class FlashRoutes:
     """The flash forward's (or, `backward`, the backward's) launches by
     kernel over the run. `check` holds every launch the counter holds
     (since its last reset) to the kernels `flash_route` (`flash_bwd_route`)
-    names for the launch's shape key (every path's launches are on 16-byte
-    rows), so the launches by kernel are the counts from the code by shape,
+    names for the launch's shape key (every path's unbiased launches are on
+    16-byte rows; a biased one's variant says whether it has the prior's
+    head-bias layout), so the launches by kernel are the counts from the code by shape,
     mapped by the route function; it raises otherwise. `install` runs it at
     every reset of the counter."""
 
@@ -536,10 +540,11 @@ class FlashRoutes:
                        else ("forward", attn.flash_route))
         want = collections.Counter()
         for key, n in c.by_shape.items():
-            d, dt, variant = key[4], key[5], key[6]
+            tk, d, dt, variant = key[3], key[4], key[5], key[6]
             kw = {} if self.backward else {"lse": "lse" in variant}
             want[(route(d, getattr(torch, dt), biased="bias" in variant,
-                        **kw), key)] += n
+                        head_bias="headbias" in variant, tk=tk, **kw),
+                  key)] += n
         if want != c.by_route:
             off = {k: (n, want.get(k, 0)) for k, n in c.by_route.items()
                    if want.get(k, 0) != n}
@@ -592,6 +597,8 @@ def flash_source(rec):
             if rec["route"] == attn.WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd_wide_sm90.cu"
             if rec["route"] == attn.WIDE_WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_fwd_bias_sm90.cu"
+            if rec["route"] == attn.BIAS_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd.cu")
 
 
@@ -600,6 +607,8 @@ def flash_bwd_source(rec):
     from neurons_tpu_torch.ops import attention as attn
     return ("neurons_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
             if rec["route"] == attn.BWD_WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_bwd_bias_sm90.cu"
+            if rec["route"] == attn.BWD_BIAS_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_bwd.cu")
 
 
@@ -649,6 +658,90 @@ def column_split_check(name, qx, kx, vx, want, plain_err, rows):
                              f"or a rerun differs ({same})")
     del q, k, v, got
     return dict(max_abs_err=err, plain_err=plain_err, device_ms=dev_ms)
+
+
+def register_bias_check(name, q, k, v, bias, g, scale, want, plain_errs):
+    """The register kernels the head-bias wgmma kernels replaced on the
+    prior's launches (flash_fwd_reg_kernel with bias and lse;
+    flash_bwd_dkdv_reg_kernel, flash_bwd_dq_reg_kernel and
+    flash_bwd_dbias_reg_kernel), which no path launches any more: on q, k,
+    v, g copied into rows of 108 bytes (54 columns: 4-byte pieces, which
+    the head-bias route does not take), one forward and one backward, each
+    output within 1.5x the bf16 plain version's error against `want`, a
+    rerun bitwise; their launches are taken out of the counters again. Then
+    the bias's layout: the copy `_bias_slices` makes of a [H, Tq, Tk] view
+    with key stride H (the table's gather, as each flash launch got it
+    before the prior made its bias contiguous once). Returns the times."""
+    import collections
+    import torch
+    from neurons_tpu_torch.ops import attention as attn
+
+    def padded(x):
+        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + 2,), dtype=x.dtype,
+                          device=x.device)
+        buf[..., :x.shape[-1]] = x
+        return buf[..., :x.shape[-1]]
+
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    qp, kp, vp, gp = padded(q), padded(k), padded(v), padded(g)
+    counters = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_LAUNCHES)
+    saved = [(c.total, collections.Counter(c.by_shape),
+              collections.Counter(c.by_route)) for c in counters]
+    try:
+        out, lse = attn.flash_attention_fwd(qp, kp, vp, scale=scale,
+                                            bias=bias, return_lse=True)
+        grads = attn.flash_attention_bwd(qp, kp, vp, bias, gp, out, lse,
+                                         scale)
+        out2, lse2 = attn.flash_attention_fwd(qp, kp, vp, scale=scale,
+                                              bias=bias, return_lse=True)
+        again = attn.flash_attention_bwd(qp, kp, vp, bias, gp, out, lse,
+                                         scale)
+        torch.cuda.synchronize()
+        routes = [sorted({r for (r, _), n in c.by_route.items()
+                          if n > sv[2][(r, _)]}) for c, sv in
+                  zip(counters, saved)]
+        same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(grads, again)))
+        fwd_ms = device_ms(lambda: attn.flash_attention_fwd(
+            qp, kp, vp, scale=scale, bias=bias, return_lse=True), 3)
+        bwd_ms = device_ms(lambda: attn.flash_attention_bwd(
+            qp, kp, vp, bias, gp, out, lse, scale), 3)
+    finally:
+        for c, (total, by_shape, by_route) in zip(counters, saved):
+            c.total, c.by_shape, c.by_route = total, by_shape, by_route
+    errs = {n: (x.double() - want[n]).abs().max().item() for n, x in
+            zip(("out", "lse") + GRADS, (out, lse) + tuple(grads))}
+    ok = (routes == [["flash_fwd_reg_kernel"],
+                     ["flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel"]]
+          and same and all(errs[n] <= 1.5 * plain_errs[n] for n in errs))
+    log(f"train {name:14s} bfloat16 [{b},{h},{tq},{tk},{d}] the register "
+        f"kernels on 108-byte rows ({routes}, the backward with "
+        f"flash_bwd_dbias_reg_kernel): max_abs_err "
+        + " ".join(f"{n} {e:.3e} (plain {plain_errs[n]:.3e})"
+                   for n, e in errs.items())
+        + f"  device_ms forward {fwd_ms:.4f} backward {bwd_ms:.4f}  rerun "
+        f"bitwise {same}  {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the register kernels disagree at {name}: "
+                             f"{routes}, {errs}, rerun bitwise {same}")
+    # the bias layout: a view with key stride H costs a copy a launch
+    view = bias.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    assert view.stride(-1) == h and torch.equal(view, bias)
+    copy_ms = device_ms(lambda: attn._bias_slices(view, b, h, tq, tk,
+                                                  bias.dtype), 10)
+    none_ms = device_ms(lambda: attn._bias_slices(bias, b, h, tq, tk,
+                                                  bias.dtype), 10)
+    once_ms = device_ms(lambda: view.contiguous(), 10)
+    log(f"train {name:14s} bias layout: _bias_slices of a [{h},{tq},{tk}] "
+        f"view with key stride {h}: device_ms {copy_ms:.4f} a launch "
+        f"(contiguous: {none_ms:.4f}); 12 biased launches a stage-2 step "
+        f"copied {12 * copy_ms:.4f} ms, the prior's one contiguous copy a "
+        f"step costs {once_ms:.4f} ms")
+    del qp, kp, vp, gp, out, lse, grads, out2, lse2, again, view
+    return dict(register_fwd_device_ms=fwd_ms, register_bwd_device_ms=bwd_ms,
+                register_errs=errs, bias_copy_ms=copy_ms,
+                bias_copy_once_ms=once_ms)
 
 
 def flash_phase(checks=None):
@@ -913,6 +1006,7 @@ def train_kernel_phase(checks=None):
     versions at every stage-2 shape (or at `checks`, [(site, (B, H, Tq, Tk,
     D, kv heads), bias shape or None, dtype)]). Returns {(B, H, Tq, Tk, D,
     dtype, variant): record} for the forward and for the backward."""
+    import collections
     import torch
     import torch.nn.functional as F
     from neurons_tpu_torch.ops import attention as attn
@@ -934,6 +1028,8 @@ def train_kernel_phase(checks=None):
         scale = d ** -0.5
         torch.backends.cuda.matmul.allow_tf32 = False
         want = oracle_f64(q, k, v, bias, g, scale)
+        fwd_before = collections.Counter(attn.FLASH_FWD_LAUNCHES.by_route)
+        bwd_before = collections.Counter(attn.FLASH_BWD_LAUNCHES.by_route)
         out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
                                             return_lse=True)
         out2, lse2 = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
@@ -943,6 +1039,14 @@ def train_kernel_phase(checks=None):
         got = dict(zip(GRADS, attn.flash_attention_bwd(q, k, v, bias, g, out,
                                                        lse, scale)),
                    out=out, lse=lse)
+        # the launches' routes and keys (the variant says whether the bias
+        # has the prior's head-bias layout)
+        (fwd_route, fwd_key), = [
+            rk for rk, n in attn.FLASH_FWD_LAUNCHES.by_route.items()
+            if n > fwd_before[rk]]
+        (bwd_route, bwd_key), = [
+            rk for rk, n in attn.FLASH_BWD_LAUNCHES.by_route.items()
+            if n > bwd_before[rk]]
         again = attn.flash_attention_bwd(q, k, v, bias, g, out, lse, scale)
         bwd_rerun_same = all(torch.equal(a, got[n])
                              for a, n in zip(again, GRADS) if a is not None)
@@ -963,6 +1067,10 @@ def train_kernel_phase(checks=None):
             errs[n] = ((got[n].double() - want[n]).abs().max().item(),
                        (plain[n].double() - want[n]).abs().max().item(),
                        bool(torch.isfinite(got[n]).all()))
+        extra = {}
+        if bwd_route == attn.BWD_BIAS_WGMMA_ROUTE:
+            extra = register_bias_check(name, q, k, v, bias, g, scale, want,
+                                        {n: e[1] for n, e in errs.items()})
         del want, plain
         torch.cuda.empty_cache()
 
@@ -1018,11 +1126,18 @@ def train_kernel_phase(checks=None):
         tname = str(dt).split(".")[-1]
         err_s = " ".join(f"{n} {e:.3e} (plain {pe:.3e})"
                          for n, (e, pe, _) in errs.items())
-        fwd_route = attn.flash_route(d, dt, biased=bias is not None)
-        # a biased launch up to d 128 on the register kernels adds the
-        # dbias kernel for a shared slice
-        bwd_route = attn.flash_bwd_route(d, dt, biased=bias is not None)
-        if bwd_route == attn.BWD_WGMMA_ROUTE:
+        # (a biased launch up to d 128 on the register kernels adds the
+        # dbias kernel for a shared slice)
+        if bwd_route == attn.BWD_BIAS_WGMMA_ROUTE:
+            (_, bq, bk, *_), (_, _, _, smem1, _, groups, per_sm, _,
+                              smem2) = attn.bias_wgmma_plan(d)
+            grids = attn.bias_wgmma_grids(b, h, tq, tk)
+            tiles = (f"forward {bq}q x {bk}k blocks {grids[0]}; backward "
+                     f"pass 1 (dq, delta, dbias) blocks {grids[1]} smem "
+                     f"{smem1} B, pass 2 (dk/dv) blocks {grids[2]} in "
+                     f"clusters of {groups} head groups, {per_sm} an SM, "
+                     f"smem {smem2} B")
+        elif bwd_route == attn.BWD_WGMMA_ROUTE:
             rows1, rows2, bq, bk, *_, smem1, smem2 = attn.wgmma_bwd_plan(d)
             tiles = (f"blocks {rows1}k/{rows2}q, tiles {bq}q/{bk}k smem "
                      f"{smem1}/{smem2} B")
@@ -1047,19 +1162,18 @@ def train_kernel_phase(checks=None):
                                  f"{tname}: {errs}; forward rerun bitwise "
                                  f"{fwd_rerun_same}, backward "
                                  f"{bwd_rerun_same}")
-        key = (b, h, tq, tk, d, tname)
-        fwd_records[key + ("bias+lse" if bias is not None else "lse",)] = dict(
+        fwd_records[fwd_key] = dict(
             site=f"{name} (train)", max_abs_err=max(errs["out"][0],
                                                     errs["lse"][0]),
             ms=fwd_ms, device_ms=fwd_dev_ms, plain_ms=fwd_plain_ms,
             library_ms=fwd_lib_ms, bound_ms=fwd_bound, bound_by=fwd_by,
             exp_bound_ms=exp_bound_ms(b, h, tq, tk), route=fwd_route)
-        bwd_records[key + ("bias" if bias is not None else "",)] = dict(
+        bwd_records[bwd_key] = dict(
             site=f"{name} (train)",
             max_abs_err=max(errs[n][0] for n in GRADS if n in errs),
             ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=bwd_plain_ms,
             library_ms=bwd_lib_ms, library_bwd_ms=bwd_lib_only_ms,
-            bound_ms=bwd_bound, bound_by=bwd_by, route=bwd_route)
+            bound_ms=bwd_bound, bound_by=bwd_by, route=bwd_route, **extra)
         del q, k, v, g, bias, out, lse, got, kx, vx
         torch.cuda.empty_cache()
     return fwd_records, bwd_records
@@ -2578,12 +2692,12 @@ def profile_request(ctx, steady_s: float, fused: bool):
 # backward once
 STEP_LAUNCHES = {
     "flash_attn_fwd": {
-        (10, 32, 513, 514, 52, "bfloat16", "bias+lse"): 6,
+        (10, 32, 513, 514, 52, "bfloat16", "headbias+lse"): 6,
         (60, 1, 256, 256, 128, "bfloat16", "lse"): 12,
         (60, 1, 1024, 1024, 64, "bfloat16", "lse"): 8,
         (60, 1, 4096, 4096, 32, "bfloat16", "lse"): 8},
     "flash_attn_bwd": {
-        (10, 32, 513, 514, 52, "bfloat16", "bias"): 6,
+        (10, 32, 513, 514, 52, "bfloat16", "headbias"): 6,
         (60, 1, 256, 256, 128, "bfloat16", ""): 6,
         (60, 1, 1024, 1024, 64, "bfloat16", ""): 4,
         (60, 1, 4096, 4096, 32, "bfloat16", ""): 4},
@@ -2670,8 +2784,6 @@ def train_phase():
     counted run, the same of the fused steps, the counted run's result for
     `nccl_world1_phase`: its trained tensors, each tag's bytes and its last
     epoch's metrics)."""
-    import re
-
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neurons_tpu_torch import config
@@ -2800,16 +2912,17 @@ def train_phase():
     if not launches_ok:
         raise AssertionError(f"launches per step {per_step} differ from the "
                              f"count predicted from the code {STEP_LAUNCHES}")
-    # every DecoderVideo backward (bf16, unbiased) on the wgmma kernels
-    decoder = {(attn.BWD_WGMMA_ROUTE, key): n for key, n
-               in STEP_LAUNCHES["flash_attn_bwd"].items() if not key[6]}
-    off = [r for r in bwd_routes
-           if {k: n for k, n in r.items() if not k[1][6]} != decoder]
-    log(f"train steps: DecoderVideo backward launches by kernel a step "
+    # every DecoderVideo backward (bf16, unbiased) on the wgmma kernels,
+    # every prior's (its head bias) on the head-bias wgmma kernels
+    want_routes = {(attn.BWD_BIAS_WGMMA_ROUTE if key[6]
+                    else attn.BWD_WGMMA_ROUTE, key): n for key, n
+                   in STEP_LAUNCHES["flash_attn_bwd"].items()}
+    off = [r for r in bwd_routes if dict(r) != want_routes]
+    log(f"train steps: backward launches by kernel a step "
         f"{bwd_routes[-1]}")
     if off:
-        raise AssertionError(f"DecoderVideo backward launches off "
-                             f"{attn.BWD_WGMMA_ROUTE}: {off[0]}")
+        raise AssertionError(f"backward launches off the wgmma kernels: "
+                             f"{off[0]}")
     if not (losses[-1] < losses[0] and core_same
             and set(with_grad) <= set(moved) and len(moved) > 0):
         raise AssertionError("the full-width train steps fail their checks")
@@ -2824,10 +2937,12 @@ def train_phase():
                     **FLASH_BWD_SYMBOLS})
     bwd = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
     log(f"stage-2 step's flash backward kernels: {bwd}")
-    # the register kernels only for the prior's biased launches
+    # no register kernel: the DecoderVideo's on the wgmma kernels, the
+    # prior's on the head-bias ones
     if (not any("flash_bwd_dkdv_wgmma_kernel" in k for k in bwd)
-            or any(re.search(r"_reg_kernel<\d+, false>", k) for k in bwd)):
-        raise AssertionError(f"the bf16 step's DecoderVideo backward off the "
+            or not any("flash_bwd_dq_bias_wgmma_kernel" in k for k in bwd)
+            or any("_reg_kernel" in k for k in bwd)):
+        raise AssertionError(f"the bf16 step's flash backward off the "
                              f"wgmma kernels: {bwd}")
     del state, bundle, core0, train0, step
     torch.cuda.empty_cache()
@@ -5899,7 +6014,7 @@ def cli_kernel_checks(by_path, flash_records, temporal_records,
         for key in launches["flash_attn_bwd"]:
             b, h, tq, tk, d, dt, variant = key
             if key not in train_records[1]:
-                train[key[:6] + (variant == "bias",)] = path
+                train[key[:6] + ("bias" in variant,)] = path
         for key in launches["temporal_attn_fwd"]:
             if key not in temporal_records:
                 bf, d, c, f, h, dt = key
@@ -6332,11 +6447,15 @@ def two_rank_phase():
         same_grads = all(torch.equal(ranks[0][case]["grads"][n],
                                      ranks[1][case]["grads"][n])
                          for n in w["grads"])
+        # the flash forward with lse and the backward, unbiased and biased
+        # (the prior's "headbias" layout or another), and #7
         launched = case == "stage1" or all(
-            r[case]["launches"]["flash_attn_fwd"].get(v, 0) > 0
-            and r[case]["launches"]["flash_attn_bwd"].get(u, 0) > 0
+            sum(n for v, n in r[case]["launches"]["flash_attn_fwd"].items()
+                if "lse" in v and ("bias" in v) == biased) > 0
+            and sum(n for v, n in r[case]["launches"]["flash_attn_bwd"]
+                    .items() if ("bias" in v) == biased) > 0
             and r[case]["launches"]["gn_silu"].get("", 0) > 0
-            for r in ranks for v, u in (("lse", ""), ("bias+lse", "bias")))
+            for r in ranks for biased in (False, True))
         good = (same_loss and same_grads and launched and loss_err <= 1e-5
                 and max(errs) <= PARALLEL_GRAD_TOL)
         ok = ok and good
@@ -6884,6 +7003,44 @@ def wgmma_bwd_instances(ptxas, build_log=None):
     return out
 
 
+def head_bias_wgmma_instances(ptxas):
+    """The head-bias wgmma kernels' instances in the -Xptxas -v summary
+    (csrc/flash_attn_fwd_bias_sm90.cu and csrc/flash_attn_bwd_bias_sm90.cu:
+    the forward and the backward's two passes at DN 32, 56 and 64), logged
+    with their registers and spills, and whether ptxas serialized their
+    products (a C751x line in either build log); raises if one is missing,
+    spills, or was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_(fwd|bwd_dq|bwd_dkdv)_bias_wgmma_kernelILi(\d+)EE",
+                      f["function"])
+        if m:
+            out.append(dict(kernel=m.group(1), dn=int(m.group(2)),
+                            registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum(
+        "wgmma.mma_async instructions are serialized" in line
+        for name in ("flash_attn_fwd_bias_sm90", "flash_attn_bwd_bias_sm90")
+        for line in cuda_build.log_path(name).read_text().splitlines())
+    for i in sorted(out, key=lambda i: (i["kernel"], i["dn"])):
+        log(f"  head-bias wgmma {i['kernel']} DN {i['dn']}: "
+            f"{i['registers']} registers, spill stores {i['spill_stores']} "
+            f"B, loads {i['spill_loads']} B")
+    log(f"  head-bias wgmma instances with serialized products (ptxas "
+        f"C751x): {serialized}")
+    if sorted((i["kernel"], i["dn"]) for i in out) != [
+            (k, dn) for k in ("bwd_dkdv", "bwd_dq", "fwd")
+            for dn in (32, 56, 64)]:
+        raise AssertionError(f"the head-bias wgmma kernels' instances: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the head-bias wgmma kernels spill or were "
+                             f"serialized: {out}, C751x x {serialized}")
+    return out
+
+
 def wgmma_conv_instances(ptxas):
     """The wgmma conv kernel's instances in the -Xptxas -v summary (N
     tiles 16, 160, 256), logged with their registers and spills, and
@@ -6979,6 +7136,7 @@ def main():
     wgmma_instances(ptxas)
     wide_wgmma_kernels(ptxas)
     wgmma_bwd_instances(ptxas)
+    head_bias_wgmma_instances(ptxas)
     wgmma_conv_instances(ptxas)
     del libs
     done_at = {"build": time.perf_counter() - t_start}

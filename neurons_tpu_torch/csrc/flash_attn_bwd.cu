@@ -40,10 +40,11 @@
 // Design of the bf16 instances at D <= 128 (flash_bwd_dkdv_reg_kernel,
 // flash_bwd_dq_reg_kernel, flash_bwd_dbias_reg_kernel). The unbiased
 // launches at d 32, 64 and 128 on 16-byte rows (the DecoderVideo's) take
-// the wgmma kernels of flash_attn_bwd_sm90.cu; these keep the prior's
-// biased launches (d 52, its shared per-head slice adding the dbias
-// kernel), rows and strides off 16 bytes, and head dims no wgmma instance
-// serves. Every product is
+// the wgmma kernels of flash_attn_bwd_sm90.cu, the prior's biased bf16
+// launches those of flash_attn_bwd_bias_sm90.cu; these keep the other
+// biased launches (a slice shared by several rows adding the dbias
+// kernel), rows and strides off 16 (or, biased, 8) bytes, and head dims no
+// wgmma instance serves. Every product is
 // mma.sync m16n8k16 into f32 registers, and the elementwise steps between
 // products run on the C fragments in place, never through shared memory.
 //  * Pass 1, dK/dV: one block of 4 warps per (b, h) and 64 keys, 16 keys a

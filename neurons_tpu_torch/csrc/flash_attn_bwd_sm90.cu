@@ -19,9 +19,10 @@
 // per (b, h), which the caller sums over heads in f32 and casts. Every
 // unbiased bf16 backward of the
 // paths comes here: the stage-2 step's DecoderVideo attention, [60, 1, T,
-// T, D] at (T, D) = (256, 128), (1024, 64), (4096, 32). The register
-// kernels keep the prior's biased launches (d 52: a 104-byte row TMA cannot
-// address), rows off 16 bytes and the head dims no instance serves.
+// T, D] at (T, D) = (256, 128), (1024, 64), (4096, 32). The prior's
+// biased launches (d 52: a 104-byte row TMA cannot address) take
+// flash_attn_bwd_bias_sm90.cu; the register kernels keep the other biased
+// launches, rows off 16 bytes and the head dims no instance serves.
 //
 // What bounds it on an H100: 10 Tq Tk D operations a (b, h) (5 products;
 // the two passes below make 7) at 989 TFLOP/s, and 2 Tq Tk exponentials

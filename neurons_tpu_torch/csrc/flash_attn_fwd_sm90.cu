@@ -12,7 +12,8 @@
 // the output in bf16; the lse instance also writes the JAX log-sum-exp
 // m + log(max(l, 1e-30)) [B*H, Tq] f32 and takes the accurate expf, as the
 // register kernel's lse instance does. Every launch of the paths at d 32,
-// 40, 64, 80, 88 and 128 comes here; the register kernel keeps biased
+// 40, 64, 80, 88 and 128 comes here; the prior's biased launches take
+// flash_attn_fwd_bias_sm90.cu; the register kernel keeps the other biased
 // launches, rows or strides that are not 16-byte multiples (TMA cannot
 // address them) and d 56, 104 and 112 (no instance; no path launches them).
 //

@@ -221,6 +221,10 @@ class PriorTransformer(nn.Module):
         n = x.shape[1]
         if attn_bias is None:
             attn_bias = self.rel_pos_bias(n, n + 1)
+        # one copy with unit key stride for the layers' attention, instead of
+        # one in each flash launch (the table's gather is a [H, Tq, Tk] view
+        # whose key stride is H)
+        attn_bias = attn_bias.contiguous()
         for i in range(self.cfg.depth):
             x = getattr(self, f"attn_{i}")(x, attn_bias=attn_bias) + x
             x = getattr(self, f"ff_{i}")(x) + x

@@ -45,8 +45,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # incremented by flash_attention_fwd / flash_attention_bwd where they launch
 # their kernels, and nowhere else; keyed by (B, H, Tq, Tk, D, dtype,
 # variant): the forward's variant is "", "lse", "bias" or "bias+lse", the
-# backward's "" or "bias"; `by_route` also by the kernels of each launch
-# (`flash_route`, `flash_bwd_route`)
+# backward's "" or "bias", with "headbias" for "bias" where the launch has
+# the head-bias layout (`head_bias_layout`: the prior's); `by_route` also by
+# the kernels of each launch (`flash_route`, `flash_bwd_route`)
 FLASH_FWD_LAUNCHES = LaunchCounter()
 FLASH_BWD_LAUNCHES = LaunchCounter()
 
@@ -257,12 +258,29 @@ def _kv_strides(t, h):  # multi-query k/v: every head reads head 0
     return (t.stride(0), t.stride(1) if t.shape[1] == h else 0, t.stride(2))
 
 
+def head_bias_layout(bias3: torch.Tensor, mode: int, h: int, kv_heads: int,
+                     granule: int) -> bool:
+    """Whether a biased launch has the layout of the prior's, which the
+    head-bias wgmma kernels take (with bf16, d <= 64 and Tk <= 576:
+    `flash_route`): one bias slice a head shared over the batch (mode 2) over
+    multi-query k/v, rows, strides and pointers of q, k, v (and g) on 8
+    bytes, the bias rows on 4 (even strides, unit key stride, an aligned
+    pointer). Decided from shapes, strides and pointers only."""
+    return (mode == 2 and kv_heads == 1 and h > 1 and granule >= 8
+            and bias3.stride(0) % 2 == 0 and bias3.stride(1) % 2 == 0
+            and bias3.data_ptr() % 4 == 0)
+
+
 def _raise_on(err, lib_error, name, q, k):
     if err != 0:
         msg = lib_error(err).decode()
         raise RuntimeError(f"{name} failed at q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}: CUDA error {err} "
                            f"({msg})")
+
+
+def _bias_variant(head_bias: bool) -> str:
+    return "headbias" if head_bias else "bias"
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -278,7 +296,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte rows at d 32-128 csrc/flash_attn_fwd_sm90.cu (wgmma, TMA), and
     without the lse at 128 < d <= 512 csrc/flash_attn_fwd_wide_sm90.cu
     (wgmma, TMA; where `wide_wgmma_parts` splits the keys into parts, one
-    launch of the route is the kernel and its combine),
+    launch of the route is the kernel and its combine), bf16 with the
+    prior's head bias (`head_bias_layout`) at d <= 64, Tk <= 576
+    csrc/flash_attn_fwd_bias_sm90.cu (wgmma, 8-byte cp.async),
     the rest csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the same
     type; any strides over batch, head and token, unit stride over D). CPU
     tensors compute the plain version."""
@@ -295,15 +315,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = ((q.stride(0), q.stride(1), q.stride(2))
                + _kv_strides(k, h) + _kv_strides(v, h))
     bias_ptr, bias_strides, mode = None, (0, 0), 0
+    vec = _granule(d, q.element_size(), strides, (q, k, v))
+    head_bias = False
     if bias is not None:
         bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
-    vec = _granule(d, q.element_size(), strides, (q, k, v))
+        head_bias = head_bias_layout(bias3, mode, h, k.shape[1], vec)
     route = flash_route(d, q.dtype, biased=bias is not None,
                         aligned=vec == 16 and scale > 0 and _tma_strides(
                             strides, (b, h, tq) + (b, k.shape[1], tk) * 2,
                             q.element_size()),
-                        lse=return_lse)
+                        lse=return_lse, head_bias=head_bias, tk=tk)
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -334,6 +356,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(err, lib.flash_attn_fwd_wide_sm90_error_string,
                   "flash_attn_fwd_wide_sm90", q, k)
+    elif route == BIAS_WGMMA_ROUTE:
+        lib = _library("flash_attn_fwd_bias_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_fwd_bias_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                out.data_ptr(), lse_ptr, q.stride(0), q.stride(1),
+                q.stride(2), k.stride(0), k.stride(2), v.stride(0),
+                v.stride(2), *bias_strides, b, h, tq, tk, d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_fwd_bias_sm90_error_string,
+                  "flash_attn_fwd_bias_sm90", q, k)
     else:
         lib = _library("flash_attn_fwd")
         with cuda_build.on_device(q.device):
@@ -343,7 +376,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 tk, d, float(scale), _DTYPE_CODE[q.dtype], vec,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(err, lib.flash_attn_error_string, "flash_attn_fwd", q, k)
-    variant = "+".join(["bias"] * (bias is not None) + ["lse"] * return_lse)
+    variant = "+".join([_bias_variant(head_bias)] * (bias is not None)
+                       + ["lse"] * return_lse)
     FLASH_FWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
                             variant), route)
     return (out, lse) if return_lse else out
@@ -358,12 +392,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the kernels `flash_bwd_route` names: bf16 unbiased
     at d 32, 64 and 128 on 16-byte rows csrc/flash_attn_bwd_sm90.cu (wgmma,
-    TMA), the rest csrc/flash_attn_bwd.cu. For the register kernels delta =
-    sum(g * out) is taken here in f32, as the JAX package takes it outside
-    its kernel (the wgmma kernels take it in their dQ pass); the kernels
-    write dq in q's type, per-(b, h) dk/dv and dbias in f32 (the wgmma
-    kernels dk and dv in q's type unless k/v are multi-query), which are
-    summed and cast here. CPU tensors compute
+    TMA), bf16 with the prior's head bias (`head_bias_layout`) at d <= 64,
+    Tk <= 576 csrc/flash_attn_bwd_bias_sm90.cu (wgmma; dq, the head-summed
+    dk/dv and the batch-summed dbias written by the kernels in bf16), the
+    rest csrc/flash_attn_bwd.cu. For the register kernels delta = sum(g *
+    out) is taken here in f32, as the JAX package takes it outside its
+    kernel (the wgmma kernels take it in their dQ pass); the register
+    kernels write dq in q's type, per-(b, h) dk/dv and dbias in f32 (the
+    unbiased wgmma kernels dk and dv in q's type unless k/v are
+    multi-query), which are summed and cast here. CPU tensors compute
     `flash_attention_bwd_reference`."""
     _check_operands(q, k, v)
     if q.device.type == "cpu":
@@ -385,19 +422,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         bias3, mode = _bias_slices(bias, b, h, tq, tk, q.dtype)
         bias_ptr, bias_strides = bias3.data_ptr(), bias3.stride()[:2]
-        dbias = torch.empty(bias3.shape, dtype=torch.float32,
-                            device=q.device)
     vec = _granule(d, q.element_size(), strides, (q, k, v, g))
     hkv = k.shape[1]
+    head_bias = (bias is not None and out.dtype == q.dtype
+                 and out.data_ptr() % 8 == 0
+                 and head_bias_layout(bias3, mode, h, hkv, vec))
     route = flash_bwd_route(
         d, q.dtype, biased=bias is not None,
         aligned=(vec == 16 and scale > 0 and out.dtype == q.dtype
                  and out.data_ptr() % 16 == 0 and _tma_strides(
                      strides, (b, h, tq) + (b, hkv, tk) * 2 + (b, h, tq),
-                     q.element_size())))
+                     q.element_size())),
+        head_bias=head_bias, tk=tk)
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if route == BWD_WGMMA_ROUTE:
+    if route == BWD_BIAS_WGMMA_ROUTE:
+        dk, dv = (torch.empty((b, 1, tk, d), dtype=q.dtype, device=q.device)
+                  for _ in range(2))
+        dbias = torch.empty(bias3.shape, dtype=q.dtype, device=q.device)
+        lib = _library("flash_attn_bwd_bias_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_bwd_bias_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                out.data_ptr(), bias_ptr, lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                dbias.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(2), v.stride(0), v.stride(2),
+                g.stride(0), g.stride(1), g.stride(2), *bias_strides, b, h,
+                tq, tk, d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_bwd_bias_sm90_error_string,
+                  "flash_attn_bwd_bias_sm90", q, k)
+    elif route == BWD_WGMMA_ROUTE:
         kv_dtype = torch.float32 if hkv != h else q.dtype
         dk, dv = (torch.empty((b, h, tk, d), dtype=kv_dtype, device=q.device)
                   for _ in range(2))
@@ -415,6 +471,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.sum(g.float() * out.float(), -1, out=delta)
         dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32,
                               device=q.device) for _ in range(2))
+        if bias is not None:
+            dbias = torch.empty(bias3.shape, dtype=torch.float32,
+                                device=q.device)
         lib = _library("flash_attn_bwd")
         with cuda_build.on_device(q.device):
             err = lib.flash_attn_bwd(
@@ -428,8 +487,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _raise_on(err, lib.flash_attn_bwd_error_string, "flash_attn_bwd", q,
                   k)
     FLASH_BWD_LAUNCHES.add((b, h, tq, tk, d, str(q.dtype).split(".")[-1],
-                            "bias" if bias is not None else ""), route)
-    if k.shape[1] != h:  # multi-query: the shared row's gradient
+                            _bias_variant(head_bias) if bias is not None
+                            else ""), route)
+    if dk.shape[1] != hkv:  # multi-query: the shared row's gradient
         dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
     if dbias is not None:
         dbias = dbias.reshape(bias.shape).to(bias.dtype)
@@ -511,20 +571,25 @@ def wgmma_plan(d: int):
 
 @functools.lru_cache(maxsize=None)
 def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
-                aligned: bool = True, lse: bool = False) -> str:
+                aligned: bool = True, lse: bool = False,
+                head_bias: bool = False, tk: int = 0) -> str:
     """The forward's kernel for a launch at head dim d (by default an
     unbiased one without the lse whose rows, strides and pointers are
     16-byte multiples, as every inference launch of the paths is, with a
     positive scale): bf16 at the head dims `wgmma_blocks` serves the wgmma
     kernel (csrc/flash_attn_fwd_sm90.cu), and without the lse at 128 < d
     <= 512, d a multiple of 64, the wide wgmma kernel (csrc/
-    flash_attn_fwd_wide_sm90.cu); f32
+    flash_attn_fwd_wide_sm90.cu); bf16 biased with the prior's layout
+    (`head_bias`: `head_bias_layout`) at d <= 64 and 0 < tk <= 576 keys the
+    head-bias wgmma kernel (csrc/flash_attn_fwd_bias_sm90.cu); f32
     up to d = 128 the TF32 register kernel, up to 512 the TF32
     column-split one; the rest of bf16 up to 128 the register kernel
     (biased past d 96 the column-split one), up to 512 the column-split
     one (biased, with the lse, off TMA's alignment, or at a d between
     multiples of 64). The first design
     (`flash_fwd_kernel`) is left for d past 512 only."""
+    if takes_head_bias_kernels(d, dtype, biased, head_bias, tk):
+        return BIAS_WGMMA_ROUTE
     if dtype == torch.bfloat16 and not biased and aligned:
         if wgmma_blocks(d) is not None:
             return WGMMA_ROUTE
@@ -535,6 +600,81 @@ def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
     if dtype == torch.float32 and 128 < d <= 512:
         return FWD_ROUTES[5]
     return FWD_ROUTES[_tiles(d, dtype, "flash_attn_fwd")[0]]
+
+
+# The head-bias wgmma kernels (csrc/flash_attn_fwd_bias_sm90.cu,
+# csrc/flash_attn_bwd_bias_sm90.cu; the prior's biased multi-query
+# attention): one instance by DN, the N of the products over the head dim
+# (d rounded up to 8: 32 up to d 32, 56 up to 56, 64 up to 64), d a multiple
+# of 4 (8-byte rows); K/V (forward) and the dbias accumulator (backward)
+# whole in shared memory, so at most BIAS_WGMMA_MAX_TK keys. The forward: 3
+# warpgroups of 64 query rows a block (BIAS_WGMMA_BQ), key tiles of 64. The
+# backward: pass 1 (dQ, delta, dbias) a block of two warpgroups a (head, 64
+# queries); pass 2 (dK/dV) a block of one warpgroup a (batch row, 64 keys,
+# head group), BIAS_WGMMA_GROUPS head groups a cluster, BIAS_WGMMA_MIN_BLOCKS
+# blocks an SM. The card tests hold these to the library's own
+# (`bias_wgmma_plan`).
+BIAS_WGMMA_ROUTE = "flash_fwd_bias_wgmma_kernel"
+BWD_BIAS_WGMMA_ROUTE = ("flash_bwd_dq_bias_wgmma_kernel"
+                        "+flash_bwd_dkdv_bias_wgmma_kernel")
+BIAS_WGMMA_BQ, BIAS_WGMMA_BK, BIAS_WGMMA_MAX_TILES = 192, 64, 9
+BIAS_WGMMA_MAX_TK = BIAS_WGMMA_BK * BIAS_WGMMA_MAX_TILES
+BIAS_WGMMA_GROUPS, BIAS_WGMMA_MIN_BLOCKS = 4, 3
+
+
+def bias_wgmma_dn(d: int) -> int:
+    """DN of the head-bias wgmma instance serving head dim d; 0 where none
+    does (d past 64, or not a multiple of 4)."""
+    if d <= 0 or d > 64 or d % 4:
+        return 0
+    return 32 if d <= 32 else 56 if d <= 56 else 64
+
+
+def takes_head_bias_kernels(d: int, dtype: torch.dtype, biased: bool,
+                            head_bias: bool, tk: int) -> bool:
+    """Whether a launch takes the head-bias wgmma kernels (forward and
+    backward alike): bf16, biased with the prior's layout (`head_bias`), d
+    <= 64 a multiple of 4, 0 < tk <= BIAS_WGMMA_MAX_TK."""
+    return (dtype == torch.bfloat16 and biased and head_bias
+            and bias_wgmma_dn(d) > 0 and 0 < tk <= BIAS_WGMMA_MAX_TK)
+
+
+def bias_wgmma_grids(b: int, h: int, tq: int, tk: int):
+    """The head-bias kernels' grids at a shape: (the forward's blocks, the
+    backward's pass-1 blocks, its pass-2 blocks)."""
+    nq, nk = -(-tq // 64), -(-tk // 64)
+    return (-(-tq // BIAS_WGMMA_BQ) * b * h, h * nq,
+            b * nk * BIAS_WGMMA_GROUPS)
+
+
+def bias_wgmma_smem(d: int):
+    """The head-bias kernels' shared memory at head dim d, as their configs
+    lay it out: (the forward's, pass 1's, pass 2's) bytes, each with the
+    1024-byte alignment slack."""
+    dn, tile = bias_wgmma_dn(d), 64 * 128
+    fwd = (BIAS_WGMMA_BQ * 128 + 2 * BIAS_WGMMA_MAX_TILES * tile
+           + 8 * BIAS_WGMMA_MAX_TILES + 1024)
+    dq = BIAS_WGMMA_MAX_TILES * 32 * 128 * 4 + 8 * tile + dn // 2 * 512 + 1024
+    dkdv = 2 * tile + 4 * tile + 2 * 2 * 64 * 4 + 2 * 64 * 72 * 2 + 1024
+    return fwd, dq, dkdv
+
+
+def bias_wgmma_plan(d: int):
+    """The head-bias kernels' plans at head dim d as the libraries report
+    them: ((DN, query rows a block, keys a tile, the most key tiles, threads,
+    shared memory) of the forward, (DN, queries a pass-1 block, its threads,
+    its shared memory, keys a pass-2 block, head groups, blocks an SM, its
+    threads, its shared memory) of the backward); None where no instance
+    serves d."""
+    fwd = _library("flash_attn_fwd_bias_sm90")
+    bwd = _library("flash_attn_bwd_bias_sm90")
+    a = [ctypes.c_int() for _ in range(6)]
+    c = [ctypes.c_int() for _ in range(9)]
+    if not fwd.flash_attn_fwd_bias_sm90_plan(d, *map(ctypes.byref, a)):
+        return None
+    if not bwd.flash_attn_bwd_bias_sm90_plan(d, *map(ctypes.byref, c)):
+        return None
+    return tuple(x.value for x in a), tuple(x.value for x in c)
 
 
 # The wgmma kernel's instances by head dim: (BW, NB), NB column blocks of
@@ -642,18 +782,24 @@ def _tma_strides(strides, extents, esize) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def flash_bwd_route(d: int, dtype: torch.dtype, biased: bool = False,
-                    aligned: bool = True) -> str:
+                    aligned: bool = True, head_bias: bool = False,
+                    tk: int = 0) -> str:
     """The backward's kernels for a launch at head dim d (by default an
     unbiased one whose rows, strides and pointers are 16-byte multiples,
     with a positive scale), decided from shapes and strides only: bf16
     unbiased and aligned at d 32, 64 and 128 the wgmma kernels (csrc/
-    flash_attn_bwd_sm90.cu); the rest of bf16 up to d = 128 the register
+    flash_attn_bwd_sm90.cu); bf16 biased with the prior's layout
+    (`head_bias`: `head_bias_layout`) at d <= 64 and 0 < tk <= 576 keys the
+    head-bias wgmma kernels (csrc/flash_attn_bwd_bias_sm90.cu); the rest of
+    bf16 up to d = 128 the register
     kernels (a bias shared by several rows adds
     `flash_bwd_dbias_reg_kernel`); f32 up to d = 128 the TF32 register
     kernels (biased too, with `flash_bwd_dbias_tf32_kernel` for a shared
     slice), unbiased f32 at 128 < d <= 512 the TF32 column-split ones. The
     first design takes the rest: a biased f32 launch past 128 and d past
     512 (no path launches either)."""
+    if takes_head_bias_kernels(d, dtype, biased, head_bias, tk):
+        return BWD_BIAS_WGMMA_ROUTE
     if (dtype == torch.bfloat16 and not biased and aligned
             and d in WGMMA_BWD_DIMS):
         return BWD_WGMMA_ROUTE
@@ -705,6 +851,18 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """`lib` (a build of csrc/<name>.cu) with its C functions' types set."""
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]  # B..D, scale, dtype, vec, stream
+    if name in ("flash_attn_fwd_bias_sm90", "flash_attn_bwd_bias_sm90"):
+        fwd = name == "flash_attn_fwd_bias_sm90"
+        fn = getattr(lib, name)
+        fn.argtypes = ([ptr] * (6 if fwd else 12) + [i64] * (9 if fwd else 12)
+                       + [i32] * 5 + [ctypes.c_float, ptr])
+        fn.restype = i32
+        getattr(lib, f"{name}_error_string").argtypes = [i32]
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        plan = getattr(lib, f"{name}_plan")
+        plan.argtypes = [i32] + [ctypes.POINTER(i32)] * (6 if fwd else 9)
+        plan.restype = i32
+        return lib
     if name == "flash_attn_bwd_sm90":
         lib.flash_attn_bwd_sm90.argtypes = ([ptr] * 10 + [i64] * 12
                                             + [i32] * 6 + [ctypes.c_float, ptr])

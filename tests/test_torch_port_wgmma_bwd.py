@@ -77,7 +77,8 @@ def test_plan_fits_shared_memory_and_keeps_swizzle_alignment(d):
 
 
 # the stage-2 step's backward launches (chip_smoke.STEP_LAUNCHES): the
-# DecoderVideo's unbiased sites and the prior's biased d 52
+# DecoderVideo's unbiased sites and the prior's biased d 52 (the
+# head-bias kernels)
 STEP_BWD = [(60, 1, 256, 256, 128, False), (60, 1, 1024, 1024, 64, False),
             (60, 1, 4096, 4096, 32, False), (10, 32, 513, 514, 52, True)]
 
@@ -85,10 +86,13 @@ STEP_BWD = [(60, 1, 256, 256, 128, False), (60, 1, 1024, 1024, 64, False),
 @pytest.mark.parametrize("shape", STEP_BWD, ids=lambda s: "x".join(
     map(str, s[:5])) + ("_bias" if s[5] else ""))
 def test_routes_of_the_step_sites(shape):
-    *_, d, biased = shape
-    route = attn.flash_bwd_route(d, torch.bfloat16, biased=biased)
-    reg = "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel"
-    assert route == (reg if biased else attn.BWD_WGMMA_ROUTE)
+    *_, tk, d, biased = shape
+    # the prior's launch has the head-bias layout (attn.head_bias_layout):
+    # the head-bias wgmma kernels of csrc/flash_attn_bwd_bias_sm90.cu
+    route = attn.flash_bwd_route(d, torch.bfloat16, biased=biased,
+                                 head_bias=biased, tk=tk)
+    assert route == (attn.BWD_BIAS_WGMMA_ROUTE if biased
+                     else attn.BWD_WGMMA_ROUTE)
 
 
 def test_routes_off_the_wgmma_instances():

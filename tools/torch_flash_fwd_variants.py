@@ -83,7 +83,7 @@ def shapes(only):
         if shape[-1] <= 128:
             out.append((group, site, shape, False, paths))
     for site, (b, h, tq, tk, d, _), bias, n, _ in FLASH_STEP:
-        if bias is None:  # the prior's biased forward keeps the register kernel
+        if bias is None:  # the prior's biased forward has its own kernel
             out.append(("step", site + " (lse)", (b, h, tq, tk, d), True,
                         {"step": n}))
     return [s for s in out if s[0] in only]
