@@ -37,7 +37,11 @@ Phases, in order:
      kernel, csrc/flash_attn_fwd_wide_sm90.cu, its key parts' combine
      kernel where the plan splits the keys, its registers, spills and
      serialized products gated after the build; f32 up to d = 128: the TF32
-     register kernel, past it up to 512 the TF32 column-split kernels,
+     wgmma kernel, csrc/flash_attn_fwd_tf32_sm90.cu, whose 32 instances'
+     registers, spills and serialized products are gated after the build,
+     and the TF32 register kernel it replaced, held the same way on rows
+     off 16 bytes at the seg panels' shapes; past d 128 up to 512 the
+     TF32 column-split kernels,
      whose instances' registers and spills, 0 bytes required, are logged
      too), against an f32 reference; its error must be no worse than 1.5x
      the plain version's at the kernel's precision (bf16 operands; for
@@ -340,12 +344,12 @@ FLASH_SHAPES = [
     ("unet3d self 16x16 gated", (16, 8, 256, 256, 80)),
 ]
 # the f32 checks at two of the clip's shapes: the UNet's cross-attention on
-# the TF32 register kernel, the VAE's d = 512 over 4096 tokens on the TF32
+# the TF32 wgmma kernel, the VAE's d = 512 over 4096 tokens on the TF32
 # column-split one (no clip launches either in f32)
 F32_CHECKS = ["unet cross 48x48", "vae blurry 64x64"]
 # the VAE's d 512 shapes at which flash_fwd_wide_kernel, which the paths'
 # d 512 launches left for the wide wgmma kernel, is held to the plain
-# version all the same (`column_split_check`)
+# version all the same (`off_alignment_check`, rows of 1032 bytes)
 COLUMN_SPLIT_CHECKS = ["vae blurry 64x64", "vae keyframe 96x96"]
 # the stage-2 seg panels' launches (`make_stage2_seg_panel_fn`, min(4, B) =
 # 4 clips of 6 frames, f32 as the JAX package's panel runs, no grad): the
@@ -595,6 +599,8 @@ def flash_source(rec):
     from neurons_tpu_torch.ops import attention as attn
     return ("neurons_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
             if rec["route"] == attn.WGMMA_ROUTE else
+            "neurons_tpu_torch/csrc/flash_attn_fwd_tf32_sm90.cu"
+            if rec["route"] == attn.TF32_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd_wide_sm90.cu"
             if rec["route"] == attn.WIDE_WGMMA_ROUTE else
             "neurons_tpu_torch/csrc/flash_attn_fwd_bias_sm90.cu"
@@ -612,28 +618,36 @@ def flash_bwd_source(rec):
             "neurons_tpu_torch/csrc/flash_attn_bwd.cu")
 
 
-def column_split_check(name, qx, kx, vx, want, plain_err, rows):
-    """flash_fwd_wide_kernel (the bf16 column-split forward, which keeps
-    the biased, lse and unaligned launches) on qx, kx, vx copied into rows
-    of 1032 bytes (516 columns, a token stride TMA cannot take): one launch
-    on that route, within 1.5x the bf16 plain version's error against
-    `want` (on the first `rows` batch rows), a rerun bitwise. Its launches
-    are taken out of the forward's counter again, so that it counts the
-    paths' launches alone."""
+# the f32 shapes at which flash_fwd_tf32_kernel, which the paths' f32
+# launches at d <= 128 left for the TF32 wgmma kernel, is held to the plain
+# version all the same (`off_alignment_check`: its d 128, 64 and 32
+# instances)
+REGISTER_TF32_CHECKS = [name for name, _ in PANEL_SHAPES]
+
+
+def off_alignment_check(name, route, pad, qx, kx, vx, want, plain_err, rows):
+    """`route` (a forward kernel that the paths' launches left, kept for
+    views TMA cannot address: flash_fwd_wide_kernel for bf16 at d 512,
+    flash_fwd_tf32_kernel for f32 at d <= 128) on qx, kx, vx copied into
+    rows of d + `pad` elements: one launch on that route, within 1.5x the
+    plain version's error against `want` (on the first `rows` batch rows),
+    a rerun bitwise, its device time. Its launches are taken out of the
+    forward's counter again, so that it counts the paths' launches
+    alone."""
     import collections
     import torch
     from neurons_tpu_torch.ops import attention as attn
 
     def padded(x):
-        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + 4,), dtype=x.dtype,
+        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + pad,), dtype=x.dtype,
                           device=x.device)
         buf[..., :x.shape[-1]] = x
         return buf[..., :x.shape[-1]]
 
     b, h, tq, d = qx.shape
+    tname = str(qx.dtype).removeprefix("torch.")
     q, k, v = padded(qx), padded(kx), padded(vx)
-    route = "flash_fwd_wide_kernel"
-    key = (route, (b, h, tq, kx.shape[2], d, "bfloat16", ""))
+    key = (route, (b, h, tq, kx.shape[2], d, tname, ""))
     c = attn.FLASH_FWD_LAUNCHES
     saved = (c.total, collections.Counter(c.by_shape),
              collections.Counter(c.by_route))
@@ -648,10 +662,11 @@ def column_split_check(name, qx, kx, vx, want, plain_err, rows):
     err = (got[:rows].float() - want).abs().max().item()
     ok = (launched == 1 and same and bool(torch.isfinite(got).all())
           and err <= 1.5 * plain_err)
-    log(f"flash {name:20s} bfloat16 [{b},{h},{tq},{kx.shape[2]},{d}] "
-        f"{route} on 1032-byte rows (launches {launched})  max_abs_err "
-        f"{err:.3e} (plain {plain_err:.3e})  device_ms {dev_ms:.4f}  "
-        f"rerun bitwise {same}  {'OK' if ok else 'FAIL'}")
+    log(f"flash {name:20s} {tname:8s} [{b},{h},{tq},{kx.shape[2]},{d}] "
+        f"{route} on {(d + pad) * qx.element_size()}-byte rows (launches "
+        f"{launched})  max_abs_err {err:.3e} (plain {plain_err:.3e})  "
+        f"device_ms {dev_ms:.4f}  rerun bitwise {same}  "
+        f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{route} disagrees at {name}: {launched} "
                              f"launches, {err:.3e} > 1.5 x {plain_err:.3e} "
@@ -818,6 +833,10 @@ def flash_phase(checks=None):
         elif route == attn.WIDE_WGMMA_ROUTE:
             bq, bk, _, _, smem = attn.wide_wgmma_plan()
             parts = f" key parts {attn.wide_wgmma_parts(b, h, tq, tk)[0]}"
+        elif route == attn.TF32_WGMMA_ROUTE:
+            cons = attn.tf32_wgmma_consumers(b, h, tq, d)
+            bq, bk, _, _, _, smem, _ = attn.tf32_wgmma_plan(d, cons)
+            parts = f" consumers {cons}"
         else:
             bq, bk, smem = attn.flash_tiles(d, dt)
         exp_ms = exp_bound_ms(b, h, tq, tk)
@@ -849,7 +868,12 @@ def flash_phase(checks=None):
             exp_bound_ms=exp_ms, route=route)
         if dt == torch.bfloat16 and name in COLUMN_SPLIT_CHECKS:
             records[(b, h, tq, tk, d, tname, "")]["column_split"] = (
-                column_split_check(name, qx, kx, vx, want, plain_err, rows))
+                off_alignment_check(name, "flash_fwd_wide_kernel", 4, qx,
+                                    kx, vx, want, plain_err, rows))
+        if dt == torch.float32 and name in REGISTER_TF32_CHECKS:
+            records[(b, h, tq, tk, d, tname, "")]["register_tf32"] = (
+                off_alignment_check(name, "flash_fwd_tf32_kernel", 1, qx,
+                                    kx, vx, want, plain_err, rows))
         del q, k, v, want, got, plain, qx, kx, vx
     torch.cuda.empty_cache()
     return records
@@ -6041,7 +6065,7 @@ def cli_kernel_checks(by_path, flash_records, temporal_records,
 
 # ------------------------------------------------------ data-parallel ----
 
-PREFETCH_STEPS = 5        # full-width stage-2 steps a run of the feed A/B
+PREFETCH_STEPS = 4        # full-width stage-2 steps a run of the feed A/B
 PREFETCH_ROUNDS = 1       # rounds of 4 runs (2 a feed) of the feed A/B
 PARALLEL_TIMEOUT_S = 300  # each rank of `two_rank_phase`
 PARALLEL_GRAD_TOL = 1e-4  # error norm of the ranks' gradient, f32 on the card
@@ -6676,7 +6700,9 @@ def kernels_record(flash_records, temporal_records, train_records, by_shape,
                 "name": (f"{kernel}[{b}x{h}x{tq}x{tk}x{d} f32"
                          + (f" {variant}" if variant else "") + " f32 step]"),
                 "route": "cuda",
-                "source": f"neurons_tpu_torch/csrc/{kernel}.cu",
+                "source": (flash_bwd_source(rec) if bwd
+                           else flash_source(rec)),
+                "kernel": rec["route"],
                 "replaces": (("neurons_tpu/ops/attention.py:458" if variant
                               else "neurons_tpu/ops/attention.py:276") if bwd
                              else "neurons_tpu/ops/attention.py:185"
@@ -6794,7 +6820,7 @@ def kernel_totals(entries, groups, by_tpu_kernel=False):
 
 def f32_check_records(flash_records):
     """The f32 flash checks at two of the clip's shapes (F32_CHECKS: the
-    UNet's cross-attention on the TF32 register kernel, the VAE's d = 512
+    UNet's cross-attention on the TF32 wgmma kernel, the VAE's d = 512
     over 4096 tokens on the TF32 column-split one), which the clip does
     not launch in f32, recorded with their bound and library time. The f32
     route's main-path launches (stage 6, stage e, the seg panels at d <=
@@ -6810,8 +6836,8 @@ def f32_check_records(flash_records):
 
 
 def f32_route_totals(records, paths):
-    """The flash kernels' f32 route (the TF32 register forward and
-    backward at d <= 128, the TF32 column-split ones past it) over its
+    """The flash kernels' f32 route (the TF32 wgmma forward and the TF32
+    register backward at d <= 128, the TF32 column-split ones past it) over its
     paths, for one unit of each: `paths` is [(path, {shape key: launches},
     units the launches span)], the keys those of `records` (the forward's,
     or the backward's). Per path: launches and the sums of
@@ -6860,6 +6886,44 @@ def tf32_instances(ptxas):
     if len(out) != 12 or any(i["spill_stores"] or i["spill_loads"]
                              for i in out):
         raise AssertionError(f"the TF32 register kernel's instances: {out}")
+    return out
+
+
+def tf32_wgmma_instances(ptxas, build_log=None):
+    """The TF32 wgmma forward's instances in the -Xptxas -v summary (DN 8
+    .. 128 in steps of 8; one consumer warpgroup, and three up to DN 64,
+    two past it), logged with
+    their registers and spills, and whether ptxas serialized their
+    products (a C751x line in `build_log`, by default the source's nvcc
+    log); raises if one is missing, spills, or was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    if build_log is None:
+        build_log = cuda_build.log_path("flash_attn_fwd_tf32_sm90").read_text()
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_fwd_tf32_wgmma_kernelILi(\d+)ELi(\d+)EE",
+                      f["function"])
+        if m:
+            out.append(dict(dn=int(m.group(1)), cons=int(m.group(2)),
+                            registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum("wgmma.mma_async instructions are serialized" in line
+                     for line in build_log.splitlines())
+    for i in sorted(out, key=lambda i: (i["dn"], i["cons"])):
+        log(f"  tf32 wgmma instance DN {i['dn']} consumers {i['cons']}: "
+            f"{i['registers']} registers, spill stores {i['spill_stores']} "
+            f"B, loads {i['spill_loads']} B")
+    log(f"  tf32 wgmma instances with serialized products (ptxas C751x): "
+        f"{serialized}")
+    if sorted((i["dn"], i["cons"]) for i in out) != [
+            (dn, c) for dn in range(8, 129, 8)
+            for c in (1, 3 if dn <= 64 else 2)]:
+        raise AssertionError(f"the TF32 wgmma forward's instances: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the TF32 wgmma forward spills or was "
+                             f"serialized: {out}, C751x x {serialized}")
     return out
 
 
@@ -7131,6 +7195,7 @@ def main():
             f"registers, spill stores {f.get('spill_stores', 0)} B, loads "
             f"{f.get('spill_loads', 0)} B")
     tf32_instances(ptxas)
+    tf32_wgmma_instances(ptxas)
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
     wgmma_instances(ptxas)
@@ -7255,10 +7320,10 @@ def main():
     # epoch), the CLI's stage e a clip (its f32 launches but stage 6's), a
     # precompute batch of 16 frames (the bigG vision tower at d = 104) and
     # one validate run (its f32 UNet2D, UNet3D and SparseCtrl), on the TF32
-    # register kernel; past d 128 on the TF32 column-split kernels, a
+    # wgmma kernel; past d 128 on the TF32 column-split kernels, a
     # precompute batch (the VAE encoder at d = 512) and an autoencoder step
     # pair (the VAE's mid attention at d = 512: forwards, backwards); the
-    # f32 stage-2 step's forwards on the TF32 register kernel and its
+    # f32 stage-2 step's forwards on the TF32 wgmma kernel and its
     # backwards on the TF32 register backward
     from neurons_tpu_torch.ops.attention import BWD_ROUTES
     cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
@@ -7269,12 +7334,13 @@ def main():
         return {k: n for k, n in cli_by_path[path][kernel].items()
                 if k[5] == "float32" and (k[4] <= 128) == upto_128}
 
-    reg, wide = ["flash_fwd_tf32_kernel"], ["flash_fwd_wide_tf32_kernel"]
-    routes = {"scored clip": reg, "seg panel": reg, "cli stage e": reg,
-              "precompute batch": reg, "validate run": reg,
+    from neurons_tpu_torch.ops import attention as attn
+    tf32, wide = [attn.TF32_WGMMA_ROUTE], ["flash_fwd_wide_tf32_kernel"]
+    routes = {"scored clip": tf32, "seg panel": tf32, "cli stage e": tf32,
+              "precompute batch": tf32, "validate run": tf32,
               "precompute batch d 512": wide, "autoencoder step pair": wide,
               "autoencoder step pair, backward": [BWD_ROUTES[3]],
-              "f32 step": reg, "f32 step, backward": [BWD_ROUTES[4]]}
+              "f32 step": tf32, "f32 step, backward": [BWD_ROUTES[4]]}
     record["f32_route"] = f32_route_totals(
         {**flash_records, **train_records[0]},
         [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
@@ -7323,7 +7389,6 @@ def main():
                      + f" bound {t['bound_s']:.4f} plain {t['plain_s']:.4f} "
                      f"library {t['library_s']:.4f}"
                      for t in record["totals_by_tpu_kernel"]))
-    from neurons_tpu_torch.ops import attention as attn
     FLASH_ROUTES.check()
     FLASH_BWD_ROUTES.check()
     log(f"flash launches by kernel over the run (each launch on the kernels "
@@ -7332,6 +7397,7 @@ def main():
         f"{dict(FLASH_BWD_ROUTES.totals)}")
     for routes, name in ((FLASH_ROUTES, attn.WGMMA_ROUTE),
                          (FLASH_ROUTES, attn.WIDE_WGMMA_ROUTE),
+                         (FLASH_ROUTES, attn.TF32_WGMMA_ROUTE),
                          (FLASH_BWD_ROUTES, attn.BWD_WGMMA_ROUTE)):
         if not routes.totals[name]:
             raise AssertionError(f"no launch of {name}")

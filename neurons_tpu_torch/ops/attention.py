@@ -8,8 +8,9 @@ layout, and routes as the JAX package does:
   * without autograd (inference): unmasked, unbiased attention with
     Tq, Tk >= 128 goes to `flash_attention_fwd` (csrc/flash_attn_fwd.cu,
     and for bf16 on 16-byte rows at d 32-128 csrc/flash_attn_fwd_sm90.cu,
-    at 128 < d <= 512 csrc/flash_attn_fwd_wide_sm90.cu, replacing the
-    Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
+    at 128 < d <= 512 csrc/flash_attn_fwd_wide_sm90.cu, for f32 on
+    16-byte rows at 8 <= d <= 128 csrc/flash_attn_fwd_tf32_sm90.cu,
+    replacing the Pallas `_flash_kernel_smallkv` and `_flash_kernel`): the
     UNet2D/UNet3D self- and cross-attention, the DecoderVideo AttnBlock, the
     VAE mid-block attention. Biased attention (the prior's relative-position
     bias) stays on the plain path, as the JAX package keeps its inference
@@ -298,7 +299,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (wgmma, TMA; where `wide_wgmma_parts` splits the keys into parts, one
     launch of the route is the kernel and its combine), bf16 with the
     prior's head bias (`head_bias_layout`) at d <= 64, Tk <= 576
-    csrc/flash_attn_fwd_bias_sm90.cu (wgmma, 8-byte cp.async),
+    csrc/flash_attn_fwd_bias_sm90.cu (wgmma, 8-byte cp.async), f32 on
+    16-byte rows at 8 <= d <= 128, d % 4 == 0 (biased or not, with or
+    without the lse) csrc/flash_attn_fwd_tf32_sm90.cu (TF32 wgmma, TMA;
+    `tf32_wgmma_consumers` warpgroups a block by the shape),
     the rest csrc/flash_attn_fwd.cu (bf16 or f32, the bias in the same
     type; any strides over batch, head and token, unit stride over D). CPU
     tensors compute the plain version."""
@@ -367,6 +371,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(err, lib.flash_attn_fwd_bias_sm90_error_string,
                   "flash_attn_fwd_bias_sm90", q, k)
+    elif route == TF32_WGMMA_ROUTE:
+        lib = _library("flash_attn_fwd_tf32_sm90")
+        with cuda_build.on_device(q.device):
+            err = lib.flash_attn_fwd_tf32_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bias_ptr, lse_ptr, *strides, *bias_strides, mode, b, h,
+                k.shape[1], tq, tk, d, tf32_wgmma_consumers(b, h, tq, d),
+                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(err, lib.flash_attn_fwd_tf32_sm90_error_string,
+                  "flash_attn_fwd_tf32_sm90", q, k)
     else:
         lib = _library("flash_attn_fwd")
         with cuda_build.on_device(q.device):
@@ -529,11 +543,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, bias, float(scale))
 
 
-# the forward's kernels by the code `flash_attn_fwd_tiles` returns, and
-# the backward's (its dK/dV and dQ passes) by `flash_attn_bwd_tiles`'s
+# the forward's kernels by the code `flash_attn_fwd_tiles` returns (6, the
+# TF32 wgmma kernel of csrc/flash_attn_fwd_tf32_sm90.cu, by `flash_route`
+# alone), and the backward's (its dK/dV and dQ passes) by
+# `flash_attn_bwd_tiles`'s
 FWD_ROUTES = {1: "flash_fwd_kernel", 2: "flash_fwd_reg_kernel",
               3: "flash_fwd_wide_kernel", 4: "flash_fwd_tf32_kernel",
-              5: "flash_fwd_wide_tf32_kernel"}
+              5: "flash_fwd_wide_tf32_kernel",
+              6: "flash_fwd_tf32_wgmma_kernel"}
 BWD_ROUTES = {1: "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel",
               2: "flash_bwd_dkdv_reg_kernel+flash_bwd_dq_reg_kernel",
               3: ("flash_bwd_dkdv_wide_tf32_kernel"
@@ -581,8 +598,10 @@ def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
     <= 512, d a multiple of 64, the wide wgmma kernel (csrc/
     flash_attn_fwd_wide_sm90.cu); bf16 biased with the prior's layout
     (`head_bias`: `head_bias_layout`) at d <= 64 and 0 < tk <= 576 keys the
-    head-bias wgmma kernel (csrc/flash_attn_fwd_bias_sm90.cu); f32
-    up to d = 128 the TF32 register kernel, up to 512 the TF32
+    head-bias wgmma kernel (csrc/flash_attn_fwd_bias_sm90.cu); f32 at
+    8 <= d <= 128, d % 4 == 0 (biased or not, with or without the lse)
+    the TF32 wgmma kernel (csrc/flash_attn_fwd_tf32_sm90.cu), off TMA's
+    alignment or at d 4 the TF32 register kernel, up to 512 the TF32
     column-split one; the rest of bf16 up to 128 the register kernel
     (biased past d 96 the column-split one), up to 512 the column-split
     one (biased, with the lse, off TMA's alignment, or at a d between
@@ -595,6 +614,8 @@ def flash_route(d: int, dtype: torch.dtype, biased: bool = False,
             return WGMMA_ROUTE
         if not lse and 128 < d <= 512 and d % 64 == 0:
             return WIDE_WGMMA_ROUTE
+    if dtype == torch.float32 and aligned and tf32_wgmma_dn(d):
+        return TF32_WGMMA_ROUTE
     if dtype == torch.bfloat16 and 96 < d <= 512 and (biased or d > 128):
         return FWD_ROUTES[3]
     if dtype == torch.float32 and 128 < d <= 512:
@@ -711,6 +732,82 @@ def wgmma_tiles(d: int):
     bw, nb = wgmma_blocks(d)
     dk = bw * nb
     return (192 if dk <= 64 else 128), (128 if dk <= 80 else 64), 2
+
+
+# The TF32 wgmma kernel (csrc/flash_attn_fwd_tf32_sm90.cu: Tf32Cfg): one
+# instance by DN, the head dim rounded up to 8 (8 <= d <= 128, d % 4 ==
+# 0), and consumer warpgroups of 64 query rows (1, 2 or 3) a block; column
+# blocks of BW floats (8 up to DN 16, 16 up to 32, else 32: at most d, as
+# a TMA box must be); key tiles of 64 up to DN 64, else 32; a ring of 3
+# stages, 2 with one consumer at DN <= 64, whose blocks fit two an SM. One
+# consumer while its 64-row blocks fit TF32_WGMMA_WAVES waves of
+# TF32_WGMMA_SMS SMs at DN <= 64 (two blocks an SM), one wave past it (one
+# an SM); past that `tf32_wgmma_many(d)`: 3 at DN <= 64, 2 past it (O's
+# registers). The card tests hold these to the library's own
+# (`tf32_wgmma_plan`).
+TF32_WGMMA_ROUTE = "flash_fwd_tf32_wgmma_kernel"
+TF32_WGMMA_SMS, TF32_WGMMA_WAVES = 132, 2
+
+
+def tf32_wgmma_dn(d: int) -> int:
+    """DN of the TF32 wgmma instance serving head dim d (d rounded up to
+    8); 0 where none does (d below 8, past 128, off a multiple of 4)."""
+    if d < 8 or d > 128 or d % 4:
+        return 0
+    return -(-d // 8) * 8
+
+
+def tf32_wgmma_many(d: int) -> int:
+    """The TF32 wgmma kernel's consumers a block on large grids at head
+    dim d: 3 up to DN 64 (192 query rows, 128 registers a thread), else 2
+    (O's registers)."""
+    return 3 if tf32_wgmma_dn(d) <= 64 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_wgmma_consumers(b: int, h: int, tq: int, d: int) -> int:
+    """Consumer warpgroups a block of the TF32 wgmma kernel at a shape,
+    from the shape alone: 1 (64 query rows a block) while those blocks fit
+    TF32_WGMMA_WAVES waves of the SMs at d <= 64, where two share an SM,
+    or one wave past it; else `tf32_wgmma_many(d)` (one block an SM whose
+    warpgroups' products and exponentials overlap). Measured at every f32
+    shape of the paths with each count forced
+    (tools/torch_flash_fwd_variants.py --consumers, --preset cons2)."""
+    blocks = -(-tq // 64) * b * h
+    per_sm = 2 if tf32_wgmma_dn(d) <= 64 else 1
+    waves = TF32_WGMMA_WAVES if per_sm == 2 else 1
+    if blocks <= waves * per_sm * TF32_WGMMA_SMS:
+        return 1
+    return tf32_wgmma_many(d)
+
+
+def tf32_wgmma_tiles(d: int, cons: int):
+    """(BQ, BK, BW, NB, ring stages, shared-memory bytes, blocks an SM)
+    of the TF32 wgmma instance at head dim d with `cons` consumers
+    (Tf32Cfg)."""
+    dn = tf32_wgmma_dn(d)
+    if not dn or cons not in (1, tf32_wgmma_many(d)):
+        raise ValueError(f"no TF32 wgmma instance at head dim {d}, "
+                         f"{cons} consumers")
+    bw = 8 if dn <= 16 else 16 if dn <= 32 else 32
+    nb = -(-dn // bw)
+    bq, bk = 64 * cons, 64 if dn <= 64 else 32
+    pair = cons == 1 and dn <= 64
+    stages = 2 if pair else 3
+    smem = (bq * bw * nb * 4 + stages * 2 * bk * bw * nb * 4
+            + 8 * (1 + 3 * stages) + 1024)
+    return bq, bk, bw, nb, stages, smem, 2 if pair else 1
+
+
+def tf32_wgmma_plan(d: int, cons: int):
+    """`tf32_wgmma_tiles` as the library reports them; None where no
+    instance serves d."""
+    lib = _library("flash_attn_fwd_tf32_sm90")
+    out = [ctypes.c_int() for _ in range(7)]
+    if not lib.flash_attn_fwd_tf32_sm90_plan(d, cons,
+                                             *map(ctypes.byref, out)):
+        return None
+    return tuple(o.value for o in out)
 
 
 # The wide wgmma kernel (csrc/flash_attn_fwd_wide_sm90.cu: WideCfg): units
@@ -881,6 +978,17 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.flash_attn_fwd_wide_sm90_error_string.restype = ctypes.c_char_p
         lib.flash_attn_fwd_wide_sm90_plan.argtypes = [ctypes.POINTER(i32)] * 5
         lib.flash_attn_fwd_wide_sm90_plan.restype = None
+        return lib
+    if name == "flash_attn_fwd_tf32_sm90":
+        fn = lib.flash_attn_fwd_tf32_sm90
+        fn.argtypes = ([ptr] * 6 + [i64] * 11 + [i32] * 8
+                       + [ctypes.c_float, ptr])
+        fn.restype = i32
+        lib.flash_attn_fwd_tf32_sm90_error_string.argtypes = [i32]
+        lib.flash_attn_fwd_tf32_sm90_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_fwd_tf32_sm90_plan.argtypes = (
+            [i32, i32] + [ctypes.POINTER(i32)] * 7)
+        lib.flash_attn_fwd_tf32_sm90_plan.restype = i32
         return lib
     if name == "flash_attn_fwd_sm90":
         lib.flash_attn_fwd_sm90.argtypes = ([ptr] * 5 + [i64] * 9 + [i32] * 6

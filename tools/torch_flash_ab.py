@@ -17,11 +17,13 @@ stage-2 step's training sites (with lse, and the prior's bias); the
 forward's f32 (TF32) route ("f32") at every f32 shape of a path: stage 6's
 three classifier shapes, the DecoderVideo's three sizes of the seg panel
 (24 rows) and of the CLI's stage e (12 rows), the prior's f32 check
-(bias and lse), and past d 128 the VAE's d 512 in f32: the autoencoder
-step's [4, 1, 1024, 1024, 512] with lse (the generator step) and without
-(the discriminator step) and precompute's VAE encoder [16, 1, 784, 784,
-512]; the backward at the same four step sites (bf16, from the forward's
-out and lse, with a random output gradient) and ("bwd") at the
+(bias and lse), validate's three most launched shapes (the host's
+microseconds a call at three of these, the median of five runs), and
+past d 128 the VAE's d 512 in f32: the autoencoder step's [4, 1, 1024,
+1024, 512] with lse (the generator step) and without (the discriminator
+step) and precompute's VAE encoder [16, 1, 784, 784, 512]; the backward
+at the same four step sites (bf16, from the forward's out and lse, with
+a random output gradient) and ("bwd") at the
 autoencoder step's f32 d 512 and at the f32 stage-2 step's four sites
 (the prior's bias; the DecoderVideo's three sizes); #6 at the clip's four
 motion-module levels
@@ -123,7 +125,8 @@ FLASH_STEP = [
 # of the flash forward's f32 route: a scored clip (stage 6), a seg panel
 # and the stage e of a 2-clip CLI run (one DecoderVideo forward: 3 launches
 # at 16 x 16, 2 at 32 x 32, 2 at 64 x 64), the prior's f32 check (lse, one
-# a check); past d 128, an autoencoder step pair (the VAE's two mid
+# a check), a validate run's three most launched shapes (13375 of its
+# 16530 launches); past d 128, an autoencoder step pair (the VAE's two mid
 # attentions: with lse in the generator step, without in the
 # discriminator's) and precompute's VAE encoder (one a batch of 16 frames)
 FLASH_F32 = [
@@ -147,6 +150,12 @@ FLASH_F32 = [
      {"stage e": 2}),
     ("prior (train)", (10, 32, 513, 514, 52, 1), (32, 513, 514), True,
      {"prior check": 1}),
+    ("validate 2x20x256", (2, 20, 256, 256, 64, 20), None, False,
+     {"validate run": 12120}),
+    ("validate 2x10x1024", (2, 10, 1024, 1024, 64, 10), None, False,
+     {"validate run": 1010}),
+    ("validate 32x8x1024 d40", (32, 8, 1024, 1024, 40, 8), None, False,
+     {"validate run": 245}),
     ("vae d512 ae (lse)", (4, 1, 1024, 1024, 512, 1), None, True,
      {"ae step pair": 2}),
     ("vae d512 ae", (4, 1, 1024, 1024, 512, 1), None, False,
@@ -400,6 +409,10 @@ def time_here(root: str, only: str):
                 q, k, v, bias=bias, return_lse=lse)
             out[f"f32 {name}"] = cuda_ms(fn, reps)
             out[f"device f32 {name}"] = device_ms(fn, reps)
+            if name in ("vit-b frame", "validate 2x20x256",
+                        "decoder 32x32 panel"):  # the median of 5 runs
+                out[f"host us f32 {name}"] = sorted(
+                    host_us(fn, 200) for _ in range(5))[2]
             out[f"profiled f32 {name}"] = sum(
                 kernel_ms(fn, reps, "flash_fwd_").values())
         del q, k, v, bias
