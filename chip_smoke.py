@@ -73,8 +73,13 @@ Phases, in order:
      build), the prior's biased d 52 the head-bias wgmma kernels
      (csrc/flash_attn_fwd_bias_sm90.cu, csrc/flash_attn_bwd_bias_sm90.cu,
      their nine instances logged the same way), and the register kernels
-     they replaced are held at the prior's shape through 108-byte rows; a
-     rerun gives equal bits. Every backward launch of the run is held to the kernels
+     they replaced are held at the prior's shape through 108-byte rows; in
+     f32 all four shapes take the TF32 wgmma kernels
+     (csrc/flash_attn_bwd_tf32_sm90.cu: the unbiased pair at the
+     DecoderVideo's sizes, the prior's head-bias pair at d 52; their 48
+     instances' registers, spills and serialized products gated after the
+     build), and the TF32 register kernels they replaced are held the same
+     way on rows of d + 1 floats; a rerun gives equal bits. Every backward launch of the run is held to the kernels
      `attn.flash_bwd_route` names for its shape, as the forward's are;
   3. small check, unfused then fused: the tiny stage-3 pipeline (f32,
      attention sites of 256 and 1024 tokens, so the flash kernel runs) and
@@ -611,11 +616,8 @@ def flash_source(rec):
 def flash_bwd_source(rec):
     """The source of the kernels a flash backward record's launches took."""
     from neurons_tpu_torch.ops import attention as attn
-    return ("neurons_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
-            if rec["route"] == attn.BWD_WGMMA_ROUTE else
-            "neurons_tpu_torch/csrc/flash_attn_bwd_bias_sm90.cu"
-            if rec["route"] == attn.BWD_BIAS_WGMMA_ROUTE else
-            "neurons_tpu_torch/csrc/flash_attn_bwd.cu")
+    src = attn._WGMMA_BWD_SOURCES.get(rec["route"], "flash_attn_bwd")
+    return f"neurons_tpu_torch/csrc/{src}.cu"
 
 
 # the f32 shapes at which flash_fwd_tf32_kernel, which the paths' f32
@@ -623,6 +625,17 @@ def flash_bwd_source(rec):
 # version all the same (`off_alignment_check`: its d 128, 64 and 32
 # instances)
 REGISTER_TF32_CHECKS = [name for name, _ in PANEL_SHAPES]
+
+
+def padded(x, pad):
+    """x copied into rows of `pad` more elements than its last dim (the
+    first of each row are x's): a view whose rows, token strides and
+    pointers leave the 16-byte multiples TMA needs."""
+    import torch
+    buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + pad,), dtype=x.dtype,
+                      device=x.device)
+    buf[..., :x.shape[-1]] = x
+    return buf[..., :x.shape[-1]]
 
 
 def off_alignment_check(name, route, pad, qx, kx, vx, want, plain_err, rows):
@@ -638,15 +651,9 @@ def off_alignment_check(name, route, pad, qx, kx, vx, want, plain_err, rows):
     import torch
     from neurons_tpu_torch.ops import attention as attn
 
-    def padded(x):
-        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + pad,), dtype=x.dtype,
-                          device=x.device)
-        buf[..., :x.shape[-1]] = x
-        return buf[..., :x.shape[-1]]
-
     b, h, tq, d = qx.shape
     tname = str(qx.dtype).removeprefix("torch.")
-    q, k, v = padded(qx), padded(kx), padded(vx)
+    q, k, v = (padded(x, pad) for x in (qx, kx, vx))
     key = (route, (b, h, tq, kx.shape[2], d, tname, ""))
     c = attn.FLASH_FWD_LAUNCHES
     saved = (c.total, collections.Counter(c.by_shape),
@@ -691,15 +698,9 @@ def register_bias_check(name, q, k, v, bias, g, scale, want, plain_errs):
     import torch
     from neurons_tpu_torch.ops import attention as attn
 
-    def padded(x):
-        buf = torch.zeros(x.shape[:-1] + (x.shape[-1] + 2,), dtype=x.dtype,
-                          device=x.device)
-        buf[..., :x.shape[-1]] = x
-        return buf[..., :x.shape[-1]]
-
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    qp, kp, vp, gp = padded(q), padded(k), padded(v), padded(g)
+    qp, kp, vp, gp = (padded(x, 2) for x in (q, k, v, g))
     counters = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_LAUNCHES)
     saved = [(c.total, collections.Counter(c.by_shape),
               collections.Counter(c.by_route)) for c in counters]
@@ -757,6 +758,57 @@ def register_bias_check(name, q, k, v, bias, g, scale, want, plain_errs):
     return dict(register_fwd_device_ms=fwd_ms, register_bwd_device_ms=bwd_ms,
                 register_errs=errs, bias_copy_ms=copy_ms,
                 bias_copy_once_ms=once_ms)
+
+
+def register_tf32_bwd_check(name, q, k, v, bias, g, scale, out, lse, want,
+                            plain_errs):
+    """The TF32 register backward (flash_bwd_dkdv_tf32_kernel,
+    flash_bwd_dq_tf32_kernel and, for the prior's bias,
+    flash_bwd_dbias_tf32_kernel), which the f32 paths' launches left for
+    the TF32 wgmma kernels: on q, k, v, g copied into rows of d + 1 floats
+    (4-byte pieces, which TMA cannot address), one backward from the
+    forward's out and lse, each gradient within 1.5x the TF32 plain
+    version's error against `want`, a rerun bitwise, its device time; its
+    launches are taken out of the backward's counter again."""
+    import collections
+    import torch
+    from neurons_tpu_torch.ops import attention as attn
+
+    b, h, tq, d = q.shape
+    qp, kp, vp, gp = (padded(x, 1) for x in (q, k, v, g))
+    c = attn.FLASH_BWD_LAUNCHES
+    saved = (c.total, collections.Counter(c.by_shape),
+             collections.Counter(c.by_route))
+
+    def bwd():
+        return attn.flash_attention_bwd(qp, kp, vp, bias, gp, out, lse, scale)
+
+    try:
+        grads, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        routes = sorted({r for (r, key), n in c.by_route.items()
+                         if n > saved[2][(r, key)]})
+        same = all(torch.equal(x, y) for x, y in zip(grads, again)
+                   if x is not None)
+        bwd_ms = device_ms(bwd, 3)
+    finally:
+        c.total, c.by_shape, c.by_route = saved
+    errs = {n: (x.double() - want[n]).abs().max().item()
+            for n, x in zip(GRADS, grads) if x is not None}
+    ok = (routes == [attn.BWD_ROUTES[4]] and same
+          and all(errs[n] <= 1.5 * plain_errs[n] for n in errs))
+    log(f"train {name:14s} float32  [{b},{h},{tq},{k.shape[2]},{d}] the TF32 "
+        f"register backward on {4 * (d + 1)}-byte rows ({routes}"
+        + (", with flash_bwd_dbias_tf32_kernel" if bias is not None else "")
+        + "): max_abs_err " + " ".join(
+            f"{n} {e:.3e} (plain {plain_errs[n]:.3e})" for n, e in errs.items())
+        + f"  device_ms {bwd_ms:.4f}  rerun bitwise {same}  "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the TF32 register backward disagrees at "
+                             f"{name}: {routes}, {errs}, rerun bitwise {same}")
+    del qp, kp, vp, gp, grads, again
+    return dict(register_bwd_device_ms=bwd_ms, register_errs=errs)
 
 
 def flash_phase(checks=None):
@@ -1095,6 +1147,16 @@ def train_kernel_phase(checks=None):
         if bwd_route == attn.BWD_BIAS_WGMMA_ROUTE:
             extra = register_bias_check(name, q, k, v, bias, g, scale, want,
                                         {n: e[1] for n, e in errs.items()})
+        elif tf32 and name in TRAIN_F32_CHECKS:
+            # every f32 launch of the step on the TF32 wgmma kernels; the
+            # register kernels they replaced held on rows TMA cannot address
+            if bwd_route != (attn.TF32_BWD_WGMMA_ROUTE if bias is None
+                             else attn.TF32_BWD_BIAS_WGMMA_ROUTE):
+                raise AssertionError(f"the f32 backward at {name} took "
+                                     f"{bwd_route}")
+            extra = register_tf32_bwd_check(
+                name, q, k, v, bias, g, scale, out, lse, want,
+                {n: errs[n][1] for n in GRADS if n in errs})
         del want, plain
         torch.cuda.empty_cache()
 
@@ -1165,6 +1227,19 @@ def train_kernel_phase(checks=None):
             rows1, rows2, bq, bk, *_, smem1, smem2 = attn.wgmma_bwd_plan(d)
             tiles = (f"blocks {rows1}k/{rows2}q, tiles {bq}q/{bk}k smem "
                      f"{smem1}/{smem2} B")
+        elif bwd_route == attn.TF32_BWD_WGMMA_ROUTE:
+            (rows_q, bk, _, smem_q, rows_kv, bq, _, smem_kv, _,
+             _) = attn.tf32_wgmma_bwd_plan(d)
+            tiles = (f"blocks {rows_kv}k/{rows_q}q, tiles {bq}q/{bk}k smem "
+                     f"{smem_kv}/{smem_q} B")
+        elif bwd_route == attn.TF32_BWD_BIAS_WGMMA_ROUTE:
+            _, bk, _, smem1, groups, bq, _, smem2 = (
+                attn.tf32_bias_wgmma_bwd_plan(d, tk))
+            tiles = (f"dQ pass (dq, delta, dbias) blocks {h * -(-tq // 64)} "
+                     f"of 64 queries, {bk}-key tiles, smem {smem1} B; dK/dV "
+                     f"pass blocks {b * -(-tk // 64) * groups} in clusters "
+                     f"of {groups} head groups, {bq}-query tiles, smem "
+                     f"{smem2} B")
         else:
             bq, bk, smem = attn.flash_tiles(d, dt, "flash_attn_bwd")
             tiles = f"tiles {bq}x{bk} smem {smem} B"
@@ -2734,8 +2809,16 @@ STEP_LAUNCHES_F32 = {
     kernel: {key[:5] + ("float32",) + key[6:]: n for key, n in shapes.items()}
     for kernel, shapes in STEP_LAUNCHES.items()}
 F32_STEPS = 2  # timed fixed-batch f32 steps, after one warm-up step
-# the first design's kernels, which no f32 launch at d <= 128 may reach
+# the first design's kernels, which no f32 launch at d <= 128 may reach,
+# the TF32 register kernels, which no f32 launch of the step reaches, and
+# the TF32 wgmma kernels it takes (the DecoderVideo's, the prior's)
 FIRST_DESIGN_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+REGISTER_TF32_BWD = ("flash_bwd_dkdv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+                     "flash_bwd_dbias_tf32_kernel")
+TF32_WGMMA_BWD = ("flash_bwd_dq_tf32_wgmma_kernel",
+                  "flash_bwd_dkdv_tf32_wgmma_kernel",
+                  "flash_bwd_dq_bias_tf32_wgmma_kernel",
+                  "flash_bwd_dkdv_bias_tf32_wgmma_kernel")
 
 
 def stage2_batch(pcfg, gcfg, tcfg, gen):
@@ -3052,8 +3135,9 @@ def train_f32_phase():
     `make_stage2_train_step`, each held to the launches counted from the
     code (STEP_LAUNCHES_F32), the loss falling and the core bitwise
     unchanged; ms a step and peak memory; then one profiled step, whose
-    flash backward must be the TF32 register kernels (no kernel of the
-    first design). Returns {kernel: launches by shape} of the 1 +
+    flash backward must be the TF32 wgmma kernels (csrc/
+    flash_attn_bwd_tf32_sm90.cu; neither the TF32 register kernels nor the
+    first design's). Returns {kernel: launches by shape} of the 1 +
     F32_STEPS steps."""
     import collections
 
@@ -3131,9 +3215,14 @@ def train_f32_phase():
                    {"flash forward": FLASH_FWD_SYMBOLS, **FLASH_BWD_SYMBOLS})
     bwd = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
     log(f"f32 step's flash backward kernels: {bwd}")
-    if any(name in key for key in bwd for name in FIRST_DESIGN_BWD):
-        raise AssertionError(f"the f32 step reached the first design's "
-                             f"backward: {bwd}")
+    if any(name in key for key in bwd for name in FIRST_DESIGN_BWD
+           + REGISTER_TF32_BWD):
+        raise AssertionError(f"the f32 step reached the first design's or "
+                             f"the TF32 register backward: {bwd}")
+    if bwd and not all(any(name in key for key in bwd)
+                       for name in TF32_WGMMA_BWD):
+        raise AssertionError(f"the f32 step's backward is not the TF32 "
+                             f"wgmma kernels: {bwd}")
     del state, bundle, step, core0, draws, batch
     torch.cuda.empty_cache()
     return {k: dict(v) for k, v in by_shape.items()}
@@ -6969,6 +7058,44 @@ def tf32_bwd_instances(ptxas):
     return out
 
 
+def tf32_wgmma_bwd_instances(ptxas, build_log=None):
+    """The TF32 wgmma backward's instances in the -Xptxas -v summary
+    (csrc/flash_attn_bwd_tf32_sm90.cu: the dQ and dK/dV passes at DN 8 ..
+    128, the prior's head-bias pair at DN 8 .. 64), logged with their
+    registers and spills, and whether ptxas serialized their products (a
+    C751x line in `build_log`, by default the source's nvcc log); raises if
+    one is missing, spills, or was serialized."""
+    import re
+    from neurons_tpu_torch.ops import cuda_build
+    if build_log is None:
+        build_log = cuda_build.log_path("flash_attn_bwd_tf32_sm90").read_text()
+    out = []
+    for f in ptxas:
+        m = re.search(r"flash_bwd_(dq|dkdv)(_bias)?_tf32_wgmma_kernelILi(\d+)E",
+                      f["function"])
+        if m:
+            out.append(dict(kernel=m.group(1) + (m.group(2) or ""),
+                            dn=int(m.group(3)), registers=f["registers"],
+                            spill_stores=f.get("spill_stores", 0),
+                            spill_loads=f.get("spill_loads", 0)))
+    serialized = sum(bool(re.search(r"\(C751\d\)", line))
+                     for line in build_log.splitlines())
+    for i in sorted(out, key=lambda i: (i["kernel"], i["dn"])):
+        log(f"  tf32 wgmma backward {i['kernel']} DN {i['dn']}: "
+            f"{i['registers']} registers, spill stores {i['spill_stores']} "
+            f"B, loads {i['spill_loads']} B")
+    log(f"  tf32 wgmma backward: ptxas C751x lines {serialized}")
+    want = sorted([(k, dn) for k in ("dkdv", "dq") for dn in range(8, 129, 8)]
+                  + [(k, dn) for k in ("dkdv_bias", "dq_bias")
+                     for dn in range(8, 65, 8)])
+    if sorted((i["kernel"], i["dn"]) for i in out) != want:
+        raise AssertionError(f"the TF32 wgmma backward's instances: {out}")
+    if serialized or any(i["spill_stores"] or i["spill_loads"] for i in out):
+        raise AssertionError(f"the TF32 wgmma backward spills or was "
+                             f"serialized: {out}, C751x x {serialized}")
+    return out
+
+
 def wgmma_instances(ptxas):
     """The wgmma forward's instances in the -Xptxas -v summary (six column
     blocks by head dim, with and without lse), logged with their registers
@@ -7198,6 +7325,7 @@ def main():
     tf32_wgmma_instances(ptxas)
     wide_tf32_kernels(ptxas)
     tf32_bwd_instances(ptxas)
+    tf32_wgmma_bwd_instances(ptxas)
     wgmma_instances(ptxas)
     wide_wgmma_kernels(ptxas)
     wgmma_bwd_instances(ptxas)
@@ -7324,7 +7452,7 @@ def main():
     # precompute batch (the VAE encoder at d = 512) and an autoencoder step
     # pair (the VAE's mid attention at d = 512: forwards, backwards); the
     # f32 stage-2 step's forwards on the TF32 wgmma kernel and its
-    # backwards on the TF32 register backward
+    # backwards on the TF32 wgmma backward (unbiased and the prior's)
     from neurons_tpu_torch.ops.attention import BWD_ROUTES
     cli_fwd = cli_by_path["cli pipeline 35e6"]["flash_attn_fwd"]
     stage6 = scored_clip_launches(CLI_FRAMES)
@@ -7340,7 +7468,8 @@ def main():
               "precompute batch": tf32, "validate run": tf32,
               "precompute batch d 512": wide, "autoencoder step pair": wide,
               "autoencoder step pair, backward": [BWD_ROUTES[3]],
-              "f32 step": tf32, "f32 step, backward": [BWD_ROUTES[4]]}
+              "f32 step": tf32, "f32 step, backward": sorted([
+                  attn.TF32_BWD_WGMMA_ROUTE, attn.TF32_BWD_BIAS_WGMMA_ROUTE])}
     record["f32_route"] = f32_route_totals(
         {**flash_records, **train_records[0]},
         [("scored clip", stage46_by_path["scored clip"], runs["scored clip"]),
@@ -7398,7 +7527,9 @@ def main():
     for routes, name in ((FLASH_ROUTES, attn.WGMMA_ROUTE),
                          (FLASH_ROUTES, attn.WIDE_WGMMA_ROUTE),
                          (FLASH_ROUTES, attn.TF32_WGMMA_ROUTE),
-                         (FLASH_BWD_ROUTES, attn.BWD_WGMMA_ROUTE)):
+                         (FLASH_BWD_ROUTES, attn.BWD_WGMMA_ROUTE),
+                         (FLASH_BWD_ROUTES, attn.TF32_BWD_WGMMA_ROUTE),
+                         (FLASH_BWD_ROUTES, attn.TF32_BWD_BIAS_WGMMA_ROUTE)):
         if not routes.totals[name]:
             raise AssertionError(f"no launch of {name}")
     # every d 512 launch of the paths (bf16 inference, f32 on TF32) is off

@@ -123,10 +123,10 @@
 //
 // The f32 (TF32) instances at D <= 128, with and without a bias
 // (flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel,
-// flash_bwd_dbias_tf32_kernel) carry stage 2's f32 step (the prior's
-// [10, 32, 513, 514, 52] with its per-head bias over multi-query k/v, the
-// DecoderVideo's [60, 1, T, T, D] at d = 128, 64 and 32), the tiny f32 CLI
-// chain and the f32 card checks. They are the bf16 register design above on
+// flash_bwd_dbias_tf32_kernel) take the f32 launches that
+// flash_attn_bwd_tf32_sm90.cu (TF32 wgmma, TMA; stage 2's f32 step and the
+// tiny f32 CLI chain) leaves: rows, strides or pointers off 16 bytes, d 4,
+// and bias layouts other than the prior's. They are the bf16 register design above on
 // mma.sync m16n8k8 with .tf32 operands, under the TF32 contract of the
 // column-split instances: Q, K, V, g rounded by cvt.rna once a tile in
 // shared memory (each thread its own copies after its cp.async wait), P

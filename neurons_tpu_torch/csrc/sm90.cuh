@@ -2,7 +2,7 @@
 // that run on them (flash_attn_fwd_sm90.cu, flash_attn_fwd_wide_sm90.cu,
 // flash_attn_bwd_sm90.cu, flash_attn_fwd_bias_sm90.cu,
 // flash_attn_bwd_bias_sm90.cu, gn_silu_conv_sm90.cu,
-// flash_attn_fwd_tf32_sm90.cu): mbarriers with their
+// flash_attn_fwd_tf32_sm90.cu, flash_attn_bwd_tf32_sm90.cu): mbarriers with their
 // phase waits, TMA tile loads (cp.async.bulk.tensor) that complete on an
 // mbarrier and the host's tensor-map encoder, warpgroup matrix products
 // (wgmma.mma_async) with their shared-memory descriptors, fence / commit /
@@ -815,6 +815,19 @@ struct WgmmaTf32<32> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
+  }
+  // rs with d written only (pass zero = 0), as ss0
+  static __device__ __forceinline__ void rs0(float* d, const uint32_t* a,
+                                             uint64_t db, int zero) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+          "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
   }
 };
 

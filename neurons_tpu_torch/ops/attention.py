@@ -408,8 +408,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at d 32, 64 and 128 on 16-byte rows csrc/flash_attn_bwd_sm90.cu (wgmma,
     TMA), bf16 with the prior's head bias (`head_bias_layout`) at d <= 64,
     Tk <= 576 csrc/flash_attn_bwd_bias_sm90.cu (wgmma; dq, the head-summed
-    dk/dv and the batch-summed dbias written by the kernels in bf16), the
-    rest csrc/flash_attn_bwd.cu. For the register kernels delta = sum(g *
+    dk/dv and the batch-summed dbias written by the kernels in bf16), f32
+    on 16-byte rows at 8 <= d <= 128 (d % 4 == 0) unbiased, or with the
+    prior's head bias at d <= 64 and Tk <= 576,
+    csrc/flash_attn_bwd_tf32_sm90.cu (TF32 wgmma, TMA; the outputs of the
+    bf16 wgmma kernels, in f32), the rest csrc/flash_attn_bwd.cu. For the
+    register kernels delta = sum(g *
     out) is taken here in f32, as the JAX package takes it outside its
     kernel (the wgmma kernels take it in their dQ pass); the register
     kernels write dq in q's type, per-(b, h) dk/dv and dbias in f32 (the
@@ -450,13 +454,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         head_bias=head_bias, tk=tk)
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if route == BWD_BIAS_WGMMA_ROUTE:
+    if route in (BWD_BIAS_WGMMA_ROUTE, TF32_BWD_BIAS_WGMMA_ROUTE):
+        # the bf16 or the TF32 head-bias kernels (one C signature)
         dk, dv = (torch.empty((b, 1, tk, d), dtype=q.dtype, device=q.device)
                   for _ in range(2))
         dbias = torch.empty(bias3.shape, dtype=q.dtype, device=q.device)
-        lib = _library("flash_attn_bwd_bias_sm90")
+        src = _WGMMA_BWD_SOURCES[route]
+        name = ("flash_attn_bwd_bias_sm90" if route == BWD_BIAS_WGMMA_ROUTE
+                else "flash_attn_bwd_bias_tf32_sm90")
+        lib = _library(src)
         with cuda_build.on_device(q.device):
-            err = lib.flash_attn_bwd_bias_sm90(
+            err = getattr(lib, name)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 out.data_ptr(), bias_ptr, lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -465,22 +473,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 g.stride(0), g.stride(1), g.stride(2), *bias_strides, b, h,
                 tq, tk, d, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
-        _raise_on(err, lib.flash_attn_bwd_bias_sm90_error_string,
-                  "flash_attn_bwd_bias_sm90", q, k)
-    elif route == BWD_WGMMA_ROUTE:
+        _raise_on(err, getattr(lib, f"{src}_error_string"), name, q, k)
+    elif route in (BWD_WGMMA_ROUTE, TF32_BWD_WGMMA_ROUTE):
+        # the bf16 or the TF32 unbiased kernels (one C signature)
         kv_dtype = torch.float32 if hkv != h else q.dtype
         dk, dv = (torch.empty((b, h, tk, d), dtype=kv_dtype, device=q.device)
                   for _ in range(2))
-        lib = _library("flash_attn_bwd_sm90")
+        name = _WGMMA_BWD_SOURCES[route]
+        lib = _library(name)
         with cuda_build.on_device(q.device):
-            err = lib.flash_attn_bwd_sm90(
+            err = getattr(lib, name)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
                 b, h, hkv, tq, tk, d, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
-        _raise_on(err, lib.flash_attn_bwd_sm90_error_string,
-                  "flash_attn_bwd_sm90", q, k)
+        _raise_on(err, getattr(lib, f"{name}_error_string"), name, q, k)
     else:
         torch.sum(g.float() * out.float(), -1, out=delta)
         dk, dv = (torch.empty((b, h, tk, d), dtype=torch.float32,
@@ -789,8 +797,7 @@ def tf32_wgmma_tiles(d: int, cons: int):
     if not dn or cons not in (1, tf32_wgmma_many(d)):
         raise ValueError(f"no TF32 wgmma instance at head dim {d}, "
                          f"{cons} consumers")
-    bw = 8 if dn <= 16 else 16 if dn <= 32 else 32
-    nb = -(-dn // bw)
+    bw, nb = _tf32_columns(dn)
     bq, bk = 64 * cons, 64 if dn <= 64 else 32
     pair = cons == 1 and dn <= 64
     stages = 2 if pair else 3
@@ -892,14 +899,24 @@ def flash_bwd_route(d: int, dtype: torch.dtype, biased: bool = False,
     kernels (a bias shared by several rows adds
     `flash_bwd_dbias_reg_kernel`); f32 up to d = 128 the TF32 register
     kernels (biased too, with `flash_bwd_dbias_tf32_kernel` for a shared
-    slice), unbiased f32 at 128 < d <= 512 the TF32 column-split ones. The
-    first design takes the rest: a biased f32 launch past 128 and d past
-    512 (no path launches either)."""
+    slice), unbiased f32 at 128 < d <= 512 the TF32 column-split ones;
+    f32 aligned at 8 <= d <= 128, d % 4 == 0, unbiased the TF32 wgmma
+    kernels (csrc/flash_attn_bwd_tf32_sm90.cu), and biased with the prior's
+    layout at d <= 64 and 0 < tk <= 576 keys their head-bias kernels (the
+    other f32 bias layouts, rows off TMA's alignment and d 4 keep the TF32
+    register kernels). The first design takes the rest: a biased f32
+    launch past 128 and d past 512 (no path launches either)."""
     if takes_head_bias_kernels(d, dtype, biased, head_bias, tk):
         return BWD_BIAS_WGMMA_ROUTE
     if (dtype == torch.bfloat16 and not biased and aligned
             and d in WGMMA_BWD_DIMS):
         return BWD_WGMMA_ROUTE
+    if dtype == torch.float32 and aligned and tf32_wgmma_dn(d):
+        if not biased:
+            return TF32_BWD_WGMMA_ROUTE
+        if (head_bias and tf32_wgmma_dn(d) <= 64
+                and 0 < tk <= TF32_BWD_BIAS_MAX_TK):
+            return TF32_BWD_BIAS_WGMMA_ROUTE
     if dtype == torch.bfloat16 and 0 < d <= 128:  # flash_attn_bwd's reg_dk
         return BWD_ROUTES[2]
     if dtype == torch.float32 and biased and d > 128:
@@ -939,6 +956,104 @@ def wgmma_bwd_plan(d: int):
     return tuple(o.value for o in out)
 
 
+# The TF32 wgmma backward (csrc/flash_attn_bwd_tf32_sm90.cu), one instance
+# by DN, the head dim rounded up to 8, on the TF32 forward's column blocks.
+# Unbiased (BwdTf32Cfg): the dQ pass's blocks of 64 queries a consumer
+# warpgroup (3 up to DN 32, else 2), key tiles of 64 (32 past DN 64: dQ's
+# registers and the shared memory), 3 stages (2 past DN 64); the dK/dV
+# pass's blocks of 64 keys a consumer, two consumers (past DN 64 the two
+# share 64 keys, one for dV, one for dK), query tiles of 64 (32 past DN
+# 64), 3 stages up to DN 32, else 2. The prior's (BiasTf32Cfg, DN
+# <= 64): the dQ pass's blocks of one head's 64 queries, two consumers on
+# the even and odd key tiles of 32 keys, 3 stages, the dbias accumulator of
+# 64 queries x the key tiles; the dK/dV pass's blocks of one batch row's 64
+# keys and one of TF32_BWD_BIAS_GROUPS head groups (a cluster), two
+# consumers taking 32-query tiles in turn, 3 stages. The card tests hold
+# these to the library's own (`tf32_wgmma_bwd_plan`,
+# `tf32_bias_wgmma_bwd_plan`).
+TF32_BWD_WGMMA_ROUTE = ("flash_bwd_dq_tf32_wgmma_kernel"
+                        "+flash_bwd_dkdv_tf32_wgmma_kernel")
+TF32_BWD_BIAS_WGMMA_ROUTE = ("flash_bwd_dq_bias_tf32_wgmma_kernel"
+                             "+flash_bwd_dkdv_bias_tf32_wgmma_kernel")
+TF32_BWD_BIAS_MAX_TK, TF32_BWD_BIAS_GROUPS = 576, 4
+# the library (csrc/<name>.cu) of each wgmma backward route
+_WGMMA_BWD_SOURCES = {BWD_WGMMA_ROUTE: "flash_attn_bwd_sm90",
+                      BWD_BIAS_WGMMA_ROUTE: "flash_attn_bwd_bias_sm90",
+                      TF32_BWD_WGMMA_ROUTE: "flash_attn_bwd_tf32_sm90",
+                      TF32_BWD_BIAS_WGMMA_ROUTE: "flash_attn_bwd_tf32_sm90"}
+
+
+def _tf32_columns(dn: int):
+    """(BW, NB) of the TF32 wgmma kernels' column blocks at DN: BW floats
+    a block (8 up to DN 16, 16 up to 32, else 32: at most d, as a TMA box
+    must be), NB blocks."""
+    bw = 8 if dn <= 16 else 16 if dn <= 32 else 32
+    return bw, -(-dn // bw)
+
+
+def tf32_wgmma_bwd_tiles(d: int):
+    """(queries a dQ block, keys a dQ ring tile, dQ stages, dQ shared
+    memory, keys a dK/dV block, queries a dK/dV ring tile, dK/dV stages,
+    dK/dV shared memory, BW, NB) of the unbiased TF32 wgmma backward at
+    head dim d (BwdTf32Cfg)."""
+    dn = tf32_wgmma_dn(d)
+    if not dn:
+        raise ValueError(f"no TF32 wgmma backward at head dim {d}")
+    bw, nb = _tf32_columns(dn)
+    row = bw * nb * 4  # bytes of a tile row
+    rows_q = 64 * (3 if dn <= 32 else 2)
+    bk, stages_q = (64, 3) if dn <= 64 else (32, 2)
+    smem_q = (2 * rows_q * row + stages_q * (2 * bk * row + dn * bk * 4)
+              + 8 * (2 + 3 * stages_q) + 1024)
+    rows_kv = 64 if dn > 64 else 128
+    bq = 64 if dn <= 64 else 32
+    stages_kv = 3 if dn <= 32 else 2
+    smem_kv = (2 * rows_kv * row
+               + stages_kv * (2 * bq * row + 2 * dn * bq * 4 + 2 * bq * 4)
+               + 8 * (2 + 3 * stages_kv) + 1024)
+    return (rows_q, bk, stages_q, smem_q, rows_kv, bq, stages_kv, smem_kv,
+            bw, nb)
+
+
+def tf32_bias_wgmma_bwd_tiles(d: int, tk: int):
+    """(DN, keys a dQ ring tile, dQ stages, dQ shared memory at tk keys,
+    head groups, queries a dK/dV ring tile, dK/dV stages, dK/dV shared
+    memory) of the prior's TF32 wgmma backward (BiasTf32Cfg)."""
+    dn = tf32_wgmma_dn(d)
+    if not 0 < dn <= 64 or not 0 < tk <= TF32_BWD_BIAS_MAX_TK:
+        raise ValueError(f"no TF32 head-bias backward at head dim {d}, "
+                         f"{tk} keys")
+    bw, nb = _tf32_columns(dn)
+    row = bw * nb * 4
+    stage1 = 2 * 32 * row + dn * 32 * 4
+    smem1 = -(-tk // 32) * 32 * 64 * 4 + 3 * stage1 + 8 * 3 * 3 + 1024
+    stage2 = 2 * 32 * row + 2 * dn * 32 * 4
+    smem2 = (2 * 64 * row + 3 * stage2 + 3 * 2 * 32 * 4 + 8 * (2 + 3 * 3)
+             + 1024)
+    return dn, 32, 3, smem1, TF32_BWD_BIAS_GROUPS, 32, 3, smem2
+
+
+def tf32_wgmma_bwd_plan(d: int):
+    """`tf32_wgmma_bwd_tiles` as the library reports them; None where no
+    instance serves d."""
+    lib = _library("flash_attn_bwd_tf32_sm90")
+    out = [ctypes.c_int() for _ in range(10)]
+    if not lib.flash_attn_bwd_tf32_sm90_plan(d, *map(ctypes.byref, out)):
+        return None
+    return tuple(o.value for o in out)
+
+
+def tf32_bias_wgmma_bwd_plan(d: int, tk: int):
+    """`tf32_bias_wgmma_bwd_tiles` as the library reports them; None where
+    no instance serves (d, tk)."""
+    lib = _library("flash_attn_bwd_tf32_sm90")
+    out = [ctypes.c_int() for _ in range(8)]
+    if not lib.flash_attn_bwd_bias_tf32_sm90_plan(d, tk,
+                                                  *map(ctypes.byref, out)):
+        return None
+    return tuple(o.value for o in out)
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     return _bind(cuda_build.load(name), name)
@@ -959,6 +1074,22 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         plan = getattr(lib, f"{name}_plan")
         plan.argtypes = [i32] + [ctypes.POINTER(i32)] * (6 if fwd else 9)
         plan.restype = i32
+        return lib
+    if name == "flash_attn_bwd_tf32_sm90":
+        lib.flash_attn_bwd_tf32_sm90.argtypes = (
+            [ptr] * 10 + [i64] * 12 + [i32] * 6 + [ctypes.c_float, ptr])
+        lib.flash_attn_bwd_bias_tf32_sm90.argtypes = (
+            [ptr] * 12 + [i64] * 12 + [i32] * 5 + [ctypes.c_float, ptr])
+        lib.flash_attn_bwd_tf32_sm90_plan.argtypes = (
+            [i32] + [ctypes.POINTER(i32)] * 10)
+        lib.flash_attn_bwd_bias_tf32_sm90_plan.argtypes = (
+            [i32, i32] + [ctypes.POINTER(i32)] * 8)
+        for fn in ("flash_attn_bwd_tf32_sm90", "flash_attn_bwd_bias_tf32_sm90",
+                   "flash_attn_bwd_tf32_sm90_plan",
+                   "flash_attn_bwd_bias_tf32_sm90_plan"):
+            getattr(lib, fn).restype = i32
+        lib.flash_attn_bwd_tf32_sm90_error_string.argtypes = [i32]
+        lib.flash_attn_bwd_tf32_sm90_error_string.restype = ctypes.c_char_p
         return lib
     if name == "flash_attn_bwd_sm90":
         lib.flash_attn_bwd_sm90.argtypes = ([ptr] * 10 + [i64] * 12

@@ -1426,6 +1426,8 @@ def test_f32_wide_routes_by_head_dim(cuda, d):
         assert fwd == "flash_fwd_kernel"
         assert bwd == "flash_bwd_dkdv_kernel+flash_bwd_dq_kernel"
     assert attn.flash_bwd_route(64, torch.float32) == (
+        attn.TF32_BWD_WGMMA_ROUTE)
+    assert attn.flash_bwd_route(64, torch.float32, aligned=False) == (
         "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel")
     assert attn.flash_bwd_route(64, torch.bfloat16) == attn.BWD_WGMMA_ROUTE
     assert attn.flash_bwd_route(64, torch.bfloat16, aligned=False) == (
@@ -1454,9 +1456,10 @@ def _tf32_bwd_smem(dk, biased):
     return out
 
 
-# The f32 backward up to d 128 is the TF32 register design at every head
-# dim, biased or not: the route and tiles, and the kernels a launch runs
-# (under torch.profiler), none of them the first design's
+# The f32 backward up to d 128 on rows off 16 bytes (rows of d + 1 floats,
+# which TMA cannot address) is the TF32 register design at every head dim,
+# biased or not: the route and tiles, and the kernels a launch runs (under
+# torch.profiler), none of them the first design's
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias_shape", [None, (150, 140), (3, 150, 140),
                                         (2, 3, 150, 140)],
@@ -1464,7 +1467,7 @@ def _tf32_bwd_smem(dk, biased):
 @pytest.mark.parametrize("d", [16, 52, 64, 128])
 def test_f32_backward_routes_and_tiles_by_head_dim(cuda, d, bias_shape):
     from torch.profiler import ProfilerActivity, profile
-    assert attn.flash_bwd_route(d, torch.float32) == (
+    assert attn.flash_bwd_route(d, torch.float32, aligned=False) == (
         "flash_bwd_dkdv_tf32_kernel+flash_bwd_dq_tf32_kernel")
     dk = 32 if d <= 32 else 64 if d <= 64 else 128
     smem = max(_tf32_bwd_smem(dk, True) + _tf32_bwd_smem(dk, False))
@@ -1472,10 +1475,10 @@ def test_f32_backward_routes_and_tiles_by_head_dim(cuda, d, bias_shape):
         64, 64, smem)
     assert smem <= 232448
     g = torch.Generator("cuda").manual_seed(d)
-    q, go = (torch.randn((2, 3, 150, d), generator=g, device="cuda")
-             for _ in range(2))
-    k, v = (torch.randn((2, 1, 140, d), generator=g, device="cuda")
-            for _ in range(2))
+    q, go = (_off_16_bytes(torch.randn((2, 3, 150, d), generator=g,
+                                       device="cuda")) for _ in range(2))
+    k, v = (_off_16_bytes(torch.randn((2, 1, 140, d), generator=g,
+                                      device="cuda")) for _ in range(2))
     bias = (torch.randn(bias_shape, generator=g, device="cuda")
             if bias_shape else None)
     out, lse = attn.flash_attention_fwd(q, k, v, bias=bias, return_lse=True)
@@ -1984,3 +1987,98 @@ def test_tf32_wgmma_plan_matches_the_python_tables(cuda, d):
         assert attn.tf32_wgmma_plan(d, 1) is None
     assert attn.tf32_wgmma_plan(64, 2) is None
     assert attn.tf32_wgmma_plan(72, 3) is None
+
+
+# The TF32 wgmma backward (csrc/flash_attn_bwd_tf32_sm90.cu): the library's
+# plans equal the Python tables at every d (and, for the prior's head-bias
+# pair, every Tk class up to 576)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", list(range(8, 129, 4)))
+def test_tf32_wgmma_bwd_plan_matches_the_python_tables(cuda, d):
+    plan = attn.tf32_wgmma_bwd_plan(d)
+    assert plan == attn.tf32_wgmma_bwd_tiles(d)
+    assert max(plan[3], plan[7]) <= 232448
+    for tk in (1, 33, 514, 576):
+        bias_plan = attn.tf32_bias_wgmma_bwd_plan(d, tk)
+        if d <= 64:
+            assert bias_plan == attn.tf32_bias_wgmma_bwd_tiles(d, tk)
+            assert max(bias_plan[3], bias_plan[7]) <= 232448
+        else:
+            assert bias_plan is None
+    assert attn.tf32_bias_wgmma_bwd_plan(52, 577) is None
+    for other in (4, 130, 42):
+        assert attn.tf32_wgmma_bwd_plan(other) is None
+
+
+def _check_tf32_wgmma_bwd(q, k, v, bias, go, route):
+    """The backward on `route` from the forward's out and lse: each
+    gradient within 1.5x the TF32 plain version's error against float64
+    autograd, f32 out, a rerun bitwise."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    ins = [x.double().requires_grad_() for x in (q, k, v)]
+    b64 = None if bias is None else bias.double().requires_grad_()
+    o64 = attn.attention_reference(*ins, bias=b64, scale=scale)
+    want = torch.autograd.grad(o64, ins + ([] if b64 is None else [b64]),
+                               go.double())
+    out, lse = attn.flash_attention_fwd(q, k, v, scale=scale, bias=bias,
+                                        return_lse=True)
+    before = dict(attn.FLASH_BWD_LAUNCHES.by_route)
+    got = attn.flash_attention_bwd(q, k, v, bias, go, out, lse, scale)
+    torch.cuda.synchronize()
+    (took,) = [r for (r, key), n in attn.FLASH_BWD_LAUNCHES.by_route.items()
+               if n != before.get((r, key), 0)]
+    assert took == route, took
+    again = attn.flash_attention_bwd(q, k, v, bias, go, out, lse, scale)
+    assert all(torch.equal(a, x) for a, x in zip(again, got) if a is not None)
+    plain = attn.flash_attention_bwd_reference(q, k, v, bias, go, out, lse,
+                                               scale, tf32=True)
+    for name, x, w, px in zip(("dq", "dk", "dv", "dbias"), got, want, plain):
+        assert x.dtype == torch.float32 and x.shape == w.shape, name
+        err = (x.double() - w).abs().max().item()
+        plain_err = (px.double() - w).abs().max().item()
+        print(f"tf32 wgmma bwd {tuple(q.shape)} k {tuple(k.shape)} {name}: "
+              f"err {err:.3e}, plain {plain_err:.3e}")
+        assert err <= 1.5 * plain_err, (name, err, plain_err)
+
+
+# every DN (d 8 .. 128 in steps of 4) unbiased over multi-query k/v and
+# over one k/v a head (ragged Tq and Tk, a tail key tile), and the prior's
+# head-bias layout at d <= 64 (a per-head bias over multi-query k/v, 5
+# heads: cluster head groups of 2, 2, 1 and none; an odd count of 32-key
+# tiles)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", list(range(8, 129, 4)))
+def test_tf32_wgmma_bwd_at_every_head_dim(cuda, d):
+    g = torch.Generator("cuda").manual_seed(d)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    for hkv in (1, 3):
+        _check_tf32_wgmma_bwd(rand(2, 3, 130, d), rand(2, hkv, 193, d),
+                              rand(2, hkv, 193, d), None, rand(2, 3, 130, d),
+                              attn.TF32_BWD_WGMMA_ROUTE)
+    if d <= 64:
+        _check_tf32_wgmma_bwd(rand(2, 5, 129, d), rand(2, 1, 98, d),
+                              rand(2, 1, 98, d), rand(5, 129, 98),
+                              rand(2, 5, 129, d),
+                              attn.TF32_BWD_BIAS_WGMMA_ROUTE)
+
+
+# the prior's layout at the most keys the dbias accumulator takes (576:
+# 18 key tiles, the dQ pass's largest shared memory) and past a head
+# group's worth of heads at the real 52
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 130, 576, 52), (3, 9, 513, 514, 52)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tf32_wgmma_bwd_prior_layout(cuda, shape):
+    b, h, tq, tk, d = shape
+    g = torch.Generator("cuda").manual_seed(tk)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    _check_tf32_wgmma_bwd(rand(b, h, tq, d), rand(b, 1, tk, d),
+                          rand(b, 1, tk, d), rand(h, tq, tk),
+                          rand(b, h, tq, d), attn.TF32_BWD_BIAS_WGMMA_ROUTE)

@@ -25,7 +25,9 @@ step) and precompute's VAE encoder [16, 1, 784, 784, 512]; the backward
 at the same four step sites (bf16, from the forward's out and lse, with
 a random output gradient) and ("bwd") at the
 autoencoder step's f32 d 512 and at the f32 stage-2 step's four sites
-(the prior's bias; the DecoderVideo's three sizes); #6 at the clip's four
+(the prior's bias; the DecoderVideo's three sizes; each with the host's
+microseconds a call, the library's f32 backward alone and the bound at
+the TF32 rate); #6 at the clip's four
 motion-module levels
 (bf16, 16 frames, 8 heads, no autograd) and at validate's eight (f32, the
 CFG batch and one clip); #7 in bf16 (bf16 GroupNorm
@@ -311,15 +313,18 @@ def attention_bounds(b, h, tq, tk, d):
             1e3 * b * h * tq * tk / 3.9e12)
 
 
-def attention_bwd_bounds(b, h, tq, tk, d, hkv, bias_elems):
-    """(bound, exponentials' bound) of a bf16 backward in ms on an H100:
-    max(10 Tq Tk D / 989 TFLOP/s, q, k, v, g, the f32 lse (and the bias)
-    read and dq, dk, dv (and the f32 dbias) written / 3.35 TB/s), and the
-    two passes' 2 Tq Tk ex2 at 3.9 T/s (the MUFU unit)."""
+def attention_bwd_bounds(b, h, tq, tk, d, hkv, bias_elems, esize=2,
+                         peak=989e12):
+    """(bound, exponentials' bound) of a bf16 (or, with esize 4 and the
+    TF32 peak, f32) backward in ms on an H100: max(10 Tq Tk D / 989
+    TFLOP/s, q, k, v, g, the f32 lse (and the bias) read and dq, dk, dv
+    (and the f32 dbias) written / 3.35 TB/s), and the two passes' 2 Tq Tk
+    ex2 at 3.9 T/s (the MUFU unit)."""
     ops = 10.0 * b * h * tq * tk * d
-    nbytes = (2 * (3 * b * h * tq * d + 4 * b * hkv * tk * d + bias_elems)
+    nbytes = (esize * (3 * b * h * tq * d + 4 * b * hkv * tk * d
+                       + bias_elems)
               + 4 * b * h * tq + 4 * bias_elems)
-    return (1e3 * max(ops / 989e12, nbytes / 3.35e12),
+    return (1e3 * max(ops / peak, nbytes / 3.35e12),
             1e3 * 2 * b * h * tq * tk / 3.9e12)
 
 
@@ -465,6 +470,27 @@ def time_here(root: str, only: str):
             out[f"device bwd f32 {name}"] = device_ms(fn, reps)
             for kernel, ms in kernel_ms(fn, reps, "flash_bwd_").items():
                 out[f"device bwd f32 {name}: {kernel}"] = ms
+            # the host's microseconds a call (the median of five runs), the
+            # library's backward alone (TF32 products allowed, as for the
+            # port) by device time, the bound at the TF32 rate
+            out[f"host us bwd f32 {name}"] = sorted(
+                host_us(fn, 50) for _ in range(5))[2]
+            torch.backends.cuda.matmul.allow_tf32 = True
+            lib_in = [x.detach().expand(b, h, -1, d).contiguous()
+                      .requires_grad_() for x in (q, k, v)]
+            lib_bias = None if bias is None else bias.detach().requires_grad_()
+            lib_out = F.scaled_dot_product_attention(
+                *lib_in, attn_mask=lib_bias, scale=scale)
+            wrt = lib_in + ([] if lib_bias is None else [lib_bias])
+            out[f"library bwd f32 {name}"] = device_ms(
+                lambda: torch.autograd.grad(lib_out, wrt, g,
+                                            retain_graph=True), reps)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            (out[f"bound bwd f32 {name}"],
+             out[f"exp bound bwd f32 {name}"]) = attention_bwd_bounds(
+                b, h, tq, tk, d, hkv, 0 if bias is None else bias.numel(),
+                esize=4, peak=495e12)
+            del lib_in, lib_bias, lib_out, wrt
         del q, k, v, g, o, lse, bias
         torch.cuda.empty_cache()
     if "all" in only or "conv" in only:
@@ -584,6 +610,11 @@ def totals(times):
                 pre + "conv fused clip", 0.0) + launches * times.get(
                 f"{pre}conv {n},{cin},{h},{w}->{cout}", 0.0)
     for pre in ("library ", "bound ", "exp bound "):
+        for name, _, _, paths in FLASH_BWD_F32:
+            for path, n in paths.items():
+                key = f"{pre}bwd f32 {path}"
+                sums[key] = sums.get(key, 0.0) + n * times.get(
+                    f"{pre}bwd f32 {name}", 0.0)
         for name, _, bias, _, n_bwd in FLASH_STEP:
             for key in ("flash bwd step",) + (("flash bwd #4 step",)
                                               if bias is None else ()):

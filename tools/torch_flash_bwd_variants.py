@@ -2,11 +2,13 @@
 """Time edited copies of csrc/flash_attn_bwd.cu against the checkout's own
 source on one CUDA card, at the f32 stage-2 step's backward shapes (or,
 with --source flash_attn_bwd_sm90, of the bf16 wgmma backward at the bf16
-step's DecoderVideo shapes).
+step's DecoderVideo shapes; with --source flash_attn_bwd_tf32_sm90, of
+the TF32 wgmma backward at the f32 step's shapes, the prior's on its
+head-bias kernels).
 
     python3 tools/torch_flash_bwd_variants.py --variant NAME OLD NEW [...]
         [--shapes prior,decoder_16,decoder_32,decoder_64]
-        [--source flash_attn_bwd|flash_attn_bwd_sm90]
+        [--source flash_attn_bwd|flash_attn_bwd_sm90|flash_attn_bwd_tf32_sm90]
 
 Each variant is the checkout's source with every occurrence of the text
 OLD (at least one) replaced by NEW, e.g. another ring-stage rule or
@@ -94,7 +96,8 @@ def main():
                     metavar=("NAME", "OLD", "NEW"))
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--source", default="flash_attn_bwd",
-                    choices=["flash_attn_bwd", "flash_attn_bwd_sm90"])
+                    choices=["flash_attn_bwd", "flash_attn_bwd_sm90",
+                             "flash_attn_bwd_tf32_sm90"])
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -103,6 +106,7 @@ def main():
 
     stem = args.source
     sm90 = stem == "flash_attn_bwd_sm90"
+    wgmma = stem != "flash_attn_bwd"
     dtype = torch.bfloat16 if sm90 else torch.float32
     shapes = args.shapes or ("decoder_16,decoder_32,decoder_64" if sm90
                              else ",".join(SHAPES))
@@ -117,7 +121,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    libs = build(sources, stem, r"flash_bwd_\w+?_wgmma_kernel\w*?" if sm90
+    libs = build(sources, stem, r"flash_bwd_\w+?_wgmma_kernel\w*?" if wgmma
                  else r"flash_bwd_\w+?_tf32_kernel\w*?")
     libs = {name: attn._bind(lib, stem) for name, lib in libs.items()}
     own = attn._library
